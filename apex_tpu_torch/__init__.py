@@ -1,7 +1,8 @@
 """apex_tpu_torch: the PyTorch / NVIDIA Hopper port of ``apex_tpu``.
 
 The package mirrors ``apex_tpu``'s module names (``ops/``, ``serving/``,
-``testing/``, ``amp/``) so each port module sits where its JAX
+``testing/``, ``amp/``, ``normalization/``, ``transformer/``,
+``contrib/``, ``optimizers/``) so each port module sits where its JAX
 counterpart does.  Plain tensor code is PyTorch; every kernel that the
 JAX package wrote in Pallas is a CUDA C++ kernel under ``csrc/``, built
 for ``sm_90a`` with ``nvcc`` at first use and bound through ``ctypes``

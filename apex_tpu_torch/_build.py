@@ -28,7 +28,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("layer_norm", "flash_attention", "flash_decode")
+SOURCES = ("layer_norm", "flash_attention", "flash_decode",
+           "flash_attention_bwd", "fused_adam")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -44,6 +45,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x_dtype, w_dtype, stream
         "apex_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F,
                                 _I, _I, _P],
+        # x, gamma, dy, mean, rstd, dx, dgamma_part, dbeta_part, dgamma,
+        # dbeta, rows, hidden, parts, x_dtype, w_dtype, stream
+        "apex_layer_norm_bwd": [_P] * 10 + [_I] * 5 + [_P],
     },
     "flash_attention": {
         # q, k, v, o, lse, b, h, sq, sk, d,
@@ -58,6 +62,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # scale, dtype, stream
         "apex_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _L, _L, _F, _I, _P],
+    },
+    "flash_attention_bwd": {
+        # q, k, v, o, do, lse, dq, dk, dv, delta, lse2, b, h, s, d,
+        # q/k/v/o/do/dq/dk/dv strides (b, h, s) in elements, scale,
+        # causal, dtype, stream
+        "apex_flash_attention_bwd": [_P] * 11 + [_I] * 4 + [_L] * 24
+        + [_F, _I, _I, _P],
+    },
+    "fused_adam": {
+        # g, p, m, v, lowp, n, lr, beta1, beta2, eps, weight_decay, bc1,
+        # bc2, gscale, keep, adam_w_mode, g_dtype, lowp_dtype, stream
+        "apex_adam_pipeline": [_P] * 5 + [_L] + [_F] * 9 + [_I] * 3 + [_P],
     },
 }
 

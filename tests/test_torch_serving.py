@@ -42,7 +42,7 @@ from apex_tpu_torch.serving import (BucketLadder, Request, ServingEngine,
                                     gpt_prefill_step, gpt_sequence_logits,
                                     init_cache, init_serving_weights,
                                     serving_weights_from_numpy)
-from apex_tpu_torch.testing.standalone_gpt import serve_smoke
+from apex_tpu_torch.testing.standalone_gpt import serve_smoke, train_smoke
 
 LOGIT_TOL = 1e-4
 CACHE_TOL = 1e-5
@@ -185,6 +185,11 @@ def test_import_loads_no_jax_and_no_apex_tpu():
         import apex_tpu_torch, apex_tpu_torch.ops, apex_tpu_torch.amp
         import apex_tpu_torch.serving, apex_tpu_torch._build
         import apex_tpu_torch.testing.standalone_gpt
+        import apex_tpu_torch.normalization, apex_tpu_torch.transformer
+        import apex_tpu_torch.transformer.tensor_parallel
+        import apex_tpu_torch.contrib.xentropy, apex_tpu_torch.optimizers
+        import apex_tpu_torch.ops.fused_pipeline
+        import apex_tpu_torch.amp.mixed_precision
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "optax", "apex_tpu"))
@@ -207,6 +212,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         init_serving_weights(cfg, seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_smoke(1, model="tiny", max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_smoke(1, model="tiny")
     # asked for by name, the CPU runs the plain versions
     assert resolve_device("cpu") == torch.device("cpu")
     s, eng = serve_smoke(2, model="tiny", max_new_tokens=3, device="cpu",
@@ -216,3 +223,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(w, cfg, default_cache_config(cfg, num_blocks=8),
                       ladder=BucketLadder(batch=(1,), pages=(2,)))
+
+
+def test_train_smoke_on_the_cpu_when_asked():
+    r = train_smoke(3, model="tiny", device="cpu")
+    assert r.device == "cpu" and len(r.losses) == 3
+    assert all(np.isfinite(r.losses)) and r.losses[-1] < r.losses[0]
+    assert r.setup.tokens_per_step == 64 * 2
+    # the plain configuration starts from the same weights and data
+    p = train_smoke(1, model="tiny", device="cpu", kernels=False)
+    assert p.losses[0] == r.losses[0]
