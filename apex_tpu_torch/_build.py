@@ -29,7 +29,8 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 SOURCES = ("layer_norm", "flash_attention", "flash_decode",
-           "flash_attention_bwd", "fused_adam")
+           "flash_attention_bwd", "fused_adam", "scaled_softmax",
+           "norm_finite")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -74,6 +75,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # g, p, m, v, lowp, n, lr, beta1, beta2, eps, weight_decay, bc1,
         # bc2, gscale, keep, adam_w_mode, g_dtype, lowp_dtype, stream
         "apex_adam_pipeline": [_P] * 5 + [_L] + [_F] * 9 + [_I] * 3 + [_P],
+    },
+    "scaled_softmax": {
+        # x, y, rows, sq, sk, scale, dtype, stream
+        "apex_causal_softmax_fwd": [_P, _P, _L, _I, _I, _F, _I, _P],
+        # y, dy, dx, rows, sk, scale, dtype, stream
+        "apex_softmax_bwd": [_P, _P, _P, _L, _I, _F, _I, _P],
+    },
+    "norm_finite": {
+        # n -> the number of partial slots (blocks) the sweep uses
+        "apex_norm_finite_blocks": [_L],
+        # g, n, inv, part, fin_part, blocks, out, dtype, stream
+        "apex_norm_finite": [_P, _L, _F, _P, _P, _I, _P, _I, _P],
     },
 }
 

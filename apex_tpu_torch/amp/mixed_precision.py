@@ -3,8 +3,8 @@ scale and the persistent fused optimizer pipeline.
 
 Port of ``apex_tpu/amp/mixed_precision.py`` (``AmpOptimizer``,
 ``initialize``) on its persistent-pipeline path
-(``_apply_gradients_pipeline``, :144-151, :327-383), the path GPT-345M
-takes under O5.  ``initialize(model, optimizer, opt_level)``:
+(``_apply_gradients_pipeline``, :144-151, :313-383), the path GPT-345M
+takes under O5 and O2.  ``initialize(model, optimizer, opt_level)``:
 
 1. snapshots fp32 masters from the module's parameters *before* the
    cast, so no precision is lost at initialization;
@@ -19,57 +19,67 @@ Each step: :meth:`AmpOptimizer.zero_grad`, backward of
 :meth:`AmpOptimizer.scale_loss`, then :meth:`AmpOptimizer.
 apply_gradients` — one fused sweep per group, which unscales, steps the
 masters and moments, and writes the model copy into the parameters in
-place.  Under a static scale (O5) the gradients are not inspected (the
-JAX default, apex's static ``LossScaler``), so the norm/finite sweep
-(row 20 of the kernel table) is not run.  O2, and dynamic scaling in
-general, come with the O2 slice and raise ``NotImplementedError``, as
-does any policy without master weights.
+place.  Whether the step inspects the gradients follows
+``check_finite`` (:meth:`AmpOptimizer._resolve_check`): by default only
+under a dynamic scale (O2), as the JAX package and apex's static
+``LossScaler``.  A checked step first runs the norm/finite sweep (row 20
+of the kernel table) for the unscaled global norm and the finite flag,
+reads the flag on the host once, and hands it to the Adam sweep: a
+non-finite step keeps masters and moments bitwise, re-casts the model
+copy from them, holds the optimizer's count and backs the scale off.
+Under a static scale (O5) the sweep is not run and nothing is read
+back.  A policy without master weights raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from . import cast as _cast
 from . import scaler as _scaler
-from ..ops.fused_pipeline import FlatGroup, flatten_params
+from ..ops.fused_pipeline import (FlatGroup, flatten_params,
+                                  grad_norm_finite,
+                                  grad_norm_finite_reference)
 from .policy import Policy, get_policy
 
 __all__ = ["StepInfo", "AmpOptimizer", "initialize"]
 
 
 class StepInfo(NamedTuple):
-    """What a step reports (the JAX ``StepInfo``).  Under a static scale
-    the gradients are not checked: ``grads_checked`` is False and
-    ``grads_finite`` True means "unchecked"."""
+    """What a step reports (the JAX ``StepInfo``).  Unchecked (a static
+    scale by default), ``grads_checked`` is False, ``grads_finite`` True
+    means "unchecked" and ``grad_norm`` is None; checked, they are the
+    norm sweep's measured flag and unscaled global norm."""
 
     grads_finite: bool
     loss_scale: float
     steps_skipped: int
     grads_checked: bool = False
+    grad_norm: Optional[float] = None
 
 
 class AmpOptimizer:
     """Pairs a pipeline-capable optimizer (``fused_adam``) with a
     precision policy over one module's flat parameter groups."""
 
-    def __init__(self, optimizer, policy: Policy):
+    def __init__(self, optimizer, policy: Policy,
+                 check_finite: Optional[bool] = None):
         if not policy.master_weights:
             raise NotImplementedError(
                 f"the port's amp takes the persistent fused pipeline, which "
                 f"needs master weights; policy {policy.opt_level} has none")
-        if policy.loss_scale == "dynamic":
-            raise NotImplementedError(
-                f"{policy.opt_level}'s dynamic loss scaling comes with the "
-                f"O2 slice of the port (the norm/finite sweep, row 20)")
         if getattr(optimizer, "pipeline_step", None) is None:
             raise ValueError(f"{type(optimizer).__name__} has no pipeline "
                              f"form (pipeline_init/pipeline_step)")
         self.optimizer = optimizer
         self.policy = policy
         self.scaler = _scaler.init(policy.loss_scale)
+        # None: inspect the gradients only under a dynamic scale; True
+        # forces the check (and the skip) under a static one too
+        self.check_finite = check_finite
+        self._resolve_check()
         self.groups: List[FlatGroup] = []
         self.state = None
 
@@ -93,20 +103,48 @@ class AmpOptimizer:
         for g in self.groups:
             g.grad.zero_()
 
+    def _resolve_check(self) -> bool:
+        """Inspect the gradients this step?  None (the default): only
+        under a dynamic scale; False is refused for a dynamic scale,
+        whose schedule needs the flag (ref:
+        ``apex_tpu/amp/mixed_precision.py:313-325``)."""
+        if self.check_finite is None:
+            return self.scaler.dynamic
+        if not self.check_finite and self.scaler.dynamic:
+            raise ValueError("check_finite=False is invalid with a dynamic "
+                             "loss scaler: the scale schedule needs the "
+                             "finite flag")
+        return bool(self.check_finite)
+
     def apply_gradients(self) -> StepInfo:
-        """Unscale, step the masters and moments, and write the model
-        copy into the parameters: one sweep per dtype group."""
+        """Check the gradients where :meth:`_resolve_check` says so,
+        then unscale, step the masters and moments (or keep them on an
+        overflow), write the model copy into the parameters — one sweep
+        per dtype group — and advance the scaler."""
         self._check_views()
         inv = 1.0 / self.scaler.loss_scale
-        finite = True                      # static scale: unchecked
+        gbufs = [g.grad for g in self.groups]
+        check = self._resolve_check()
+        gnorm = None
+        finite = True                      # unchecked
+        if check:
+            # the optimizer's kernels=False (the oracle configuration)
+            # takes the plain norm sweep too
+            plain = not getattr(self.optimizer, "kernels", True)
+            sweep = grad_norm_finite_reference if plain else grad_norm_finite
+            norm_t, finite_t = sweep(gbufs, inv)
+            # the step's one host read: the flag (and the norm with it)
+            norm_v, finite_v = torch.stack(
+                [norm_t.float(), finite_t.float()]).tolist()
+            gnorm, finite = norm_v, finite_v > 0.5
         self.state = self.optimizer.pipeline_step(
-            [g.grad for g in self.groups], self.state,
-            [g.master for g in self.groups],
+            gbufs, self.state, [g.master for g in self.groups],
             [g.lowp for g in self.groups], grad_scale=inv, finite=finite)
         self.scaler = _scaler.update(self.scaler, finite)
         return StepInfo(grads_finite=finite,
                         loss_scale=self.scaler.loss_scale,
-                        steps_skipped=self.scaler.steps_skipped)
+                        steps_skipped=self.scaler.steps_skipped,
+                        grads_checked=check, grad_norm=gnorm)
 
     def _check_views(self) -> None:
         """Raise if a parameter or its ``.grad`` is no longer its view of
@@ -130,13 +168,14 @@ class AmpOptimizer:
                 for i, name in enumerate(g.names)}
 
 
-def initialize(model: nn.Module, optimizer, opt_level: str = "O5"
+def initialize(model: nn.Module, optimizer, opt_level: str = "O5",
+               check_finite: Optional[bool] = None
                ) -> Tuple[nn.Module, AmpOptimizer]:
     """``model, amp_opt = amp.initialize(model, optimizer,
     opt_level=...)``: masters snapshotted from the fp32 weights, the
     module cast in place per the policy, the flat pipeline built."""
     policy = get_policy(opt_level)
-    amp_opt = AmpOptimizer(optimizer, policy)
+    amp_opt = AmpOptimizer(optimizer, policy, check_finite)
     masters = _cast.master_copy(model)
     _cast.cast_params(model, policy)
     return model, amp_opt.init(model, masters)

@@ -1,8 +1,8 @@
 """Precision policies: the O0–O5 opt levels as data, with torch dtypes.
 
 Port of ``apex_tpu/amp/policy.py``.  A policy is an immutable dataclass;
-the serving slice reads only ``cast_model_type`` (O5 -> bfloat16), the
-training slice will read the rest.
+serving reads ``cast_model_type``, the train step (O5 and O2) reads the
+cast, ``master_weights`` and ``loss_scale``.
 
 =====  ===========  ============  ==========  =======  ===========
 level  cast_model   autocast ops  keep_bn32   masters  loss_scale

@@ -1,9 +1,10 @@
-"""The persistent packed optimizer pipeline: flat buffers and the Adam
-update sweep.
+"""The persistent packed optimizer pipeline: flat buffers, the
+norm/finite sweep and the Adam update sweep.
 
-Port of ``apex_tpu/ops/fused_pipeline.py`` (``adam_pipeline`` and its
-Pallas body ``_adam_pipeline_kernel`` run by
-``fused_optim._elementwise_call``) with the flat layout it needs from
+Port of ``apex_tpu/ops/fused_pipeline.py`` (``grad_norm_finite`` and its
+Pallas ``_norm_finite_pallas``; ``adam_pipeline`` and its Pallas body
+``_adam_pipeline_kernel`` run by ``fused_optim._elementwise_call``) with
+the flat layout it needs from
 ``apex_tpu/ops/multi_tensor.py``.  fp32 masters and the optimizer's
 moments live in one flat fp32 buffer per model dtype group across
 steps.  In the PyTorch idiom the model's own parameters are views into
@@ -14,10 +15,12 @@ flat parameter buffer — no per-step pack and no assemble.  The JAX
 package's 16M-element chunking (``PACK_MAX_ELEMS``) guards an XLA
 layout temporary and is not needed here.
 
-On CUDA tensors :func:`adam_pipeline` launches ``csrc/fused_adam.cu``
-or raises; on CPU tensors it runs :func:`adam_pipeline_reference` (the
-``_adam_pipeline_jnp`` math).  Both update ``p``, ``m``, ``v`` and
-``lowp`` in place.
+On CUDA tensors :func:`grad_norm_finite` launches ``csrc/norm_finite.cu``
+and :func:`adam_pipeline` launches ``csrc/fused_adam.cu``, or raise; on
+CPU tensors they run :func:`grad_norm_finite_reference` (the
+``_norm_finite_jnp`` math) and :func:`adam_pipeline_reference` (the
+``_adam_pipeline_jnp`` math).  The Adam sweep updates ``p``, ``m``,
+``v`` and ``lowp`` in place; the norm sweep only reads.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ import torch
 from .. import _build
 from ._counts import bump
 
-__all__ = ["FlatGroup", "flatten_params", "adam_pipeline",
+__all__ = ["FlatGroup", "flatten_params", "grad_norm_finite",
+           "grad_norm_finite_reference", "adam_pipeline",
            "adam_pipeline_reference"]
 
 _G_TAKES = (torch.float32, torch.bfloat16, torch.float16)
@@ -105,6 +109,65 @@ def flatten_params(named_params: Sequence[Tuple[str, torch.nn.Parameter]],
                              tuple(p for _, p in members), tuple(offsets),
                              data, grad, master))
     return out
+
+
+def grad_norm_finite_reference(gbufs: Sequence[torch.Tensor],
+                               inv_scale: float = 1.0
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the norm/finite sweep (the ``_norm_finite_jnp``
+    math): ``(global_norm, finite)`` of the unscaled ``g * inv_scale``
+    in fp32 over every buffer, as 0-d device tensors."""
+    if not gbufs:
+        return torch.zeros(()), torch.ones((), dtype=torch.bool)
+    sums, fins = [], []
+    for buf in gbufs:
+        g = buf.float() * torch.full((), inv_scale, dtype=torch.float32,
+                                     device=buf.device)
+        sums.append((g * g).sum())
+        fins.append(torch.isfinite(g).all())
+    return torch.stack(sums).sum().sqrt(), torch.stack(fins).all()
+
+
+def _launch_norm_finite(buf, inv):
+    if buf.dtype not in _G_TAKES or not buf.is_contiguous() or \
+            buf.dim() != 1:
+        raise ValueError(f"a grad buffer must be a contiguous flat "
+                         f"{_G_TAKES} tensor, got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    lib = _build.library("norm_finite")
+    n = buf.numel()
+    with torch.cuda.device(buf.device):
+        blocks = lib.apex_norm_finite_blocks(n)
+        if blocks < 1:
+            raise RuntimeError("norm_finite: no CUDA device to size the "
+                               "sweep for")
+        part = torch.empty(blocks, dtype=torch.float32, device=buf.device)
+        fin = torch.empty(blocks, dtype=torch.int32, device=buf.device)
+        out = torch.empty(2, dtype=torch.float32, device=buf.device)
+        rc = lib.apex_norm_finite(
+            buf.data_ptr(), n, float(inv), part.data_ptr(), fin.data_ptr(),
+            blocks, out.data_ptr(), _build.dtype_code(buf.dtype),
+            _build.stream_ptr(buf.device))
+    _build.check("norm_finite", rc, "norm_finite kernel")
+    bump("norm_finite")
+    return out
+
+
+def grad_norm_finite(gbufs: Sequence[torch.Tensor], inv_scale: float = 1.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One read-only sweep over the flat gradient buffers ->
+    ``(global_norm, finite)`` of the unscaled ``g * inv_scale`` (fp32),
+    as 0-d tensors on the buffers' device: one kernel launch per buffer
+    on CUDA, the plain version on the CPU.  The unscaled values are
+    never written (the Adam sweep folds ``inv_scale`` into its own
+    scale)."""
+    if not gbufs or gbufs[0].device.type == "cpu":
+        return grad_norm_finite_reference(gbufs, inv_scale)
+    if gbufs[0].device.type != "cuda":
+        raise ValueError(f"grad_norm_finite runs on cuda or cpu, not "
+                         f"{gbufs[0].device}")
+    outs = torch.stack([_launch_norm_finite(b, inv_scale) for b in gbufs])
+    return outs[:, 0].sum().sqrt(), (outs[:, 1] > 0.5).all()
 
 
 def adam_pipeline_reference(g, p, m, v, lowp=None, *, grad_scale, lr,

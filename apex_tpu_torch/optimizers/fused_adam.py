@@ -7,9 +7,10 @@ fp32 buffer per group, and one sweep per group (the
 :func:`~apex_tpu_torch.ops.adam_pipeline` kernel) updates masters and
 moments in place and writes the model-dtype copy.  Bias corrections are
 taken at ``count + 1`` in fp32, and the count holds still on a skipped
-step, as in the JAX ``pipeline_step``.  The count lives on the host: no
-step reads anything back from the device.  ``max_grad_norm`` (global
-norm clipping) and learning-rate schedules are not ported yet;
+step, as in the JAX ``pipeline_step`` (:231-269).  The count lives on
+the host; the step's finite flag is the one amp measured and read back
+(a static scale passes True unchecked).  ``max_grad_norm`` (global norm
+clipping) and learning-rate schedules are not ported yet;
 ``max_grad_norm`` raises.
 
 ``kernels=False`` runs the sweep's plain version on any device (the
@@ -97,7 +98,6 @@ def fused_adam(learning_rate: float = 1e-3, beta1: float = 0.9,
     """Build FusedAdam (ref: ``apex_tpu/optimizers/fused_adam.py:110``)."""
     if max_grad_norm is not None:
         raise NotImplementedError(
-            "max_grad_norm (global-norm clipping) is not ported yet: it "
-            "needs the norm sweep, row 20 of the kernel table")
+            "max_grad_norm (global-norm clipping) is not ported yet")
     return FusedAdam(learning_rate, beta1, beta2, eps, weight_decay,
                      adam_w_mode, bias_correction, kernels)

@@ -6,20 +6,26 @@ Counterpart of ``apex_tpu/testing/standalone_gpt.py``: the model
 
     python -m apex_tpu_torch.testing.standalone_gpt --serve
     python -m apex_tpu_torch.testing.standalone_gpt --train
+    python -m apex_tpu_torch.testing.standalone_gpt --train --policy O2
     python -m apex_tpu_torch.testing.standalone_gpt --serve --model tiny \
         --device cpu --requests 4 --new-tokens 4
-    python -m apex_tpu_torch.testing.standalone_gpt --train --model tiny \
-        --device cpu --steps 4
+    python -m apex_tpu_torch.testing.standalone_gpt --train --policy O2 \
+        --model tiny --device cpu --steps 4
 
 The default model is GPT-345M's width (vocab 50304, hidden 1024, 24
-layers, 16 heads, max_seq 1024) under O5 (bf16), with seeded random
-weights: no checkpoint is read.  ``--serve`` serves ``--requests``
-seeded prompts through the continuous-batching engine and prints one
-``SERVE_DONE`` line; ``--train`` takes ``--steps`` optimizer steps on
-one seeded batch (seq 1024, batch 8 at GPT-345M, as ``bench.py``'s
-``bench_gpt345m``: flash attention, O5, ``fused_adam(1e-4)``, no
-dropout) and prints one ``TRAIN_DONE`` line.  Both run on the card
-unless ``--device cpu`` is asked for.
+layers, 16 heads, max_seq 1024) with seeded random weights: no
+checkpoint is read.  ``--serve`` serves ``--requests`` seeded prompts
+through the continuous-batching engine at O5 (bf16) or O0 and prints
+one ``SERVE_DONE`` line.  ``--train`` takes ``--steps`` optimizer steps
+on one seeded batch (seq 1024, batch 8 at GPT-345M) with
+``fused_adam(1e-4)`` and no dropout, in one of the JAX package's two
+train recipes (:data:`TRAIN_RECIPES`), and prints one ``TRAIN_DONE``
+line: ``O5`` is ``bench.py``'s ``bench_gpt345m`` (flash attention, bf16,
+a static scale of 1); ``O2`` is ``make_smoke_setup``'s route
+(``use_flash=False``: materialized scores through the fused causal
+softmax; fp16 parameters and compute, fp32 masters, a dynamic loss
+scale from 2^16).  Both run on the card unless ``--device cpu`` is
+asked for.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import argparse
 import dataclasses
 import hashlib
 import time
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +49,7 @@ from ..serving import (BucketLadder, Request, ServingEngine,
 from ..transformer import ParallelTransformer
 from ..transformer.tensor_parallel import VocabParallelEmbedding
 
-__all__ = ["MODELS", "model_config", "seeded_prompts", "serve_smoke",
+__all__ = ["MODELS", "TRAIN_RECIPES", "model_config", "seeded_prompts", "serve_smoke",
            "GPTEmbedding", "GPTModel", "gpt_loss", "gpt_params_from_numpy",
            "TrainSetup", "make_train_setup", "train_step", "TrainResult",
            "train_smoke", "masters_digest", "main"]
@@ -60,9 +66,11 @@ MODELS = {
                  num_layers=2, max_seq=128, seq=64, batch=2),
 }
 _TRAIN_KEYS = ("seq", "batch")
-# the train step's amp policy and learning rate (bench.py's
-# bench_gpt345m: O5, fused_adam(1e-4))
-TRAIN_POLICY = "O5"
+# the train recipes, by amp policy: O5 is bench.py's bench_gpt345m
+# (flash attention, bf16, static scale 1); O2 is make_smoke_setup's route
+# (materialized scores and the fused softmax, fp16, dynamic scale).  The
+# compute dtype is the policy's model dtype.
+TRAIN_RECIPES = {"O5": dict(use_flash=True), "O2": dict(use_flash=False)}
 TRAIN_LR = 1e-4
 
 
@@ -228,27 +236,32 @@ class TrainSetup:
         return self.tokens.numel()
 
 
-def make_train_setup(model: str = "gpt345m", *, seed: int = 0,
-                     kernels: bool = True, device=None) -> TrainSetup:
+def make_train_setup(model: str = "gpt345m", *, policy: str = "O5",
+                     seed: int = 0, kernels: bool = True,
+                     device=None) -> TrainSetup:
     """Build the preset's GPT from seeded weights on ``device`` (cuda
-    unless the CPU is asked for), ``amp.initialize`` it with
-    ``fused_adam(TRAIN_LR)`` at O5, and draw one batch (labels = tokens
-    shifted by one) from the same ``seed``.  ``kernels=False``
+    unless the CPU is asked for) in the ``policy``'s train recipe
+    (:data:`TRAIN_RECIPES`), ``amp.initialize`` it with
+    ``fused_adam(TRAIN_LR)`` at that policy, and draw one batch (labels =
+    tokens shifted by one) from the same ``seed``.  ``kernels=False``
     runs every kernel's plain version, on the same weights and data."""
+    if policy not in TRAIN_RECIPES:
+        raise ValueError(f"the train recipes are {sorted(TRAIN_RECIPES)}, "
+                         f"not {policy!r}")
     dev = resolve_device(device)
     geo = MODELS[model]
     g = torch.Generator(device=dev)
     g.manual_seed(int(seed))
     net = GPTModel(geo["vocab_size"], geo["hidden_size"], geo["num_layers"],
                    geo["num_heads"], geo["max_seq"], kernels=kernels,
-                   dtype=get_policy(TRAIN_POLICY).param_dtype,
-                   device=dev).reset_parameters(g)
+                   dtype=get_policy(policy).param_dtype, device=dev,
+                   **TRAIN_RECIPES[policy]).reset_parameters(g)
     b, s = geo["batch"], geo["seq"]
     tokens = torch.randint(0, geo["vocab_size"], (b, s), generator=g,
                            device=dev)
     n_params = sum(p.numel() for p in net.parameters())
     opt = fused_adam(TRAIN_LR, kernels=kernels)
-    net, amp_opt = amp.initialize(net, opt, opt_level=TRAIN_POLICY)
+    net, amp_opt = amp.initialize(net, opt, opt_level=policy)
     # bench.py's model FLOPs: 6 N per token plus the attention scores
     flops = 6.0 * n_params * b * s \
         + 12.0 * geo["num_layers"] * geo["hidden_size"] * s * s * b
@@ -256,15 +269,15 @@ def make_train_setup(model: str = "gpt345m", *, seed: int = 0,
                       n_params, flops)
 
 
-def train_step(setup: TrainSetup) -> torch.Tensor:
+def train_step(setup: TrainSetup):
     """One step: zero the flat grads, forward, the scaled loss's
-    backward, and the fused optimizer sweep.  Returns the (unscaled)
-    loss, still on the device."""
+    backward, and the fused optimizer sweeps.  Returns the (unscaled)
+    loss, still on the device, and the step's ``StepInfo``."""
     setup.amp_opt.zero_grad()
     loss = gpt_loss(setup.model(setup.tokens), setup.labels)
     setup.amp_opt.scale_loss(loss).backward()
-    setup.amp_opt.apply_gradients()
-    return loss.detach()
+    info = setup.amp_opt.apply_gradients()
+    return loss.detach(), info
 
 
 @dataclasses.dataclass
@@ -272,12 +285,15 @@ class TrainResult:
     """What :func:`train_smoke` ran and measured.  ``step_ms`` is the
     host wall of each step, through the host sync that reads its loss;
     ``median_ms`` the median of steps 3 on (all steps when fewer than
-    three)."""
+    three).  ``steps`` holds each step's ``(grads_finite, loss_scale,
+    steps_skipped, grad_norm)`` after its update (``grad_norm`` None
+    when the step did not check its gradients)."""
 
     losses: List[float]
     step_ms: List[float]
     device: str
     setup: TrainSetup
+    steps: List[Tuple[bool, float, int, Optional[float]]]
 
     @property
     def median_ms(self) -> float:
@@ -302,18 +318,23 @@ def masters_digest(amp_opt) -> str:
     return h.hexdigest()[:16]
 
 
-def train_smoke(steps: int = 8, *, model: str = "gpt345m", seed: int = 0,
-                kernels: bool = True, device=None) -> TrainResult:
+def train_smoke(steps: int = 8, *, model: str = "gpt345m",
+                policy: str = "O5", seed: int = 0, kernels: bool = True,
+                device=None) -> TrainResult:
     """:func:`make_train_setup`, then ``steps`` :func:`train_step` s on
     its one batch, each timed through the read of its loss."""
-    setup = make_train_setup(model, seed=seed, kernels=kernels,
-                             device=device)
-    losses, step_ms = [], []
+    setup = make_train_setup(model, policy=policy, seed=seed,
+                             kernels=kernels, device=device)
+    losses, step_ms, infos = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
-        losses.append(float(train_step(setup)))   # waits for the step
+        loss, info = train_step(setup)
+        losses.append(float(loss))                # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    return TrainResult(losses, step_ms, str(setup.tokens.device), setup)
+        infos.append((info.grads_finite, info.loss_scale,
+                      info.steps_skipped, info.grad_norm))
+    return TrainResult(losses, step_ms, str(setup.tokens.device), setup,
+                       infos)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -328,8 +349,9 @@ def _parser() -> argparse.ArgumentParser:
                       help="run the mixed-precision train smoke")
     p.add_argument("--model", default="gpt345m", choices=sorted(MODELS))
     p.add_argument("--policy", default="O5",
-                   help="serve: amp opt level, O5 (bf16) or O0 (fp32); the "
-                        "train step is O5")
+                   help="amp opt level; serve: O5 (bf16) or O0 (fp32); "
+                        "train: O5 (bf16, flash) or O2 (fp16, fused "
+                        "softmax, dynamic loss scale)")
     p.add_argument("--steps", type=int, default=8,
                    help="train: optimizer steps")
     p.add_argument("--requests", type=int, default=8)
@@ -346,13 +368,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
     if args.train:
-        if args.policy != TRAIN_POLICY:
-            parser.error(f"--train runs at {TRAIN_POLICY}, not "
+        if args.policy not in TRAIN_RECIPES:
+            parser.error(f"--train runs at {sorted(TRAIN_RECIPES)}, not "
                          f"{args.policy}")
-        r = train_smoke(args.steps, model=args.model, seed=args.seed,
-                        device=args.device)
-        print(f"TRAIN_DONE steps={len(r.losses)} "
+        r = train_smoke(args.steps, model=args.model, policy=args.policy,
+                        seed=args.seed, device=args.device)
+        _, scale, skipped, _ = r.steps[-1]
+        print(f"TRAIN_DONE policy={args.policy} steps={len(r.losses)} "
               f"loss_first={r.losses[0]:.6f} loss_last={r.losses[-1]:.6f} "
+              f"skipped={skipped} scale={scale:g} "
               f"step_ms_p50={r.median_ms:.3f} "
               f"tokens_s={r.tokens_per_sec:.1f} "
               f"tflops={r.tflops_per_sec:.3f} params={r.setup.n_params} "

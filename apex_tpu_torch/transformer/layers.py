@@ -9,11 +9,18 @@ output cast back to the residual stream's dtype before the add.
 * :class:`ParallelMLP`: ``dense_h_to_4h`` -> tanh GELU (``jax.nn.gelu``'s
   default) -> ``dense_4h_to_h``.
 * :class:`ParallelSelfAttention`: the fused ``query_key_value``
-  projection viewed as (b, s, h, 3d) straight into
-  :func:`~apex_tpu_torch.ops.flash_attention_e` — no split, no transpose
-  — then ``dense``.  Only that route is ported: ``use_flash=False`` and
-  an explicit ``attention_mask`` need the scaled-softmax kernels (rows
-  3-5 of the kernel table) and raise ``NotImplementedError``.
+  projection viewed as (b, s, h, 3d), then ``dense``.  With
+  ``use_flash`` (the default) the view goes straight into
+  :func:`~apex_tpu_torch.ops.flash_attention_e` — no split, no
+  transpose.  With ``use_flash=False`` the scores materialize, as in
+  the JAX module's :148-197: q, k, v split and moved to (b, h, s, d),
+  fp32 scores from the model-dtype q and k, the causal
+  :class:`~apex_tpu_torch.transformer.functional.FusedScaleMaskSoftmax`
+  (the scaled-softmax kernels, rows 3 and 4 of the kernel table, when
+  the model dtype is fp16 or bf16), the probabilities cast to the model
+  dtype and multiplied by v.  An explicit ``attention_mask`` needs the
+  padding-mask kernel (row 5), not ported yet, and raises
+  ``NotImplementedError``.
 
 Submodule and parameter names mirror the flax tree
 (``layer_{i}.self_attention.query_key_value.kernel``, ...).
@@ -34,6 +41,8 @@ from torch import nn
 from ..normalization import FusedLayerNorm
 from ..ops.flash_attention import (flash_attention_e,
                                    flash_attention_e_reference)
+from .enums import AttnMaskType
+from .functional import FusedScaleMaskSoftmax
 from .tensor_parallel import ColumnParallelLinear, RowParallelLinear
 
 __all__ = ["ParallelMLP", "ParallelSelfAttention", "ParallelTransformerLayer",
@@ -58,8 +67,9 @@ class ParallelMLP(nn.Module):
 
 
 class ParallelSelfAttention(nn.Module):
-    """Multi-head self-attention through the E-layout flash kernels
-    (ref: ``apex_tpu/transformer/layers.py:83-200``)."""
+    """Causal multi-head self-attention, through the E-layout flash
+    kernels or, with ``use_flash=False``, the materialized scores and
+    the fused softmax (ref: ``apex_tpu/transformer/layers.py:83-200``)."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int, *,
                  use_flash: bool = True, kernels: bool = True,
@@ -68,14 +78,11 @@ class ParallelSelfAttention(nn.Module):
         if hidden_size % num_attention_heads:
             raise ValueError(f"hidden {hidden_size} not divisible by heads "
                              f"{num_attention_heads}")
-        if not use_flash:
-            raise NotImplementedError(
-                "use_flash=False needs the scaled-softmax kernels (rows 3-5 "
-                "of the kernel table: _causal_fwd, _softmax_backward, "
-                "_masked_fwd), which are not ported yet")
         self.num_heads = num_attention_heads
         self.head_dim = hidden_size // num_attention_heads
+        self.use_flash = use_flash
         self.kernels = kernels
+        self.dtype = dtype
         self.query_key_value = ColumnParallelLinear(
             hidden_size, 3 * hidden_size, dtype=dtype, device=device)
         self.dense = RowParallelLinear(hidden_size, hidden_size, dtype=dtype,
@@ -86,15 +93,30 @@ class ParallelSelfAttention(nn.Module):
                 ) -> torch.Tensor:
         if attention_mask is not None:
             raise NotImplementedError(
-                "an explicit attention_mask takes the materializing softmax "
-                "path (rows 3-5 of the kernel table), not ported yet")
+                "an explicit attention_mask takes the padding-mask softmax, "
+                "`_masked_fwd` (row 5 of the kernel table), not ported yet")
         b, s, _ = x.shape
-        qkv = self.query_key_value(x).view(b, s, self.num_heads,
-                                           3 * self.head_dim)
-        attn = flash_attention_e if self.kernels \
-            else flash_attention_e_reference
-        ctx = attn(qkv, scale=self.head_dim ** -0.5, causal=True)
-        return self.dense(ctx)
+        h, d = self.num_heads, self.head_dim
+        qkv = self.query_key_value(x).view(b, s, h, 3 * d)
+        scale = d ** -0.5
+        if self.use_flash:
+            attn = flash_attention_e if self.kernels \
+                else flash_attention_e_reference
+            return self.dense(attn(qkv, scale=scale, causal=True))
+        q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
+        # fp32 scores from the model-dtype q and k: the product of two
+        # fp16 or bf16 values is exact in fp32, so an fp32 GEMM (TF32
+        # off) gives the JAX einsum's preferred_element_type=float32
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        softmax = FusedScaleMaskSoftmax(
+            input_in_fp16=self.dtype == torch.float16,
+            input_in_bf16=self.dtype == torch.bfloat16,
+            attn_mask_type=AttnMaskType.causal,
+            scaled_masked_softmax_fusion=True, mask_func=None,
+            softmax_in_fp32=True, scale=scale, kernels=self.kernels)
+        probs = softmax(scores, None)
+        ctx = torch.matmul(probs.to(self.dtype), v)
+        return self.dense(ctx.transpose(1, 2).reshape(b, s, h * d))
 
 
 class ParallelTransformerLayer(nn.Module):

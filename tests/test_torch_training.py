@@ -153,14 +153,20 @@ def test_grads_are_views_of_the_flat_buffer():
 def test_unported_paths_raise():
     from apex_tpu_torch.transformer import ParallelSelfAttention
 
-    with pytest.raises(NotImplementedError, match="rows 3-5"):
-        ParallelSelfAttention(128, 2, use_flash=False)
-    attn = ParallelSelfAttention(128, 2)
-    with pytest.raises(NotImplementedError, match="rows 3-5"):
-        attn(torch.zeros(1, 4, 128), attention_mask=torch.ones(1, 1, 4, 4))
+    # the fused padding-mask softmax (row 5, `_masked_fwd`): an explicit
+    # attention_mask, in fp16 where the fused path would take it
+    attn = ParallelSelfAttention(128, 2, use_flash=False,
+                                 dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="row 5"):
+        attn(torch.zeros(1, 4, 128, dtype=torch.float16),
+             attention_mask=torch.ones(1, 1, 4, 4, dtype=torch.bool))
+    # global-norm clipping
+    with pytest.raises(NotImplementedError, match="max_grad_norm"):
+        fused_adam(1e-3, max_grad_norm=1.0)
+    # a policy without master weights (O3: fp16 params stepped directly)
     net = GPTModel(64, 128, 1, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="O2 slice"):
-        amp.initialize(net, fused_adam(1e-3), opt_level="O2")
+    with pytest.raises(NotImplementedError, match="master weights"):
+        amp.initialize(net, fused_adam(1e-3), opt_level="O3")
 
 
 def test_batchnorm_params_stay_fp32_in_their_own_group():
