@@ -63,6 +63,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # scale, dtype, stream
         "apex_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _L, _L, _F, _I, _P],
+        # block_size, max_pages -> the number of position splits
+        "apex_flash_decode_multi_splits": [_I, _I],
+        # q (b, t, h, d), k_cache, v_cache, block_tables, seq_lens,
+        # part_o, part_ml (fp32 scratch), out, b, t, h, d, block_size,
+        # max_pages, q strides b, t, h, scale, dtype, stream
+        "apex_flash_decode_multi": [_P] * 8 + [_I] * 6 + [_L] * 3
+        + [_F, _I, _P],
     },
     "flash_attention_bwd": {
         # q, k, v, o, do, lse, dq, dk, dv, delta, lse2, b, h, s, d,

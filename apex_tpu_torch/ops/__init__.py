@@ -11,7 +11,9 @@ from .flash_attention import (FlashAttentionEFunction, flash_attention,
                               flash_attention_e_reference,
                               flash_attention_e_with_lse,
                               flash_attention_with_lse, mha_reference)
-from .flash_decode import flash_decode, paged_attention_reference
+from .flash_decode import (flash_decode, flash_decode_multi,
+                           paged_attention_multi_reference,
+                           paged_attention_reference)
 from .fused_pipeline import (FlatGroup, adam_pipeline,
                              adam_pipeline_reference, flatten_params,
                              grad_norm_finite, grad_norm_finite_reference)
@@ -31,7 +33,8 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "flash_attention_e_reference",
            "flash_attention_e_backward",
            "flash_attention_e_backward_reference", "FlashAttentionEFunction",
-           "flash_decode", "paged_attention_reference", "FlatGroup",
+           "flash_decode", "paged_attention_reference", "flash_decode_multi",
+           "paged_attention_multi_reference", "FlatGroup",
            "flatten_params", "adam_pipeline", "adam_pipeline_reference",
            "grad_norm_finite", "grad_norm_finite_reference",
            "layer_norm", "layer_norm_reference",

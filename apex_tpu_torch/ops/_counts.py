@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("layer_norm", "flash_attention", "flash_decode", "layer_norm_bwd",
+KERNELS = ("layer_norm", "flash_attention", "flash_decode",
+           "flash_decode_multi", "layer_norm_bwd",
            "flash_attention_e", "flash_attention_e_bwd",
            "fused_adam_pipeline", "scaled_softmax_causal_fwd",
            "scaled_softmax_bwd", "norm_finite")

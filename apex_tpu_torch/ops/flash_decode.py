@@ -1,23 +1,30 @@
-"""Paged flash-decode: the CUDA kernel and its plain version.
+"""Paged flash-decode: the CUDA kernels and their plain versions.
 
 Port of ``apex_tpu/ops/flash_decode.py``'s ``flash_decode``
-(``_decode_paged`` / ``_decode_kernel``) with a float KV cache: one
-query row per sequence against a block-paged cache.
+(``_decode_paged`` / ``_decode_kernel``) and ``flash_decode_multi``
+(``_decode_paged_multi`` / ``_decode_multi_kernel``) with a float KV
+cache: one query row, or a chunk of ``t`` contiguous query rows, per
+sequence against a block-paged cache.
 
 Layouts (``bs`` = tokens per cache block):
 
-* q            (b, h, d)          one query token per sequence
+* q            (b, h, d)          one query token per sequence, or
+  (b, t, h, d) for the multi-token path
 * k/v cache    (nb, h, bs, d)     block-major, heads unpacked
 * block_tables (b, max_pages)     int32 cache-block id per page
 * seq_lens     (b,)               int32; attend over positions < seq_len,
-  0 marks an inactive row (output exactly 0)
+  0 marks an inactive row (output exactly 0).  On the multi-token path
+  seq_len counts the chunk: row ``r`` sits at ``seq_len - t + r`` and
+  attends positions ``<=`` that; a row at a negative position (front
+  padding) emits exactly 0.
 
 The JAX cache stores d=64 head pairs packed as (nb, h/2, bs, 2d), a TPU
 lane trick; the port stores heads unpacked and matches the numerics.
-The int8-KV branch of the JAX kernel is not ported yet.
+The int8-KV branches of the JAX kernels are not ported yet.
 
-On a CUDA tensor :func:`flash_decode` launches ``csrc/flash_decode.cu``
-or raises; on a CPU tensor it runs :func:`paged_attention_reference`.
+On a CUDA tensor :func:`flash_decode` / :func:`flash_decode_multi`
+launch ``csrc/flash_decode.cu`` or raise; on a CPU tensor they run
+:func:`paged_attention_reference` / :func:`paged_attention_multi_reference`.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ import torch
 from .. import _build
 from ._counts import bump
 
-__all__ = ["flash_decode", "paged_attention_reference"]
+__all__ = ["flash_decode", "paged_attention_reference",
+           "flash_decode_multi", "paged_attention_multi_reference"]
 
 _TAKES = (torch.float32, torch.bfloat16, torch.float16)
 _HEAD_DIMS = (64, 128)
@@ -38,10 +46,21 @@ _MAX_BLOCK = 256
 def paged_attention_reference(q, k_cache, v_cache, block_tables, seq_lens,
                               scale: Optional[float] = None):
     """Dense twin of :func:`flash_decode` (the jnp
-    ``paged_attention_reference``): gather every row's pages into a
-    contiguous (b, h, pages*bs, d) k/v, mask by global position, fp32
-    softmax; rows with seq_len 0 are exactly 0."""
-    b, h, d = q.shape
+    ``paged_attention_reference``): the multi-token twin at ``t = 1``,
+    whose one row attends positions ``< seq_len``; rows with seq_len 0
+    are exactly 0."""
+    return paged_attention_multi_reference(q[:, None], k_cache, v_cache,
+                                           block_tables, seq_lens,
+                                           scale=scale)[:, 0]
+
+
+def paged_attention_multi_reference(q, k_cache, v_cache, block_tables,
+                                    seq_lens, scale: Optional[float] = None):
+    """Dense twin of :func:`flash_decode_multi` (the jnp
+    ``paged_attention_multi_reference``): gather every row's pages, mask
+    query row ``r`` of sequence ``b`` to positions ``<= seq_lens[b] - t +
+    r``, fp32 softmax; a row with no position to attend is exactly 0."""
+    b, t, h, d = q.shape
     if scale is None:
         scale = d ** -0.5
     nb, _, bs, _ = k_cache.shape
@@ -49,39 +68,43 @@ def paged_attention_reference(q, k_cache, v_cache, block_tables, seq_lens,
     bt = block_tables.long()
     k = k_cache[bt].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
     v = v_cache[bt].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
-    s = torch.einsum("bhd,bhkd->bhk", q.float(), k.float()) * scale
-    pos = torch.arange(mp * bs, device=q.device)[None, None, :]
-    mask = pos < seq_lens.to(q.device).long()[:, None, None]
+    s = torch.einsum("bthd,bhkd->bthk", q.float(), k.float()) * scale
+    pos = torch.arange(mp * bs, device=q.device)[None, None, None, :]
+    qpos = (seq_lens.to(q.device).long()[:, None] - t
+            + torch.arange(t, device=q.device)[None, :])       # (b, t)
+    mask = pos <= qpos[:, :, None, None]
     s = s.masked_fill(~mask, -torch.inf)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m).masked_fill(~mask, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    o = torch.einsum("bhk,bhkd->bhd", p / safe, v.float())
+    o = torch.einsum("bthk,bhkd->bthd", p / safe, v.float())
     o = torch.where(l == 0.0, torch.zeros_like(o), o)
     return o.to(q.dtype)
 
 
-def _launch(q, k_cache, v_cache, block_tables, seq_lens, scale):
-    b, h, d = q.shape
-    nb, hk, bs, dk = k_cache.shape
+def _check_launch(what, q, k_cache, v_cache, block_tables, seq_lens):
+    """What both kernels take: one float dtype, head dim 64 or 128,
+    bs <= 256, contiguous caches and int32 tables on q's device."""
+    b, d = q.shape[0], q.shape[-1]
+    bs = k_cache.shape[2]
     if q.dtype not in _TAKES or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
-        raise TypeError(f"flash_decode kernel takes q and a float cache "
+        raise TypeError(f"{what} kernel takes q and a float cache "
                         f"of one dtype in {_TAKES}, got {q.dtype}/"
                         f"{k_cache.dtype}/{v_cache.dtype}")
     if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_decode kernel takes head dim in "
+        raise ValueError(f"{what} kernel takes head dim in "
                          f"{_HEAD_DIMS}, got {d}")
     if bs > _MAX_BLOCK:
-        raise ValueError(f"flash_decode kernel takes block size <= "
+        raise ValueError(f"{what} kernel takes block size <= "
                          f"{_MAX_BLOCK}, got {bs}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError("flash_decode kernel needs contiguous caches")
+        raise ValueError(f"{what} kernel needs contiguous caches")
     if q.stride(-1) != 1:
-        raise ValueError("flash_decode kernel needs a unit stride on q's "
-                         "last dim")
+        raise ValueError(f"{what} kernel needs a unit stride on q's "
+                         f"last dim")
     if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise TypeError("block_tables and seq_lens must be int32")
     if block_tables.dim() != 2 or block_tables.shape[0] != b \
@@ -91,11 +114,18 @@ def _launch(q, k_cache, v_cache, block_tables, seq_lens, scale):
                          f"batch {b}")
     if not block_tables.is_contiguous() or not seq_lens.is_contiguous():
         raise ValueError("block_tables and seq_lens must be contiguous")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache),
                     ("block_tables", block_tables),
                     ("seq_lens", seq_lens)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+
+
+def _launch(q, k_cache, v_cache, block_tables, seq_lens, scale):
+    _check_launch("flash_decode", q, k_cache, v_cache, block_tables,
+                  seq_lens)
+    b, h, d = q.shape
+    bs = k_cache.shape[2]
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
@@ -114,17 +144,39 @@ def _launch(q, k_cache, v_cache, block_tables, seq_lens, scale):
     return out
 
 
-def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, block_tables: torch.Tensor,
-                 seq_lens: torch.Tensor, *,
-                 scale: Optional[float] = None) -> torch.Tensor:
-    """Single-query attention over a block-paged float KV cache;
-    returns (b, h, d) in q's dtype.  Block ids in ``block_tables``
-    must name blocks of the cache; pages past a row's seq_len are
-    never read."""
-    b, h, d = q.shape
-    if scale is None:
-        scale = d ** -0.5
+def _launch_multi(q, k_cache, v_cache, block_tables, seq_lens, scale):
+    _check_launch("flash_decode_multi", q, k_cache, v_cache, block_tables,
+                  seq_lens)
+    b, t, h, d = q.shape
+    bs = k_cache.shape[2]
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    if b == 0 or t == 0:
+        return out
+    if block_tables.shape[1] == 0:
+        return out.zero_()
+    lib = _build.library("flash_decode")
+    mp = block_tables.shape[1]
+    # the kernel's two passes meet in fp32 scratch: each split of the
+    # positions leaves every row's accumulator and (max, sum)
+    splits = lib.apex_flash_decode_multi_splits(bs, mp)
+    part_o = torch.empty((b * t * h * splits, d), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((b * t * h * splits, 2), dtype=torch.float32,
+                          device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.apex_flash_decode_multi(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), part_o.data_ptr(),
+            part_ml.data_ptr(), out.data_ptr(), b, t, h, d, bs, mp,
+            q.stride(0), q.stride(1), q.stride(2), float(scale),
+            _build.dtype_code(q.dtype), _build.stream_ptr(q.device))
+    _build.check("flash_decode", rc, "flash_decode_multi kernel")
+    bump("flash_decode_multi")
+    return out
+
+
+def _check_cache(q, k_cache, v_cache):
+    h, d = q.shape[-2:]
     if k_cache.shape != v_cache.shape:
         raise ValueError(f"k/v cache shapes differ: "
                          f"{tuple(k_cache.shape)} vs "
@@ -134,11 +186,47 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"cache {tuple(k_cache.shape)} is not "
                          f"(nb, {h}, bs, {d}) for q {tuple(q.shape)} — "
                          f"the port stores heads unpacked")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash decode runs on cuda or cpu, not "
+                         f"{q.device}")
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, block_tables: torch.Tensor,
+                 seq_lens: torch.Tensor, *,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """Single-query attention over a block-paged float KV cache;
+    returns (b, h, d) in q's dtype.  Block ids in ``block_tables``
+    must name blocks of the cache; pages past a row's seq_len are
+    never read."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    _check_cache(q, k_cache, v_cache)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_cache, v_cache,
                                          block_tables, seq_lens,
                                          scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode runs on cuda or cpu, not "
-                         f"{q.device}")
     return _launch(q, k_cache, v_cache, block_tables, seq_lens, scale)
+
+
+def flash_decode_multi(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, block_tables: torch.Tensor,
+                       seq_lens: torch.Tensor, *,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-token paged attention: ``t`` contiguous query rows per
+    sequence, ``q`` (b, t, h, d), each row causal at its own position
+    (``seq_lens[b] - t + r``); returns (b, t, h, d) in q's dtype.  The
+    chunk's own k/v must already be in the cache (the serving step
+    writes it first).  At ``t == 1`` this computes :func:`flash_decode`.
+    Inference only."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)} is not (b, t, h, d)")
+    _check_cache(q, k_cache, v_cache)
+    if q.device.type == "cpu":
+        return paged_attention_multi_reference(q, k_cache, v_cache,
+                                               block_tables, seq_lens,
+                                               scale=scale)
+    return _launch_multi(q, k_cache, v_cache, block_tables, seq_lens,
+                         scale)

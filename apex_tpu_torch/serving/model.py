@@ -14,8 +14,12 @@ tied LM head (``wte.T``).
 * :func:`gpt_decode_step` advances every batch row one token through
   the paged flash-decode kernel; each layer writes the token's k/v
   before that layer's attention, so the token attends to itself.
+* :func:`gpt_extend_step` advances every batch row by a chunk of ``t``
+  tokens through the multi-token paged kernel: speculative
+  verification, chunked prefill and the warm-prefix tail prefill.
 * :func:`gpt_sequence_logits` is the teacher-forced whole-sequence
   oracle: same math, no cache.
+* :func:`copy_cache_block` is the copy-on-write of one page.
 
 The fused QKV projection's columns are per head, (h, [q|k|v], d): both
 steps reshape to (.., h, 3d) and split the last axis, as the JAX steps
@@ -31,13 +35,16 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention, mha_reference
-from ..ops.flash_decode import flash_decode, paged_attention_reference
+from ..ops.flash_decode import (flash_decode, flash_decode_multi,
+                                paged_attention_multi_reference,
+                                paged_attention_reference)
 from ..ops.layer_norm import layer_norm, layer_norm_reference
 from .kv_cache import (KVCacheConfig, PagedKVCache, write_prefill_kv,
                        write_token_kv)
 
 __all__ = ["LayerWeights", "GPTServingWeights", "ServingModelConfig",
-           "gpt_prefill_step", "gpt_decode_step", "gpt_sequence_logits"]
+           "gpt_prefill_step", "gpt_decode_step", "gpt_extend_step",
+           "gpt_sequence_logits", "copy_cache_block"]
 
 
 class LayerWeights(NamedTuple):
@@ -209,6 +216,63 @@ def gpt_decode_step(weights: GPTServingWeights, cfg: ServingModelConfig,
     if return_logits:
         return cache, next_tokens, logits
     return cache, next_tokens
+
+
+def gpt_extend_step(weights: GPTServingWeights, cfg: ServingModelConfig,
+                    cache_cfg: KVCacheConfig, cache: PagedKVCache,
+                    tokens: torch.Tensor, block_tables: torch.Tensor,
+                    seq_lens: torch.Tensor, write_blocks: torch.Tensor,
+                    write_offsets: torch.Tensor, *,
+                    return_logits: bool = False):
+    """Advance every batch row by a chunk of ``t`` tokens against the
+    paged cache — the one step behind speculative verification, chunked
+    prefill and the warm-prefix tail prefill; returns ``(cache,
+    next_tokens)`` with one argmax per chunk slot, (b, t) (plus the
+    (b, t, V) logits with ``return_logits``).
+
+    ``tokens`` (b, t) int64: row ``b``'s chunk sits at positions
+    ``seq_lens[b] - t .. seq_lens[b] - 1`` (``seq_lens`` counts every
+    written token including the chunk).  Token ``j``'s k/v goes to
+    ``(write_blocks[b, j], write_offsets[b, j])`` layer by layer before
+    that layer's attention, so the chunk attends to itself through the
+    cache.  A chunk shorter than ``t`` is front-padded: padding slots sit
+    at negative positions (their embedding lookup clamped to position
+    0), write to the dump page, and give a discarded token.
+    ``next_tokens[b, j]`` is the greedy choice after position
+    ``seq_lens[b] - t + j``."""
+    h, d = cache_cfg.num_heads, cache_cfg.head_dim
+    b, t = tokens.shape
+    scale = d ** -0.5
+    pos = seq_lens.to(tokens.device).long()[:, None] - t \
+        + torch.arange(t, device=tokens.device)[None, :]         # (b, t)
+    x = _embed(weights, tokens, pos.clamp(min=0), cfg)          # (b, t, H)
+    wb = write_blocks.reshape(b * t)
+    wo = write_offsets.reshape(b * t)
+    attend = flash_decode_multi if cfg.kernels \
+        else paged_attention_multi_reference
+    for i, lw in enumerate(weights.layers):
+        a_in = _ln(x, lw.ln1_w, lw.ln1_b, cfg)
+        qkv = _linear(a_in, lw.qkv_k, lw.qkv_b, cfg.dtype)
+        q, k, v = qkv.reshape(b, t, h, 3 * d).split(d, dim=-1)  # (b,t,h,d)
+        write_token_kv(cache, cache_cfg, i, k.reshape(b * t, h, d),
+                       v.reshape(b * t, h, d), wb, wo)
+        kc, vc = cache.layer(i)
+        ctx = attend(q, kc, vc, block_tables, seq_lens, scale=scale)
+        x = _layer_tail(x, lw, _linear(ctx.reshape(b, t, h * d),
+                                       lw.dense_k, lw.dense_b,
+                                       cfg.dtype), cfg)
+    logits = _lm_head(x, weights, cfg)                        # (b, t, V)
+    next_tokens = torch.argmax(logits, dim=-1)
+    if return_logits:
+        return cache, next_tokens, logits
+    return cache, next_tokens
+
+
+def copy_cache_block(cache: PagedKVCache, src: int, dst: int) -> None:
+    """Copy-on-write on the device: block ``src``'s k and v, every
+    layer, into block ``dst``, in place."""
+    cache.k[:, dst] = cache.k[:, src]
+    cache.v[:, dst] = cache.v[:, src]
 
 
 def gpt_sequence_logits(weights: GPTServingWeights, cfg: ServingModelConfig,

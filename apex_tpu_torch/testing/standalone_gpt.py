@@ -7,6 +7,11 @@ Counterpart of ``apex_tpu/testing/standalone_gpt.py``: the model
     python -m apex_tpu_torch.testing.standalone_gpt --serve
     python -m apex_tpu_torch.testing.standalone_gpt --train
     python -m apex_tpu_torch.testing.standalone_gpt --train --policy O2
+    python -m apex_tpu_torch.testing.standalone_gpt --serve --speculate-k 2
+    python -m apex_tpu_torch.testing.standalone_gpt --serve --speculate-k 2 \
+        --draft truncated
+    python -m apex_tpu_torch.testing.standalone_gpt --serve --prefill-chunk 32
+    python -m apex_tpu_torch.testing.standalone_gpt --serve --prefix-share
     python -m apex_tpu_torch.testing.standalone_gpt --serve --model tiny \
         --device cpu --requests 4 --new-tokens 4
     python -m apex_tpu_torch.testing.standalone_gpt --train --policy O2 \
@@ -16,8 +21,10 @@ The default model is GPT-345M's width (vocab 50304, hidden 1024, 24
 layers, 16 heads, max_seq 1024) with seeded random weights: no
 checkpoint is read.  ``--serve`` serves ``--requests`` seeded prompts
 through the continuous-batching engine at O5 (bf16) or O0 and prints
-one ``SERVE_DONE`` line.  ``--train`` takes ``--steps`` optimizer steps
-on one seeded batch (seq 1024, batch 8 at GPT-345M) with
+one ``SERVE_DONE`` line; ``--speculate-k``, ``--prefill-chunk`` and
+``--prefix-share`` turn on the engine's fast path (speculative decode
+with a ``--draft``, chunked prefill, copy-on-write prefix sharing).
+``--train`` takes ``--steps`` optimizer steps on one seeded batch (seq 1024, batch 8 at GPT-345M) with
 ``fused_adam(1e-4)`` and no dropout, in one of the JAX package's two
 train recipes (:data:`TRAIN_RECIPES`), and prints one ``TRAIN_DONE``
 line: ``O5`` is ``bench.py``'s ``bench_gpt345m`` (flash attention, bf16,
@@ -43,13 +50,14 @@ from .. import amp, resolve_device
 from ..amp import get_policy
 from ..contrib.xentropy import softmax_cross_entropy_loss
 from ..optimizers import fused_adam
-from ..serving import (BucketLadder, Request, ServingEngine,
-                       ServingModelConfig, default_cache_config,
-                       init_serving_weights)
+from ..serving import (BucketLadder, GPTServingWeights, Request,
+                       ServingEngine, ServingModelConfig,
+                       default_cache_config, init_serving_weights)
 from ..transformer import ParallelTransformer
 from ..transformer.tensor_parallel import VocabParallelEmbedding
 
-__all__ = ["MODELS", "TRAIN_RECIPES", "model_config", "seeded_prompts", "serve_smoke",
+__all__ = ["MODELS", "TRAIN_RECIPES", "DRAFTS", "model_config", "seeded_prompts",
+           "truncated_draft", "serve_smoke",
            "GPTEmbedding", "GPTModel", "gpt_loss", "gpt_params_from_numpy",
            "TrainSetup", "make_train_setup", "train_step", "TrainResult",
            "train_smoke", "masters_digest", "main"]
@@ -92,11 +100,35 @@ def seeded_prompts(lengths: Sequence[int], vocab: int,
             for n in lengths]
 
 
+# the draft models serve_smoke builds for speculative decoding
+DRAFTS = ("self", "truncated")
+
+
+def truncated_draft(weights: GPTServingWeights, cfg: ServingModelConfig,
+                    num_layers: Optional[int] = None):
+    """A draft made of the target's first ``num_layers`` layers with its
+    embeddings, final LayerNorm and tied head: ``(weights, cfg)``.  The
+    tensors are the target's own (nothing is copied).  ``num_layers``
+    defaults to all but the last two (at least one): with seeded random
+    weights at GPT-345M width, drafts of 8 layers or fewer accept no
+    proposal and 22 of 24 accept about a third (PERF.md)."""
+    if num_layers is None:
+        num_layers = max(1, cfg.num_layers - 2)
+    if not 1 <= num_layers <= cfg.num_layers:
+        raise ValueError(f"draft layers {num_layers} not in [1, "
+                         f"{cfg.num_layers}]")
+    return (weights._replace(layers=weights.layers[:num_layers]),
+            dataclasses.replace(cfg, num_layers=num_layers))
+
+
 def serve_smoke(num_requests: int = 8, *, model: str = "gpt345m",
                 policy: str = "O5", max_new_tokens: int = 32,
                 prompt_lengths: Optional[Sequence[int]] = None,
                 min_prompt: int = 64, max_prompt: int = 700,
-                seed: int = 0, device=None):
+                seed: int = 0, device=None, speculate_k: int = 0,
+                draft: str = "self", draft_layers: Optional[int] = None,
+                prefill_chunk: int = 0, prefix_share: bool = False,
+                spec_governor="auto"):
     """Build the model and engine on ``device`` (cuda unless the CPU is
     asked for), serve ``num_requests`` seeded prompts, and return
     ``(summary, engine)``; ``engine.done`` holds every request with its
@@ -105,14 +137,37 @@ def serve_smoke(num_requests: int = 8, *, model: str = "gpt345m",
     Prompt lengths are drawn from ``seed`` in ``[min_prompt,
     max_prompt]`` (clipped so prompt + ``max_new_tokens`` fits the
     ladder span and ``max_seq``), unless ``prompt_lengths`` names
-    them."""
+    them.
+
+    The fast path: ``speculate_k=K`` proposes K tokens a tick from a
+    draft — ``draft="self"`` is the target itself (acceptance exactly
+    1.0, the machinery's ceiling), ``"truncated"`` the target's first
+    ``draft_layers`` layers (:func:`truncated_draft`: rejections and
+    rollbacks); ``spec_governor`` as :class:`ServingEngine` takes it.
+    ``prefill_chunk=N`` admits prompts in N-token chunks;
+    ``prefix_share`` maps warm prompt prefixes as shared pages.  Every
+    option leaves the greedy tokens unchanged."""
     dev = resolve_device(device)
     cfg = model_config(model, policy=policy)
     cache_cfg = default_cache_config(cfg)
     ladder = BucketLadder()
     weights = init_serving_weights(cfg, seed=seed, device=dev)
+    draft_weights = draft_cfg = None
+    if speculate_k > 0:
+        if draft == "self":
+            draft_weights, draft_cfg = weights, cfg
+        elif draft == "truncated":
+            draft_weights, draft_cfg = truncated_draft(weights, cfg,
+                                                       draft_layers)
+        else:
+            raise ValueError(f"draft {draft!r} not in {DRAFTS}")
     engine = ServingEngine(weights, cfg, cache_cfg, ladder=ladder,
-                           device=dev)
+                           device=dev, speculate_k=speculate_k,
+                           draft_weights=draft_weights,
+                           draft_cfg=draft_cfg,
+                           prefill_chunk=prefill_chunk,
+                           prefix_share=prefix_share,
+                           spec_governor=spec_governor)
     if prompt_lengths is None:
         span = min(cfg.max_seq,
                    ladder.max_pages * cache_cfg.block_size)
@@ -361,6 +416,23 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("--speculate-k", type=int, default=0, metavar="K",
+                   help="serve: speculative decoding, a draft proposes K "
+                        "tokens a tick and the target verifies them in "
+                        "one multi-token step (the tokens stay those of "
+                        "plain greedy decode)")
+    p.add_argument("--draft", choices=DRAFTS, default="self",
+                   help="serve --speculate-k: 'self' is the target "
+                        "itself (acceptance 1.0), 'truncated' its first "
+                        "--draft-layers layers")
+    p.add_argument("--draft-layers", type=int, default=None, metavar="N",
+                   help="serve --draft truncated: the draft's depth "
+                        "(default: all but the target's last two layers)")
+    p.add_argument("--prefill-chunk", type=int, default=0, metavar="N",
+                   help="serve: admit prompts in N-token chunks, one a "
+                        "tick beside decode")
+    p.add_argument("--prefix-share", action="store_true",
+                   help="serve: copy-on-write prompt-prefix sharing")
     return p
 
 
@@ -386,13 +458,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     s, eng = serve_smoke(
         args.requests, model=args.model, policy=args.policy,
         max_new_tokens=args.new_tokens, min_prompt=args.min_prompt,
-        max_prompt=args.max_prompt, seed=args.seed, device=args.device)
+        max_prompt=args.max_prompt, seed=args.seed, device=args.device,
+        speculate_k=args.speculate_k, draft=args.draft,
+        draft_layers=args.draft_layers, prefill_chunk=args.prefill_chunk,
+        prefix_share=args.prefix_share)
+    fast = ""
+    if s.spec_accept_rate is not None:
+        fast += (f" spec_accept_rate={s.spec_accept_rate} "
+                 f"spec_proposed={s.spec_tokens_proposed}"
+                 + (" spec_disabled=1" if s.spec_disabled else ""))
+    if s.warm_prefix_admissions or s.shared_blocks_hw:
+        fast += (f" warm_admissions={s.warm_prefix_admissions} "
+                 f"prefix_hit_tokens={s.prefix_hit_tokens} "
+                 f"shared_blocks_hw={s.shared_blocks_hw} "
+                 f"cow_copies={s.cow_copies}")
+    if s.prefill_chunks:
+        fast += f" prefill_chunks={s.prefill_chunks}"
     print(f"SERVE_DONE requests={s.requests_done} "
           f"tokens={s.tokens_generated} tokens_s={s.tokens_per_sec} "
           f"p50_ms={s.latency_p50_ms} p99_ms={s.latency_p99_ms} "
           f"ttft_p50_ms={s.ttft_p50_ms} ttft_p99_ms={s.ttft_p99_ms} "
           f"itl_p50_ms={s.itl_p50_ms} itl_p99_ms={s.itl_p99_ms} "
-          f"steps={s.decode_steps} device={s.device} "
+          f"steps={s.decode_steps}{fast} device={s.device} "
           f"digest={eng.tokens_digest()}", flush=True)
     return 0
 

@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero without the result line:
                    the card, with the stated tolerances, and time kernel,
                    plain version, one library call and the card's bound:
                    LayerNorm forward, flash prefill and paged decode at
-                   the serving path's shapes; LayerNorm backward, the
+                   the serving path's shapes; the multi-token paged
+                   attention at the fast path's verify (t=3) and chunk
+                   (t=32, t=16) shapes; LayerNorm backward, the
                    E-layout flash forward and backward, and the Adam
                    pipeline sweep at the O5 train step's shapes; the
                    causal scaled softmax forward and backward and the
@@ -27,6 +29,21 @@ Phases, in order; any failure exits non-zero without the result line:
                    of ``gpt_sequence_logits`` run teacher-forced through
                    the plain versions wherever that oracle's top-2 logit
                    gap exceeds the tie tolerance.
+3b. serve_fast   — the serving fast path at the same width, launch counts
+                   reset just before each leg and every token held against
+                   the oracle: speculative decode with K=2 and a self
+                   draft at O5 (the multi-token kernel launches once a
+                   layer per verify tick, fewer ticks than the plain
+                   serve) and fp32 (a draft token may be rejected only at
+                   an oracle near-tie); with a truncated draft and no
+                   governor (acceptance strictly between 0 and 1, rows
+                   rolled back, every block returned); chunked prefill in
+                   32-token chunks with a request arriving every second
+                   tick (no whole-prompt prefill, one multi-token launch
+                   a layer per chunk, decode beside a prefilling prompt);
+                   prefix sharing on a 700-token system prompt (cold,
+                   priming and warm passes; warm hits copy on write and
+                   leave every shared page's bytes unchanged).
 4. train O5      — the same width at seq 1024, batch 8 (bench.py's
                    bench_gpt345m), O5, ``fused_adam(1e-4)``, seeded
                    weights: 8 steps through ``standalone_gpt.train_smoke``
@@ -50,14 +67,16 @@ Phases, in order; any failure exits non-zero without the result line:
                    every skipped step holding masters, moments, fp16
                    parameters and the Adam count bitwise, the scale
                    halving from the 2^24 clip.
-7. profiles      — the O5 serve, one O5 train step and one O2 train step
+7. profiles      — the O5 serve, the O5 speculative serve (self draft), one
+                   O5 train step and one O2 train step
                    under ``torch.profiler``: device time by kernel and
                    the device's idle share.  Last, since the profiler
                    slows every later launch.
 
 ``--phases`` runs a subset (``build`` always runs), for iterating.
-The line before the last is one JSON object ``{"kernels": [...]}``; the
-last is ``{"ok": true, "device": {...}}``.
+When every phase ran and passed, the last three lines are one JSON
+object ``{"kernels": [...]}``, the card's ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -139,6 +158,15 @@ OVERFLOW_MAX_STEPS = 12
 SERVE_LENGTHS = [int(x) for x in
                  np.random.RandomState(1234).randint(64, 701, 7)] + [700]
 SERVE_NEW = 32
+# serve_fast: speculation with K = 2 draft tokens (bench.py:961); the
+# truncated draft is serve_smoke's (the target's first 22 of 24 layers);
+# chunked prefill in chunks of two 16-token blocks
+# (bench.py:1017), a request arriving every second tick; prefix sharing
+# on bench.py:984-1012's trace: a 700-token system prompt plus 3 unique
+# tokens, 4 requests of 4 new tokens
+SPEC_K = 2
+CHUNK = 32
+SHARE_SYS, SHARE_REQUESTS, SHARE_NEW = 700, 4, 4
 
 # --- the card (NVIDIA H100 SXM data sheet, dense) ----------------------
 HBM_BYTES_S = 3.35e12
@@ -150,6 +178,7 @@ REPLACES = {
     "layer_norm": "apex_tpu/ops/layer_norm.py:62",
     "flash_attention": "apex_tpu/ops/flash_attention.py:556",
     "flash_decode": "apex_tpu/ops/flash_decode.py:198",
+    "flash_decode_multi": "apex_tpu/ops/flash_decode.py:385",
     "layer_norm_bwd": "apex_tpu/ops/layer_norm.py:127",
     "flash_attention_e": "apex_tpu/ops/flash_attention.py:1927",
     "flash_attention_e_bwd": "apex_tpu/ops/flash_attention.py:2211",
@@ -162,6 +191,7 @@ SOURCES = {
     "layer_norm": "apex_tpu_torch/csrc/layer_norm.cu",
     "flash_attention": "apex_tpu_torch/csrc/flash_attention.cu",
     "flash_decode": "apex_tpu_torch/csrc/flash_decode.cu",
+    "flash_decode_multi": "apex_tpu_torch/csrc/flash_decode.cu",
     "layer_norm_bwd": "apex_tpu_torch/csrc/layer_norm.cu",
     "flash_attention_e": "apex_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_e_bwd": "apex_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -172,6 +202,8 @@ SOURCES = {
 }
 # the path each kernel's launches are counted on
 SERVE_KERNELS = ("layer_norm", "flash_attention", "flash_decode")
+SERVE_FAST_KERNELS = ("layer_norm", "flash_attention", "flash_decode",
+                      "flash_decode_multi")
 TRAIN_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_attention_e",
                  "flash_attention_e_bwd", "fused_adam_pipeline")
 TRAIN_O2_KERNELS = ("layer_norm", "layer_norm_bwd",
@@ -415,6 +447,120 @@ def check_flash_decode(dev, g):
                 shape=f"b={b} h={h} d={d} bs={bs} pages={mp} bf16",
                 max_abs_err=err, ms=ms, ms_wall=ms_w, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+
+def _paged_case(dev, g, lens, h, d, bs, mp, nb):
+    """A bf16 cache of ``nb`` random pages and a block table giving each
+    row of ``lens`` its own pages (dump-page padding past them)."""
+    kc = torch.randn(nb, h, bs, d, generator=g, device=dev).bfloat16()
+    vc = torch.randn(nb, h, bs, d, generator=g, device=dev).bfloat16()
+    perm = torch.randperm(nb - 1, generator=g, device=dev) + 1
+    bt = torch.zeros(len(lens), mp, dtype=torch.int32, device=dev)
+    nxt = 0
+    for i, n in enumerate(lens):
+        pages = -(-min(n, mp * bs) // bs)
+        bt[i, :pages] = perm[nxt:nxt + pages].int()
+        nxt += pages
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return kc, vc, bt, sl
+
+
+def check_flash_decode_multi(dev, g):
+    """Row 15 at the serve_fast legs' shapes, bf16: the verify step
+    (b=8, t=3: K=2 draft tokens plus one) and the chunk steps (b=1, t=32
+    the chunked leg's chunk, t=16 the warm-tail rung).  Each case has an
+    inactive row, a row with seq_len < t (front padding at negative
+    positions), a page-straddling row and a full row; those rows must
+    give exactly 0 where nothing is attended, nothing may be NaN, and at
+    t=1 the kernel must agree with the row-14 kernel.  Returns the verify
+    entry with the chunk shapes under ``chunk``."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import (flash_decode, flash_decode_multi,
+                                    paged_attention_multi_reference)
+
+    h, d, bs, mp, nb = 16, 64, 16, 64, 512
+    cases = (  # (b, t, seq_lens checked, seq_lens timed)
+        (8, 3, [0, 2, 16 * 20 + 7, mp * bs, 700, 733, 64, 515], None),
+        (1, 32, [0, 27, 16 * 20 + 7, mp * bs], [390]),
+        (1, 16, [0, 11, 16 * 20 + 7, mp * bs], [703]),
+    )
+    entries = []
+    for b, t, lens, timed in cases:
+        kc, vc, bt, sl = _paged_case(dev, g, lens, h, d, bs, mp, nb)
+        q = torch.randn(len(lens), t, h, d, generator=g,
+                        device=dev).bfloat16()
+        out = flash_decode_multi(q, kc, vc, bt, sl)
+        torch.cuda.synchronize()
+        ref = paged_attention_multi_reference(q, kc, vc, bt, sl)
+        err = max_err(out, ref)
+        qpos = torch.tensor(lens, device=dev)[:, None] - t \
+            + torch.arange(t, device=dev)[None, :]
+        dead = qpos < 0                  # nothing to attend: exactly 0
+        zero = bool((out[dead] == 0).all()) and int(dead.sum()) >= t + 1
+        finite = bool(torch.isfinite(out).all())
+        ok = err <= DECODE_TOL and zero and finite
+        msg = ""
+        if t == 3:
+            # t = 1 through the multi kernel against the row-14 kernel
+            one = flash_decode_multi(q[:, :1], kc, vc, bt, sl)[:, 0]
+            dec = flash_decode(q[:, 0].contiguous(), kc, vc, bt, sl)
+            torch.cuda.synchronize()
+            e1 = max_err(one, dec)
+            ok = ok and e1 <= DECODE_TOL
+            msg = f" t=1 vs flash_decode {e1:.3e} (tol {DECODE_TOL})"
+        log(f"kernel flash_decode_multi b={len(lens)} t={t} h={h} d={d} "
+            f"bs={bs} pages={mp} bf16 seq_lens={lens}: max_abs_err="
+            f"{err:.3e} (tol {DECODE_TOL}) max_rel_err="
+            f"{rel_err(out, ref):.3e} {int(dead.sum())} rows with nothing "
+            f"to attend exactly 0: {zero}, finite: {finite}{msg} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_decode_multi kernel disagrees at "
+                                 f"t={t}")
+        if timed is not None:            # the main path's batch of one
+            lens = timed
+            kc, vc, bt, sl = _paged_case(dev, g, lens, h, d, bs, mp, nb)
+            q = torch.randn(b, t, h, d, generator=g, device=dev).bfloat16()
+            out = flash_decode_multi(q, kc, vc, bt, sl)
+            torch.cuda.synchronize()
+            err = max(err, max_err(out, paged_attention_multi_reference(
+                q, kc, vc, bt, sl)))
+        ms, ms_w = time_ms(lambda: flash_decode_multi(q, kc, vc, bt, sl),
+                           iters=100)
+        plain, plain_w = time_ms(
+            lambda: paged_attention_multi_reference(q, kc, vc, bt, sl))
+        # library yardstick: SDPA over the pages gathered beforehand (the
+        # gather not timed), one boolean mask row per query row
+        kg = kc[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
+        vg = vc[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
+        qp = (sl.long()[:, None] - t
+              + torch.arange(t, device=dev)[None, :]).clamp(min=0)
+        mask = (torch.arange(mp * bs, device=dev)[None, None, :]
+                <= qp[:, :, None])[:, None]
+        qt = q.transpose(1, 2)
+        lib, lib_w = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask), iters=100)
+        keys = sum(min(n, mp * bs) for n in lens)
+        attended = sum(max(0, min(n - t + r + 1, mp * bs))
+                       for n in lens for r in range(t))
+        nbytes = keys * h * d * 2 * 2 + 2 * b * t * h * d * 2 \
+            + sum(-(-min(n, mp * bs) // bs) for n in lens) * 4 + b * 4
+        flops = 4.0 * attended * h * d
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        log(f"  time b={b} t={t} seq_lens={lens}, device ms (wall ms per "
+            f"call): kernel {ms:.5f} ({ms_w:.5f}), plain {plain:.5f} "
+            f"({plain_w:.5f}), SDPA on gathered pages {lib:.5f} "
+            f"({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
+        entries.append(dict(
+            name="flash_decode_multi",
+            shape=f"b={b} t={t} h={h} d={d} bs={bs} pages={mp} bf16 "
+                  f"seq_lens={lens}",
+            max_abs_err=err, ms=ms, ms_wall=ms_w, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    entry = dict(entries[0])
+    entry["chunk"] = entries[1:]
+    return entry
 
 
 # --- phase 2, the train step's shapes ----------------------------------
@@ -874,7 +1020,6 @@ def serve_and_check(dev, *, policy: str, gap_tol: float,
     ``counted`` the launch counts are reset just before the serve and
     read just after, and every kernel must have launched."""
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
-    from apex_tpu_torch.serving import gpt_sequence_logits
     from apex_tpu_torch.testing.standalone_gpt import serve_smoke
 
     if counted:
@@ -903,39 +1048,7 @@ def serve_and_check(dev, *, policy: str, gap_tol: float,
             summary.tokens_generated != n_req * SERVE_NEW:
         raise AssertionError(f"served {summary.requests_done} requests / "
                              f"{summary.tokens_generated} tokens")
-    # oracle: teacher-forced whole-sequence logits, plain versions
-    plain_cfg = engine.model_cfg.plain()
-    checked = ties = mism_ties = 0
-    min_gap = math.inf
-    for req in sorted(engine.done, key=lambda r: str(r.rid)):
-        seq = req.prompt + req.out_tokens[:-1]
-        toks = torch.tensor([seq], dtype=torch.long, device=dev)
-        with torch.inference_mode():
-            logits = gpt_sequence_logits(engine.weights, plain_cfg,
-                                         toks)[0].float()
-        rows = logits[len(req.prompt) - 1:]
-        if rows.shape != (SERVE_NEW, mc.vocab_size) or \
-                not bool(torch.isfinite(rows).all()):
-            raise AssertionError(f"{req.rid}: oracle logits "
-                                 f"{tuple(rows.shape)} not finite / "
-                                 f"not ({SERVE_NEW}, {mc.vocab_size})")
-        top2 = rows.topk(2, dim=-1)
-        gap = (top2.values[:, 0] - top2.values[:, 1]).tolist()
-        want = top2.indices[:, 0].tolist()
-        for j, (got, w, gp) in enumerate(zip(req.out_tokens, want, gap)):
-            checked += 1
-            if gp <= gap_tol:
-                ties += 1
-                mism_ties += int(got != w)
-                continue
-            min_gap = min(min_gap, gp)
-            if got != w:
-                raise AssertionError(
-                    f"{req.rid} token {j}: served {got}, oracle {w} "
-                    f"with top-2 gap {gp:.4f} > {gap_tol}")
-    log(f"serve {policy}: token check {checked} positions, {ties} under "
-        f"the tie rule (top-2 gap <= {gap_tol}; {mism_ties} of them "
-        f"differ), the other {checked - ties} equal the oracle")
+    check_tokens(engine, gap_tol, dev, f"serve {policy}")
     log(f"serve {policy}: tokens_per_sec={summary.tokens_per_sec} "
         f"decode_tokens_per_sec={summary.decode_tokens_per_sec} "
         f"ttft_p50_ms={summary.ttft_p50_ms} "
@@ -943,8 +1056,320 @@ def serve_and_check(dev, *, policy: str, gap_tol: float,
         f"token_p50_ms={summary.latency_p50_ms} "
         f"token_p99_ms={summary.latency_p99_ms} "
         f"itl_p50_ms={summary.itl_p50_ms} itl_p99_ms={summary.itl_p99_ms} "
-        f"decode_steps={summary.decode_steps} wall_s={summary.wall_s}")
+        f"decode_steps={summary.decode_steps} wall_s={summary.wall_s} "
+        f"digest={engine.tokens_digest()}")
+    return counts, summary, engine.tokens_digest()
+
+
+def check_tokens(engine, gap_tol: float, dev, label: str):
+    """Hold every token ``engine`` served against the argmax of
+    ``gpt_sequence_logits`` run teacher-forced through the plain versions
+    on the same weights: a token must equal it wherever the oracle's
+    top-2 gap exceeds ``gap_tol`` (below it the position is a tie).
+    Returns ``{(rid, index): gap}`` for every served token."""
+    from apex_tpu_torch.serving import gpt_sequence_logits
+
+    mc = engine.model_cfg
+    plain_cfg = mc.plain()
+    checked = ties = mism_ties = 0
+    gaps = {}
+    for req in sorted(engine.done, key=lambda r: str(r.rid)):
+        n_new = len(req.out_tokens)
+        seq = req.prompt + req.out_tokens[:-1]
+        toks = torch.tensor([seq], dtype=torch.long, device=dev)
+        with torch.inference_mode():
+            logits = gpt_sequence_logits(engine.weights, plain_cfg,
+                                         toks)[0].float()
+        rows = logits[len(req.prompt) - 1:]
+        if rows.shape != (n_new, mc.vocab_size) or \
+                not bool(torch.isfinite(rows).all()):
+            raise AssertionError(f"{req.rid}: oracle logits "
+                                 f"{tuple(rows.shape)} not finite / "
+                                 f"not ({n_new}, {mc.vocab_size})")
+        top2 = rows.topk(2, dim=-1)
+        gap = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+        want = top2.indices[:, 0].tolist()
+        for j, (got, w, gp) in enumerate(zip(req.out_tokens, want, gap)):
+            checked += 1
+            gaps[(req.rid, j)] = gp
+            if gp <= gap_tol:
+                ties += 1
+                mism_ties += int(got != w)
+                continue
+            if got != w:
+                raise AssertionError(
+                    f"{label}: {req.rid} token {j}: served {got}, oracle "
+                    f"{w} with top-2 gap {gp:.4f} > {gap_tol}")
+    log(f"{label}: token check {checked} positions, {ties} under the tie "
+        f"rule (top-2 gap <= {gap_tol}; {mism_ties} of them differ), the "
+        f"other {checked - ties} equal the oracle")
+    return gaps
+
+
+# --- phase 3b: the serving fast path -----------------------------------
+
+def _all_blocks_back(engine, label: str) -> None:
+    m = engine.manager
+    if engine.active or engine.prefilling or \
+            m.free_blocks + m.idle_blocks != engine.cache_cfg.usable_blocks:
+        raise AssertionError(f"{label}: blocks not returned (free "
+                             f"{m.free_blocks}, idle {m.idle_blocks}, "
+                             f"usable {engine.cache_cfg.usable_blocks})")
+
+
+def _log_summary(label: str, s, engine) -> None:
+    log(f"{label}: tokens_per_sec={s.tokens_per_sec} "
+        f"decode_tokens_per_sec={s.decode_tokens_per_sec} "
+        f"ttft_p50_ms={s.ttft_p50_ms} token_p50_ms={s.latency_p50_ms} "
+        f"token_p99_ms={s.latency_p99_ms} itl_p50_ms={s.itl_p50_ms} "
+        f"itl_p99_ms={s.itl_p99_ms} decode_steps={s.decode_steps} "
+        f"prefill_chunks={s.prefill_chunks} spec_accept_rate="
+        f"{s.spec_accept_rate} spec_proposed={s.spec_tokens_proposed} "
+        f"spec_accepted={s.spec_tokens_accepted} wall_s={s.wall_s} "
+        f"digest={engine.tokens_digest()}")
+
+
+def _fast_leg(dev, label: str, *, policy: str = "O5",
+              gap_tol: float = TOKEN_GAP_TOL, **fast):
+    """Serve the serve phase's requests through ``serve_smoke`` with the
+    fast-path options ``fast``, launch counts reset just before and read
+    just after; every token held against the oracle.  Returns
+    ``(counts, summary, engine, gaps)``."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.testing.standalone_gpt import serve_smoke
+
+    reset_launch_counts()
+    summary, engine = serve_smoke(len(SERVE_LENGTHS), policy=policy,
+                                  max_new_tokens=SERVE_NEW,
+                                  prompt_lengths=SERVE_LENGTHS, seed=0,
+                                  device=dev, **fast)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"{label}: {fast}, {engine.model_cfg.dtype}, launch counts "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    n = len(SERVE_LENGTHS)
+    if summary.requests_done != n or \
+            summary.tokens_generated != n * SERVE_NEW:
+        raise AssertionError(f"{label}: served {summary.requests_done} "
+                             f"requests / {summary.tokens_generated} tokens")
+    _all_blocks_back(engine, label)
+    gaps = check_tokens(engine, gap_tol, dev, label)
+    _log_summary(label, summary, engine)
+    return counts, summary, engine, gaps
+
+
+def _chunked_leg(dev, layers: int):
+    """Chunked prefill at CHUNK tokens, the serve's prompts arriving one
+    every second tick (``run(before_tick=)``, as bench.py's chunked leg
+    drips them): no whole-prompt prefill may launch, the multi-token
+    kernel runs once a layer per chunk, and decode ticks run while a
+    prompt is still prefilling."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import (Request, ServingEngine,
+                                        default_cache_config,
+                                        init_serving_weights)
+    from apex_tpu_torch.testing.standalone_gpt import (model_config,
+                                                       seeded_prompts)
+
+    label = "serve_fast chunked O5"
+    cfg = model_config("gpt345m", policy="O5")
+    weights = init_serving_weights(cfg, seed=0, device=dev)
+    engine = ServingEngine(weights, cfg, default_cache_config(cfg),
+                           device=dev, prefill_chunk=CHUNK)
+    pending = [Request(rid=f"req{i:03d}", prompt=p, max_new_tokens=SERVE_NEW)
+               for i, p in enumerate(seeded_prompts(
+                   SERVE_LENGTHS, cfg.vocab_size, seed=2))]
+    overlap = 0
+
+    def drip(step):
+        nonlocal overlap
+        if pending and step % 2 == 0:
+            engine.submit(pending.pop(0))
+        overlap += bool(engine.prefilling) and bool(engine.active)
+
+    reset_launch_counts()
+    engine.submit(pending.pop(0))
+    s = engine.run(before_tick=drip)
+    while pending:
+        engine.submit(pending.pop(0))
+        s = engine.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"{label}: prefill_chunk={CHUNK}, one request every second tick, "
+        f"launch counts { {k: v for k, v in counts.items() if v} }, "
+        f"{s.prefill_chunks} chunks, {overlap} ticks decoding while a "
+        f"prompt was still prefilling")
+    if counts["flash_attention"] != 0:
+        raise AssertionError(f"{label}: the whole-prompt prefill launched")
+    if counts["flash_decode_multi"] != layers * s.prefill_chunks:
+        raise AssertionError(f"{label}: flash_decode_multi launched "
+                             f"{counts['flash_decode_multi']} times, not "
+                             f"{layers} x {s.prefill_chunks} chunks")
+    if counts["flash_decode"] <= 0 or overlap < 1:
+        raise AssertionError(f"{label}: no decode beside the chunks")
+    if s.requests_done != len(SERVE_LENGTHS):
+        raise AssertionError(f"{label}: {s.requests_done} requests done")
+    _all_blocks_back(engine, label)
+    check_tokens(engine, TOKEN_GAP_TOL, dev, label)
+    _log_summary(label, s, engine)
     return counts
+
+
+def _share_leg(dev):
+    """Prefix sharing on bench.py's shared-system-prompt trace: the cold
+    pass on an engine without sharing, then a priming and a warm pass on
+    a sharing engine.  Warm admissions must hit the index and copy on
+    write, the bytes of every shared page must not change across the
+    warm pass, and every token must match the oracle."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.serving import (Request, ServingEngine,
+                                        default_cache_config,
+                                        init_serving_weights)
+    from apex_tpu_torch.testing.standalone_gpt import model_config
+
+    label = "serve_fast prefix sharing O5"
+    cfg = model_config("gpt345m", policy="O5")
+    weights = init_serving_weights(cfg, seed=0, device=dev)
+    rng = np.random.RandomState(7)
+    system = [int(t) for t in rng.randint(0, cfg.vocab_size, SHARE_SYS)]
+    prompts = [system + [int(t) for t in rng.randint(0, cfg.vocab_size, 3)]
+               for _ in range(SHARE_REQUESTS)]
+
+    def serve(engine, tag):
+        reqs = [Request(rid=f"{tag}{i}", prompt=p, max_new_tokens=SHARE_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        s = engine.run()
+        torch.cuda.synchronize()
+        return s, 1e3 * float(np.mean([r.prefill_s for r in reqs]))
+
+    reset_launch_counts()
+    cold = ServingEngine(weights, cfg, default_cache_config(cfg), device=dev)
+    _, cold_ms = serve(cold, "cold")
+    check_tokens(cold, TOKEN_GAP_TOL, dev, f"{label} (cold)")
+    cold_digest = cold.tokens_digest()
+    del cold
+    free_memory()
+    eng = ServingEngine(weights, cfg, default_cache_config(cfg), device=dev,
+                        prefix_share=True)
+    s0, prime_ms = serve(eng, "prime")
+    blocks = sorted({b for p in prompts
+                     for b in eng.manager.match_prefix(p).blocks})
+    before = (eng.cache.k[:, blocks].clone(), eng.cache.v[:, blocks].clone())
+    hits0, cow0, warm0 = s0.prefix_hit_tokens, s0.cow_copies, \
+        s0.warm_prefix_admissions
+    s, warm_ms = serve(eng, "warm")
+    counts = launch_counts()
+    same = torch.equal(eng.cache.k[:, blocks], before[0]) and \
+        torch.equal(eng.cache.v[:, blocks], before[1])
+    log(f"{label}: {SHARE_REQUESTS} requests of a {SHARE_SYS}-token system "
+        f"prompt + 3 tokens, {SHARE_NEW} new each; admission (first token) "
+        f"mean ms: cold {cold_ms:.3f}, priming pass {prime_ms:.3f}, warm "
+        f"{warm_ms:.3f}; warm pass: {s.warm_prefix_admissions - warm0} warm "
+        f"admissions, {s.prefix_hit_tokens - hits0} prefix hit tokens, "
+        f"{s.cow_copies - cow0} copies on write; shared_blocks_hw "
+        f"{s.shared_blocks_hw}; {len(blocks)} shared pages unchanged "
+        f"across the warm pass: {same}; launch counts "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if s.warm_prefix_admissions - warm0 != SHARE_REQUESTS or \
+            s.prefix_hit_tokens <= hits0 or s.cow_copies <= cow0:
+        raise AssertionError(f"{label}: warm admissions did not hit and "
+                             f"copy on write")
+    if not same or not blocks:
+        raise AssertionError(f"{label}: a shared page changed")
+    _all_blocks_back(eng, label)
+    check_tokens(eng, TOKEN_GAP_TOL, dev, f"{label} (prime + warm)")
+    warm_tokens = {r.rid[4:]: r.out_tokens for r in eng.done
+                   if r.rid.startswith("warm")}
+    prime_tokens = {r.rid[5:]: r.out_tokens for r in eng.done
+                    if r.rid.startswith("prime")}
+    log(f"{label}: warm streams equal the priming pass's: "
+        f"{warm_tokens == prime_tokens}; cold digest {cold_digest}")
+    return counts
+
+
+def _spec_self_leg(dev, plain, layers: int):
+    """Speculation with the target as its own draft at O5: the
+    multi-token kernel launches once a layer per verify tick, the draft's
+    decode and prefill kernels launch, and the serve takes fewer ticks
+    than the plain one (``plain``: its ``(summary, digest)``, served here
+    when the serve phase did not run)."""
+    from apex_tpu_torch.testing.standalone_gpt import serve_smoke
+
+    if plain is None:
+        s, e = serve_smoke(len(SERVE_LENGTHS), max_new_tokens=SERVE_NEW,
+                           prompt_lengths=SERVE_LENGTHS, seed=0, device=dev)
+        plain = (s, e.tokens_digest())
+        del e
+    label = "serve_fast spec self O5"
+    c, s, eng, _ = _fast_leg(dev, label, speculate_k=SPEC_K, draft="self")
+    log(f"{label}: acceptance {s.spec_accept_rate} ({s.spec_tokens_accepted}"
+        f" of {s.spec_tokens_proposed}), {s.decode_steps} ticks (plain "
+        f"serve {plain[0].decode_steps}); digest {eng.tokens_digest()}, "
+        f"plain serve's {plain[1]}")
+    if s.spec_disabled or c["flash_decode_multi"] != layers * s.decode_steps:
+        raise AssertionError(f"{label}: flash_decode_multi launched "
+                             f"{c['flash_decode_multi']} times, not {layers} "
+                             f"x {s.decode_steps} verify ticks")
+    if c["flash_decode"] <= 0 or c["flash_attention"] <= 0:
+        raise AssertionError(f"{label}: draft decode or prefill never "
+                             f"launched")
+    if s.decode_steps >= plain[0].decode_steps:
+        raise AssertionError(f"{label}: {s.decode_steps} ticks, the plain "
+                             f"serve {plain[0].decode_steps}")
+    return c
+
+
+def _spec_fp32_leg(dev):
+    """The self draft in fp32: a draft token may be rejected only where
+    the oracle's top-2 gap is a near-tie."""
+    label = "serve_fast spec self O0"
+    c, s, eng, gaps = _fast_leg(dev, label, policy="O0",
+                                gap_tol=TOKEN_GAP_TOL_FP32,
+                                speculate_k=SPEC_K, draft="self")
+    rejected = [(r, j, round(gaps[(r, j)], 6)) for r, j in eng.spec_rejections]
+    log(f"{label}: acceptance {s.spec_accept_rate} ({s.spec_tokens_accepted}"
+        f" of {s.spec_tokens_proposed}); rejections (rid, token, oracle "
+        f"top-2 gap): {rejected}")
+    for r, j, gap in rejected:
+        if gap > TOKEN_GAP_TOL_FP32:
+            raise AssertionError(f"{label}: {r} token {j} rejected with "
+                                 f"top-2 gap {gap}")
+    return c
+
+
+def _spec_truncated_leg(dev, layers: int):
+    """A truncated draft and no governor: proposals accepted and
+    rejected, rows rolled back (``_fast_leg`` checks every block came
+    back)."""
+    label = "serve_fast spec truncated O5"
+    c, s, eng, _ = _fast_leg(dev, label, speculate_k=SPEC_K,
+                             draft="truncated", spec_governor=None)
+    log(f"{label}: draft = the first {eng.draft_cfg.num_layers} of {layers} "
+        f"layers; "
+        f"acceptance {s.spec_accept_rate} ({s.spec_tokens_accepted} of "
+        f"{s.spec_tokens_proposed}), {len(eng.spec_rejections)} rows rolled "
+        f"back, {s.decode_steps} ticks; free blocks "
+        f"{eng.manager.free_blocks} of {eng.cache_cfg.usable_blocks}")
+    if not 0.0 < s.spec_accept_rate < 1.0 or not eng.spec_rejections:
+        raise AssertionError(f"{label}: acceptance {s.spec_accept_rate}, "
+                             f"{len(eng.spec_rejections)} rollbacks")
+    return c
+
+
+def serve_fast_legs(plain):
+    """The five fast-path legs at GPT-345M width, each ``(name, fn(dev))``
+    returning its launch counts."""
+    from apex_tpu_torch.testing.standalone_gpt import MODELS
+
+    layers = MODELS["gpt345m"]["num_layers"]
+    return (("spec self O5", lambda dev: _spec_self_leg(dev, plain, layers)),
+            ("spec self O0", _spec_fp32_leg),
+            ("spec truncated O5",
+             lambda dev: _spec_truncated_leg(dev, layers)),
+            ("chunked O5", lambda dev: _chunked_leg(dev, layers)),
+            ("prefix sharing O5", _share_leg))
 
 
 def train_and_check(dev, policy: str = "O5"):
@@ -1164,10 +1589,11 @@ def profile_train(dev, policy: str = "O5"):
     free_memory()
 
 
-def profile_serve(dev, model: str = "gpt345m"):
+def profile_serve(dev, model: str = "gpt345m", **fast):
     """The O5 serve's ``engine.run()`` once more under ``torch.profiler``
-    (weights and engine built outside the window): device busy share of
-    the run's wall, and device time by kernel."""
+    (weights and engine built outside the window), plain or with the
+    fast-path options ``fast`` (a self draft when speculating): device
+    busy share of the run's wall, and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch.serving import (Request, ServingEngine,
@@ -1178,8 +1604,11 @@ def profile_serve(dev, model: str = "gpt345m"):
 
     cfg = model_config(model, policy="O5")
     weights = init_serving_weights(cfg, seed=0, device=dev)
+    label = f"O5, {fast}" if fast else "O5"
+    if fast.get("speculate_k"):
+        fast = dict(fast, draft_weights=weights, draft_cfg=cfg)
     engine = ServingEngine(weights, cfg, default_cache_config(cfg),
-                           device=dev)
+                           device=dev, **fast)
     for i, p in enumerate(seeded_prompts(SERVE_LENGTHS, cfg.vocab_size,
                                          seed=2)):
         engine.submit(Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW))
@@ -1191,7 +1620,8 @@ def profile_serve(dev, model: str = "gpt345m"):
         wall = (time.perf_counter() - t0) * 1e3
     rows = _profile_rows(prof)
     busy = sum(r[1] for r in rows)
-    log(f"serve profile (O5, profiler on): run wall {wall:.3f} ms, device "
+    log(f"serve profile ({label}, profiler on): {engine.steps} ticks, run "
+        f"wall {wall:.3f} ms, device "
         f"busy {busy:.3f} ms summed over kernels ({100 * busy / wall:.2f}% "
         f"of the run wall, so {100 - 100 * busy / wall:.2f}% idle)")
     for name, ms, n in rows[:14]:
@@ -1199,7 +1629,7 @@ def profile_serve(dev, model: str = "gpt345m"):
             f"{name[:90]}")
 
 
-PHASES = ("kernels", "serve", "train", "train_o2", "profile")
+PHASES = ("kernels", "serve", "serve_fast", "train", "train_o2", "profile")
 
 
 def main(argv=None) -> int:
@@ -1232,6 +1662,7 @@ def main(argv=None) -> int:
     failed = []
     entries = {}
     counts = {}
+    plain_serve = None
 
     def run(what, fn):
         try:
@@ -1256,6 +1687,8 @@ def main(argv=None) -> int:
             for name, fn in (("layer_norm", check_layer_norm),
                              ("flash_attention", check_flash_attention),
                              ("flash_decode", check_flash_decode),
+                             ("flash_decode_multi",
+                              check_flash_decode_multi),
                              ("layer_norm_bwd", check_layer_norm_bwd),
                              ("flash_attention_e", check_flash_attention_e),
                              ("fused_adam_pipeline", check_fused_adam),
@@ -1282,10 +1715,25 @@ def main(argv=None) -> int:
             ok, out = run("serve O5", lambda: serve_and_check(
                 dev, policy="O5", gap_tol=TOKEN_GAP_TOL, counted=True))
             if ok:
-                counts["serve"] = out
+                counts["serve"], *plain_serve = out
             run("serve O0", lambda: serve_and_check(
                 dev, policy="O0", gap_tol=TOKEN_GAP_TOL_FP32))
             free_memory()
+        if "serve_fast" in phases:
+            legs = []
+            for name, fn in serve_fast_legs(plain_serve):
+                ok, out = run(f"serve_fast {name}", lambda: fn(dev))
+                legs.append(out if ok else None)
+                free_memory()
+            if all(c is not None for c in legs):
+                counts["serve_fast"] = {k: sum(c[k] for c in legs)
+                                        for k in legs[0]}
+                log(f"serve_fast: launch counts over the five legs "
+                    f"{ {k: v for k, v in counts['serve_fast'].items() if v} }")
+                if any(counts["serve_fast"][k] <= 0
+                       for k in SERVE_FAST_KERNELS):
+                    failed.append("serve_fast: a kernel of the path never "
+                                  "launched")
         if "train" in phases:
             ok, out = run("train O5", lambda: train_and_check(dev))
             if ok:
@@ -1303,6 +1751,9 @@ def main(argv=None) -> int:
         if "profile" in phases:
             if "serve" in phases:
                 run("serve profile", lambda: profile_serve(dev))
+            if "serve_fast" in phases:
+                run("serve_fast profile", lambda: profile_serve(
+                    dev, speculate_k=SPEC_K))
             if "train" in phases:
                 run("train profile", lambda: profile_train(dev))
             if "train_o2" in phases:
@@ -1318,7 +1769,9 @@ def main(argv=None) -> int:
     for name in REPLACES:
         e = dict(entries[name])
         by_path = {path: counts[path][name] for path, ks in
-                   (("serve", SERVE_KERNELS), ("train", TRAIN_KERNELS),
+                   (("serve", SERVE_KERNELS),
+                    ("serve_fast", SERVE_FAST_KERNELS),
+                    ("train", TRAIN_KERNELS),
                     ("train_o2", TRAIN_O2_KERNELS))
                    if name in ks}
         kernels.append(dict(
@@ -1329,7 +1782,7 @@ def main(argv=None) -> int:
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             shape=e["shape"],
-            **{k: e[k] for k in ("train", "fp16") if k in e}))
+            **{k: e[k] for k in ("train", "fp16", "chunk") if k in e}))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):
