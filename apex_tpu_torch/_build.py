@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 SOURCES = ("layer_norm", "flash_attention", "flash_decode",
            "flash_attention_bwd", "fused_adam", "scaled_softmax",
-           "norm_finite")
+           "norm_finite", "quant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -58,18 +58,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                      _I] + [_L] * 12 + [_F, _I, _I, _P],
     },
     "flash_decode": {
-        # q, k_cache, v_cache, block_tables, seq_lens, out,
-        # b, h, d, block_size, max_pages, q stride b, q stride h,
-        # scale, dtype, stream
-        "apex_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _L, _L, _F, _I, _P],
+        # q, k_cache, v_cache, k_scale, v_scale (null for a float
+        # cache), block_tables, seq_lens, out, b, h, d, block_size,
+        # max_pages, q stride b, q stride h, scale, q dtype, cache dtype,
+        # stream
+        "apex_flash_decode": [_P] * 8 + [_I] * 5 + [_L, _L, _F, _I, _I,
+                                                    _P],
         # block_size, max_pages -> the number of position splits
         "apex_flash_decode_multi_splits": [_I, _I],
-        # q (b, t, h, d), k_cache, v_cache, block_tables, seq_lens,
-        # part_o, part_ml (fp32 scratch), out, b, t, h, d, block_size,
-        # max_pages, q strides b, t, h, scale, dtype, stream
-        "apex_flash_decode_multi": [_P] * 8 + [_I] * 6 + [_L] * 3
-        + [_F, _I, _P],
+        # q (b, t, h, d), k_cache, v_cache, k_scale, v_scale,
+        # block_tables, seq_lens, part_o, part_ml (fp32 scratch), out, b,
+        # t, h, d, block_size, max_pages, q strides b, t, h, scale,
+        # q dtype, cache dtype, stream
+        "apex_flash_decode_multi": [_P] * 10 + [_I] * 6 + [_L] * 3
+        + [_F, _I, _I, _P],
     },
     "flash_attention_bwd": {
         # q, k, v, o, do, lse, dq, dk, dv, delta, lse2, b, h, s, d,
@@ -95,10 +97,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # g, n, inv, part, fin_part, blocks, out, dtype, stream
         "apex_norm_finite": [_P, _L, _F, _P, _P, _I, _P, _I, _P],
     },
+    "quant_matmul": {
+        # x, wq, scale, out, m, n, k, x dtype, out dtype, stream
+        "apex_quant_gemv": [_P] * 4 + [_I] * 5 + [_P],
+        "apex_quant_tiled": [_P] * 4 + [_I] * 5 + [_P],
+    },
 }
 
-# dtype codes shared by every launcher
-DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
+# dtype codes shared by every launcher (int8: the paged kernels' cache)
+DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2, "int8": 3}
 
 LOGS: Dict[str, str] = {}          # name -> nvcc's stderr (ptxas -v)
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -13,9 +13,12 @@ O2     fp16         —             yes         yes      dynamic
 O3     fp16         —             no          no       1.0
 O4     —            bf16 lists    yes         no       1.0
 O5     bf16         —             yes         yes      1.0
+Q8     bf16         —             yes         yes      1.0
 =====  ===========  ============  ==========  =======  ===========
 
-The Q8 serving tier (int8 weight-only matmuls) is not ported yet.
+Q8 is the serving tier below O5: O5's casting plus
+``quantize_weights="int8"``, per-output-channel symmetric int8 layer
+matmul weights (:mod:`apex_tpu_torch.ops.quant_matmul`).
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["Policy", "O0", "O1", "O2", "O3", "O4", "O5", "opt_levels",
-           "get_policy"]
+__all__ = ["Policy", "O0", "O1", "O2", "O3", "O4", "O5", "Q8",
+           "opt_levels", "get_policy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +47,8 @@ class Policy:
     # "dynamic", a float, or None (= 1.0)
     loss_scale: Union[str, float, None] = None
     cast_model_outputs: Optional[torch.dtype] = None
+    # weight-only quantization of the serving matmuls: None or "int8"
+    quantize_weights: Optional[str] = None
 
     def __post_init__(self):
         if self.cast_ops and self.cast_model_type is not None:
@@ -54,6 +59,9 @@ class Policy:
         if self.master_weights and self.cast_model_type is None:
             raise ValueError("master_weights=True requires a "
                              "low-precision cast_model_type.")
+        if self.quantize_weights not in (None, "int8"):
+            raise ValueError(f"quantize_weights {self.quantize_weights!r} "
+                             f"not in (None, 'int8')")
 
     @property
     def param_dtype(self) -> torch.dtype:
@@ -78,7 +86,13 @@ O4 = Policy(opt_level="O4", cast_ops=True, cast_ops_type=torch.bfloat16,
 O5 = Policy(opt_level="O5", cast_model_type=torch.bfloat16,
             keep_batchnorm_fp32=True, master_weights=True, loss_scale=1.0)
 
-opt_levels = {"O0": O0, "O1": O1, "O2": O2, "O3": O3, "O4": O4, "O5": O5}
+# O5's casting plus int8 weight-only serving matmuls
+Q8 = Policy(opt_level="Q8", cast_model_type=torch.bfloat16,
+            keep_batchnorm_fp32=True, master_weights=True, loss_scale=1.0,
+            quantize_weights="int8")
+
+opt_levels = {"O0": O0, "O1": O1, "O2": O2, "O3": O3, "O4": O4, "O5": O5,
+              "Q8": Q8}
 
 
 def get_policy(opt_level: Union[str, Policy] = "O5", **overrides) -> Policy:

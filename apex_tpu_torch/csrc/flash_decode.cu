@@ -1,7 +1,7 @@
 // Paged flash-decode for Hopper (sm_90a), plain C interface.
 //
 // Replaces: apex_tpu/ops/flash_decode.py `_decode_paged` (Pallas kernel
-// `_decode_kernel`) with a float KV cache: one query row per sequence
+// `_decode_kernel`): one query row per sequence
 // attending over its block-paged history.  q (b, h, d); k/v cache
 // (nb, h, bs, d) block-major; block_tables (b, max_pages) int32;
 // seq_lens (b,) int32.  Positions >= seq_len are masked, pages wholly
@@ -27,7 +27,7 @@
 //
 // Second entry, apex_flash_decode_multi: replaces
 // apex_tpu/ops/flash_decode.py `_decode_paged_multi` (Pallas kernel
-// `_decode_multi_kernel`), float KV: t contiguous query rows per
+// `_decode_multi_kernel`): t contiguous query rows per
 // sequence (speculative verify, chunked and warm-tail prefill).  q
 // (b, t, h, d); row r of sequence b sits at position seq_lens[b] - t + r
 // and attends positions <= that; a row at a negative position (front
@@ -65,6 +65,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -74,6 +76,30 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v
 }
 template <> __device__ __forceinline__ float to_f<__half>(__half v) {
   return __half2float(v);
+}
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
+
+// one cached element as fp32: a float cache converts, an int8 cache
+// multiplies the code by its row's scale
+template <typename TC>
+__device__ __forceinline__ float kv_f(TC v, float s) {
+  if constexpr (std::is_same<TC, int8_t>::value) {
+    return to_f<TC>(v) * s;
+  } else {
+    return to_f<TC>(v);
+  }
+}
+
+// the scale of row `slot` of a page, or 1 for a float cache
+template <typename TC>
+__device__ __forceinline__ float row_scale(const float* __restrict__ sc, size_t slot) {
+  if constexpr (std::is_same<TC, int8_t>::value) {
+    return sc[slot];
+  } else {
+    return 1.f;
+  }
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
@@ -87,10 +113,11 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
 
 constexpr int kMaxBlockSize = 256;
 
-template <typename T, int D>
+template <typename T, typename TC, int D>
 __global__ void __launch_bounds__(D)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, const int* __restrict__ block_tables,
+decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc,
+              const TC* __restrict__ vc, const float* __restrict__ ksc,
+              const float* __restrict__ vsc, const int* __restrict__ block_tables,
               const int* __restrict__ seq_lens, T* __restrict__ out, int h,
               int bs, int max_pages, long long q_sb, long long q_sh, float a) {
   constexpr int kWarps = D / 32;
@@ -111,14 +138,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   float m = -INFINITY, l = 0.f, acc = 0.f;
   for (int j = 0; j < pages; ++j) {
-    const size_t page = ((size_t)bt[j] * h + hi) * (size_t)bs * D;
-    const T* kp = kc + page;
-    const T* vp = vc + page;
+    const size_t srow = ((size_t)bt[j] * h + hi) * (size_t)bs;  // scale row 0
+    const size_t page = srow * D;
+    const TC* kp = kc + page;
+    const TC* vp = vc + page;
     const int pos0 = j * bs;
     for (int key = warp; key < bs; key += kWarps) {
+      const float ks = row_scale<TC>(ksc, srow + key);
       float part = 0.f;
 #pragma unroll
-      for (int d = lane; d < D; d += 32) part = fmaf(qs[d], to_f<T>(kp[key * D + d]), part);
+      for (int d = lane; d < D; d += 32) part = fmaf(qs[d], kv_f<TC>(kp[key * D + d], ks), part);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
       if (lane == 0) sc[key] = pos0 + key < len ? part : -INFINITY;
@@ -132,7 +161,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int key = 0; key < bs; ++key) {
       const float p = exp2f((sc[key] - m_new) * a);  // masked: exp2(-inf) = 0
       psum += p;
-      pv = fmaf(p, to_f<T>(vp[key * D + t]), pv);
+      pv = fmaf(p, kv_f<TC>(vp[key * D + t], row_scale<TC>(vsc, srow + key)), pv);
     }
     l = l * corr + psum;
     acc = acc * corr + pv;
@@ -142,25 +171,29 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   out[((size_t)bi * h + hi) * D + t] = from_f<T>(l > 0.f ? acc / l : 0.f);
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* kc, const void* vc, const void* bt,
-                   const void* sl, void* out, int b, int h, int d, int bs,
-                   int max_pages, long long q_sb, long long q_sh, float scale,
-                   cudaStream_t stream) {
+template <typename T, typename TC>
+cudaError_t launch(const void* q, const void* kc, const void* vc, const void* ks,
+                   const void* vs, const void* bt, const void* sl, void* out, int b,
+                   int h, int d, int bs, int max_pages, long long q_sb, long long q_sh,
+                   float scale, cudaStream_t stream) {
   const float a = scale * 1.4426950408889634f;  // scale * log2(e)
   const dim3 grid(h, b);
   const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(kc);
-  const T* vp = static_cast<const T*>(vc);
+  const TC* kp = static_cast<const TC*>(kc);
+  const TC* vp = static_cast<const TC*>(vc);
+  const float* ksp = static_cast<const float*>(ks);
+  const float* vsp = static_cast<const float*>(vs);
   const int* btp = static_cast<const int*>(bt);
   const int* slp = static_cast<const int*>(sl);
   T* op = static_cast<T*>(out);
   if (d == 64) {
-    decode_kernel<T, 64><<<grid, 64, 0, stream>>>(qp, kp, vp, btp, slp, op, h, bs,
-                                                   max_pages, q_sb, q_sh, a);
+    decode_kernel<T, TC, 64><<<grid, 64, 0, stream>>>(qp, kp, vp, ksp, vsp, btp, slp,
+                                                       op, h, bs, max_pages, q_sb,
+                                                       q_sh, a);
   } else if (d == 128) {
-    decode_kernel<T, 128><<<grid, 128, 0, stream>>>(qp, kp, vp, btp, slp, op, h, bs,
-                                                     max_pages, q_sb, q_sh, a);
+    decode_kernel<T, TC, 128><<<grid, 128, 0, stream>>>(qp, kp, vp, ksp, vsp, btp, slp,
+                                                         op, h, bs, max_pages, q_sb,
+                                                         q_sh, a);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -176,10 +209,11 @@ constexpr int kSplitPositions = 64;                     // positions a split wal
 // Pass 1: one block per (head, batch row, tile of up to 16 query rows,
 // split of the positions) writes each of its rows' unnormalised fp32
 // accumulator and (max, sum) for the split's positions.
-template <typename T, int D>
+template <typename T, typename TC, int D>
 __global__ void __launch_bounds__(kMultiWarps * 32)
-decode_multi_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, const int* __restrict__ block_tables,
+decode_multi_kernel(const T* __restrict__ q, const TC* __restrict__ kc,
+                    const TC* __restrict__ vc, const float* __restrict__ ksc,
+                    const float* __restrict__ vsc, const int* __restrict__ block_tables,
                     const int* __restrict__ seq_lens, float* __restrict__ part_o,
                     float* __restrict__ part_ml, int t, int h, int bs, int max_pages,
                     int split_pages, int splits, long long q_sb, long long q_st,
@@ -219,18 +253,19 @@ decode_multi_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int j1 = min(pages, (sp + 1) * split_pages);
   const int* bt = block_tables + (size_t)bi * max_pages;
   for (int j = sp * split_pages; j < j1; ++j) {
-    const size_t page = ((size_t)bt[j] * h + hi) * (size_t)bs * D;
+    const size_t srow = ((size_t)bt[j] * h + hi) * (size_t)bs;  // scale row 0
+    const size_t page = srow * D;
     for (int k0 = 0; k0 < bs; k0 += kKeyTile) {
       const int pos0 = j * bs + k0;
       if (pos0 > last) break;  // block-uniform
       const int nk = min(kKeyTile, bs - k0);
       __syncthreads();  // qs written; the previous tile fully consumed
-      const T* kp = kc + page + (size_t)k0 * D;
-      const T* vp = vc + page + (size_t)k0 * D;
+      const TC* kp = kc + page + (size_t)k0 * D;
+      const TC* vp = vc + page + (size_t)k0 * D;
       for (int i = tid; i < nk * D; i += blockDim.x) {
         const int key = i / D, d = i - key * D;
-        ks[key][d] = to_f<T>(kp[i]);
-        vs[key][d] = to_f<T>(vp[i]);
+        ks[key][d] = kv_f<TC>(kp[i], row_scale<TC>(ksc, srow + k0 + key));
+        vs[key][d] = kv_f<TC>(vp[i], row_scale<TC>(vsc, srow + k0 + key));
       }
       __syncthreads();
       // lane scores key `lane` of the tile against each of the warp's rows
@@ -323,16 +358,17 @@ decode_multi_combine(const float* __restrict__ part_o,
     o[lane + 32 * c] = from_f<T>(l > 0.f ? acc[c] / l : 0.f);
 }
 
-template <typename T, int D>
-cudaError_t launch_multi_d(const T* q, const T* kc, const T* vc, const int* bt,
+template <typename T, typename TC, int D>
+cudaError_t launch_multi_d(const T* q, const TC* kc, const TC* vc, const float* ksc,
+                           const float* vsc, const int* bt,
                            const int* sl, float* part_o, float* part_ml, T* out,
                            int b, int t, int h, int bs, int max_pages,
                            int split_pages, int splits, long long q_sb,
                            long long q_st, long long q_sh, float a,
                            cudaStream_t stream) {
   const dim3 grid(h, b, ((t + kMultiRows - 1) / kMultiRows) * splits);
-  decode_multi_kernel<T, D><<<grid, kMultiWarps * 32, 0, stream>>>(
-      q, kc, vc, bt, sl, part_o, part_ml, t, h, bs, max_pages, split_pages, splits,
+  decode_multi_kernel<T, TC, D><<<grid, kMultiWarps * 32, 0, stream>>>(
+      q, kc, vc, ksc, vsc, bt, sl, part_o, part_ml, t, h, bs, max_pages, split_pages, splits,
       q_sb, q_st, q_sh, a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -343,29 +379,80 @@ cudaError_t launch_multi_d(const T* q, const T* kc, const T* vc, const int* bt,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_multi(const void* q, const void* kc, const void* vc,
-                         const void* bt, const void* sl, void* part_o, void* part_ml,
-                         void* out, int b, int t, int h, int d, int bs, int max_pages,
-                         int split_pages, int splits, long long q_sb, long long q_st,
-                         long long q_sh, float scale, cudaStream_t stream) {
+template <typename T, typename TC>
+cudaError_t launch_multi(const void* q, const void* kc, const void* vc, const void* ks,
+                         const void* vs, const void* bt, const void* sl, void* part_o,
+                         void* part_ml, void* out, int b, int t, int h, int d, int bs,
+                         int max_pages, int split_pages, int splits, long long q_sb,
+                         long long q_st, long long q_sh, float scale,
+                         cudaStream_t stream) {
   const float a = scale * 1.4426950408889634f;  // scale * log2(e)
   const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(kc);
-  const T* vp = static_cast<const T*>(vc);
+  const TC* kp = static_cast<const TC*>(kc);
+  const TC* vp = static_cast<const TC*>(vc);
+  const float* ksp = static_cast<const float*>(ks);
+  const float* vsp = static_cast<const float*>(vs);
   const int* btp = static_cast<const int*>(bt);
   const int* slp = static_cast<const int*>(sl);
   float* po = static_cast<float*>(part_o);
   float* pml = static_cast<float*>(part_ml);
   T* op = static_cast<T*>(out);
   if (d == 64)
-    return launch_multi_d<T, 64>(qp, kp, vp, btp, slp, po, pml, op, b, t, h, bs,
-                                 max_pages, split_pages, splits, q_sb, q_st, q_sh, a,
-                                 stream);
+    return launch_multi_d<T, TC, 64>(qp, kp, vp, ksp, vsp, btp, slp, po, pml, op, b, t,
+                                     h, bs, max_pages, split_pages, splits, q_sb, q_st,
+                                     q_sh, a, stream);
   if (d == 128)
-    return launch_multi_d<T, 128>(qp, kp, vp, btp, slp, po, pml, op, b, t, h, bs,
-                                  max_pages, split_pages, splits, q_sb, q_st, q_sh,
-                                  a, stream);
+    return launch_multi_d<T, TC, 128>(qp, kp, vp, ksp, vsp, btp, slp, po, pml, op, b,
+                                      t, h, bs, max_pages, split_pages, splits, q_sb,
+                                      q_st, q_sh, a, stream);
+  return cudaErrorInvalidValue;
+}
+
+// dtype codes: 0 float32, 1 bfloat16, 2 float16, 3 int8 (cache only).
+// The cache is q's dtype, int8 (with scales), or bf16 under fp32 q.
+bool cache_ok(int cache_dtype, const void* ks, const void* vs) {
+  if (cache_dtype == 3) return ks != nullptr && vs != nullptr;
+  return ks == nullptr && vs == nullptr;
+}
+
+cudaError_t decode_dispatch(const void* q, const void* kc, const void* vc, const void* ks,
+                            const void* vs, const void* bt, const void* sl, void* out,
+                            int b, int h, int d, int bs, int mp, long long q_sb,
+                            long long q_sh, float scale, int dtype, int cache_dtype,
+                            cudaStream_t s) {
+  if (!cache_ok(cache_dtype, ks, vs)) return cudaErrorInvalidValue;
+#define APEX_DECODE(T, TC)                                                          \
+  return launch<T, TC>(q, kc, vc, ks, vs, bt, sl, out, b, h, d, bs, mp, q_sb, q_sh, \
+                       scale, s)
+  if (dtype == 0 && cache_dtype == 0) APEX_DECODE(float, float);
+  if (dtype == 0 && cache_dtype == 1) APEX_DECODE(float, __nv_bfloat16);
+  if (dtype == 0 && cache_dtype == 3) APEX_DECODE(float, int8_t);
+  if (dtype == 1 && cache_dtype == 1) APEX_DECODE(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == 1 && cache_dtype == 3) APEX_DECODE(__nv_bfloat16, int8_t);
+  if (dtype == 2 && cache_dtype == 2) APEX_DECODE(__half, __half);
+  if (dtype == 2 && cache_dtype == 3) APEX_DECODE(__half, int8_t);
+#undef APEX_DECODE
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t multi_dispatch(const void* q, const void* kc, const void* vc, const void* ks,
+                           const void* vs, const void* bt, const void* sl, void* part_o,
+                           void* part_ml, void* out, int b, int t, int h, int d, int bs,
+                           int mp, int split_pages, int splits, long long q_sb,
+                           long long q_st, long long q_sh, float scale, int dtype,
+                           int cache_dtype, cudaStream_t s) {
+  if (!cache_ok(cache_dtype, ks, vs)) return cudaErrorInvalidValue;
+#define APEX_MULTI(T, TC)                                                          \
+  return launch_multi<T, TC>(q, kc, vc, ks, vs, bt, sl, part_o, part_ml, out, b, t, h, \
+                             d, bs, mp, split_pages, splits, q_sb, q_st, q_sh, scale, s)
+  if (dtype == 0 && cache_dtype == 0) APEX_MULTI(float, float);
+  if (dtype == 0 && cache_dtype == 1) APEX_MULTI(float, __nv_bfloat16);
+  if (dtype == 0 && cache_dtype == 3) APEX_MULTI(float, int8_t);
+  if (dtype == 1 && cache_dtype == 1) APEX_MULTI(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == 1 && cache_dtype == 3) APEX_MULTI(__nv_bfloat16, int8_t);
+  if (dtype == 2 && cache_dtype == 2) APEX_MULTI(__half, __half);
+  if (dtype == 2 && cache_dtype == 3) APEX_MULTI(__half, int8_t);
+#undef APEX_MULTI
   return cudaErrorInvalidValue;
 }
 
@@ -378,40 +465,29 @@ const char* apex_cuda_error_string(int e) {
 }
 
 // q (b, h, d) with element strides q_sb, q_sh and a unit stride on d;
-// k_cache/v_cache (nb, h, bs, d) contiguous; block_tables (b, max_pages)
-// int32 contiguous; seq_lens (b,) int32; out (b, h, d) contiguous.
-// dtype codes: 0 float32, 1 bfloat16, 2 float16.  d in {64, 128},
-// bs <= 256.
+// k_cache/v_cache (nb, h, bs, d) contiguous; k_scale/v_scale (nb, h, bs)
+// fp32 contiguous for an int8 cache, null otherwise; block_tables
+// (b, max_pages) int32 contiguous; seq_lens (b,) int32; out (b, h, d)
+// contiguous in q's dtype.  d in {64, 128}, bs <= 256.
 int apex_flash_decode(const void* q, const void* k_cache, const void* v_cache,
+                      const void* k_scale, const void* v_scale,
                       const void* block_tables, const void* seq_lens, void* out,
                       int b, int h, int d, int block_size, int max_pages,
                       long long q_sb, long long q_sh, float scale, int dtype,
-                      void* stream) {
+                      int cache_dtype, void* stream) {
   if (b <= 0 || h <= 0 || block_size <= 0 || block_size > kMaxBlockSize ||
       max_pages <= 0 || b > 65535)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(q, k_cache, v_cache, block_tables, seq_lens, out, b, h, d,
-                           block_size, max_pages, q_sb, q_sh, scale, s);
-    case 1:
-      return launch<__nv_bfloat16>(q, k_cache, v_cache, block_tables, seq_lens, out,
-                                   b, h, d, block_size, max_pages, q_sb, q_sh, scale,
-                                   s);
-    case 2:
-      return launch<__half>(q, k_cache, v_cache, block_tables, seq_lens, out, b, h, d,
-                            block_size, max_pages, q_sb, q_sh, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return decode_dispatch(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens,
+                         out, b, h, d, block_size, max_pages, q_sb, q_sh, scale, dtype,
+                         cache_dtype, static_cast<cudaStream_t>(stream));
 }
 
 // q (b, t, h, d) with element strides q_sb, q_st, q_sh and a unit stride
-// on d; caches, block_tables and seq_lens as apex_flash_decode's (seq_lens
-// counts the chunk); out (b, t, h, d) contiguous.  part_o and part_ml are
-// fp32 scratch of apex_flash_decode_multi_splits(...) * b * t * h * d and
-// * 2 floats.  Same dtype codes, d in {64, 128}, bs <= 256.
+// on d; caches, scales, block_tables and seq_lens as apex_flash_decode's
+// (seq_lens counts the chunk); out (b, t, h, d) contiguous.  part_o and
+// part_ml are fp32 scratch of apex_flash_decode_multi_splits(...) * b * t
+// * h * d and * 2 floats.  Same dtype codes, d in {64, 128}, bs <= 256.
 static int split_pages_for(int block_size) {
   const int n = kSplitPositions / (block_size > 0 ? block_size : 1);
   return n > 1 ? n : 1;
@@ -423,35 +499,22 @@ int apex_flash_decode_multi_splits(int block_size, int max_pages) {
 }
 
 int apex_flash_decode_multi(const void* q, const void* k_cache, const void* v_cache,
+                            const void* k_scale, const void* v_scale,
                             const void* block_tables, const void* seq_lens,
                             void* part_o, void* part_ml, void* out, int b, int t,
                             int h, int d, int block_size, int max_pages,
                             long long q_sb, long long q_st, long long q_sh,
-                            float scale, int dtype, void* stream) {
+                            float scale, int dtype, int cache_dtype, void* stream) {
   const int split_pages = split_pages_for(block_size);
   const int splits = (max_pages + split_pages - 1) / split_pages;
   if (b <= 0 || t <= 0 || h <= 0 || block_size <= 0 ||
       block_size > kMaxBlockSize || max_pages <= 0 || b > 65535 ||
       (long long)((t + kMultiRows - 1) / kMultiRows) * splits > 65535)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_multi<float>(q, k_cache, v_cache, block_tables, seq_lens, part_o,
-                                 part_ml, out, b, t, h, d, block_size, max_pages,
-                                 split_pages, splits, q_sb, q_st, q_sh, scale, s);
-    case 1:
-      return launch_multi<__nv_bfloat16>(q, k_cache, v_cache, block_tables, seq_lens,
-                                         part_o, part_ml, out, b, t, h, d, block_size,
-                                         max_pages, split_pages, splits, q_sb, q_st,
-                                         q_sh, scale, s);
-    case 2:
-      return launch_multi<__half>(q, k_cache, v_cache, block_tables, seq_lens, part_o,
-                                  part_ml, out, b, t, h, d, block_size, max_pages,
-                                  split_pages, splits, q_sb, q_st, q_sh, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return multi_dispatch(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens,
+                        part_o, part_ml, out, b, t, h, d, block_size, max_pages,
+                        split_pages, splits, q_sb, q_st, q_sh, scale, dtype,
+                        cache_dtype, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

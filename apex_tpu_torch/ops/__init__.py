@@ -11,7 +11,7 @@ from .flash_attention import (FlashAttentionEFunction, flash_attention,
                               flash_attention_e_reference,
                               flash_attention_e_with_lse,
                               flash_attention_with_lse, mha_reference)
-from .flash_decode import (flash_decode, flash_decode_multi,
+from .flash_decode import (dequantize_kv, flash_decode, flash_decode_multi,
                            paged_attention_multi_reference,
                            paged_attention_reference)
 from .fused_pipeline import (FlatGroup, adam_pipeline,
@@ -22,6 +22,10 @@ from .layer_norm import (FusedLayerNormFunction, fused_layer_norm,
                          layer_norm_backward_reference,
                          layer_norm_reference, layer_norm_stats_reference,
                          layer_norm_with_stats)
+from .quant_matmul import (QuantGPTServingWeights, QuantLayerWeights,
+                           dequantize_weight, is_quantized_weights,
+                           quant_matmul, quant_matmul_reference,
+                           quantize_weight, quantize_weights)
 from .scaled_softmax import (ScaledUpperTriangMaskedSoftmax, causal_softmax,
                              causal_softmax_reference,
                              scaled_upper_triang_masked_softmax,
@@ -34,7 +38,10 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "flash_attention_e_backward",
            "flash_attention_e_backward_reference", "FlashAttentionEFunction",
            "flash_decode", "paged_attention_reference", "flash_decode_multi",
-           "paged_attention_multi_reference", "FlatGroup",
+           "paged_attention_multi_reference", "dequantize_kv",
+           "quant_matmul", "quant_matmul_reference", "quantize_weight",
+           "dequantize_weight", "quantize_weights", "is_quantized_weights",
+           "QuantLayerWeights", "QuantGPTServingWeights", "FlatGroup",
            "flatten_params", "adam_pipeline", "adam_pipeline_reference",
            "grad_norm_finite", "grad_norm_finite_reference",
            "layer_norm", "layer_norm_reference",

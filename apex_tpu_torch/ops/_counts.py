@@ -2,9 +2,11 @@
 
 Each wrapper adds one to its kernel's count right after the launch
 succeeds, and nowhere else: the plain PyTorch versions never count.
-A caller resets the counts just before the path it wants to prove and
-reads them just after (``chip_smoke.py`` does this around the serve and
-around each train step).
+The int8-cache branches of the paged kernels count under their own
+names (``flash_decode_int8``, ``flash_decode_multi_int8``), so a run can
+show which branch it took.  A caller resets the counts just before the
+path it wants to prove and reads them just after (``chip_smoke.py``
+does this around each serve and around each train step).
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ KERNELS = ("layer_norm", "flash_attention", "flash_decode",
            "flash_decode_multi", "layer_norm_bwd",
            "flash_attention_e", "flash_attention_e_bwd",
            "fused_adam_pipeline", "scaled_softmax_causal_fwd",
-           "scaled_softmax_bwd", "norm_finite")
+           "scaled_softmax_bwd", "norm_finite", "quant_gemv",
+           "quant_tiled", "flash_decode_int8", "flash_decode_multi_int8")
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -1,7 +1,8 @@
 """Continuous-batching serving engine (greedy decode) in PyTorch.
 
-Port of ``apex_tpu/serving/engine.py`` on one device with float KV,
-including its fast path: speculative decoding with a draft model,
+Port of ``apex_tpu/serving/engine.py`` on one device, with float or
+Q8 (int8 weight-only) weights and a float or int8 KV cache, including
+its fast path: speculative decoding with a draft model,
 chunked prefill and copy-on-write prompt-prefix sharing.  The loop
 alternates two worlds on a fixed cadence:
 
@@ -29,10 +30,10 @@ Admission is **reservation-based**: a request is admitted only when the
 pool covers its whole worst case (prompt + max new tokens), so a decode
 can never exhaust the pool mid-flight.
 
-Left out (later slices port them): int8 KV and the Q8 tier, deadlines
-and load shedding, the request journal, the metrics plane, tensor and
-expert parallelism, the fleet's prefix export/import, and
-``swap_weights``.
+Left out (later slices port them): deadlines and load shedding, the
+request journal, the metrics plane, tensor and expert parallelism, the
+fleet's prefix export/import, and ``swap_weights`` (with its bf16 <->
+int8 requantization).
 """
 from __future__ import annotations
 
@@ -48,9 +49,11 @@ import torch
 from .. import resolve_device
 from .kv_cache import (DUMP_BLOCK, KVCacheConfig, KVCacheManager,
                        PrefixMatch, init_cache)
+from ..ops.quant_matmul import is_quantized_weights
 from .model import (GPTServingWeights, ServingModelConfig, copy_cache_block,
                     gpt_decode_step, gpt_extend_step, gpt_prefill_step)
 from .resilience import SpeculationGovernor
+from .weights import check_serving_weights
 
 __all__ = ["Request", "BucketLadder", "ServingEngine", "ServeSummary",
            "default_cache_config", "parse_ladder"]
@@ -216,14 +219,16 @@ class _PrefillJob:
 
 def default_cache_config(model_cfg: ServingModelConfig,
                          num_blocks: int = DEFAULT_NUM_BLOCKS,
-                         block_size: int = DEFAULT_BLOCK_SIZE
-                         ) -> KVCacheConfig:
+                         block_size: int = DEFAULT_BLOCK_SIZE,
+                         kv_dtype: str = "model") -> KVCacheConfig:
     """Cache plan for ``model_cfg``: ``num_blocks`` blocks (dump block
-    included) of ``block_size`` tokens, k/v in the model's dtype."""
+    included) of ``block_size`` tokens, k/v stored as ``kv_dtype``
+    (``model``: the model's dtype, ``bf16``, or ``int8`` with per-row
+    scales)."""
     return KVCacheConfig(
         num_layers=model_cfg.num_layers, num_heads=model_cfg.num_heads,
         head_dim=model_cfg.head_dim, num_blocks=num_blocks,
-        block_size=block_size, dtype=model_cfg.dtype)
+        block_size=block_size, dtype=model_cfg.dtype, kv_dtype=kv_dtype)
 
 
 class ServingEngine:
@@ -260,6 +265,10 @@ class ServingEngine:
                                           model_cfg.num_layers):
             raise ValueError("cache config geometry does not match the "
                              "model's")
+        if is_quantized_weights(weights):
+            # a Q8 tree: int8 codes with fp32 column scales, the shapes
+            # the config names (the kernels would refuse anything else)
+            check_serving_weights(weights, model_cfg)
         self.weights = weights
         self.model_cfg = model_cfg
         self.cache_cfg = cache_cfg
@@ -291,16 +300,19 @@ class ServingEngine:
                 raise ValueError(f"draft weights are on "
                                  f"{draft_weights.wte.device}, the engine "
                                  f"on {self.device}")
+            if is_quantized_weights(draft_weights):
+                check_serving_weights(draft_weights, draft_cfg)
             # the draft's cache has its own layers and heads but the
-            # target's pool geometry: one manager's (block, offset) slot
-            # names the same page in both caches, so shared and copied
-            # pages mirror for free
+            # target's pool geometry and storage dtype: one manager's
+            # (block, offset) slot names the same page in both caches, so
+            # shared and copied pages mirror for free
             self.draft_cache_cfg = KVCacheConfig(
                 num_layers=draft_cfg.num_layers,
                 num_heads=draft_cfg.num_heads,
                 head_dim=draft_cfg.head_dim,
                 num_blocks=cache_cfg.num_blocks,
-                block_size=cache_cfg.block_size, dtype=draft_cfg.dtype)
+                block_size=cache_cfg.block_size, dtype=draft_cfg.dtype,
+                kv_dtype=cache_cfg.kv_dtype)
             self.draft_cache = init_cache(self.draft_cache_cfg, self.device)
         if spec_governor == "auto":
             self.spec_governor = SpeculationGovernor() \

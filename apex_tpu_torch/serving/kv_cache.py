@@ -1,8 +1,8 @@
 """Block-paged KV cache: device tensors + host block-pool bookkeeping.
 
 Port of ``apex_tpu/serving/kv_cache.py`` with copy-on-write prompt-prefix
-sharing and float KV (int8 KV and the fleet's prefix export/import are
-later slices).  The pool is ``num_blocks`` blocks of ``block_size``
+sharing and the three storage dtypes (the fleet's prefix export/import
+is a later slice).  The pool is ``num_blocks`` blocks of ``block_size``
 tokens shared by every in-flight request; a request owns an ordered
 list of block ids (its block table), growing past a block edge takes one
 block from the free list, finishing returns them, and a speculative
@@ -10,11 +10,13 @@ rollback (:meth:`KVCacheManager.truncate`) returns the pages past the
 new end.  Nothing is ever moved or compacted.
 
 * :class:`PagedKVCache` — the device state, k/v of shape
-  ``(L, nb, h, bs, d)``.  The JAX cache is an immutable pytree donated
-  through every step; here the step functions write into these tensors
-  **in place** (index writes), so the cache is never copied.  Heads are
-  stored unpacked: the JAX layout packs d=64 head pairs as (h/2, 2d), a
-  TPU lane trick the port matches in numerics, not in layout.
+  ``(L, nb, h, bs, d)`` and, for an int8 cache, per-row fp32 scales
+  ``(L, nb, h, bs)`` (global head order, as JAX keeps them).  The JAX
+  cache is an immutable pytree donated through every step; here the step
+  functions write into these tensors **in place** (index writes), so the
+  cache is never copied.  Heads are stored unpacked: the JAX layout packs
+  d=64 head pairs as (h/2, 2d), a TPU lane trick the port matches in
+  numerics, not in layout.
 * :class:`KVCacheManager` — the host bookkeeping: free list, per-request
   tables and lengths, and with ``prefix_sharing`` the content-hashed
   index of prompt pages, their refcounts and the idle LRU.  Pure
@@ -23,6 +25,13 @@ new end.  Nothing is ever moved or compacted.
 Block 0 is the reserved **dump page**: never handed to a request,
 block-table padding points at it, and inactive batch rows write their
 k/v there, so a bucketed step needs no write masking.
+
+Storage dtype (``kv_dtype``; the JAX flag ``APEX_TPU_SERVE_KV_DTYPE``):
+``model`` stores k/v in the model's dtype, ``bf16`` in bfloat16, and
+``int8`` stores each cached row (token, head) as symmetric int8 codes
+against its own fp32 scale (:func:`quantize_kv_rows`), so an append
+never requantizes history; the paged kernels dequantize as they read.
+Quantizing is plain PyTorch, as it is plain jnp in JAX.
 """
 from __future__ import annotations
 
@@ -38,10 +47,12 @@ from .. import resolve_device
 
 __all__ = ["KVCacheConfig", "PagedKVCache", "KVCacheManager",
            "PrefixMatch", "CachePoolExhausted", "init_cache",
-           "write_token_kv", "write_prefill_kv", "prefix_chain_keys",
-           "DUMP_BLOCK"]
+           "write_token_kv", "write_prefill_kv", "quantize_kv_rows",
+           "prefix_chain_keys", "DUMP_BLOCK", "KV_DTYPES"]
 
 DUMP_BLOCK = 0
+
+KV_DTYPES = ("model", "bf16", "int8")
 
 
 class CachePoolExhausted(RuntimeError):
@@ -57,9 +68,13 @@ class KVCacheConfig:
     head_dim: int
     num_blocks: int          # INCLUDING the reserved dump block
     block_size: int
-    dtype: torch.dtype = torch.float32   # k/v storage = the model's dtype
+    dtype: torch.dtype = torch.float32   # the model's dtype
+    kv_dtype: str = "model"              # 'model' | 'bf16' | 'int8'
 
     def __post_init__(self):
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {self.kv_dtype!r} not in "
+                             f"{KV_DTYPES}")
         if self.num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is the "
                              "reserved dump page)")
@@ -67,10 +82,36 @@ class KVCacheConfig:
             raise ValueError("block_size must be >= 1")
 
     @property
+    def storage_dtype(self) -> torch.dtype:
+        if self.kv_dtype == "int8":
+            return torch.int8
+        if self.kv_dtype == "bf16":
+            return torch.bfloat16
+        return self.dtype
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype == "int8"
+
+    @property
     def kv_shape(self):
         """(L, nb, h, bs, d) — heads unpacked."""
         return (self.num_layers, self.num_blocks, self.num_heads,
                 self.block_size, self.head_dim)
+
+    @property
+    def scale_shape(self):
+        """(L, nb, h, bs) — one scale per cached row and head."""
+        return (self.num_layers, self.num_blocks, self.num_heads,
+                self.block_size)
+
+    def cache_nbytes(self) -> int:
+        """Device bytes of k, v and (int8) their scales."""
+        n = 2 * int(np.prod(self.kv_shape)) * \
+            torch.empty((), dtype=self.storage_dtype).element_size()
+        if self.quantized:
+            n += 2 * int(np.prod(self.scale_shape)) * 4
+        return n
 
     @property
     def usable_blocks(self) -> int:
@@ -83,55 +124,93 @@ class KVCacheConfig:
 class PagedKVCache(NamedTuple):
     """Device half of the cache."""
 
-    k: torch.Tensor                    # (L, nb, h, bs, d)
+    k: torch.Tensor                        # (L, nb, h, bs, d)
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None  # (L, nb, h, bs) fp32 | None
+    v_scale: Optional[torch.Tensor] = None
 
     def layer(self, i: int):
-        """(k, v) views of layer ``i``, each (nb, h, bs, d)."""
-        return self.k[i], self.v[i]
+        """(k, v, k_scale, v_scale) views of layer ``i``: k/v (nb, h,
+        bs, d), the scales (nb, h, bs) or None for a float cache."""
+        return (self.k[i], self.v[i],
+                None if self.k_scale is None else self.k_scale[i],
+                None if self.v_scale is None else self.v_scale[i])
 
 
 def init_cache(config: KVCacheConfig, device=None) -> PagedKVCache:
     """All-zero cache on ``device`` (cuda unless the CPU is asked for);
-    zeros keep even an unmasked read of a never-written row finite."""
+    zeros keep even an unmasked read of a never-written row finite.  An
+    int8 cache gets two distinct scale buffers."""
     dev = resolve_device(device)
-    k = torch.zeros(config.kv_shape, dtype=config.dtype,
+    k = torch.zeros(config.kv_shape, dtype=config.storage_dtype,
                     device=dev)
+    if config.quantized:
+        ks = torch.zeros(config.scale_shape, dtype=torch.float32,
+                         device=dev)
+        return PagedKVCache(k, torch.zeros_like(k), ks,
+                            torch.zeros_like(ks))
     return PagedKVCache(k, torch.zeros_like(k))
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """Per-row symmetric int8: ``x`` (..., d) -> (int8 codes, (...,)
+    fp32 scales), each row against its own amax: ``scale = max(amax,
+    1e-8) / 127``, codes ``clip(round(x / scale), -127, 127)``, rounding
+    half to even as ``jnp.round``."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _to_storage(x: torch.Tensor, config: KVCacheConfig):
+    """New (..., h, d) rows -> (storage values, (..., h) scales or
+    None) per the cache's dtype."""
+    if config.quantized:
+        return quantize_kv_rows(x)
+    return x.to(config.storage_dtype), None
 
 
 def write_token_kv(cache: PagedKVCache, config: KVCacheConfig, layer: int,
                    k_new: torch.Tensor, v_new: torch.Tensor,
                    blocks: torch.Tensor, offsets: torch.Tensor) -> None:
     """Write ONE token's k/v per batch row into layer ``layer``'s page
-    slots, in place.  ``k_new``/``v_new`` (b, h, d); ``blocks`` /
-    ``offsets`` (b,) address each row's page and in-page slot
-    (inactive rows point at the dump block, where duplicate writes race
-    harmlessly)."""
+    slots, in place, quantizing each row for an int8 cache.
+    ``k_new``/``v_new`` (b, h, d); ``blocks`` / ``offsets`` (b,) address
+    each row's page and in-page slot (inactive rows point at the dump
+    block, where duplicate writes race harmlessly)."""
     b, h, _ = k_new.shape
     heads = torch.arange(h, device=k_new.device)[None, :]
     idx = (blocks.long()[:, None], heads, offsets.long()[:, None])
-    kl, vl = cache.layer(layer)
-    kl[idx] = k_new.to(config.dtype)
-    vl[idx] = v_new.to(config.dtype)
+    kl, vl, ksl, vsl = cache.layer(layer)
+    if not config.quantized:
+        kl[idx] = k_new.to(config.storage_dtype)
+        vl[idx] = v_new.to(config.storage_dtype)
+        return
+    # k and v quantized in one pass (half the launches a layer)
+    q, sc = quantize_kv_rows(torch.stack((k_new, v_new)))
+    kl[idx], vl[idx] = q[0], q[1]
+    ksl[idx], vsl[idx] = sc[0], sc[1]
 
 
 def write_prefill_kv(cache: PagedKVCache, config: KVCacheConfig,
                      layer: int, k_all: torch.Tensor, v_all: torch.Tensor,
                      blocks: torch.Tensor) -> None:
     """Write a prefilled prompt's whole k/v for one layer into its
-    pages, in place.  ``k_all``/``v_all`` (s_pad, h, d) with ``s_pad =
-    len(blocks) * block_size``; pages past the owned tail point at the
-    dump block."""
+    pages, in place, quantizing each row for an int8 cache.
+    ``k_all``/``v_all`` (s_pad, h, d) with ``s_pad = len(blocks) *
+    block_size``; pages past the owned tail point at the dump block."""
     s_pad, h, d = k_all.shape
     bs = config.block_size
     n_pages = s_pad // bs
     blocks = blocks.long()
-    kl, vl = cache.layer(layer)
-    kl[blocks] = k_all.reshape(n_pages, bs, h, d).transpose(1, 2) \
-        .to(config.dtype)
-    vl[blocks] = v_all.reshape(n_pages, bs, h, d).transpose(1, 2) \
-        .to(config.dtype)
+    kl, vl, ksl, vsl = cache.layer(layer)
+    for dst, sdst, x in ((kl, ksl, k_all), (vl, vsl, v_all)):
+        q, sc = _to_storage(x, config)
+        # (P*bs, h, d) -> (P, h, bs, d); scales (P*bs, h) -> (P, h, bs)
+        dst[blocks] = q.reshape(n_pages, bs, h, d).transpose(1, 2)
+        if sc is not None:
+            sdst[blocks] = sc.reshape(n_pages, bs, h).transpose(1, 2)
 
 
 def prefix_chain_keys(prompt: Sequence[int], block_size: int):

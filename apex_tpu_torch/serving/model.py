@@ -1,12 +1,19 @@
 """GPT forward for serving: prefill + paged decode, in PyTorch.
 
-Port of ``apex_tpu/serving/model.py`` (single device, dense float
-weights).  The math mirrors the JAX serving forward operation for
-operation: fp32-statistics LayerNorm (mixed fp32 gamma/beta over
-compute-dtype activations), ``x @ kernel + bias`` in the compute dtype
-with the Flax (in, out) kernel layout kept as it is, attention with an
-fp32 softmax, tanh-approximate GELU (``jax.nn.gelu``'s default), and a
-tied LM head (``wte.T``).
+Port of ``apex_tpu/serving/model.py`` (single device; dense float or
+Q8 int8 weights, a float or int8 KV cache).  The math mirrors the JAX
+serving forward operation for operation: fp32-statistics LayerNorm
+(mixed fp32 gamma/beta over compute-dtype activations), ``x @ kernel +
+bias`` in the compute dtype with the Flax (in, out) kernel layout kept
+as it is, attention with an fp32 softmax, tanh-approximate GELU
+(``jax.nn.gelu``'s default), and a tied LM head (``wte.T``).  A Q8
+layer (:class:`~apex_tpu_torch.ops.quant_matmul.QuantLayerWeights`)
+carries a ``*_s`` scale beside each int8 kernel, and its linears run
+:func:`~apex_tpu_torch.ops.quant_matmul.quant_matmul` (fp32 accumulation,
+the scale after, cast to the compute dtype) before the bias is added in
+the compute dtype; the steps pick that path by ``getattr(lw, "qkv_s",
+None)`` as JAX's do.  An int8 cache hands its scales to the paged
+kernels.
 
 * :func:`gpt_prefill_step` runs one right-padded prompt through the
   flash-attention kernel (causal: padded keys sit in every real query's
@@ -39,6 +46,7 @@ from ..ops.flash_decode import (flash_decode, flash_decode_multi,
                                 paged_attention_multi_reference,
                                 paged_attention_reference)
 from ..ops.layer_norm import layer_norm, layer_norm_reference
+from ..ops.quant_matmul import quant_matmul, quant_matmul_reference
 from .kv_cache import (KVCacheConfig, PagedKVCache, write_prefill_kv,
                        write_token_kv)
 
@@ -114,19 +122,31 @@ def _ln(x, w, b, cfg: ServingModelConfig):
     return fn(x, w, b, cfg.layernorm_eps).to(cfg.dtype)
 
 
-def _linear(x, kernel, bias, dtype):
-    """Compute-dtype matmul, then the bias added in the compute dtype
-    (a separate add, as the JAX ``_linear`` rounds it)."""
-    return torch.matmul(x.to(dtype), kernel.to(dtype)) + bias.to(dtype)
+def _matmul(x, kernel, cfg: ServingModelConfig, scale):
+    """The one matmul every linear shares: ``scale`` None is a dense
+    compute-dtype matmul; the per-column fp32 scales of an int8 kernel
+    take :func:`quant_matmul` (its plain version under ``cfg.plain()``),
+    which never builds the dequantized weight."""
+    if scale is not None:
+        qmm = quant_matmul if cfg.kernels else quant_matmul_reference
+        return qmm(x, kernel, scale, out_dtype=cfg.dtype)
+    return torch.matmul(x.to(cfg.dtype), kernel.to(cfg.dtype))
+
+
+def _linear(x, kernel, bias, cfg: ServingModelConfig, scale=None):
+    """The matmul, then the bias added in the compute dtype (a separate
+    add, as the JAX ``_linear`` rounds it)."""
+    return _matmul(x, kernel, cfg, scale) + bias.to(cfg.dtype)
 
 
 def _layer_tail(x, lw: LayerWeights, attn_out, cfg: ServingModelConfig):
     """residual + LN + MLP + residual — shared by prefill and decode."""
     x = x + attn_out.to(x.dtype)
     m_in = _ln(x, lw.ln2_w, lw.ln2_b, cfg)
-    h1 = F.gelu(_linear(m_in, lw.fc1_k, lw.fc1_b, cfg.dtype),
-                approximate="tanh")
-    return x + _linear(h1, lw.fc2_k, lw.fc2_b, cfg.dtype).to(x.dtype)
+    h1 = F.gelu(_linear(m_in, lw.fc1_k, lw.fc1_b, cfg,
+                        getattr(lw, "fc1_s", None)), approximate="tanh")
+    return x + _linear(h1, lw.fc2_k, lw.fc2_b, cfg,
+                       getattr(lw, "fc2_s", None)).to(x.dtype)
 
 
 def _lm_head(x, weights: GPTServingWeights, cfg: ServingModelConfig):
@@ -165,14 +185,15 @@ def gpt_prefill_step(weights: GPTServingWeights, cfg: ServingModelConfig,
     attn = _attention(cfg)
     for i, lw in enumerate(weights.layers):
         a_in = _ln(x, lw.ln1_w, lw.ln1_b, cfg)
-        qkv = _linear(a_in, lw.qkv_k, lw.qkv_b, cfg.dtype)
+        qkv = _linear(a_in, lw.qkv_k, lw.qkv_b, cfg,
+                      getattr(lw, "qkv_s", None))
         q, k, v = qkv.reshape(1, s_pad, h, 3 * d).split(d, dim=-1)
         write_prefill_kv(cache, cache_cfg, i, k[0], v[0], blocks)
         ctx = attn(q.transpose(1, 2), k.transpose(1, 2),
                    v.transpose(1, 2), scale=scale, causal=True)
         ctx = ctx.transpose(1, 2).reshape(1, s_pad, h * d)
-        x = _layer_tail(x, lw, _linear(ctx, lw.dense_k, lw.dense_b,
-                                       cfg.dtype), cfg)
+        x = _layer_tail(x, lw, _linear(ctx, lw.dense_k, lw.dense_b, cfg,
+                                       getattr(lw, "dense_s", None)), cfg)
     logits = _lm_head(x[:, length - 1], weights, cfg)[0]       # (V,)
     next_token = torch.argmax(logits, dim=-1)
     if return_logits:
@@ -202,15 +223,18 @@ def gpt_decode_step(weights: GPTServingWeights, cfg: ServingModelConfig,
     x = _embed(weights, tokens, positions, cfg)                # (b, H)
     for i, lw in enumerate(weights.layers):
         a_in = _ln(x, lw.ln1_w, lw.ln1_b, cfg)
-        qkv = _linear(a_in, lw.qkv_k, lw.qkv_b, cfg.dtype)
+        qkv = _linear(a_in, lw.qkv_k, lw.qkv_b, cfg,
+                      getattr(lw, "qkv_s", None))
         q, k, v = qkv.reshape(b, h, 3 * d).split(d, dim=-1)     # (b, h, d)
         write_token_kv(cache, cache_cfg, i, k, v, write_blocks,
                        write_offsets)
-        kc, vc = cache.layer(i)
+        kc, vc, ks, vs = cache.layer(i)
         decode = flash_decode if cfg.kernels else paged_attention_reference
-        ctx = decode(q, kc, vc, block_tables, seq_lens, scale=scale)
+        ctx = decode(q, kc, vc, block_tables, seq_lens, scale=scale,
+                     k_scale=ks, v_scale=vs)
         x = _layer_tail(x, lw, _linear(ctx.reshape(b, h * d), lw.dense_k,
-                                       lw.dense_b, cfg.dtype), cfg)
+                                       lw.dense_b, cfg,
+                                       getattr(lw, "dense_s", None)), cfg)
     logits = _lm_head(x, weights, cfg)                         # (b, V)
     next_tokens = torch.argmax(logits, dim=-1)
     if return_logits:
@@ -252,15 +276,17 @@ def gpt_extend_step(weights: GPTServingWeights, cfg: ServingModelConfig,
         else paged_attention_multi_reference
     for i, lw in enumerate(weights.layers):
         a_in = _ln(x, lw.ln1_w, lw.ln1_b, cfg)
-        qkv = _linear(a_in, lw.qkv_k, lw.qkv_b, cfg.dtype)
+        qkv = _linear(a_in, lw.qkv_k, lw.qkv_b, cfg,
+                      getattr(lw, "qkv_s", None))
         q, k, v = qkv.reshape(b, t, h, 3 * d).split(d, dim=-1)  # (b,t,h,d)
         write_token_kv(cache, cache_cfg, i, k.reshape(b * t, h, d),
                        v.reshape(b * t, h, d), wb, wo)
-        kc, vc = cache.layer(i)
-        ctx = attend(q, kc, vc, block_tables, seq_lens, scale=scale)
+        kc, vc, ks, vs = cache.layer(i)
+        ctx = attend(q, kc, vc, block_tables, seq_lens, scale=scale,
+                     k_scale=ks, v_scale=vs)
         x = _layer_tail(x, lw, _linear(ctx.reshape(b, t, h * d),
-                                       lw.dense_k, lw.dense_b,
-                                       cfg.dtype), cfg)
+                                       lw.dense_k, lw.dense_b, cfg,
+                                       getattr(lw, "dense_s", None)), cfg)
     logits = _lm_head(x, weights, cfg)                        # (b, t, V)
     next_tokens = torch.argmax(logits, dim=-1)
     if return_logits:
@@ -269,17 +295,21 @@ def gpt_extend_step(weights: GPTServingWeights, cfg: ServingModelConfig,
 
 
 def copy_cache_block(cache: PagedKVCache, src: int, dst: int) -> None:
-    """Copy-on-write on the device: block ``src``'s k and v, every
-    layer, into block ``dst``, in place."""
+    """Copy-on-write on the device: block ``src``'s k and v (and an int8
+    cache's scale rows), every layer, into block ``dst``, in place."""
     cache.k[:, dst] = cache.k[:, src]
     cache.v[:, dst] = cache.v[:, src]
+    if cache.k_scale is not None:
+        cache.k_scale[:, dst] = cache.k_scale[:, src]
+        cache.v_scale[:, dst] = cache.v_scale[:, src]
 
 
 def gpt_sequence_logits(weights: GPTServingWeights, cfg: ServingModelConfig,
                         tokens: torch.Tensor) -> torch.Tensor:
     """Whole-sequence teacher-forced logits ``(b, s, V)`` — no KV cache,
-    no paging: the oracle the served token streams are checked
-    against."""
+    no paging: the oracle the served token streams are checked against.
+    Q8 weights run their quantized matmuls here too; an int8 cache is
+    not modelled (nothing is cached)."""
     b, s = tokens.shape
     h, d = cfg.num_heads, cfg.head_dim
     scale = d ** -0.5
@@ -288,11 +318,12 @@ def gpt_sequence_logits(weights: GPTServingWeights, cfg: ServingModelConfig,
     attn = _attention(cfg)
     for lw in weights.layers:
         a_in = _ln(x, lw.ln1_w, lw.ln1_b, cfg)
-        qkv = _linear(a_in, lw.qkv_k, lw.qkv_b, cfg.dtype)
+        qkv = _linear(a_in, lw.qkv_k, lw.qkv_b, cfg,
+                      getattr(lw, "qkv_s", None))
         q, k, v = qkv.reshape(b, s, h, 3 * d).split(d, dim=-1)
         ctx = attn(q.transpose(1, 2), k.transpose(1, 2),
                    v.transpose(1, 2), scale=scale, causal=True)
         ctx = ctx.transpose(1, 2).reshape(b, s, h * d)
-        x = _layer_tail(x, lw, _linear(ctx, lw.dense_k, lw.dense_b,
-                                       cfg.dtype), cfg)
+        x = _layer_tail(x, lw, _linear(ctx, lw.dense_k, lw.dense_b, cfg,
+                                       getattr(lw, "dense_s", None)), cfg)
     return _lm_head(x, weights, cfg)

@@ -11,6 +11,11 @@ Dense kernels keep the Flax (in, out) layout, and the model computes
 ``x @ kernel + bias`` with :func:`torch.matmul` — nothing is
 transposed.  The fused QKV kernel's 3H columns are ordered per head,
 (h, [q|k|v], d), exactly as the JAX tree holds them.
+
+A JAX Q8 tree (``QuantGPTServingWeights``) carries across as the port's
+:class:`~apex_tpu_torch.ops.quant_matmul.QuantGPTServingWeights`: its
+int8 codes and fp32 scales kept as they are, the rest cast as above, so
+a Q8 model computes in the port what it computes in JAX.
 """
 from __future__ import annotations
 
@@ -20,9 +25,12 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops.quant_matmul import (QUANTIZED, QuantGPTServingWeights,
+                                QuantLayerWeights)
 from .model import GPTServingWeights, LayerWeights, ServingModelConfig
 
-__all__ = ["serving_weights_from_numpy", "init_serving_weights"]
+__all__ = ["serving_weights_from_numpy", "init_serving_weights",
+           "check_serving_weights"]
 
 # LayerWeights fields that stay fp32 (the mixed-dtype LayerNorm affine)
 _LN_FIELDS = ("ln1_w", "ln1_b", "ln2_w", "ln2_b")
@@ -33,15 +41,27 @@ def _get(tree: Any, name: str):
     return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
 
 
-def _cast_layer(fields: dict, dtype: torch.dtype) -> LayerWeights:
-    return LayerWeights(**{
-        k: (v.float() if k in _LN_FIELDS else v.to(dtype))
+def _has(tree: Any, name: str) -> bool:
+    return name in tree if isinstance(tree, Mapping) else hasattr(tree,
+                                                                  name)
+
+
+# a Q8 layer's int8 codes and fp32 scales, carried across as they are
+_Q8_FIELDS = tuple(f"{n}_{s}" for n in QUANTIZED for s in "ks")
+
+
+def _cast_layer(fields: dict, dtype: torch.dtype):
+    quant = "qkv_s" in fields
+    keep = _Q8_FIELDS if quant else ()
+    return (QuantLayerWeights if quant else LayerWeights)(**{
+        k: (v if k in keep else v.float() if k in _LN_FIELDS else v.to(dtype))
         for k, v in fields.items()})
 
 
-def _assemble(wte, wpe, layers, lnf_w, lnf_b,
-              dtype: torch.dtype) -> GPTServingWeights:
-    return GPTServingWeights(
+def _assemble(wte, wpe, layers, lnf_w, lnf_b, dtype: torch.dtype):
+    tree = QuantGPTServingWeights if layers and "qkv_s" in layers[0] \
+        else GPTServingWeights
+    return tree(
         wte=wte.to(dtype), wpe=wpe.to(dtype),
         layers=tuple(_cast_layer(f, dtype) for f in layers),
         lnf_w=lnf_w.float(), lnf_b=lnf_b.float())
@@ -49,26 +69,32 @@ def _assemble(wte, wpe, layers, lnf_w, lnf_b,
 
 def serving_weights_from_numpy(tree: Any, cfg: ServingModelConfig,
                                device=None) -> GPTServingWeights:
-    """The port's weights from the JAX ``GPTServingWeights`` converted
-    to numpy arrays (``jax.tree.map(np.asarray, weights)``): same field
-    names, read by attribute or by key; ``layers`` a sequence of
-    per-layer trees.  Matmul kernels and embeddings land in
-    ``cfg.dtype``, LayerNorm parameters in fp32, all on ``device``
-    (cuda unless the CPU is asked for)."""
+    """The port's weights from the JAX ``GPTServingWeights`` (or its Q8
+    ``QuantGPTServingWeights``) converted to numpy arrays
+    (``jax.tree.map(np.asarray, weights)``): same field names, read by
+    attribute or by key; ``layers`` a sequence of per-layer trees.
+    Matmul kernels and embeddings land in ``cfg.dtype``, LayerNorm
+    parameters in fp32, a Q8 tree's int8 codes and fp32 scales as they
+    are, all on ``device`` (cuda unless the CPU is asked for)."""
     dev = resolve_device(device)
 
     def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+        a = np.asarray(a)
+        a = np.array(a, dtype=np.int8 if a.dtype == np.int8 else np.float32)
+        return torch.from_numpy(a).to(dev)
 
-    layers = [{f: t(_get(lt, f)) for f in LayerWeights._fields}
-              for lt in _get(tree, "layers")]
+    layer_trees = list(_get(tree, "layers"))
+    fields = QuantLayerWeights._fields \
+        if layer_trees and _has(layer_trees[0], "qkv_s") \
+        else LayerWeights._fields
+    layers = [{f: t(_get(lt, f)) for f in fields} for lt in layer_trees]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree has {len(layers)} layers, config "
                          f"{cfg.num_layers}")
     w = _assemble(t(_get(tree, "wte")), t(_get(tree, "wpe")), layers,
                   t(_get(tree, "lnf_w")), t(_get(tree, "lnf_b")),
                   cfg.dtype)
-    _check_shapes(w, cfg)
+    check_serving_weights(w, cfg)
     return w
 
 
@@ -102,12 +128,13 @@ def init_serving_weights(cfg: ServingModelConfig, seed: int = 0,
               for _ in range(cfg.num_layers)]
     w = _assemble(normal(cfg.vocab_size, hd), normal(cfg.max_seq, hd),
                   layers, ones(hd), zeros(hd), cfg.dtype)
-    _check_shapes(w, cfg)
+    check_serving_weights(w, cfg)
     return w
 
 
-def _check_shapes(w: GPTServingWeights, cfg: ServingModelConfig,
-                  ) -> None:
+def check_serving_weights(w, cfg: ServingModelConfig) -> None:
+    """Raise unless ``w`` has ``cfg``'s shapes and, for a Q8 tree, int8
+    codes with one fp32 scale per output column."""
     hd, f = cfg.hidden_size, cfg.ffn_size
     want = dict(ln1_w=(hd,), ln1_b=(hd,), qkv_k=(hd, 3 * hd),
                 qkv_b=(3 * hd,), dense_k=(hd, hd), dense_b=(hd,),
@@ -119,6 +146,13 @@ def _check_shapes(w: GPTServingWeights, cfg: ServingModelConfig,
             if got != shape:
                 raise ValueError(f"layer {i} {name} is {got}, the "
                                  f"config wants {shape}")
+        for name in QUANTIZED if hasattr(lw, "qkv_s") else ():
+            k, s = getattr(lw, f"{name}_k"), getattr(lw, f"{name}_s")
+            if k.dtype != torch.int8 or s.dtype != torch.float32 \
+                    or tuple(s.shape) != (k.shape[1],):
+                raise ValueError(f"layer {i} {name}: int8 codes {k.dtype} "
+                                 f"with fp32 scales {s.dtype} "
+                                 f"{tuple(s.shape)} expected")
     if tuple(w.wte.shape) != (cfg.vocab_size, hd):
         raise ValueError(f"wte {tuple(w.wte.shape)} != "
                          f"({cfg.vocab_size}, {hd})")

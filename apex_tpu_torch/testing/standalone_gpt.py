@@ -12,6 +12,8 @@ Counterpart of ``apex_tpu/testing/standalone_gpt.py``: the model
         --draft truncated
     python -m apex_tpu_torch.testing.standalone_gpt --serve --prefill-chunk 32
     python -m apex_tpu_torch.testing.standalone_gpt --serve --prefix-share
+    python -m apex_tpu_torch.testing.standalone_gpt --serve --policy Q8 \
+        --kv-dtype int8
     python -m apex_tpu_torch.testing.standalone_gpt --serve --model tiny \
         --device cpu --requests 4 --new-tokens 4
     python -m apex_tpu_torch.testing.standalone_gpt --train --policy O2 \
@@ -20,8 +22,10 @@ Counterpart of ``apex_tpu/testing/standalone_gpt.py``: the model
 The default model is GPT-345M's width (vocab 50304, hidden 1024, 24
 layers, 16 heads, max_seq 1024) with seeded random weights: no
 checkpoint is read.  ``--serve`` serves ``--requests`` seeded prompts
-through the continuous-batching engine at O5 (bf16) or O0 and prints
-one ``SERVE_DONE`` line; ``--speculate-k``, ``--prefill-chunk`` and
+through the continuous-batching engine at O5 (bf16), O0, or Q8 (O5 with
+int8 weight-only layer matmuls), with the KV cache stored as
+``--kv-dtype`` (the model's dtype, bf16, or int8 with per-row scales),
+and prints one ``SERVE_DONE`` line; ``--speculate-k``, ``--prefill-chunk`` and
 ``--prefix-share`` turn on the engine's fast path (speculative decode
 with a ``--draft``, chunked prefill, copy-on-write prefix sharing).
 ``--train`` takes ``--steps`` optimizer steps on one seeded batch (seq 1024, batch 8 at GPT-345M) with
@@ -52,7 +56,9 @@ from ..contrib.xentropy import softmax_cross_entropy_loss
 from ..optimizers import fused_adam
 from ..serving import (BucketLadder, GPTServingWeights, Request,
                        ServingEngine, ServingModelConfig,
-                       default_cache_config, init_serving_weights)
+                       default_cache_config, init_serving_weights,
+                       quantize_weights)
+from ..serving.kv_cache import KV_DTYPES
 from ..transformer import ParallelTransformer
 from ..transformer.tensor_parallel import VocabParallelEmbedding
 
@@ -128,11 +134,16 @@ def serve_smoke(num_requests: int = 8, *, model: str = "gpt345m",
                 seed: int = 0, device=None, speculate_k: int = 0,
                 draft: str = "self", draft_layers: Optional[int] = None,
                 prefill_chunk: int = 0, prefix_share: bool = False,
-                spec_governor="auto"):
+                spec_governor="auto", kv_dtype: str = "model"):
     """Build the model and engine on ``device`` (cuda unless the CPU is
     asked for), serve ``num_requests`` seeded prompts, and return
     ``(summary, engine)``; ``engine.done`` holds every request with its
     ``prompt`` and ``out_tokens``.
+
+    ``policy`` "Q8" quantizes every layer matmul weight of the
+    policy-cast (bf16) model to per-column int8 (:func:`quantize_weights`),
+    as the JAX smoke does; ``kv_dtype`` ("model", "bf16", "int8") is the
+    cache's storage (the JAX flag ``APEX_TPU_SERVE_KV_DTYPE``).
 
     Prompt lengths are drawn from ``seed`` in ``[min_prompt,
     max_prompt]`` (clipped so prompt + ``max_new_tokens`` fits the
@@ -149,9 +160,11 @@ def serve_smoke(num_requests: int = 8, *, model: str = "gpt345m",
     option leaves the greedy tokens unchanged."""
     dev = resolve_device(device)
     cfg = model_config(model, policy=policy)
-    cache_cfg = default_cache_config(cfg)
+    cache_cfg = default_cache_config(cfg, kv_dtype=kv_dtype)
     ladder = BucketLadder()
     weights = init_serving_weights(cfg, seed=seed, device=dev)
+    if get_policy(policy).quantize_weights == "int8":
+        weights = quantize_weights(weights)
     draft_weights = draft_cfg = None
     if speculate_k > 0:
         if draft == "self":
@@ -404,9 +417,13 @@ def _parser() -> argparse.ArgumentParser:
                       help="run the mixed-precision train smoke")
     p.add_argument("--model", default="gpt345m", choices=sorted(MODELS))
     p.add_argument("--policy", default="O5",
-                   help="amp opt level; serve: O5 (bf16) or O0 (fp32); "
-                        "train: O5 (bf16, flash) or O2 (fp16, fused "
-                        "softmax, dynamic loss scale)")
+                   help="amp opt level; serve: O5 (bf16), O0 (fp32) or Q8 "
+                        "(bf16, int8 weight-only layer matmuls); train: O5 "
+                        "(bf16, flash) or O2 (fp16, fused softmax, dynamic "
+                        "loss scale)")
+    p.add_argument("--kv-dtype", choices=KV_DTYPES, default="model",
+                   help="serve: the KV cache's storage: the model's dtype, "
+                        "bf16, or int8 with one fp32 scale per cached row")
     p.add_argument("--steps", type=int, default=8,
                    help="train: optimizer steps")
     p.add_argument("--requests", type=int, default=8)
@@ -461,7 +478,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         max_prompt=args.max_prompt, seed=args.seed, device=args.device,
         speculate_k=args.speculate_k, draft=args.draft,
         draft_layers=args.draft_layers, prefill_chunk=args.prefill_chunk,
-        prefix_share=args.prefix_share)
+        prefix_share=args.prefix_share, kv_dtype=args.kv_dtype)
     fast = ""
     if s.spec_accept_rate is not None:
         fast += (f" spec_accept_rate={s.spec_accept_rate} "
@@ -474,7 +491,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                  f"cow_copies={s.cow_copies}")
     if s.prefill_chunks:
         fast += f" prefill_chunks={s.prefill_chunks}"
-    print(f"SERVE_DONE requests={s.requests_done} "
+    print(f"SERVE_DONE policy={args.policy} kv_dtype={args.kv_dtype} "
+          f"requests={s.requests_done} "
           f"tokens={s.tokens_generated} tokens_s={s.tokens_per_sec} "
           f"p50_ms={s.latency_p50_ms} p99_ms={s.latency_p99_ms} "
           f"ttft_p50_ms={s.ttft_p50_ms} ttft_p99_ms={s.ttft_p99_ms} "

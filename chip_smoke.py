@@ -18,7 +18,13 @@ Phases, in order; any failure exits non-zero without the result line:
                    pipeline sweep at the O5 train step's shapes; the
                    causal scaled softmax forward and backward and the
                    norm/finite sweep at the O2 train step's, and the
-                   fp16 builds of LayerNorm and the Adam sweep it runs.
+                   fp16 builds of LayerNorm and the Adam sweep it runs;
+                   the Q8 tier's: the int8 GEMV (M <= 8) and tiled (M >
+                   8) weight matmuls at the decode tick's and the
+                   prefill's, verify's and chunk's shapes (with JAX's
+                   self_check shapes, a byte-load tail and an all-zero
+                   column), and the int8-cache branches of both paged
+                   attention kernels at their float shapes.
 3. serve O5/O0   — GPT-345M width (vocab 50304, hidden 1024, 24 layers,
                    16 heads, max_seq 1024), O5 bf16 then fp32, seeded
                    random weights: serve 8 seeded prompts of 64..700
@@ -44,6 +50,15 @@ Phases, in order; any failure exits non-zero without the result line:
                    prefix sharing on a 700-token system prompt (cold,
                    priming and warm passes; warm hits copy on write and
                    leave every shared page's bytes unchanged).
+3c. serve_q8     — the quantized tier at the same width, launch counts
+                   reset just before each leg and held exactly: Q8
+                   weights (every layer matmul int8, per-column scales)
+                   with an int8 KV cache, every token held against a
+                   teacher-forced plain replay through an int8 cache
+                   (and its top-1 agreement with the O5 float oracle
+                   printed); Q8 over a bf16 cache against
+                   ``gpt_sequence_logits`` on the Q8 weights; chunked
+                   prefill on the int8 cache.
 4. train O5      — the same width at seq 1024, batch 8 (bench.py's
                    bench_gpt345m), O5, ``fused_adam(1e-4)``, seeded
                    weights: 8 steps through ``standalone_gpt.train_smoke``
@@ -67,8 +82,9 @@ Phases, in order; any failure exits non-zero without the result line:
                    every skipped step holding masters, moments, fp16
                    parameters and the Adam count bitwise, the scale
                    halving from the 2^24 clip.
-7. profiles      — the O5 serve, the O5 speculative serve (self draft), one
-                   O5 train step and one O2 train step
+7. profiles      — the O5 serve, the O5 speculative serve (self draft), the
+                   Q8 serve over an int8 cache, one O5 train step and one
+                   O2 train step
                    under ``torch.profiler``: device time by kernel and
                    the device's idle share.  Last, since the profiler
                    slows every later launch.
@@ -81,6 +97,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -100,12 +117,23 @@ LN_TOL = 3e-2        # |y| up to ~4 for unit-normal rows: 1 ulp = 2^-6
 ATTN_TOL = 1e-2      # |o| < 1 (a convex mix of unit-normal v rows)
 LSE_TOL = 1e-3       # fp32 log-sum-exp
 DECODE_TOL = 1e-2
+# int8 weight matmul, kernel vs plain version on the same inputs: both
+# form the same fp32 products and differ by the order of K fp32 sums, so
+# an fp32 out is held to 1e-5 of its largest value, and a bf16 out (both
+# rounded once from fp32) to one bf16 ulp of each element beyond that same
+# fp32 slack (an output whose sum cancels to near 0 carries the fp32 noise
+# of its terms, many ulps of its own small value)
+QMM_REL_TOL = 1e-5
+QMM_ULPS = 1.0
 # served token vs oracle argmax: a bf16 forward through other kernels
 # and other matmul shapes moves a logit by a few hundredths at this
 # width, so positions whose top-2 gap is below this are ties
 TOKEN_GAP_TOL = 0.1
 # the same check in fp32 (O0): kernels and plain versions agree to ~1e-6
 TOKEN_GAP_TOL_FP32 = 2e-3
+# the Q8 serve, bf16 activations over int8 weights (and an int8 cache held
+# against the int8 replay): the tie rule of the bf16 serve
+TOKEN_GAP_TOL_Q8 = 0.1
 # LayerNorm backward, bf16 x/dy/gamma: dx like the forward (one bf16 ulp
 # at |dx| up to ~4); dgamma/dbeta are sums over 8192 rows rounded once to
 # bf16, so they are held relative to their largest value (2.5 ulps)
@@ -186,6 +214,10 @@ REPLACES = {
     "scaled_softmax_causal_fwd": "apex_tpu/ops/scaled_softmax.py:88",
     "scaled_softmax_bwd": "apex_tpu/ops/scaled_softmax.py:115",
     "norm_finite": "apex_tpu/ops/fused_pipeline.py:252",
+    "quant_gemv": "apex_tpu/ops/quant_matmul.py:122",
+    "quant_tiled": "apex_tpu/ops/quant_matmul.py:150",
+    "flash_decode_int8": "apex_tpu/ops/flash_decode.py:137",
+    "flash_decode_multi_int8": "apex_tpu/ops/flash_decode.py:325",
 }
 SOURCES = {
     "layer_norm": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -199,11 +231,19 @@ SOURCES = {
     "scaled_softmax_causal_fwd": "apex_tpu_torch/csrc/scaled_softmax.cu",
     "scaled_softmax_bwd": "apex_tpu_torch/csrc/scaled_softmax.cu",
     "norm_finite": "apex_tpu_torch/csrc/norm_finite.cu",
+    "quant_gemv": "apex_tpu_torch/csrc/quant_matmul.cu",
+    "quant_tiled": "apex_tpu_torch/csrc/quant_matmul.cu",
+    "flash_decode_int8": "apex_tpu_torch/csrc/flash_decode.cu",
+    "flash_decode_multi_int8": "apex_tpu_torch/csrc/flash_decode.cu",
 }
 # the path each kernel's launches are counted on
 SERVE_KERNELS = ("layer_norm", "flash_attention", "flash_decode")
 SERVE_FAST_KERNELS = ("layer_norm", "flash_attention", "flash_decode",
                       "flash_decode_multi")
+Q8_CHECKS = ("flash_decode_int8", "flash_decode_multi_int8", "quant_matmul")
+SERVE_Q8_KERNELS = ("layer_norm", "flash_attention", "flash_decode",
+                    "flash_decode_int8", "flash_decode_multi_int8",
+                    "quant_gemv", "quant_tiled")
 TRAIN_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_attention_e",
                  "flash_attention_e_bwd", "fused_adam_pipeline")
 TRAIN_O2_KERNELS = ("layer_norm", "layer_norm_bwd",
@@ -392,11 +432,39 @@ def check_flash_attention(dev, g):
     return entry
 
 
-def check_flash_decode(dev, g):
+def _kv_int8(kc, vc):
+    """An int8 cache from a float one, each row against its own scale:
+    ``(k codes, v codes, {k_scale, v_scale})``."""
+    from apex_tpu_torch.serving import quantize_kv_rows
+
+    kq, ks = quantize_kv_rows(kc)
+    vq, vs = quantize_kv_rows(vc)
+    return kq, vq, dict(k_scale=ks, v_scale=vs)
+
+
+def _kv_library(kc, vc, kw):
+    """The library yardstick's cache: the float cache, or the int8 one
+    dequantized to bf16 beforehand (the dequantization not timed)."""
+    from apex_tpu_torch.ops import dequantize_kv
+
+    if not kw:
+        return kc, vc
+    return (dequantize_kv(kc, kw["k_scale"]).bfloat16(),
+            dequantize_kv(vc, kw["v_scale"]).bfloat16())
+
+
+def check_flash_decode(dev, g, int8: bool = False):
+    """Row 14 at the serve's decode shape (b=8, 3,364 keys), bf16 q
+    against a bf16 cache, or with ``int8`` against an int8 cache with
+    per-row scales (the int8 branch, counted as ``flash_decode_int8``),
+    where fp32 q over int8 and over a bf16 cache (kv_dtype int8 and bf16
+    at O0) are held too."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import flash_decode, paged_attention_reference
 
+    name = "flash_decode_int8" if int8 else "flash_decode"
+    tag = "int8 cache" if int8 else "bf16"
     b, h, d, bs, mp, nb = 8, 16, 64, 16, 64, 512
     kc = torch.randn(nb, h, bs, d, generator=g, device=dev).bfloat16()
     vc = torch.randn(nb, h, bs, d, generator=g, device=dev).bfloat16()
@@ -411,31 +479,50 @@ def check_flash_decode(dev, g):
         bt[i, :pages] = perm[nxt:nxt + pages].int()
         nxt += pages
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
-    out = flash_decode(q, kc, vc, bt, sl)
+    kw = {}
+    if int8:
+        kfl, vfl = kc, vc
+        kc, vc, kw = _kv_int8(kc, vc)
+    out = flash_decode(q, kc, vc, bt, sl, **kw)
     torch.cuda.synchronize()
-    ref = paged_attention_reference(q, kc, vc, bt, sl)
+    ref = paged_attention_reference(q, kc, vc, bt, sl, **kw)
     err = max_err(out, ref)
     zero = bool((out[0] == 0).all())
     ok = err <= DECODE_TOL and zero
-    log(f"kernel flash_decode b={b} h={h} d={d} bs={bs} pages={mp} bf16 "
+    extra = ""
+    if int8:
+        # fp32 q (O0) over the int8 cache and over the bf16 one
+        q32 = q.float()
+        for what, kk, vv, kws in (("int8", kc, vc, kw),
+                                  ("bf16", kfl, vfl, {})):
+            o32 = flash_decode(q32, kk, vv, bt, sl, **kws)
+            torch.cuda.synchronize()
+            e32 = max_err(o32, paged_attention_reference(q32, kk, vv, bt,
+                                                         sl, **kws))
+            ok = ok and e32 <= DECODE_TOL and bool((o32[0] == 0).all())
+            extra += f"; fp32 q over the {what} cache {e32:.3e}"
+    log(f"kernel {name} b={b} h={h} d={d} bs={bs} pages={mp} {tag} "
         f"seq_lens={lens}: max_abs_err={err:.3e} (tol {DECODE_TOL}) "
         f"max_rel_err={rel_err(out, ref):.3e} "
-        f"seq_len-0 row exactly 0: {zero} {'ok' if ok else 'FAIL'}")
+        f"seq_len-0 row exactly 0: {zero}{extra} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("flash_decode kernel disagrees")
-    ms, ms_w = time_ms(lambda: flash_decode(q, kc, vc, bt, sl), iters=100)
+        raise AssertionError(f"{name} kernel disagrees")
+    ms, ms_w = time_ms(lambda: flash_decode(q, kc, vc, bt, sl, **kw),
+                       iters=100)
     plain, plain_w = time_ms(
-        lambda: paged_attention_reference(q, kc, vc, bt, sl))
-    # library yardstick: SDPA over the pages gathered beforehand (the
-    # gather itself is not timed)
-    kg = kc[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
-    vg = vc[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
+        lambda: paged_attention_reference(q, kc, vc, bt, sl, **kw))
+    # library yardstick: SDPA over the pages gathered (and dequantized)
+    # beforehand (neither timed)
+    kl, vl = _kv_library(kc, vc, kw)
+    kg = kl[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
+    vg = vl[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
     mask = (torch.arange(mp * bs, device=dev)[None, :]
             < sl[:, None].clamp(min=1))[:, None, None, :]
     lib, lib_w = time_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None], kg, vg, attn_mask=mask), iters=100)
     keys = sum(lens)
-    nbytes = keys * h * d * 2 * 2 + 2 * b * h * d * 2 \
+    row_bytes = h * d * kc.element_size() + (h * 4 if int8 else 0)
+    nbytes = keys * row_bytes * 2 + 2 * b * h * d * 2 \
         + sum(-(-n // bs) for n in lens) * 4 + b * 4
     flops = 4.0 * keys * h * d
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
@@ -443,8 +530,8 @@ def check_flash_decode(dev, g):
         f"({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), SDPA on "
         f"gathered pages {lib:.5f} ({lib_w:.5f}), bound {b_ms:.5f} "
         f"({b_by})")
-    return dict(name="flash_decode",
-                shape=f"b={b} h={h} d={d} bs={bs} pages={mp} bf16",
+    return dict(name=name,
+                shape=f"b={b} h={h} d={d} bs={bs} pages={mp} {tag}",
                 max_abs_err=err, ms=ms, ms_wall=ms_w, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib)
 
@@ -465,10 +552,12 @@ def _paged_case(dev, g, lens, h, d, bs, mp, nb):
     return kc, vc, bt, sl
 
 
-def check_flash_decode_multi(dev, g):
+def check_flash_decode_multi(dev, g, int8: bool = False):
     """Row 15 at the serve_fast legs' shapes, bf16: the verify step
     (b=8, t=3: K=2 draft tokens plus one) and the chunk steps (b=1, t=32
-    the chunked leg's chunk, t=16 the warm-tail rung).  Each case has an
+    the chunked leg's chunk, t=16 the warm-tail rung); with ``int8``
+    the same against an int8 cache (the int8 branch, counted as
+    ``flash_decode_multi_int8``).  Each case has an
     inactive row, a row with seq_len < t (front padding at negative
     positions), a page-straddling row and a full row; those rows must
     give exactly 0 where nothing is attended, nothing may be NaN, and at
@@ -479,20 +568,28 @@ def check_flash_decode_multi(dev, g):
     from apex_tpu_torch.ops import (flash_decode, flash_decode_multi,
                                     paged_attention_multi_reference)
 
+    name = "flash_decode_multi_int8" if int8 else "flash_decode_multi"
+    tag = "int8 cache" if int8 else "bf16"
     h, d, bs, mp, nb = 16, 64, 16, 64, 512
     cases = (  # (b, t, seq_lens checked, seq_lens timed)
         (8, 3, [0, 2, 16 * 20 + 7, mp * bs, 700, 733, 64, 515], None),
         (1, 32, [0, 27, 16 * 20 + 7, mp * bs], [390]),
         (1, 16, [0, 11, 16 * 20 + 7, mp * bs], [703]),
     )
+
+    def case(lens):
+        kc, vc, bt, sl = _paged_case(dev, g, lens, h, d, bs, mp, nb)
+        kc, vc, kw = _kv_int8(kc, vc) if int8 else (kc, vc, {})
+        return kc, vc, bt, sl, kw
+
     entries = []
     for b, t, lens, timed in cases:
-        kc, vc, bt, sl = _paged_case(dev, g, lens, h, d, bs, mp, nb)
+        kc, vc, bt, sl, kw = case(lens)
         q = torch.randn(len(lens), t, h, d, generator=g,
                         device=dev).bfloat16()
-        out = flash_decode_multi(q, kc, vc, bt, sl)
+        out = flash_decode_multi(q, kc, vc, bt, sl, **kw)
         torch.cuda.synchronize()
-        ref = paged_attention_multi_reference(q, kc, vc, bt, sl)
+        ref = paged_attention_multi_reference(q, kc, vc, bt, sl, **kw)
         err = max_err(out, ref)
         qpos = torch.tensor(lens, device=dev)[:, None] - t \
             + torch.arange(t, device=dev)[None, :]
@@ -503,37 +600,38 @@ def check_flash_decode_multi(dev, g):
         msg = ""
         if t == 3:
             # t = 1 through the multi kernel against the row-14 kernel
-            one = flash_decode_multi(q[:, :1], kc, vc, bt, sl)[:, 0]
-            dec = flash_decode(q[:, 0].contiguous(), kc, vc, bt, sl)
+            one = flash_decode_multi(q[:, :1], kc, vc, bt, sl, **kw)[:, 0]
+            dec = flash_decode(q[:, 0].contiguous(), kc, vc, bt, sl, **kw)
             torch.cuda.synchronize()
             e1 = max_err(one, dec)
             ok = ok and e1 <= DECODE_TOL
             msg = f" t=1 vs flash_decode {e1:.3e} (tol {DECODE_TOL})"
-        log(f"kernel flash_decode_multi b={len(lens)} t={t} h={h} d={d} "
-            f"bs={bs} pages={mp} bf16 seq_lens={lens}: max_abs_err="
+        log(f"kernel {name} b={len(lens)} t={t} h={h} d={d} "
+            f"bs={bs} pages={mp} {tag} seq_lens={lens}: max_abs_err="
             f"{err:.3e} (tol {DECODE_TOL}) max_rel_err="
             f"{rel_err(out, ref):.3e} {int(dead.sum())} rows with nothing "
             f"to attend exactly 0: {zero}, finite: {finite}{msg} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"flash_decode_multi kernel disagrees at "
-                                 f"t={t}")
+            raise AssertionError(f"{name} kernel disagrees at t={t}")
         if timed is not None:            # the main path's batch of one
             lens = timed
-            kc, vc, bt, sl = _paged_case(dev, g, lens, h, d, bs, mp, nb)
+            kc, vc, bt, sl, kw = case(lens)
             q = torch.randn(b, t, h, d, generator=g, device=dev).bfloat16()
-            out = flash_decode_multi(q, kc, vc, bt, sl)
+            out = flash_decode_multi(q, kc, vc, bt, sl, **kw)
             torch.cuda.synchronize()
             err = max(err, max_err(out, paged_attention_multi_reference(
-                q, kc, vc, bt, sl)))
-        ms, ms_w = time_ms(lambda: flash_decode_multi(q, kc, vc, bt, sl),
-                           iters=100)
+                q, kc, vc, bt, sl, **kw)))
+        ms, ms_w = time_ms(
+            lambda: flash_decode_multi(q, kc, vc, bt, sl, **kw), iters=100)
         plain, plain_w = time_ms(
-            lambda: paged_attention_multi_reference(q, kc, vc, bt, sl))
-        # library yardstick: SDPA over the pages gathered beforehand (the
-        # gather not timed), one boolean mask row per query row
-        kg = kc[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
-        vg = vc[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
+            lambda: paged_attention_multi_reference(q, kc, vc, bt, sl, **kw))
+        # library yardstick: SDPA over the pages gathered (and
+        # dequantized) beforehand (not timed), one boolean mask row per
+        # query row
+        kl, vl = _kv_library(kc, vc, kw)
+        kg = kl[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
+        vg = vl[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
         qp = (sl.long()[:, None] - t
               + torch.arange(t, device=dev)[None, :]).clamp(min=0)
         mask = (torch.arange(mp * bs, device=dev)[None, None, :]
@@ -544,7 +642,8 @@ def check_flash_decode_multi(dev, g):
         keys = sum(min(n, mp * bs) for n in lens)
         attended = sum(max(0, min(n - t + r + 1, mp * bs))
                        for n in lens for r in range(t))
-        nbytes = keys * h * d * 2 * 2 + 2 * b * t * h * d * 2 \
+        row_bytes = h * d * kc.element_size() + (h * 4 if int8 else 0)
+        nbytes = keys * row_bytes * 2 + 2 * b * t * h * d * 2 \
             + sum(-(-min(n, mp * bs) // bs) for n in lens) * 4 + b * 4
         flops = 4.0 * attended * h * d
         b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
@@ -553,14 +652,136 @@ def check_flash_decode_multi(dev, g):
             f"({plain_w:.5f}), SDPA on gathered pages {lib:.5f} "
             f"({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
         entries.append(dict(
-            name="flash_decode_multi",
-            shape=f"b={b} t={t} h={h} d={d} bs={bs} pages={mp} bf16 "
+            name=name,
+            shape=f"b={b} t={t} h={h} d={d} bs={bs} pages={mp} {tag} "
                   f"seq_lens={lens}",
             max_abs_err=err, ms=ms, ms_wall=ms_w, plain_ms=plain,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib))
     entry = dict(entries[0])
     entry["chunk"] = entries[1:]
     return entry
+
+
+# --- phase 2, the Q8 serve's shapes -----------------------------------
+
+def ulps(got, ref, mant_bits: int = 7, slack: float = 0.0) -> float:
+    """max over elements of (|got - ref| - ``slack``) in units of one ulp
+    (``mant_bits`` explicit mantissa bits: bf16 7) of the larger of |got|
+    and |ref|."""
+    g, r = got.float(), ref.float()
+    mag = torch.maximum(g.abs(), r.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.pow(2.0, torch.floor(torch.log2(mag)) - mant_bits)
+    return float((((g - r).abs() - slack).clamp(min=0.0) / ulp).max())
+
+
+def _qmm_case(dev, g, m, k, n, x_dtype, zero_col=None):
+    from apex_tpu_torch.ops import quantize_weight
+
+    w = 0.02 * torch.randn(k, n, generator=g, device=dev)
+    if zero_col is not None:
+        w[:, zero_col] = 0.0
+    wq, sc = quantize_weight(w.to(torch.bfloat16))
+    x = torch.randn(m, k, generator=g, device=dev).to(x_dtype)
+    return x, wq, sc
+
+
+def _qmm_hold(x, wq, sc, out_dtype, label):
+    """One kernel call against the plain version: fp32 out within
+    ``QMM_REL_TOL`` of max |plain|, a bf16/fp16 out within one ulp."""
+    from apex_tpu_torch.ops import quant_matmul, quant_matmul_reference
+
+    out = quant_matmul(x, wq, sc, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    ref = quant_matmul_reference(x, wq, sc, out_dtype=out_dtype)
+    err = max_err(out, ref)
+    if out_dtype == torch.float32:
+        dev_ = rel_err(out, ref)
+        ok, what = dev_ <= QMM_REL_TOL, f"max_rel_err={dev_:.3e} (tol " \
+            f"{QMM_REL_TOL})"
+    else:
+        slack = QMM_REL_TOL * float(ref.float().abs().max())
+        u = ulps(out, ref, 7 if out_dtype == torch.bfloat16 else 10, slack)
+        ok, what = u <= QMM_ULPS, f"max {u:.3f} ulps beyond {slack:.2e} " \
+            f"(tol {QMM_ULPS})"
+    m, k = x.shape
+    log(f"kernel quant_matmul M={m} K={k} N={wq.shape[1]} {x.dtype} x -> "
+        f"{out_dtype}: max_abs_err={err:.3e} {what} {'ok' if ok else 'FAIL'}"
+        f" ({label})")
+    if not ok:
+        raise AssertionError(f"quant_matmul kernel disagrees at M={m} "
+                             f"K={k} N={wq.shape[1]}")
+    return out, err
+
+
+def check_quant_matmul(dev, g):
+    """Rows 16 (GEMV, M <= 8) and 17 (tiled, M > 8): JAX's self_check
+    shapes (fp32: the FMA tile above 8 rows), shapes whose N and K are no
+    multiple of the vector width (the element-load paths), bf16 and fp16
+    x (the tensor-core tile) into fp32 out, an all-zero weight column
+    (exactly 0 out, both kernels and both tiles); then the Q8 serve's shapes
+    in bf16, each held and timed: the GEMV at M = 8 for the four
+    linears of a decode tick, the tiled kernel at the 700-token
+    prefill's M = 704 for the four linears and at the verify's M = 24
+    and the chunk's M = 32 for qkv.  Returns the two entries, every
+    timed shape under ``shapes``."""
+    from apex_tpu_torch.ops import (dequantize_weight, launch_counts,
+                                    quant_matmul, quant_matmul_reference,
+                                    reset_launch_counts)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    reset_launch_counts()
+    for m, k, n in ((1, 96, 160), (4, 128, 384), (8, 256, 256),
+                    (160, 128, 256), (3, 77, 100), (100, 77, 100)):
+        x, wq, sc = _qmm_case(dev, g, m, k, n, f32)
+        _qmm_hold(x, wq, sc, f32, "self_check / odd shape")
+    # bf16 and fp16 x (the tensor-core tile above 8 rows), into fp32 out;
+    # (100, 77, 100) takes the unaligned element loads
+    for m, k, n, dt in ((5, 1024, 1024, bf16), (33, 1024, 1024, bf16),
+                        (100, 77, 100, bf16), (40, 96, 160, torch.float16),
+                        (64, 256, 256, torch.float16)):
+        x, wq, sc = _qmm_case(dev, g, m, k, n, dt)
+        _qmm_hold(x, wq, sc, f32, f"{dt} x, fp32 out")
+    for m, dt in ((8, f32), (64, f32), (64, bf16)):
+        x, wq, sc = _qmm_case(dev, g, m, 256, 160, dt, zero_col=37)
+        out, _ = _qmm_hold(x, wq, sc, dt, "an all-zero column")
+        if not bool((out[:, 37] == 0).all()):
+            raise AssertionError(f"M={m}: the all-zero column is not 0")
+    c = launch_counts()
+    if c["quant_gemv"] != 6 or c["quant_tiled"] != 8:
+        raise AssertionError(f"dispatch by M: launches {c}")
+    linears = {"qkv": (1024, 3072), "dense": (1024, 1024),
+               "fc1": (1024, 4096), "fc2": (4096, 1024)}
+    cases = [("quant_gemv", 8, name, kn) for name, kn in linears.items()] \
+        + [("quant_tiled", 704, name, kn) for name, kn in linears.items()] \
+        + [("quant_tiled", m, "qkv", linears["qkv"]) for m in (24, 32)]
+    entries = {"quant_gemv": [], "quant_tiled": []}
+    for kernel, m, name, (k, n) in cases:
+        x, wq, sc = _qmm_case(dev, g, m, k, n, bf16)
+        _, err = _qmm_hold(x, wq, sc, bf16, f"{name}, the Q8 serve")
+        ms, ms_w = time_ms(lambda: quant_matmul(x, wq, sc), iters=100)
+        plain, plain_w = time_ms(lambda: quant_matmul_reference(x, wq, sc))
+        # library yardstick: what O5 runs, bf16 x against the bf16
+        # weight (here the dequantized one)
+        wd = dequantize_weight(wq, sc, bf16)
+        lib, lib_w = time_ms(lambda: torch.matmul(x, wd), iters=100)
+        nbytes = k * n + 4 * n + 2 * m * k + 2 * m * n
+        b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, BF16_FLOPS)
+        log(f"  time {name} M={m} K={k} N={n}, device ms (wall ms per "
+            f"call): kernel {ms:.5f} ({ms_w:.5f}), plain {plain:.5f} "
+            f"({plain_w:.5f}), torch.matmul on the bf16 weight {lib:.5f} "
+            f"({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
+        entries[kernel].append(dict(
+            name=kernel, shape=f"{name} M={m} K={k} N={n} bf16 x, int8 w",
+            max_abs_err=err, ms=ms, ms_wall=ms_w, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        del wd
+    out = []
+    for kernel, es in entries.items():
+        e = dict(es[0])
+        e["max_abs_err"] = max(x["max_abs_err"] for x in es)
+        e["shapes"] = es[1:]
+        out.append(e)
+    return tuple(out)
 
 
 # --- phase 2, the train step's shapes ----------------------------------
@@ -1061,49 +1282,116 @@ def serve_and_check(dev, *, policy: str, gap_tol: float,
     return counts, summary, engine.tokens_digest()
 
 
-def check_tokens(engine, gap_tol: float, dev, label: str):
-    """Hold every token ``engine`` served against the argmax of
-    ``gpt_sequence_logits`` run teacher-forced through the plain versions
-    on the same weights: a token must equal it wherever the oracle's
-    top-2 gap exceeds ``gap_tol`` (below it the position is a tie).
-    Returns ``{(rid, index): gap}`` for every served token."""
-    from apex_tpu_torch.serving import gpt_sequence_logits
-
-    mc = engine.model_cfg
-    plain_cfg = mc.plain()
+def _hold_tokens(label: str, gap_tol: float, streams):
+    """Hold served tokens against oracle logits: ``streams`` yields
+    ``(rid, out_tokens, rows)`` with ``rows`` the oracle's (n, V) logits
+    for each served position.  A token must equal the oracle's argmax
+    wherever its top-2 gap exceeds ``gap_tol`` (below it the position is
+    a tie).  Returns ``{(rid, index): gap}`` for every served token."""
     checked = ties = mism_ties = 0
+    worst = 0.0                      # the largest gap at a differing token
     gaps = {}
-    for req in sorted(engine.done, key=lambda r: str(r.rid)):
-        n_new = len(req.out_tokens)
-        seq = req.prompt + req.out_tokens[:-1]
-        toks = torch.tensor([seq], dtype=torch.long, device=dev)
-        with torch.inference_mode():
-            logits = gpt_sequence_logits(engine.weights, plain_cfg,
-                                         toks)[0].float()
-        rows = logits[len(req.prompt) - 1:]
-        if rows.shape != (n_new, mc.vocab_size) or \
-                not bool(torch.isfinite(rows).all()):
-            raise AssertionError(f"{req.rid}: oracle logits "
+    for rid, out_tokens, rows in streams:
+        n_new = len(out_tokens)
+        if rows.shape[0] != n_new or not bool(torch.isfinite(rows).all()):
+            raise AssertionError(f"{rid}: oracle logits "
                                  f"{tuple(rows.shape)} not finite / "
-                                 f"not ({n_new}, {mc.vocab_size})")
+                                 f"not {n_new} rows")
         top2 = rows.topk(2, dim=-1)
         gap = (top2.values[:, 0] - top2.values[:, 1]).tolist()
         want = top2.indices[:, 0].tolist()
-        for j, (got, w, gp) in enumerate(zip(req.out_tokens, want, gap)):
+        for j, (got, w, gp) in enumerate(zip(out_tokens, want, gap)):
             checked += 1
-            gaps[(req.rid, j)] = gp
+            gaps[(rid, j)] = gp
+            if got != w:
+                worst = max(worst, gp)
             if gp <= gap_tol:
                 ties += 1
                 mism_ties += int(got != w)
                 continue
             if got != w:
                 raise AssertionError(
-                    f"{label}: {req.rid} token {j}: served {got}, oracle "
+                    f"{label}: {rid} token {j}: served {got}, oracle "
                     f"{w} with top-2 gap {gp:.4f} > {gap_tol}")
     log(f"{label}: token check {checked} positions, {ties} under the tie "
-        f"rule (top-2 gap <= {gap_tol}; {mism_ties} of them differ), the "
-        f"other {checked - ties} equal the oracle")
+        f"rule (top-2 gap <= {gap_tol}; {mism_ties} of them differ, the "
+        f"largest gap at a differing token {worst:.4f}), the other "
+        f"{checked - ties} equal the oracle")
     return gaps
+
+
+def _sequence_oracle(engine, weights, dev):
+    """``(rid, out_tokens, rows)`` per finished request: the logits of
+    ``gpt_sequence_logits`` on ``weights`` through the plain versions,
+    teacher-forced on the served stream."""
+    from apex_tpu_torch.serving import gpt_sequence_logits
+
+    mc = engine.model_cfg
+    plain_cfg = mc.plain()
+    for req in sorted(engine.done, key=lambda r: str(r.rid)):
+        seq = req.prompt + req.out_tokens[:-1]
+        toks = torch.tensor([seq], dtype=torch.long, device=dev)
+        with torch.inference_mode():
+            logits = gpt_sequence_logits(weights, plain_cfg,
+                                         toks)[0].float()
+        rows = logits[len(req.prompt) - 1:]
+        if rows.shape[1] != mc.vocab_size:
+            raise AssertionError(f"{req.rid}: oracle vocab {rows.shape[1]}")
+        yield req.rid, req.out_tokens, rows
+
+
+def check_tokens(engine, gap_tol: float, dev, label: str):
+    """Hold every token ``engine`` served against the argmax of
+    ``gpt_sequence_logits`` run teacher-forced through the plain versions
+    on the same weights: a token must equal it wherever the oracle's
+    top-2 gap exceeds ``gap_tol`` (below it the position is a tie).
+    Returns ``{(rid, index): gap}`` for every served token."""
+    return _hold_tokens(label, gap_tol,
+                        _sequence_oracle(engine, engine.weights, dev))
+
+
+def _cache_replay(engine, dev):
+    """``(rid, out_tokens, rows)`` per finished request from a
+    teacher-forced replay through a cache of the engine's own storage
+    dtype: the prompt through the plain prefill into a fresh cache, then
+    one plain decode step per served token, fed the served tokens.  The
+    oracle of a serve whose cache is quantized (``gpt_sequence_logits``
+    reads no cache, so it cannot model int8 k/v)."""
+    import dataclasses
+
+    from apex_tpu_torch.serving import (gpt_decode_step, gpt_prefill_step,
+                                        init_cache)
+
+    plain = engine.model_cfg.plain()
+    cc = engine.cache_cfg
+    bs = cc.block_size
+    w = engine.weights
+
+    def i32(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    for req in sorted(engine.done, key=lambda r: str(r.rid)):
+        plen, n_new = len(req.prompt), len(req.out_tokens)
+        pages = cc.blocks_for(plen + n_new)
+        rcfg = dataclasses.replace(cc, num_blocks=pages + 1)
+        cache = init_cache(rcfg, dev)
+        pp = cc.blocks_for(plen)
+        toks = torch.zeros(pp * bs, dtype=torch.long, device=dev)
+        toks[:plen] = torch.tensor(req.prompt, device=dev)
+        bt = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            _, _, lg = gpt_prefill_step(w, plain, rcfg, cache, toks, plen,
+                                        bt[:pp], return_logits=True)
+            rows = [lg.float()]
+            for j in range(n_new - 1):
+                pos = plen + j
+                _, _, lg = gpt_decode_step(
+                    w, plain, rcfg, cache,
+                    torch.tensor([req.out_tokens[j]], device=dev),
+                    torch.tensor([pos], device=dev), bt[None], i32(pos + 1),
+                    i32(pos // bs + 1), i32(pos % bs), return_logits=True)
+                rows.append(lg[0].float())
+        yield req.rid, req.out_tokens, torch.stack(rows)
 
 
 # --- phase 3b: the serving fast path -----------------------------------
@@ -1158,23 +1446,33 @@ def _fast_leg(dev, label: str, *, policy: str = "O5",
     return counts, summary, engine, gaps
 
 
-def _chunked_leg(dev, layers: int):
+def _chunked_leg(dev, layers: int, policy: str = "O5",
+                 kv_dtype: str = "model"):
     """Chunked prefill at CHUNK tokens, the serve's prompts arriving one
     every second tick (``run(before_tick=)``, as bench.py's chunked leg
     drips them): no whole-prompt prefill may launch, the multi-token
     kernel runs once a layer per chunk, and decode ticks run while a
-    prompt is still prefilling."""
+    prompt is still prefilling.  Under Q8 every launch count is held
+    exactly; with an int8 cache the int8 branches launch and the tokens
+    are held against the int8 replay."""
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
     from apex_tpu_torch.serving import (Request, ServingEngine,
                                         default_cache_config,
-                                        init_serving_weights)
+                                        init_serving_weights,
+                                        quantize_weights)
     from apex_tpu_torch.testing.standalone_gpt import (model_config,
                                                        seeded_prompts)
 
-    label = "serve_fast chunked O5"
-    cfg = model_config("gpt345m", policy="O5")
+    int8 = kv_dtype == "int8"
+    sfx = "_int8" if int8 else ""
+    label = f"serve_fast chunked {policy}" if policy == "O5" and not int8 \
+        else f"serve_q8 chunked {policy} kv {kv_dtype}"
+    cfg = model_config("gpt345m", policy=policy)
     weights = init_serving_weights(cfg, seed=0, device=dev)
-    engine = ServingEngine(weights, cfg, default_cache_config(cfg),
+    if policy == "Q8":
+        weights = quantize_weights(weights)
+    engine = ServingEngine(weights, cfg,
+                           default_cache_config(cfg, kv_dtype=kv_dtype),
                            device=dev, prefill_chunk=CHUNK)
     pending = [Request(rid=f"req{i:03d}", prompt=p, max_new_tokens=SERVE_NEW)
                for i, p in enumerate(seeded_prompts(
@@ -1201,16 +1499,24 @@ def _chunked_leg(dev, layers: int):
         f"prompt was still prefilling")
     if counts["flash_attention"] != 0:
         raise AssertionError(f"{label}: the whole-prompt prefill launched")
-    if counts["flash_decode_multi"] != layers * s.prefill_chunks:
-        raise AssertionError(f"{label}: flash_decode_multi launched "
-                             f"{counts['flash_decode_multi']} times, not "
-                             f"{layers} x {s.prefill_chunks} chunks")
-    if counts["flash_decode"] <= 0 or overlap < 1:
+    if counts["flash_decode_multi" + sfx] != layers * s.prefill_chunks:
+        raise AssertionError(f"{label}: flash_decode_multi{sfx} launched "
+                             f"{counts['flash_decode_multi' + sfx]} times, "
+                             f"not {layers} x {s.prefill_chunks} chunks")
+    if counts["flash_decode" + sfx] <= 0 or overlap < 1:
         raise AssertionError(f"{label}: no decode beside the chunks")
+    if policy == "Q8":
+        want = q8_launches(layers, s.decode_steps, 0, s.prefill_chunks, int8)
+        if counts != want:
+            raise AssertionError(f"{label}: launch counts {counts} != "
+                                 f"{want}")
     if s.requests_done != len(SERVE_LENGTHS):
         raise AssertionError(f"{label}: {s.requests_done} requests done")
     _all_blocks_back(engine, label)
-    check_tokens(engine, TOKEN_GAP_TOL, dev, label)
+    if int8:
+        _hold_tokens(label, TOKEN_GAP_TOL_Q8, _cache_replay(engine, dev))
+    else:
+        check_tokens(engine, TOKEN_GAP_TOL, dev, label)
     _log_summary(label, s, engine)
     return counts
 
@@ -1370,6 +1676,107 @@ def serve_fast_legs(plain):
              lambda dev: _spec_truncated_leg(dev, layers)),
             ("chunked O5", lambda dev: _chunked_leg(dev, layers)),
             ("prefix sharing O5", _share_leg))
+
+
+# --- phase 3c: the quantized serving tier ------------------------------
+
+def q8_launches(layers: int, ticks: int, prefills: int, chunks: int,
+                int8: bool):
+    """Every kernel's launches for a Q8 serve of ``ticks`` decode ticks
+    (a batch of at most 8 rows: the GEMV), ``prefills`` whole-prompt
+    prefills and ``chunks`` prefill chunks (both more than 8 rows: the
+    tiled kernel), with a float or an int8 cache."""
+    from apex_tpu_torch.ops import KERNELS
+
+    sfx = "_int8" if int8 else ""
+    want = {k: 0 for k in KERNELS}
+    want.update(layer_norm=(2 * layers + 1) * (ticks + prefills + chunks),
+                flash_attention=layers * prefills,
+                quant_gemv=4 * layers * ticks,
+                quant_tiled=4 * layers * (prefills + chunks))
+    want["flash_decode" + sfx] = layers * ticks
+    want["flash_decode_multi" + sfx] = layers * chunks
+    return want
+
+
+def _q8_leg(dev, layers: int, kv_dtype: str):
+    """The Q8 serve of the serve phase's requests through ``serve_smoke``
+    with the cache stored as ``kv_dtype``, launch counts reset just before
+    and held exactly; every block back; every token against the int8
+    replay (int8 cache) or ``gpt_sequence_logits`` on the Q8 weights."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.testing.standalone_gpt import serve_smoke
+
+    label = f"serve_q8 Q8 kv {kv_dtype}"
+    int8 = kv_dtype == "int8"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, engine = serve_smoke(len(SERVE_LENGTHS), policy="Q8",
+                                  kv_dtype=kv_dtype, max_new_tokens=SERVE_NEW,
+                                  prompt_lengths=SERVE_LENGTHS, seed=0,
+                                  device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n = len(SERVE_LENGTHS)
+    want = q8_launches(layers, summary.decode_steps, n, 0, int8)
+    cc = engine.cache_cfg
+    log(f"{label}: weights + serve {wall:.1f} s, cache {cc.storage_dtype} "
+        f"{cc.cache_nbytes() / 2**20:.1f} MiB; launch counts "
+        f"{ {k: v for k, v in counts.items() if v} } (expected "
+        f"{ {k: v for k, v in want.items() if v} })")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    if summary.requests_done != n or \
+            summary.tokens_generated != n * SERVE_NEW:
+        raise AssertionError(f"{label}: served {summary.requests_done} "
+                             f"requests / {summary.tokens_generated} tokens")
+    _all_blocks_back(engine, label)
+    if int8:
+        _hold_tokens(label, TOKEN_GAP_TOL_Q8, _cache_replay(engine, dev))
+    else:
+        check_tokens(engine, TOKEN_GAP_TOL_Q8, dev, label)
+    log(f"{label}: tokens_per_sec={summary.tokens_per_sec} "
+        f"decode_tokens_per_sec={summary.decode_tokens_per_sec} "
+        f"ttft_p50_ms={summary.ttft_p50_ms} "
+        f"ttft_p99_ms={summary.ttft_p99_ms} "
+        f"token_p50_ms={summary.latency_p50_ms} "
+        f"token_p99_ms={summary.latency_p99_ms} "
+        f"itl_p50_ms={summary.itl_p50_ms} itl_p99_ms={summary.itl_p99_ms} "
+        f"decode_steps={summary.decode_steps} wall_s={summary.wall_s} "
+        f"digest={engine.tokens_digest()}")
+    if int8:
+        _float_agreement(engine, dev, label)
+    return counts
+
+
+def _float_agreement(engine, dev, label: str) -> None:
+    """The served streams' teacher-forced top-1 agreement with the O5
+    float oracle (``gpt_sequence_logits`` on the unquantized weights):
+    printed, not held (seeded random weights at this width)."""
+    from apex_tpu_torch.serving import init_serving_weights
+
+    weights = init_serving_weights(engine.model_cfg, seed=0, device=dev)
+    same = total = 0
+    for _, out_tokens, rows in _sequence_oracle(engine, weights, dev):
+        want = rows.argmax(dim=-1).tolist()
+        same += sum(int(a == b) for a, b in zip(out_tokens, want))
+        total += len(out_tokens)
+    log(f"{label}: top-1 agreement with the O5 float oracle {same / total:.4f}"
+        f" ({same} of {total} positions)")
+
+
+def serve_q8_legs():
+    """The quantized tier's three legs at GPT-345M width, each ``(name,
+    fn(dev))`` returning its launch counts: Q8 weights with an int8 cache,
+    Q8 alone, and chunked prefill on the int8 cache."""
+    from apex_tpu_torch.testing.standalone_gpt import MODELS
+
+    layers = MODELS["gpt345m"]["num_layers"]
+    return (("Q8 kv int8", lambda dev: _q8_leg(dev, layers, "int8")),
+            ("Q8 kv model", lambda dev: _q8_leg(dev, layers, "model")),
+            ("chunked Q8 kv int8", lambda dev: _chunked_leg(
+                dev, layers, policy="Q8", kv_dtype="int8")))
 
 
 def train_and_check(dev, policy: str = "O5"):
@@ -1589,25 +1996,32 @@ def profile_train(dev, policy: str = "O5"):
     free_memory()
 
 
-def profile_serve(dev, model: str = "gpt345m", **fast):
-    """The O5 serve's ``engine.run()`` once more under ``torch.profiler``
-    (weights and engine built outside the window), plain or with the
-    fast-path options ``fast`` (a self draft when speculating): device
-    busy share of the run's wall, and device time by kernel."""
+def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
+                  kv_dtype: str = "model", **fast):
+    """The serve's ``engine.run()`` once more under ``torch.profiler``
+    (weights and engine built outside the window) at ``policy`` (O5, or
+    Q8 with its quantized weights) over a ``kv_dtype`` cache, plain or
+    with the fast-path options ``fast`` (a self draft when speculating):
+    device busy share of the run's wall, and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch.serving import (Request, ServingEngine,
                                         default_cache_config,
-                                        init_serving_weights)
+                                        init_serving_weights,
+                                        quantize_weights)
     from apex_tpu_torch.testing.standalone_gpt import (model_config,
                                                        seeded_prompts)
 
-    cfg = model_config(model, policy="O5")
+    cfg = model_config(model, policy=policy)
     weights = init_serving_weights(cfg, seed=0, device=dev)
-    label = f"O5, {fast}" if fast else "O5"
+    if policy == "Q8":
+        weights = quantize_weights(weights)
+    label = ", ".join([policy] + ([f"kv {kv_dtype}"] if kv_dtype != "model"
+                                 else []) + ([f"{fast}"] if fast else []))
     if fast.get("speculate_k"):
         fast = dict(fast, draft_weights=weights, draft_cfg=cfg)
-    engine = ServingEngine(weights, cfg, default_cache_config(cfg),
+    engine = ServingEngine(weights, cfg,
+                           default_cache_config(cfg, kv_dtype=kv_dtype),
                            device=dev, **fast)
     for i, p in enumerate(seeded_prompts(SERVE_LENGTHS, cfg.vocab_size,
                                          seed=2)):
@@ -1629,7 +2043,8 @@ def profile_serve(dev, model: str = "gpt345m", **fast):
             f"{name[:90]}")
 
 
-PHASES = ("kernels", "serve", "serve_fast", "train", "train_o2", "profile")
+PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "train", "train_o2",
+          "profile")
 
 
 def main(argv=None) -> int:
@@ -1683,18 +2098,28 @@ def main(argv=None) -> int:
     if not failed:
         g = torch.Generator(device=dev)
         g.manual_seed(0)
+        gq = torch.Generator(device=dev)
+        gq.manual_seed(5)
         if "kernels" in phases:
             for name, fn in (("layer_norm", check_layer_norm),
                              ("flash_attention", check_flash_attention),
                              ("flash_decode", check_flash_decode),
                              ("flash_decode_multi",
                               check_flash_decode_multi),
+                             ("flash_decode_int8", functools.partial(
+                                 check_flash_decode, int8=True)),
+                             ("flash_decode_multi_int8", functools.partial(
+                                 check_flash_decode_multi, int8=True)),
+                             ("quant_matmul", check_quant_matmul),
                              ("layer_norm_bwd", check_layer_norm_bwd),
                              ("flash_attention_e", check_flash_attention_e),
                              ("fused_adam_pipeline", check_fused_adam),
                              ("scaled_softmax", check_scaled_softmax),
                              ("norm_finite", check_norm_finite)):
-                ok, out = run(f"kernel {name}", lambda: fn(dev, g))
+                # the Q8 tier's checks draw from a generator of their own,
+                # so the earlier checks see the inputs they saw before
+                gen = gq if name in Q8_CHECKS else g
+                ok, out = run(f"kernel {name}", lambda: fn(dev, gen))
                 if ok:
                     for e in (out if isinstance(out, tuple) else (out,)):
                         if name == "layer_norm_bwd" and \
@@ -1734,6 +2159,20 @@ def main(argv=None) -> int:
                        for k in SERVE_FAST_KERNELS):
                     failed.append("serve_fast: a kernel of the path never "
                                   "launched")
+        if "serve_q8" in phases:
+            legs = []
+            for name, fn in serve_q8_legs():
+                ok, out = run(f"serve_q8 {name}", lambda: fn(dev))
+                legs.append(out if ok else None)
+                free_memory()
+            if all(c is not None for c in legs):
+                counts["serve_q8"] = {k: sum(c[k] for c in legs)
+                                      for k in legs[0]}
+                log(f"serve_q8: launch counts over the three legs "
+                    f"{ {k: v for k, v in counts['serve_q8'].items() if v} }")
+                if any(counts["serve_q8"][k] <= 0 for k in SERVE_Q8_KERNELS):
+                    failed.append("serve_q8: a kernel of the path never "
+                                  "launched")
         if "train" in phases:
             ok, out = run("train O5", lambda: train_and_check(dev))
             if ok:
@@ -1754,6 +2193,9 @@ def main(argv=None) -> int:
             if "serve_fast" in phases:
                 run("serve_fast profile", lambda: profile_serve(
                     dev, speculate_k=SPEC_K))
+            if "serve_q8" in phases:
+                run("serve_q8 profile", lambda: profile_serve(
+                    dev, policy="Q8", kv_dtype="int8"))
             if "train" in phases:
                 run("train profile", lambda: profile_train(dev))
             if "train_o2" in phases:
@@ -1771,6 +2213,7 @@ def main(argv=None) -> int:
         by_path = {path: counts[path][name] for path, ks in
                    (("serve", SERVE_KERNELS),
                     ("serve_fast", SERVE_FAST_KERNELS),
+                    ("serve_q8", SERVE_Q8_KERNELS),
                     ("train", TRAIN_KERNELS),
                     ("train_o2", TRAIN_O2_KERNELS))
                    if name in ks}
@@ -1782,7 +2225,8 @@ def main(argv=None) -> int:
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             shape=e["shape"],
-            **{k: e[k] for k in ("train", "fp16", "chunk") if k in e}))
+            **{k: e[k] for k in ("train", "fp16", "chunk", "shapes")
+               if k in e}))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):
