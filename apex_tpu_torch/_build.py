@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 SOURCES = ("layer_norm", "flash_attention", "flash_decode",
            "flash_attention_bwd", "fused_adam", "scaled_softmax",
-           "norm_finite", "quant_matmul")
+           "norm_finite", "quant_matmul", "fused_lamb")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -51,11 +51,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "apex_layer_norm_bwd": [_P] * 10 + [_I] * 5 + [_P],
     },
     "flash_attention": {
-        # q, k, v, o, lse, b, h, sq, sk, d,
+        # q, k, v, o, lse, kv_mask (null: none), b, h, sq, sk, d,
         # q/k/v/o strides (b, h, s) in elements, scale, causal, dtype,
         # stream
-        "apex_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I] + [_L] * 12 + [_F, _I, _I, _P],
+        "apex_flash_attention_fwd": [_P] * 6 + [_I] * 5 + [_L] * 12
+        + [_F, _I, _I, _P],
     },
     "flash_decode": {
         # q, k_cache, v_cache, k_scale, v_scale (null for a float
@@ -74,10 +74,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         + [_F, _I, _I, _P],
     },
     "flash_attention_bwd": {
-        # q, k, v, o, do, lse, dq, dk, dv, delta, lse2, b, h, s, d,
-        # q/k/v/o/do/dq/dk/dv strides (b, h, s) in elements, scale,
-        # causal, dtype, stream
-        "apex_flash_attention_bwd": [_P] * 11 + [_I] * 4 + [_L] * 24
+        # q, k, v, o, do, lse, dq, dk, dv, delta, lse2, kv_mask (null:
+        # none), b, h, s, d, q/k/v/o/do/dq/dk/dv strides (b, h, s) in
+        # elements, scale, causal, dtype, stream
+        "apex_flash_attention_bwd": [_P] * 12 + [_I] * 4 + [_L] * 24
         + [_F, _I, _I, _P],
     },
     "fused_adam": {
@@ -85,11 +85,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # bc2, gscale, keep, adam_w_mode, g_dtype, lowp_dtype, stream
         "apex_adam_pipeline": [_P] * 5 + [_L] + [_F] * 9 + [_I] * 3 + [_P],
     },
+    "fused_lamb": {
+        # g, p, m, v, u, gscale (device fp32 scalar), n, beta1, beta2,
+        # beta3, eps, weight_decay, bc1, bc2, adam_w_mode, g_dtype,
+        # stream
+        "apex_lamb_phase1": [_P] * 6 + [_L] + [_F] * 7 + [_I] * 2 + [_P],
+    },
     "scaled_softmax": {
         # x, y, rows, sq, sk, scale, dtype, stream
         "apex_causal_softmax_fwd": [_P, _P, _L, _I, _I, _F, _I, _P],
         # y, dy, dx, rows, sk, scale, dtype, stream
         "apex_softmax_bwd": [_P, _P, _P, _L, _I, _F, _I, _P],
+        # x, mask (uint8, (b, 1, sq, sk) with batch stride mask_sb), y,
+        # b, np, sq, sk, mask_sb, scale, dtype, stream
+        "apex_masked_softmax_fwd": [_P, _P, _P, _I, _I, _I, _I, _L, _F,
+                                    _I, _P],
     },
     "norm_finite": {
         # n -> the number of partial slots (blocks) the sweep uses

@@ -27,8 +27,12 @@ of the kernel table) for the unscaled global norm and the finite flag,
 reads the flag on the host once, and hands it to the Adam sweep: a
 non-finite step keeps masters and moments bitwise, re-casts the model
 copy from them, holds the optimizer's count and backs the scale off.
-Under a static scale (O5) the sweep is not run and nothing is read
-back.  A policy without master weights raises ``NotImplementedError``.
+The checked sweep's unscaled norm also goes to the optimizer
+(``pipeline_step(grad_norm=...)``: FusedLAMB's clip reads it, FusedAdam
+ignores it).  Under a static scale (O5) the sweep is not run and nothing
+is read back (an optimizer that clips measures its own norm on the
+device).  A policy without master weights raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ class StepInfo(NamedTuple):
 
 
 class AmpOptimizer:
-    """Pairs a pipeline-capable optimizer (``fused_adam``) with a
+    """Pairs a pipeline-capable optimizer (``fused_adam``,
+    ``fused_lamb``) with a
     precision policy over one module's flat parameter groups."""
 
     def __init__(self, optimizer, policy: Policy,
@@ -91,7 +96,9 @@ class AmpOptimizer:
                  if p.requires_grad]
         self.groups = flatten_params(named, masters)
         self.state = self.optimizer.pipeline_init(
-            [g.master for g in self.groups])
+            [g.master for g in self.groups],
+            segments=[tuple(p.numel() for p in g.params)
+                      for g in self.groups])
         return self
 
     def scale_loss(self, loss: torch.Tensor) -> torch.Tensor:
@@ -125,7 +132,7 @@ class AmpOptimizer:
         inv = 1.0 / self.scaler.loss_scale
         gbufs = [g.grad for g in self.groups]
         check = self._resolve_check()
-        gnorm = None
+        gnorm = norm_t = None
         finite = True                      # unchecked
         if check:
             # the optimizer's kernels=False (the oracle configuration)
@@ -139,7 +146,8 @@ class AmpOptimizer:
             gnorm, finite = norm_v, finite_v > 0.5
         self.state = self.optimizer.pipeline_step(
             gbufs, self.state, [g.master for g in self.groups],
-            [g.lowp for g in self.groups], grad_scale=inv, finite=finite)
+            [g.lowp for g in self.groups], grad_scale=inv,
+            grad_norm=norm_t, finite=finite)
         self.scaler = _scaler.update(self.scaler, finite)
         return StepInfo(grads_finite=finite,
                         loss_scale=self.scaler.loss_scale,

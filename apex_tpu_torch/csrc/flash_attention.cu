@@ -3,9 +3,13 @@
 // Replaces: apex_tpu/ops/flash_attention.py `_flash_fwd` — both of its
 // Pallas bodies, `_fwd_single_kernel` (the whole padded sequence in one
 // block) and `_fwd_kernel` (the gridded online softmax) — for the
-// (b, h, s, d) layout, causal or not, without kv_mask, offsets or
-// dropout.  It writes o in the input dtype and the fp32 per-row
-// log-sum-exp (natural log) the backward will read.
+// (b, h, s, d) layout, causal or not, without offsets or dropout — and,
+// through the E-layout entry, `_flash_fwd_e` (row 10) with its kv_mask
+// lane (`_fwd_e_kernel`'s has_kvm): an optional (b, sk) fp32 key mask,
+// a key attended where it is > 0.  It writes o in the input dtype and
+// the fp32 per-row log-sum-exp (natural log) the backward will read.
+// A row with no attended key (every key masked, or under causal
+// masking none at or before it) writes o = 0 and lse = -inf.
 //
 // What bounds it on the H100: operations, from a few hundred tokens on.
 // Attention does 4 * d operations per (q, k) pair against 4 * d * 2
@@ -30,6 +34,9 @@
 // so k tiles wholly above the diagonal are never loaded.  There is no
 // separate single-block body: a sequence shorter than one tile is the
 // same loop run once, and a ragged last tile is masked by position.
+// With a kv_mask each staged tile also stages its keys' mask values, and
+// a tile whose keys are all masked (BERT's padded tails) is skipped by
+// the whole block (one __syncthreads_or): padding costs no products.
 // This runs on the fp32 pipes, not the tensor cores: mma/wgmma tiles and
 // TMA staging are later work.
 #include <cuda_runtime.h>
@@ -65,15 +72,17 @@ struct Strides {
   long long b, h, s;
 };
 
-template <typename T, int D>
+// kMask: the kv_mask lane; the unmasked instantiation has no mask code
+template <typename T, int D, bool kMask>
 __global__ void __launch_bounds__(kBQ)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int h, int sq, int sk, Strides qs,
-                 Strides ks, Strides vs, Strides os, float scale, float a,
-                 int causal) {
+                 float* __restrict__ lse, const float* __restrict__ kvm, int h,
+                 int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
+                 float scale, float a, int causal) {
   __shared__ __align__(16) float k_tile[kBK][D];
   __shared__ __align__(16) float v_tile[kBK][D];
+  __shared__ bool key_ok[kMask ? kBK : 1];
 
   const int bh = blockIdx.y;
   const int bi = bh / h;
@@ -85,6 +94,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + bi * qs.b + hi * qs.h;
   const T* kb = k + bi * ks.b + hi * ks.h;
   const T* vb = v + bi * vs.b + hi * vs.h;
+  const float* mb = kMask ? kvm + (size_t)bi * sk : nullptr;
 
   float qr[D];
   float acc[D];
@@ -100,6 +110,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(sk, q0 + kBQ) : sk;
   for (int j0 = 0; j0 < k_end; j0 += kBK) {
     __syncthreads();  // the previous tile is no longer read
+    if constexpr (kMask) {
+      bool mine = false;
+      if (threadIdx.x < kBK) {
+        const int kp = j0 + threadIdx.x;
+        mine = kp < sk && mb[kp] > 0.f;
+        key_ok[threadIdx.x] = mine;
+      }
+      // every key of the tile masked: nothing to add
+      if (!__syncthreads_or(mine)) continue;
+    }
     for (int idx = threadIdx.x; idx < kBK * D; idx += kBQ) {
       const int jj = idx / D;
       const int d = idx - jj * D;
@@ -128,7 +148,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dot1 = fmaf(qr[d + 3], kk.w, dot1);
       }
       const int kp = j0 + jj;
-      const bool ok = kp < sk && (!causal || kp <= row);
+      const bool ok = kp < sk && (!causal || kp <= row) && (!kMask || key_ok[jj]);
       s[jj] = ok ? dot0 + dot1 : -INFINITY;
       tile_max = fmaxf(tile_max, s[jj]);
     }
@@ -171,19 +191,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int b, int h, int sq, int sk, int d, Strides qs, Strides ks,
-                   Strides vs, Strides os, float scale, int causal,
+                   const float* kvm, int b, int h, int sq, int sk, int d, Strides qs,
+                   Strides ks, Strides vs, Strides os, float scale, int causal,
                    cudaStream_t stream) {
   const float a = scale * 1.4426950408889634f;  // scale * log2(e)
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
-  if (d == 64) {
-    flash_fwd_kernel<T, 64><<<grid, kBQ, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-        h, sq, sk, qs, ks, vs, os, scale, a, causal);
-    return cudaGetLastError();
-  }
-  return cudaErrorInvalidValue;
+  if (d != 64) return cudaErrorInvalidValue;
+  auto kernel = kvm ? flash_fwd_kernel<T, 64, true> : flash_fwd_kernel<T, 64, false>;
+  kernel<<<grid, kBQ, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), kvm, h, sq, sk, qs, ks, vs, os,
+      scale, a, causal);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -196,9 +215,11 @@ const char* apex_cuda_error_string(int e) {
 
 // q (b, h, sq, d), k/v (b, h, sk, d), o (b, h, sq, d) given by element
 // strides over (b, h, s) with a unit stride on d; lse (b, h, sq) fp32
-// contiguous.  dtype codes: 0 float32, 1 bfloat16, 2 float16.  d = 64.
+// contiguous; kvm null, or the (b, sk) fp32 key mask, contiguous.  dtype
+// codes: 0 float32, 1 bfloat16, 2 float16.  d = 64.
 int apex_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                             void* lse, int b, int h, int sq, int sk, int d,
+                             void* lse, const void* kvm, int b, int h, int sq,
+                             int sk, int d,
                              long long q_sb, long long q_sh, long long q_ss,
                              long long k_sb, long long k_sh, long long k_ss,
                              long long v_sb, long long v_sh, long long v_ss,
@@ -207,17 +228,18 @@ int apex_flash_attention_fwd(const void* q, const void* k, const void* v, void* 
   if (b <= 0 || h <= 0 || sq <= 0 || sk <= 0 || b * h > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(kvm);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, o, lse, b, h, sq, sk, d, qs, ks, vs, os, scale,
+      return launch<float>(q, k, v, o, lse, m, b, h, sq, sk, d, qs, ks, vs, os, scale,
                            causal, s);
     case 1:
-      return launch<__nv_bfloat16>(q, k, v, o, lse, b, h, sq, sk, d, qs, ks, vs, os,
+      return launch<__nv_bfloat16>(q, k, v, o, lse, m, b, h, sq, sk, d, qs, ks, vs, os,
                                    scale, causal, s);
     case 2:
-      return launch<__half>(q, k, v, o, lse, b, h, sq, sk, d, qs, ks, vs, os, scale,
+      return launch<__half>(q, k, v, o, lse, m, b, h, sq, sk, d, qs, ks, vs, os, scale,
                             causal, s);
     default:
       return cudaErrorInvalidValue;

@@ -6,13 +6,17 @@
 // forward's o (b, s, h, d) and fp32 lse (b, h, s), and do (b, s, h, d),
 // it writes dqkv in qkv's own interleaved layout: dq, dk and dv land in
 // each head's [q|k|v] lanes, never in three tensors that are then
-// concatenated.  Causal or full; no kv_mask and no dropout (later work).
+// concatenated.  Causal or full, with the kv_mask lane (`_bwd_e_kernel`'s
+// has_kvm): an optional (b, s) fp32 key mask, a key attended where it is
+// > 0.  No dropout (later work).
 //
 // Math, per (b, h): p = exp(scale * q k^T - lse) recomputed from the
 // forward's natural-log lse (so no (s, s) matrix is ever stored),
 // delta_i = sum_d do_i * o_i, ds = p * (do v^T - delta), and
 // dq = scale * ds k, dk = scale * ds^T q, dv = p^T do, all in fp32, cast
-// once to qkv's dtype.
+// once to qkv's dtype.  A masked (q, k) pair takes p = 0 by a select
+// made before the exponential is read: a row that attends nothing has
+// lse = -inf from the forward, where exp(s - lse) would be inf.
 //
 // What bounds it on the H100: operations.  It does 10 * d operations per
 // (q, k) pair (recomputed scores, do v^T, and the three products) against
@@ -36,7 +40,10 @@
 //     stopping at the tile's last query under causal masking.
 // A thread's 16 dims are four float4 chunks interleaved with its three
 // neighbours' (dims 16c + 4t .. 16c + 4t + 3), so the four threads of a
-// row read four different shared-memory banks.  The products run on the
+// row read four different shared-memory banks.  With a kv_mask, a dK/dV
+// block whose 64 keys are all masked writes zeros without walking the
+// rows, and the dQ pass skips every staged key tile that is wholly
+// masked (BERT's padded tails cost no products).  The products run on the
 // fp32 pipes, not the tensor cores: mma/wgmma tiles are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -174,14 +181,17 @@ __device__ __forceinline__ void stage(float (*a_t)[D], float (*b_t)[D],
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse2, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int h, int s, Strides qs,
-               Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
-               float scale, float a, int causal) {
+// The dK/dV pass.  kMask: the kv_mask lane; the unmasked instantiation
+// has no mask code.
+template <typename T, bool kMask>
+__device__ __forceinline__ void
+bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ lse2, const float* __restrict__ delta,
+             const float* __restrict__ kvm, T* __restrict__ dk,
+             T* __restrict__ dv, int h, int s, Strides qs,
+             Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
+             float scale, float a, int causal) {
   __shared__ __align__(16) float q_t[kSub][D];
   __shared__ __align__(16) float do_t[kSub][D];
   __shared__ float l_t[kSub];
@@ -194,6 +204,10 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = threadIdx.x % kTPR;
   const int j = j0 + threadIdx.x / kTPR;
   const bool live = j < s;
+  // the thread's key is attended by some row only if the mask keeps it
+  const bool kept = live && (!kMask || kvm[(size_t)bi * s + j] > 0.f);
+  // a block of masked keys has nothing to accumulate: zeros out
+  const bool any = kMask ? __syncthreads_or(kept) : true;
 
   float kr[kOwn], vr[kOwn], dkr[kOwn], dvr[kOwn];
 #pragma unroll
@@ -210,7 +224,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* deb = delta + (size_t)bh * s;
 
   // causal: rows above the tile's first key see none of its keys
-  for (int i0 = causal ? j0 : 0; i0 < s; i0 += kSub) {
+  for (int i0 = causal ? j0 : 0; any && i0 < s; i0 += kSub) {
     __syncthreads();  // the previous tile is no longer read
     stage<T>(q_t, do_t, qb, db, qs.s, dos.s, i0, s);
     if (threadIdx.x < kSub) {
@@ -224,7 +238,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = i0 + ii;
       const float sc = row_sum(dot_own(q_t[ii], t, kr));
       const float dp = row_sum(dot_own(do_t[ii], t, vr));
-      const bool ok = live && i < s && (!causal || j <= i);
+      const bool ok = kept && i < s && (!causal || j <= i);
       const float p = ok ? exp2f(fmaf(sc, a, -l_t[ii])) : 0.f;
       const float ds = p * (dp - dl_t[ii]) * scale;
       axpy_own(p, do_t[ii], t, dvr);
@@ -237,16 +251,42 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+#define DKV_PARAMS                                                              \
+  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v,    \
+      const T *__restrict__ dout, const float *__restrict__ lse2,               \
+      const float *__restrict__ delta, const float *__restrict__ kvm,           \
+      T *__restrict__ dk, T *__restrict__ dv, int h, int s, Strides qs,         \
+      Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,            \
+      float scale, float a, int causal
+#define DKV_ARGS \
+  q, k, v, dout, lse2, delta, kvm, dk, dv, h, s, qs, ks, vs, dos, dks, dvs, scale, a, causal
+
+// Two kernels, so each keeps its own launch bounds: the unmasked one as
+// it always was (ptxas gives it 128 registers), the masked one held to
+// two blocks an SM (at 256 threads, 128 registers a thread is the most
+// that lets a second block in; unbounded, the mask took it to 130 and one
+// block, 20 % slower).
 template <typename T>
+__global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(DKV_PARAMS) {
+  bwd_dkv_body<T, false>(DKV_ARGS);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) bwd_dkv_masked_kernel(DKV_PARAMS) {
+  bwd_dkv_body<T, true>(DKV_ARGS);
+}
+
+template <typename T, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse2, const float* __restrict__ delta,
-              T* __restrict__ dq, int h, int s, Strides qs, Strides ks,
-              Strides vs, Strides dos, Strides dqs, float scale, float a,
-              int causal) {
+              const float* __restrict__ kvm, T* __restrict__ dq, int h, int s,
+              Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
+              float scale, float a, int causal) {
   __shared__ __align__(16) float k_t[kSub][D];
   __shared__ __align__(16) float v_t[kSub][D];
+  __shared__ bool km_t[kMask ? kSub : 1];
 
   const int bh = blockIdx.y;
   const int bi = bh / h;
@@ -270,11 +310,21 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const T* kb = k + bi * ks.b + hi * ks.h;
   const T* vb = v + bi * vs.b + hi * vs.h;
+  const float* mb = kMask ? kvm + (size_t)bi * s : nullptr;
 
   // causal: keys past the tile's last query are in every row's future
   const int k_end = causal ? min(s, i0 + kTile) : s;
   for (int j0 = 0; j0 < k_end; j0 += kSub) {
     __syncthreads();
+    if constexpr (kMask) {
+      bool mine = false;
+      if (threadIdx.x < kSub) {
+        const int j = j0 + threadIdx.x;
+        mine = j < s && mb[j] > 0.f;
+        km_t[threadIdx.x] = mine;
+      }
+      if (!__syncthreads_or(mine)) continue;  // a wholly masked tile
+    }
     stage<T>(k_t, v_t, kb, vb, ks.s, vs.s, j0, s);
     __syncthreads();
 #pragma unroll 4
@@ -282,7 +332,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = j0 + jj;
       const float sc = row_sum(dot_own(k_t[jj], t, qr));
       const float dp = row_sum(dot_own(v_t[jj], t, dor));
-      const bool ok = live && j < s && (!causal || j <= i);
+      const bool ok = live && j < s && (!causal || j <= i) && (!kMask || km_t[jj]);
       const float p = ok ? exp2f(fmaf(sc, a, -l)) : 0.f;
       const float ds = p * (dp - dl) * scale;
       axpy_own(ds, k_t[jj], t, dqr);
@@ -294,7 +344,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const void* lse, void* dq, void* dk, void* dv,
-                   void* delta, void* lse2, int b, int h, int s, Strides qs,
+                   void* delta, void* lse2, const float* kvm, int b, int h, int s,
+                   Strides qs,
                    Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
                    Strides dks, Strides dvs, float scale, int causal,
                    cudaStream_t stream) {
@@ -308,18 +359,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 grid((s + kTile - 1) / kTile, b * h);
-  bwd_dkv_kernel<T><<<grid, kThreads, 0, stream>>>(
+  auto dkv = kvm ? bwd_dkv_masked_kernel<T> : bwd_dkv_kernel<T>;
+  dkv<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse2),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), h,
-      s, qs, ks, vs, dos, dks, dvs, scale, a, causal);
+      static_cast<const float*>(delta), kvm, static_cast<T*>(dk), static_cast<T*>(dv),
+      h, s, qs, ks, vs, dos, dks, dvs, scale, a, causal);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_dq_kernel<T><<<grid, kThreads, 0, stream>>>(
+  auto dq_pass = kvm ? bwd_dq_kernel<T, true> : bwd_dq_kernel<T, false>;
+  dq_pass<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse2),
-      static_cast<const float*>(delta), static_cast<T*>(dq), h, s, qs, ks, vs, dos,
-      dqs, scale, a, causal);
+      static_cast<const float*>(delta), kvm, static_cast<T*>(dq), h, s, qs, ks, vs,
+      dos, dqs, scale, a, causal);
   return cudaGetLastError();
 }
 
@@ -335,12 +388,13 @@ const char* apex_cuda_error_string(int e) {
 // (b, h, s) with a unit stride on d: q/k/v and dq/dk/dv are the lanes of
 // the (b, s, h, 3d) qkv and dqkv buffers, o and do (b, s, h, d) buffers.
 // lse (b, h, s) fp32 contiguous, natural log of the scaled scores' sum;
-// delta and lse2 are fp32 scratch of b * h * s each.  dtype codes: 0
-// float32, 1 bfloat16, 2 float16.  d = 64.
+// delta and lse2 are fp32 scratch of b * h * s each; kvm null, or the
+// forward's (b, s) fp32 key mask, contiguous.  dtype codes: 0 float32, 1
+// bfloat16, 2 float16.  d = 64.
 int apex_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const void* lse, void* dq, void* dk, void* dv, void* delta, void* lse2, int b,
-    int h, int s, int d, long long q_sb, long long q_sh, long long q_ss,
+    const void* lse, void* dq, void* dk, void* dv, void* delta, void* lse2,
+    const void* kvm, int b, int h, int s, int d, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss, long long do_sb,
     long long do_sh, long long do_ss, long long dq_sb, long long dq_sh,
@@ -350,19 +404,20 @@ int apex_flash_attention_bwd(
   if (b <= 0 || h <= 0 || s <= 0 || d != D || b * h > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(kvm);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss}, dos{do_sb, do_sh, do_ss}, dqs{dq_sb, dq_sh, dq_ss},
       dks{dk_sb, dk_sh, dk_ss}, dvs{dv_sb, dv_sh, dv_ss};
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, b, h, s,
+      return launch<float>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b, h, s,
                            qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, st);
     case 1:
-      return launch<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, b,
+      return launch<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b,
                                    h, s, qs, ks, vs, os, dos, dqs, dks, dvs, scale,
                                    causal, st);
     case 2:
-      return launch<__half>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, b, h, s,
+      return launch<__half>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b, h, s,
                             qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, st);
     default:
       return cudaErrorInvalidValue;

@@ -26,8 +26,11 @@ from .quant_matmul import (QuantGPTServingWeights, QuantLayerWeights,
                            dequantize_weight, is_quantized_weights,
                            quant_matmul, quant_matmul_reference,
                            quantize_weight, quantize_weights)
-from .scaled_softmax import (ScaledUpperTriangMaskedSoftmax, causal_softmax,
-                             causal_softmax_reference,
+from .fused_optim import lamb_phase1, lamb_phase1_reference
+from .scaled_softmax import (ScaledMaskedSoftmax,
+                             ScaledUpperTriangMaskedSoftmax, causal_softmax,
+                             causal_softmax_reference, masked_softmax,
+                             masked_softmax_reference, scaled_masked_softmax,
                              scaled_upper_triang_masked_softmax,
                              softmax_backward, softmax_backward_reference)
 
@@ -50,4 +53,7 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "FusedLayerNormFunction", "fused_layer_norm",
            "scaled_upper_triang_masked_softmax", "causal_softmax",
            "causal_softmax_reference", "softmax_backward",
-           "softmax_backward_reference", "ScaledUpperTriangMaskedSoftmax"]
+           "softmax_backward_reference", "ScaledUpperTriangMaskedSoftmax",
+           "scaled_masked_softmax", "masked_softmax",
+           "masked_softmax_reference", "ScaledMaskedSoftmax",
+           "lamb_phase1", "lamb_phase1_reference"]

@@ -4,8 +4,10 @@ Port of ``apex_tpu/ops/flash_attention.py``'s ``flash_attention``
 (``_flash_fwd`` and its two Pallas bodies) for the (b, h, s, d) layout,
 forward only, and of ``flash_attention_e`` (``_flash_fwd_e`` and
 ``_flash_bwd_e``), the projection-native E layout the transformer layer
-trains through, forward and backward.  Causal or full — no kv_mask,
-offsets or dropout in this slice.  The JAX package packs d=64 head
+trains through, forward and backward.  Causal or full; the E entry also
+takes a (b, s) ``kv_mask`` (a key is attended where it is > 0), the
+padding mask BERT's flash route rides — no offsets or dropout in this
+slice.  The JAX package packs d=64 head
 pairs onto 128 TPU lanes and groups E heads by lane budget; those are
 lane-layout devices of the TPU, so the port keeps heads apart and
 matches the numerics, not the layout.
@@ -24,6 +26,15 @@ forward is the same kernel launched on strided views of qkv (no copy,
 no transpose); its backward (``csrc/flash_attention_bwd.cu``) writes dq,
 dk and dv straight into the heads' lanes of one dqkv buffer.  Both
 report natural-log lse of the scaled scores, one convention throughout.
+
+A batch row whose every key is masked out (or, under causal masking, a
+query row that sees no unmasked key) attends nothing: o = 0 and lse =
+-inf there, and its gradients are 0.  The JAX kernels write o = 0 too
+(their lse is the finite -1e30 * scale, which nothing reads).
+
+:func:`flash_attention` has no backward (row 8, ``_flash_bwd``, is not
+ported): when autograd records and q, k or v requires grad it raises
+``NotImplementedError`` rather than return an output with no graph.
 """
 from __future__ import annotations
 
@@ -46,25 +57,52 @@ _TAKES = (torch.float32, torch.bfloat16, torch.float16)
 _HEAD_DIMS = (64,)
 
 
+def _keep_mask(sq, sk, causal, kv_mask, device):
+    """The (b or 1, 1, sq or 1, sk) boolean of attended (query, key)
+    pairs, or None when every pair is attended."""
+    keep = None
+    if causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=device).tril()
+    if kv_mask is not None:
+        km = (kv_mask > 0)[:, None, None, :]
+        keep = km if keep is None else keep & km
+    return keep
+
+
 def mha_reference(q, k, v, scale: Optional[float] = None,
-                  causal: bool = False, return_lse: bool = False):
+                  causal: bool = False, return_lse: bool = False,
+                  kv_mask: Optional[torch.Tensor] = None):
     """Unfused reference (the jnp twin ``mha_reference``): fp32 scores
     materialized as (b, h, sq, sk), masked with -1e30, fp32 softmax,
     output in q's dtype.  ``return_lse=True`` also returns the fp32
     (b, h, sq) log-sum-exp of the scaled scores, the kernel's second
-    output."""
+    output.  ``kv_mask`` (b, sk) keeps the keys where it is > 0, as the
+    kernels do: a row with no key left gives o = 0 and lse = -inf (the
+    jnp twin gives the uniform mix there; the JAX kernels give 0)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        sq, sk = s.shape[-2:]
-        mask = torch.ones(sq, sk, dtype=torch.bool,
-                          device=s.device).tril()
-        s = s.masked_fill(~mask, _NEG)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    sq, sk = s.shape[-2:]
+    if kv_mask is None:
+        if causal:
+            s = s.masked_fill(~_keep_mask(sq, sk, True, None, s.device),
+                              _NEG)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+        if return_lse:
+            return o, torch.logsumexp(s, dim=-1)
+        return o
+    s = s.masked_fill(~_keep_mask(sq, sk, causal, kv_mask, s.device),
+                      -math.inf)
+    # the row max is a shift softmax does not see, so it takes no
+    # gradient; a dead row (max -inf) shifts by 0 and sums to 0
+    m = s.amax(dim=-1, keepdim=True).detach()
+    e = torch.exp(s - m.masked_fill(m == -math.inf, 0.0))
+    l = e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", e / l.masked_fill(l == 0, 1.0),
+                     v.float()).to(q.dtype)
     if return_lse:
-        return o, torch.logsumexp(s, dim=-1)
+        return o, (m + torch.log(l)).squeeze(-1)
     return o
 
 
@@ -90,10 +128,22 @@ def _check_qkv(q, k, v, what):
         raise ValueError(f"b * h = {b * h} exceeds the kernel grid")
 
 
-def _launch(q, k, v, scale, causal, counter="flash_attention"):
+def _kv_mask_arg(kv_mask, b, sk, device):
+    """The kernels' mask format: contiguous fp32 (b, sk), or None."""
+    if kv_mask is None:
+        return None
+    if kv_mask.shape != (b, sk) or kv_mask.device != device:
+        raise ValueError(f"kv_mask must be (b, sk) = {(b, sk)} on {device}, "
+                         f"got {tuple(kv_mask.shape)} on {kv_mask.device}")
+    return kv_mask.to(torch.float32).contiguous()
+
+
+def _launch(q, k, v, scale, causal, counter="flash_attention",
+            kv_mask=None):
     _check_qkv(q, k, v, counter)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    kvm = _kv_mask_arg(kv_mask, b, sk, q.device)
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -106,12 +156,16 @@ def _launch(q, k, v, scale, causal, counter="flash_attention"):
     with torch.cuda.device(q.device):
         rc = lib.apex_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, sq, sk, d, *strides, float(scale),
-            int(bool(causal)), _build.dtype_code(q.dtype),
-            _build.stream_ptr(q.device))
+            lse.data_ptr(), None if kvm is None else kvm.data_ptr(), b, h,
+            sq, sk, d, *strides, float(scale), int(bool(causal)),
+            _build.dtype_code(q.dtype), _build.stream_ptr(q.device))
     _build.check("flash_attention", rc, f"{counter} kernel")
     bump(counter)
     return o, lse
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -120,6 +174,12 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)``: softmax(q k^T * scale [causal]) v and the fp32
     per-row log-sum-exp, (b, h, sq)."""
+    if _needs_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention has no backward in the port yet: row 8 of the "
+            "kernel table, `_flash_bwd` (apex_tpu/ops/flash_attention.py:"
+            "1027), is not ported; call it under torch.no_grad() or "
+            "inference_mode, or train through flash_attention_e")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -138,7 +198,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (b, h, sq, d); k, v (b, h, sk, d); ``scale`` defaults to
     1/sqrt(d).  Causal masking keeps key positions <= the query's (both
-    counted from 0).  Forward only."""
+    counted from 0).  Forward only: raises ``NotImplementedError``
+    when autograd records and an input requires grad."""
     return flash_attention_with_lse(q, k, v, scale=scale,
                                     causal=causal)[0]
 
@@ -154,22 +215,26 @@ def _split_e(qkv):
 
 
 def flash_attention_e_reference(qkv, scale: Optional[float] = None,
-                                causal: bool = False):
+                                causal: bool = False,
+                                kv_mask: Optional[torch.Tensor] = None):
     """Plain version of :func:`flash_attention_e`: :func:`mha_reference`
     on the split views, differentiated by autograd."""
     b, s, h, td = qkv.shape
     q, k, v = _split_e(qkv)
-    o = mha_reference(q, k, v, scale=scale, causal=causal)
+    o = mha_reference(q, k, v, scale=scale, causal=causal, kv_mask=kv_mask)
     return o.transpose(1, 2).reshape(b, s, h * (td // 3))
 
 
 def flash_attention_e_backward_reference(qkv, o, lse, do,
                                          scale: Optional[float] = None,
-                                         causal: bool = False):
+                                         causal: bool = False,
+                                         kv_mask: Optional[torch.Tensor]
+                                         = None):
     """Plain version of the backward kernel: dqkv (b, s, h, 3d) from
     qkv, the forward's o (b, s, h, d) and natural-log lse (b, h, s),
     and do (b, s, h, d) — p recomputed from lse, delta = rowsum(do*o),
-    all in fp32, cast once to qkv's dtype."""
+    all in fp32, cast once to qkv's dtype.  Masked pairs take p = 0
+    before the exponential is read (a dead row's lse is -inf)."""
     b, s, h, td = qkv.shape
     d = td // 3
     if scale is None:
@@ -178,10 +243,10 @@ def flash_attention_e_backward_reference(qkv, o, lse, do,
     of = o.float().transpose(1, 2)
     dof = do.float().transpose(1, 2)
     sc = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    if causal:
-        mask = torch.ones(s, s, dtype=torch.bool, device=qkv.device).tril()
-        sc = sc.masked_fill(~mask, -math.inf)
     p = torch.exp(sc - lse.unsqueeze(-1))
+    keep = _keep_mask(s, s, causal, kv_mask, qkv.device)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros((), device=p.device))
     delta = (dof * of).sum(-1, keepdim=True)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, v) - delta) * scale
@@ -191,10 +256,11 @@ def flash_attention_e_backward_reference(qkv, o, lse, do,
     return dqkv.to(qkv.dtype)
 
 
-def _launch_backward(qkv, o, lse, do, scale, causal):
+def _launch_backward(qkv, o, lse, do, scale, causal, kv_mask=None):
     q, k, v = _split_e(qkv)
     _check_qkv(q, k, v, "flash_attention_e_bwd")
     b, h, s, d = q.shape
+    kvm = _kv_mask_arg(kv_mask, b, s, qkv.device)
     for name, t in (("o", o), ("do", do)):
         if t.shape != (b, s, h, d) or t.dtype != qkv.dtype or \
                 t.stride(-1) != 1 or t.device != qkv.device:
@@ -218,41 +284,51 @@ def _launch_backward(qkv, o, lse, do, scale, causal):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            b, h, s, d, *strides, float(scale), int(bool(causal)),
-            _build.dtype_code(qkv.dtype), _build.stream_ptr(qkv.device))
-    _build.check("flash_attention_bwd", rc, "flash_attention_e_bwd kernel")
-    bump("flash_attention_e_bwd")
+            None if kvm is None else kvm.data_ptr(), b, h, s, d, *strides,
+            float(scale), int(bool(causal)), _build.dtype_code(qkv.dtype),
+            _build.stream_ptr(qkv.device))
+    counter = "flash_attention_e_bwd" + ("_kvmask" if kvm is not None
+                                         else "")
+    _build.check("flash_attention_bwd", rc, f"{counter} kernel")
+    bump(counter)
     return dqkv
 
 
 def flash_attention_e_backward(qkv: torch.Tensor, o: torch.Tensor,
                                lse: torch.Tensor, do: torch.Tensor,
                                scale: Optional[float] = None,
-                               causal: bool = False) -> torch.Tensor:
+                               causal: bool = False,
+                               kv_mask: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """dqkv (b, s, h, 3d) in qkv's layout and dtype, from the forward's
     o (b, s, h, d) and fp32 natural-log lse (b, h, s) and the output
-    gradient do (b, s, h, d)."""
+    gradient do (b, s, h, d); ``kv_mask`` the forward's (b, s) mask.
+    The masked lane counts as ``flash_attention_e_bwd_kvmask``."""
     if scale is None:
         scale = (qkv.shape[-1] // 3) ** -0.5
     if qkv.device.type == "cpu":
         return flash_attention_e_backward_reference(qkv, o, lse, do,
                                                     scale=scale,
-                                                    causal=causal)
+                                                    causal=causal,
+                                                    kv_mask=kv_mask)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention_e runs on cuda or cpu, not "
                          f"{qkv.device}")
-    return _launch_backward(qkv, o, lse, do, scale, causal)
+    return _launch_backward(qkv, o, lse, do, scale, causal, kv_mask)
 
 
-def _forward_e(qkv, scale, causal):
-    """``(o (b, s, h, d), lse (b, h, s))`` of the E forward."""
+def _forward_e(qkv, scale, causal, kv_mask=None):
+    """``(o (b, s, h, d), lse (b, h, s))`` of the E forward; with a
+    ``kv_mask`` the launch counts as ``flash_attention_e_kvmask``."""
     q, k, v = _split_e(qkv)
     if qkv.device.type == "cpu":
         o, lse = mha_reference(q, k, v, scale=scale, causal=causal,
-                               return_lse=True)
+                               return_lse=True, kv_mask=kv_mask)
     elif qkv.device.type == "cuda":
         o, lse = _launch(q, k, v, scale, causal,
-                         counter="flash_attention_e")
+                         counter="flash_attention_e" + (
+                             "_kvmask" if kv_mask is not None else ""),
+                         kv_mask=kv_mask)
     else:
         raise ValueError(f"flash_attention_e runs on cuda or cpu, not "
                          f"{qkv.device}")
@@ -261,46 +337,53 @@ def _forward_e(qkv, scale, causal):
 
 def flash_attention_e_with_lse(qkv: torch.Tensor,
                                scale: Optional[float] = None,
-                               causal: bool = False
+                               causal: bool = False,
+                               kv_mask: Optional[torch.Tensor] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The E forward without autograd: ``(o, lse)`` with o (b, s, h*d)
     and the fp32 natural-log lse (b, h, s)."""
     if scale is None:
         scale = (qkv.shape[-1] // 3) ** -0.5
-    o, lse = _forward_e(qkv, scale, causal)
+    o, lse = _forward_e(qkv, scale, causal, kv_mask)
     return o.flatten(2), lse
 
 
 class FlashAttentionEFunction(torch.autograd.Function):
     """Flash attention over the E layout under autograd (the JAX
-    package's ``_flash_e_fused`` custom VJP): the forward saves qkv, o
-    and the fp32 lse; the backward writes one dqkv in qkv's layout."""
+    package's ``_flash_e_fused`` and ``_flash_e_masked`` custom VJPs):
+    the forward saves qkv, o, the fp32 lse and the kv_mask; the backward
+    writes one dqkv in qkv's layout.  The mask takes no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv, scale, causal):
-        o, lse = _forward_e(qkv, scale, causal)
-        ctx.save_for_backward(qkv, o, lse)
+    def forward(ctx, qkv, kv_mask, scale, causal):
+        o, lse = _forward_e(qkv, scale, causal, kv_mask)
+        ctx.save_for_backward(qkv, o, lse, kv_mask)
         ctx.scale, ctx.causal = scale, causal
         return o.flatten(2)
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, o, lse = ctx.saved_tensors
+        qkv, o, lse, kv_mask = ctx.saved_tensors
         do = dout.reshape(o.shape)
         if do.stride(-1) != 1:
             do = do.contiguous()
         dqkv = flash_attention_e_backward(qkv, o, lse, do, scale=ctx.scale,
-                                          causal=ctx.causal)
-        return dqkv, None, None
+                                          causal=ctx.causal, kv_mask=kv_mask)
+        return dqkv, None, None, None
 
 
 def flash_attention_e(qkv: torch.Tensor, scale: Optional[float] = None,
-                      causal: bool = False) -> torch.Tensor:
+                      causal: bool = False,
+                      kv_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Self-attention over the projection-native layout: ``qkv`` (b, s,
     h, 3*d), lanes [head][q|k|v] as ``proj(x).reshape(b, s, h, 3*d)``
     gives them, to the context (b, s, h*d) the output projection reads.
+    ``kv_mask`` (b, s): a key is attended where it is > 0 (pass it as
+    contiguous fp32, the kernels' format, to spare a conversion a call).
     Differentiable; the kernels on CUDA tensors, their plain versions on
     CPU tensors."""
     if scale is None:
         scale = (qkv.shape[-1] // 3) ** -0.5
-    return FlashAttentionEFunction.apply(qkv, float(scale), bool(causal))
+    return FlashAttentionEFunction.apply(qkv, kv_mask, float(scale),
+                                         bool(causal))

@@ -137,11 +137,21 @@ def layer_norm_with_stats(x: torch.Tensor, gamma: Optional[torch.Tensor],
     return _launch(x, gamma, beta, eps)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def layer_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
                beta: Optional[torch.Tensor],
                eps: float = 1e-5) -> torch.Tensor:
-    """Fused layer norm over the last dimension, forward only (no
-    autograd: :func:`fused_layer_norm` is the differentiable form)."""
+    """Fused layer norm over the last dimension.  When autograd records
+    and x, gamma or beta requires grad, it is :func:`fused_layer_norm`
+    (the backward kernel on CUDA, its plain version on the CPU); else
+    the forward alone, with no graph.  The choice reads only the
+    tensors' flags, so it is the same on both devices."""
+    if _needs_grad(x, gamma, beta):
+        return fused_layer_norm(x, gamma, beta, eps)
     return layer_norm_with_stats(x, gamma, beta, eps)[0]
 
 

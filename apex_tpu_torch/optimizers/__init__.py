@@ -1,4 +1,6 @@
 """Fused optimizers."""
 from .fused_adam import FusedAdam, FusedAdamState, fused_adam
+from .fused_lamb import FusedLAMB, FusedLAMBState, fused_lamb
 
-__all__ = ["FusedAdam", "FusedAdamState", "fused_adam"]
+__all__ = ["FusedAdam", "FusedAdamState", "fused_adam", "FusedLAMB",
+           "FusedLAMBState", "fused_lamb"]

@@ -59,9 +59,11 @@ class FusedAdam:
         return (float(one - np.float32(self.beta1) ** c),
                 float(one - np.float32(self.beta2) ** c))
 
-    def pipeline_init(self, masters: Sequence[torch.Tensor]
-                      ) -> FusedAdamState:
-        """Zero moments in the layout of the flat fp32 master buffers."""
+    def pipeline_init(self, masters: Sequence[torch.Tensor],
+                      segments=None) -> FusedAdamState:
+        """Zero moments in the layout of the flat fp32 master buffers
+        (``segments``, the groups' tensor sizes, is not needed: Adam is
+        elementwise)."""
         return FusedAdamState(
             count=0, m=tuple(torch.zeros_like(p) for p in masters),
             v=tuple(torch.zeros_like(p) for p in masters))
@@ -70,12 +72,14 @@ class FusedAdam:
                       state: FusedAdamState,
                       master_bufs: Sequence[torch.Tensor],
                       lowp_bufs: Sequence, *, grad_scale: float = 1.0,
-                      finite: bool = True) -> FusedAdamState:
+                      grad_norm=None, finite: bool = True) -> FusedAdamState:
         """One Adam sweep per group over the flat buffers, in place:
         masters and moments updated, the model copy written into
         ``lowp_bufs`` (None for an fp32 group).  ``grad_scale`` is amp's
-        inverse loss scale; ``finite`` False skips the step (state
-        bitwise unchanged, count held).  Returns the new state."""
+        inverse loss scale; ``grad_norm`` (amp's measured norm) is
+        accepted and unused, since ``max_grad_norm`` is not ported;
+        ``finite`` False skips the step (state bitwise unchanged, count
+        held).  Returns the new state."""
         bc1, bc2 = self.bias_corrections(state.count + 1)
         sweep = adam_pipeline if self.kernels else adam_pipeline_reference
         for g, p, m, v, lowp in zip(gbufs, master_bufs, state.m, state.v,

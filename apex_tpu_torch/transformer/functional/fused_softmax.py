@@ -13,10 +13,12 @@ probabilities come out.
 
 The causal fused path runs the scaled-softmax kernels
 (:func:`~apex_tpu_torch.ops.scaled_upper_triang_masked_softmax`, rows 3
-and 4 of the kernel table), or their plain versions with ``kernels``
-False (the oracle configuration).  The fused padding path needs
-``_masked_fwd`` (row 5), which is not ported yet, and raises
-``NotImplementedError``.
+and 4 of the kernel table); the padding path runs the padding-mask
+forward and the same backward
+(:func:`~apex_tpu_torch.ops.scaled_masked_softmax`, rows 5 and 4) on
+the (b, np, sq, sk) scores with the (b, 1, sq, sk) mask (nonzero =
+masked), or with no mask an all-zero one, as the JAX module feeds it.
+``kernels`` False runs the plain versions (the oracle configuration).
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ...ops.scaled_softmax import scaled_upper_triang_masked_softmax
+from ...ops.scaled_softmax import (scaled_masked_softmax,
+                                   scaled_upper_triang_masked_softmax)
 from ..enums import AttnMaskType
 
 __all__ = ["FusedScaleMaskSoftmax"]
@@ -82,16 +85,18 @@ class FusedScaleMaskSoftmax:
     def forward_fused_softmax(self, inputs: torch.Tensor,
                               mask: Optional[torch.Tensor]) -> torch.Tensor:
         scale = self.scale if self.scale is not None else 1.0
-        if self.attn_mask_type != AttnMaskType.causal:
-            raise NotImplementedError(
-                "the fused padding-mask softmax needs `_masked_fwd` (row 5 "
-                "of the kernel table), which is not ported yet")
         b, np_, sq, sk = inputs.shape
-        if sq != sk:
-            raise ValueError("causal mask is only for self attention")
-        probs = scaled_upper_triang_masked_softmax(
-            inputs.reshape(-1, sq, sk), scale, kernels=self.kernels)
-        return self._exit_cast(probs.reshape(b, np_, sq, sk))
+        if self.attn_mask_type == AttnMaskType.causal:
+            if sq != sk:
+                raise ValueError("causal mask is only for self attention")
+            probs = scaled_upper_triang_masked_softmax(
+                inputs.reshape(-1, sq, sk), scale, kernels=self.kernels)
+            return self._exit_cast(probs.reshape(b, np_, sq, sk))
+        if mask is None:
+            mask = torch.zeros((b, 1, sq, sk), dtype=torch.bool,
+                               device=inputs.device)
+        return self._exit_cast(scaled_masked_softmax(
+            inputs, mask, scale, kernels=self.kernels))
 
     def forward_torch_softmax(self, inputs: torch.Tensor,
                               mask: Optional[torch.Tensor]) -> torch.Tensor:

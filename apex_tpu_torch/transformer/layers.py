@@ -18,17 +18,24 @@ output cast back to the residual stream's dtype before the add.
   :class:`~apex_tpu_torch.transformer.functional.FusedScaleMaskSoftmax`
   (the scaled-softmax kernels, rows 3 and 4 of the kernel table, when
   the model dtype is fp16 or bf16), the probabilities cast to the model
-  dtype and multiplied by v.  An explicit ``attention_mask`` needs the
-  padding-mask kernel (row 5), not ported yet, and raises
-  ``NotImplementedError``.
+  dtype and multiplied by v.
+
+Masks, as the JAX module takes them (``:100-168``): ``attn_mask_type``
+causal (GPT) or padding (BERT) on the attention, the layer and the
+stack; a (b, s) ``key_padding_mask`` (a key attended where it is
+nonzero) rides the flash kernels' kv_mask lane (rows 10 and 12) with
+``use_flash``, and on the materialized route is folded, with the
+triangle for a causal model, into one (b, 1, s, s) padding mask; an
+explicit (b, 1, sq, sk) ``attention_mask`` (True = masked) always takes
+the materialized route, through the padding-mask softmax (row 5).
+Passing both masks raises ``ValueError``.
 
 Submodule and parameter names mirror the flax tree
 (``layer_{i}.self_attention.query_key_value.kernel``, ...).
 ``kernels=False`` routes LayerNorm and attention through their plain
-versions under autograd (the oracle configuration).  Attention is
-causal (the GPT mask type), the MLP 4x wide, and there is no dropout
-(the JAX GPT train path runs with rate 0): padding masks, other widths
-and dropout are not ported yet.
+versions under autograd (the oracle configuration).  The MLP is 4x
+wide and there is no dropout (the JAX train paths run with rate 0):
+other widths and dropout are not ported yet.
 """
 from __future__ import annotations
 
@@ -67,11 +74,13 @@ class ParallelMLP(nn.Module):
 
 
 class ParallelSelfAttention(nn.Module):
-    """Causal multi-head self-attention, through the E-layout flash
-    kernels or, with ``use_flash=False``, the materialized scores and
-    the fused softmax (ref: ``apex_tpu/transformer/layers.py:83-200``)."""
+    """Multi-head self-attention, through the E-layout flash kernels or,
+    with ``use_flash=False`` or an explicit ``attention_mask``, the
+    materialized scores and the fused softmax (ref:
+    ``apex_tpu/transformer/layers.py:83-200``)."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int, *,
+                 attn_mask_type: AttnMaskType = AttnMaskType.causal,
                  use_flash: bool = True, kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
@@ -80,6 +89,7 @@ class ParallelSelfAttention(nn.Module):
                              f"{num_attention_heads}")
         self.num_heads = num_attention_heads
         self.head_dim = hidden_size // num_attention_heads
+        self.attn_mask_type = attn_mask_type
         self.use_flash = use_flash
         self.kernels = kernels
         self.dtype = dtype
@@ -89,20 +99,35 @@ class ParallelSelfAttention(nn.Module):
                                        device=device)
 
     def forward(self, x: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
+                attention_mask: Optional[torch.Tensor] = None,
+                key_padding_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        if attention_mask is not None:
-            raise NotImplementedError(
-                "an explicit attention_mask takes the padding-mask softmax, "
-                "`_masked_fwd` (row 5 of the kernel table), not ported yet")
+        if key_padding_mask is not None and attention_mask is not None:
+            raise ValueError(
+                "pass either attention_mask or key_padding_mask, not both "
+                "(fold padding into the attention_mask yourself)")
         b, s, _ = x.shape
         h, d = self.num_heads, self.head_dim
         qkv = self.query_key_value(x).view(b, s, h, 3 * d)
         scale = d ** -0.5
-        if self.use_flash:
+        causal = self.attn_mask_type == AttnMaskType.causal
+        if self.use_flash and attention_mask is None:
             attn = flash_attention_e if self.kernels \
                 else flash_attention_e_reference
-            return self.dense(attn(qkv, scale=scale, causal=True))
+            return self.dense(attn(qkv, scale=scale, causal=causal,
+                                   kv_mask=key_padding_mask))
+        mask_type = self.attn_mask_type
+        if key_padding_mask is not None:
+            # the padding keys (and a causal model's triangle, which the
+            # causal softmax would not read from a mask) as one padding
+            # mask, True = masked
+            sk = key_padding_mask.shape[-1]
+            kmask = ~key_padding_mask.bool()[:, None, None, :]
+            if causal:
+                kmask = kmask | ~torch.ones(s, sk, dtype=torch.bool,
+                                            device=x.device).tril()
+            attention_mask = kmask.expand(b, 1, s, sk)
+            mask_type = AttnMaskType.padding
         q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
         # fp32 scores from the model-dtype q and k: the product of two
         # fp16 or bf16 values is exact in fp32, so an fp32 GEMM (TF32
@@ -111,10 +136,10 @@ class ParallelSelfAttention(nn.Module):
         softmax = FusedScaleMaskSoftmax(
             input_in_fp16=self.dtype == torch.float16,
             input_in_bf16=self.dtype == torch.bfloat16,
-            attn_mask_type=AttnMaskType.causal,
+            attn_mask_type=mask_type,
             scaled_masked_softmax_fusion=True, mask_func=None,
             softmax_in_fp32=True, scale=scale, kernels=self.kernels)
-        probs = softmax(scores, None)
+        probs = softmax(scores, attention_mask)
         ctx = torch.matmul(probs.to(self.dtype), v)
         return self.dense(ctx.transpose(1, 2).reshape(b, s, h * d))
 
@@ -124,6 +149,7 @@ class ParallelTransformerLayer(nn.Module):
     ``apex_tpu/transformer/layers.py:203-263``)."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int, *,
+                 attn_mask_type: AttnMaskType = AttnMaskType.causal,
                  use_flash: bool = True, layernorm_epsilon: float = 1e-5,
                  kernels: bool = True, dtype: torch.dtype = torch.float32,
                  device=None):
@@ -133,18 +159,21 @@ class ParallelTransformerLayer(nn.Module):
             hidden_size, eps=layernorm_epsilon, kernels=kernels,
             device=device)
         self.self_attention = ParallelSelfAttention(
-            hidden_size, num_attention_heads, use_flash=use_flash,
-            kernels=kernels, dtype=dtype, device=device)
+            hidden_size, num_attention_heads, attn_mask_type=attn_mask_type,
+            use_flash=use_flash, kernels=kernels, dtype=dtype,
+            device=device)
         self.post_attention_layernorm = FusedLayerNorm(
             hidden_size, eps=layernorm_epsilon, kernels=kernels,
             device=device)
         self.mlp = ParallelMLP(hidden_size, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
+                attention_mask: Optional[torch.Tensor] = None,
+                key_padding_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         attn_out = self.self_attention(
-            self.input_layernorm(x).to(self.dtype), attention_mask)
+            self.input_layernorm(x).to(self.dtype), attention_mask,
+            key_padding_mask)
         x = x + attn_out.to(x.dtype)
         out = self.mlp(self.post_attention_layernorm(x).to(self.dtype))
         return x + out.to(x.dtype)
@@ -156,15 +185,18 @@ class ParallelTransformer(nn.Module):
     activation checkpointing is not ported yet)."""
 
     def __init__(self, num_layers: int, hidden_size: int,
-                 num_attention_heads: int, *, use_flash: bool = True,
-                 layernorm_epsilon: float = 1e-5, kernels: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 num_attention_heads: int, *,
+                 attn_mask_type: AttnMaskType = AttnMaskType.causal,
+                 use_flash: bool = True, layernorm_epsilon: float = 1e-5,
+                 kernels: bool = True, dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
         self.dtype = dtype
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}", ParallelTransformerLayer(
-                hidden_size, num_attention_heads, use_flash=use_flash,
+                hidden_size, num_attention_heads,
+                attn_mask_type=attn_mask_type, use_flash=use_flash,
                 layernorm_epsilon=layernorm_epsilon, kernels=kernels,
                 dtype=dtype, device=device))
         self.final_layernorm = FusedLayerNorm(
@@ -172,8 +204,10 @@ class ParallelTransformer(nn.Module):
             device=device)
 
     def forward(self, x: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
+                attention_mask: Optional[torch.Tensor] = None,
+                key_padding_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, attention_mask)
+            x = getattr(self, f"layer_{i}")(x, attention_mask,
+                                            key_padding_mask)
         return self.final_layernorm(x).to(self.dtype)

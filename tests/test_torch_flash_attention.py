@@ -71,3 +71,22 @@ def test_cpu_wrapper_is_the_plain_version():
     q, k, v = map(torch.from_numpy, _qkv(1, 2, 33, 33, 64, seed=1))
     assert torch.equal(flash_attention(q, k, v, causal=True),
                        mha_reference(q, k, v, causal=True))
+
+
+def test_grad_requiring_input_raises_naming_row_8():
+    # no backward is ported for the (b, h, s, d) entry: a grad-requiring
+    # input under autograd raises instead of getting no gradient; the
+    # decision reads the flags only, so it is the card's too
+    q, k, v = map(torch.from_numpy, _qkv(1, 2, 16, 16, 64, seed=2))
+    for which in range(3):
+        args = [t.clone().requires_grad_(i == which)
+                for i, t in enumerate((q, k, v))]
+        with pytest.raises(NotImplementedError, match="row 8"):
+            flash_attention(*args, causal=True)
+        with pytest.raises(NotImplementedError, match="row 8"):
+            flash_attention_with_lse(*args)
+        with torch.no_grad():                  # the serving path
+            assert torch.equal(flash_attention(*args, causal=True),
+                               mha_reference(q, k, v, causal=True))
+    with torch.inference_mode():
+        flash_attention(q.clone().requires_grad_(True), k, v)

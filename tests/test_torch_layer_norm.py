@@ -159,3 +159,38 @@ def test_backward_reference_equals_autograd_of_plain_version():
     for got, want in ((dx, xr.grad), (dg, gr.grad), (db, br.grad)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
                                    atol=1e-6)
+
+
+# --- the grad routing of `layer_norm` ----------------------------------
+#
+# `layer_norm` decides on the tensors' flags alone, before the device
+# dispatch: with autograd recording and x, gamma or beta requiring grad
+# it is `fused_layer_norm` (the backward kernel on CUDA); else the
+# forward with no graph.  So the CPU shows the routing the card takes.
+
+@pytest.mark.parametrize("which", ["x", "gamma", "x_gamma_beta"])
+def test_grad_requiring_input_gets_the_plain_versions_gradient(which):
+    x, g, b = (torch.from_numpy(a) for a in _inputs(11, 128, seed=11))
+    dy = torch.from_numpy(np.random.RandomState(12).randn(11, 128)
+                          .astype(np.float32))
+    want = [t.clone().requires_grad_(True) for t in (x, g, b)]
+    layer_norm_reference(*want).backward(dy)
+    got = [t.clone().requires_grad_(name in which)
+           for name, t in zip(("x", "gamma", "beta"), (x, g, b))]
+    y = layer_norm(*got)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    for name, t, w in zip(("x", "gamma", "beta"), got, want):
+        if name in which:
+            np.testing.assert_allclose(t.grad.numpy(), w.grad.numpy(),
+                                       rtol=1e-4, atol=1e-4)
+        else:
+            assert t.grad is None
+
+
+def test_no_graph_without_grad():
+    x, g, b = (torch.from_numpy(a) for a in _inputs(5, 64, seed=13))
+    xg = x.clone().requires_grad_(True)
+    with torch.no_grad():
+        assert layer_norm(xg, g, b).grad_fn is None
+    assert layer_norm(x, g, b).grad_fn is None

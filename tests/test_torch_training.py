@@ -151,15 +151,13 @@ def test_grads_are_views_of_the_flat_buffer():
 
 
 def test_unported_paths_raise():
-    from apex_tpu_torch.transformer import ParallelSelfAttention
+    from apex_tpu_torch.ops import flash_attention
 
-    # the fused padding-mask softmax (row 5, `_masked_fwd`): an explicit
-    # attention_mask, in fp16 where the fused path would take it
-    attn = ParallelSelfAttention(128, 2, use_flash=False,
-                                 dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="row 5"):
-        attn(torch.zeros(1, 4, 128, dtype=torch.float16),
-             attention_mask=torch.ones(1, 1, 4, 4, dtype=torch.bool))
+    # the (b, h, s, d) flash attention's backward (row 8, `_flash_bwd`):
+    # a grad-requiring input under autograd
+    q = torch.zeros(1, 2, 4, 64, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="row 8"):
+        flash_attention(q, q.detach(), q.detach())
     # global-norm clipping
     with pytest.raises(NotImplementedError, match="max_grad_norm"):
         fused_adam(1e-3, max_grad_norm=1.0)
