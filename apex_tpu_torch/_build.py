@@ -75,9 +75,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "flash_attention_bwd": {
         # q, k, v, o, do, lse, dq, dk, dv, delta, lse2, kv_mask (null:
-        # none), b, h, s, d, q/k/v/o/do/dq/dk/dv strides (b, h, s) in
-        # elements, scale, causal, dtype, stream
-        "apex_flash_attention_bwd": [_P] * 12 + [_I] * 4 + [_L] * 24
+        # none), b, h, sq, sk, d, q/k/v/o/do/dq/dk/dv strides (b, h, s)
+        # in elements, scale, causal, dtype, stream
+        "apex_flash_attention_bwd": [_P] * 12 + [_I] * 5 + [_L] * 24
         + [_F, _I, _I, _P],
     },
     "fused_adam": {

@@ -6,10 +6,14 @@
 // (b, h, s, d) layout, causal or not, without offsets or dropout — and,
 // through the E-layout entry, `_flash_fwd_e` (row 10) with its kv_mask
 // lane (`_fwd_e_kernel`'s has_kvm): an optional (b, sk) fp32 key mask,
-// a key attended where it is > 0.  It writes o in the input dtype and
-// the fp32 per-row log-sum-exp (natural log) the backward will read.
-// A row with no attended key (every key masked, or under causal
-// masking none at or before it) writes o = 0 and lse = -inf.
+// a key attended where it is > 0 — and `_flash_fwd_e_blocked` (row 11),
+// the E forward the JAX package streams in (512, 512) tiles once the
+// padded sequence outgrows one VMEM block: this kernel walks keys in
+// shared-memory tiles whatever s is, so the same launch serves it.
+// It writes o in the input dtype and the fp32 per-row log-sum-exp
+// (natural log) the backward will read.  A row with no attended key
+// (every key masked, or under causal masking none at or before it)
+// writes o = 0 and lse = -inf.  Head dim 64 or 128.
 //
 // What bounds it on the H100: operations, from a few hundred tokens on.
 // Attention does 4 * d operations per (q, k) pair against 4 * d * 2
@@ -23,17 +27,23 @@
 // grid's fill dominate.
 //
 // What the simple design does about it: one block per (b*h, 64-row q
-// tile), one thread per q row holding its q row and its fp32 output
-// accumulator in registers.  The block walks k/v in 32-key tiles staged
-// through shared memory as fp32; every thread reads the same key at the
-// same time, so shared memory serves broadcasts only, and each key costs
-// a thread 2 * d fused multiply-adds.  The online softmax (running max
-// m, running sum l, rescale of the accumulator once per tile) keeps the
-// (s, s) score matrix out of device memory, exactly as the Pallas kernel
-// does, and under causal masking the loop stops at the tile's last row,
-// so k tiles wholly above the diagonal are never loaded.  There is no
-// separate single-block body: a sequence shorter than one tile is the
-// same loop run once, and a ragged last tile is masked by position.
+// tile).  At d = 64 one thread owns a q row, holding it and its fp32
+// output accumulator in registers (128 floats).  At d = 128 that would
+// be 256 floats, past the 255-register limit, so two threads share a
+// row, each owning 64 of its dims (in float4 chunks interleaved with
+// its partner's, so the pair reads different shared-memory banks), and
+// a score is two partial dot products joined by one warp shuffle: the
+// registers a thread holds are the d = 64 kernel's.  The block walks
+// k/v in 32-key tiles staged through shared memory as fp32; every row
+// reads the same key at the same time, so shared memory serves
+// broadcasts only, and each key costs a row 2 * d fused multiply-adds.
+// The online softmax (running max m, running sum l, rescale of the
+// accumulator once per tile) keeps the (s, s) score matrix out of
+// device memory, exactly as the Pallas kernel does, and under causal
+// masking the loop stops at the tile's last row, so k tiles wholly
+// above the diagonal are never loaded.  There is no separate
+// single-block body: a sequence shorter than one tile is the same loop
+// run once, and a ragged last tile is masked by position.
 // With a kv_mask each staged tile also stages its keys' mask values, and
 // a tile whose keys are all masked (BERT's padded tails) is skipped by
 // the whole block (one __syncthreads_or): padding costs no products.
@@ -65,21 +75,29 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half(v);
 }
 
-constexpr int kBQ = 64;  // q rows per block = threads per block
+constexpr int kBQ = 64;  // q rows per block (kTPR threads each)
 constexpr int kBK = 32;  // keys per shared-memory tile
 
 struct Strides {
   long long b, h, s;
 };
 
-// kMask: the kv_mask lane; the unmasked instantiation has no mask code
-template <typename T, int D, bool kMask>
-__global__ void __launch_bounds__(kBQ)
+// dims of a row owned by thread part t (of kTPR), in float4 chunks:
+// chunk c is dims 4 * kTPR * c + 4 * t .. + 3 (contiguous at kTPR = 1)
+template <int kTPR>
+__device__ __forceinline__ int dim_of(int c, int t) { return 4 * kTPR * c + 4 * t; }
+
+// D: the head dim; kTPR: threads per q row (1 at d = 64, 2 at d = 128);
+// kMask: the kv_mask lane (the unmasked instantiation has no mask code)
+template <typename T, int D, int kTPR, bool kMask>
+__global__ void __launch_bounds__(kBQ * kTPR)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, const float* __restrict__ kvm, int h,
                  int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
                  float scale, float a, int causal) {
+  constexpr int kThreads = kBQ * kTPR;
+  constexpr int kOwn = D / kTPR;  // dims a thread owns
   __shared__ __align__(16) float k_tile[kBK][D];
   __shared__ __align__(16) float v_tile[kBK][D];
   __shared__ bool key_ok[kMask ? kBK : 1];
@@ -88,7 +106,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bi = bh / h;
   const int hi = bh - bi * h;
   const int q0 = blockIdx.x * kBQ;
-  const int row = q0 + threadIdx.x;
+  const int t = threadIdx.x % kTPR;
+  const int row = q0 + threadIdx.x / kTPR;
   const bool live = row < sq;
 
   const T* qb = q + bi * qs.b + hi * qs.h;
@@ -96,13 +115,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + bi * vs.b + hi * vs.h;
   const float* mb = kMask ? kvm + (size_t)bi * sk : nullptr;
 
-  float qr[D];
-  float acc[D];
+  float qr[kOwn];
+  float acc[kOwn];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = live ? to_f<T>(qb[row * qs.s + d]) : 0.f;
-    acc[d] = 0.f;
-  }
+  for (int c = 0; c < kOwn / 4; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      qr[4 * c + e] = live ? to_f<T>(qb[row * qs.s + dim_of<kTPR>(c, t) + e]) : 0.f;
+      acc[4 * c + e] = 0.f;
+    }
   float m = -INFINITY;  // running max of the raw logits
   float l = 0.f;        // running sum of exp2((s - m) * a)
 
@@ -120,7 +141,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // every key of the tile masked: nothing to add
       if (!__syncthreads_or(mine)) continue;
     }
-    for (int idx = threadIdx.x; idx < kBK * D; idx += kBQ) {
+    for (int idx = threadIdx.x; idx < kBK * D; idx += kThreads) {
       const int jj = idx / D;
       const int d = idx - jj * D;
       const int kp = j0 + jj;
@@ -140,16 +161,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < kBK; ++jj) {
       float dot0 = 0.f, dot1 = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&k_tile[jj][d]);
-        dot0 = fmaf(qr[d], kk.x, dot0);
-        dot1 = fmaf(qr[d + 1], kk.y, dot1);
-        dot0 = fmaf(qr[d + 2], kk.z, dot0);
-        dot1 = fmaf(qr[d + 3], kk.w, dot1);
+      for (int c = 0; c < kOwn / 4; ++c) {
+        const float4 kk =
+            *reinterpret_cast<const float4*>(&k_tile[jj][dim_of<kTPR>(c, t)]);
+        dot0 = fmaf(qr[4 * c], kk.x, dot0);
+        dot1 = fmaf(qr[4 * c + 1], kk.y, dot1);
+        dot0 = fmaf(qr[4 * c + 2], kk.z, dot0);
+        dot1 = fmaf(qr[4 * c + 3], kk.w, dot1);
       }
+      float dot = dot0 + dot1;
+      // the row's partial dots, summed in the same order on every part
+#pragma unroll
+      for (int w = 1; w < kTPR; w <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, w);
       const int kp = j0 + jj;
       const bool ok = kp < sk && (!causal || kp <= row) && (!kMask || key_ok[jj]);
-      s[jj] = ok ? dot0 + dot1 : -INFINITY;
+      s[jj] = ok ? dot : -INFINITY;
       tile_max = fmaxf(tile_max, s[jj]);
     }
     const float m_new = fmaxf(m, tile_max);
@@ -164,17 +190,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     l = l * corr + psum;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= corr;
+    for (int e = 0; e < kOwn; ++e) acc[e] *= corr;
 #pragma unroll
     for (int jj = 0; jj < kBK; ++jj) {
       const float p = s[jj];
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&v_tile[jj][d]);
-        acc[d] = fmaf(p, vv.x, acc[d]);
-        acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+      for (int c = 0; c < kOwn / 4; ++c) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(&v_tile[jj][dim_of<kTPR>(c, t)]);
+        acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
+        acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
+        acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
+        acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
       }
     }
     m = m_new;
@@ -185,8 +212,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv = 1.f / safe_l;
   T* ob = o + bi * os.b + hi * os.h + row * os.s;
 #pragma unroll
-  for (int d = 0; d < D; ++d) ob[d] = from_f<T>(acc[d] * inv);
-  lse[(size_t)bh * sq + row] = (l > 0.f ? m * scale : -INFINITY) + logf(safe_l);
+  for (int c = 0; c < kOwn / 4; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ob[dim_of<kTPR>(c, t) + e] = from_f<T>(acc[4 * c + e] * inv);
+  if (t == 0)
+    lse[(size_t)bh * sq + row] = (l > 0.f ? m * scale : -INFINITY) + logf(safe_l);
+}
+
+template <typename T, int D, int kTPR>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
+                     const float* kvm, int b, int h, int sq, int sk, Strides qs,
+                     Strides ks, Strides vs, Strides os, float scale, int causal,
+                     cudaStream_t stream) {
+  const float a = scale * 1.4426950408889634f;  // scale * log2(e)
+  const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
+  auto kernel = kvm ? flash_fwd_kernel<T, D, kTPR, true>
+                    : flash_fwd_kernel<T, D, kTPR, false>;
+  kernel<<<grid, kBQ * kTPR, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), kvm, h, sq, sk, qs, ks, vs, os,
+      scale, a, causal);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -194,15 +241,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
                    const float* kvm, int b, int h, int sq, int sk, int d, Strides qs,
                    Strides ks, Strides vs, Strides os, float scale, int causal,
                    cudaStream_t stream) {
-  const float a = scale * 1.4426950408889634f;  // scale * log2(e)
-  const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
-  if (d != 64) return cudaErrorInvalidValue;
-  auto kernel = kvm ? flash_fwd_kernel<T, 64, true> : flash_fwd_kernel<T, 64, false>;
-  kernel<<<grid, kBQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), kvm, h, sq, sk, qs, ks, vs, os,
-      scale, a, causal);
-  return cudaGetLastError();
+  if (d == 64)
+    return launch_d<T, 64, 1>(q, k, v, o, lse, kvm, b, h, sq, sk, qs, ks, vs, os, scale,
+                              causal, stream);
+  if (d == 128)
+    return launch_d<T, 128, 2>(q, k, v, o, lse, kvm, b, h, sq, sk, qs, ks, vs, os,
+                               scale, causal, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -216,7 +261,7 @@ const char* apex_cuda_error_string(int e) {
 // q (b, h, sq, d), k/v (b, h, sk, d), o (b, h, sq, d) given by element
 // strides over (b, h, s) with a unit stride on d; lse (b, h, sq) fp32
 // contiguous; kvm null, or the (b, sk) fp32 key mask, contiguous.  dtype
-// codes: 0 float32, 1 bfloat16, 2 float16.  d = 64.
+// codes: 0 float32, 1 bfloat16, 2 float16.  d = 64 or 128.
 int apex_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, const void* kvm, int b, int h, int sq,
                              int sk, int d,

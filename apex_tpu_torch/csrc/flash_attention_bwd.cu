@@ -1,50 +1,63 @@
-// Flash-attention backward over the projection-native E layout, for
-// Hopper (sm_90a), plain C interface.
+// Flash-attention backward for Hopper (sm_90a), plain C interface.
 //
-// Replaces: apex_tpu/ops/flash_attention.py `_flash_bwd_e` (Pallas body
-// `_bwd_e_kernel`): from qkv (b, s, h, 3d) with lanes [head][q|k|v], the
-// forward's o (b, s, h, d) and fp32 lse (b, h, s), and do (b, s, h, d),
-// it writes dqkv in qkv's own interleaved layout: dq, dk and dv land in
-// each head's [q|k|v] lanes, never in three tensors that are then
-// concatenated.  Causal or full, with the kv_mask lane (`_bwd_e_kernel`'s
-// has_kvm): an optional (b, s) fp32 key mask, a key attended where it is
-// > 0.  No dropout (later work).
+// Replaces: apex_tpu/ops/flash_attention.py `_flash_bwd` (row 8: the
+// (b, h, sq, d) / (b, h, sk, d) backward of `flash_attention`, Pallas
+// bodies `_bwd_dq_kernel`, `_bwd_dkv_kernel` and the fused one-pass
+// `_bwd_fused_kernel`), `_flash_bwd_e` (row 12, body `_bwd_e_kernel`)
+// and `_flash_bwd_e_blocked` (row 13, the same backward the JAX package
+// streams in (512, 512) tiles once the padded sequence outgrows one VMEM
+// block: the passes below walk shared-memory tiles whatever s is).
+// Every operand is a strided (b, h, s, d) view, so one entry serves both
+// layouts: q/k/v and dq/dk/dv may be separate (b, h, s, d) tensors, or
+// the heads' [q|k|v] lanes of the E layout's qkv (b, s, h, 3d) and of one
+// dqkv buffer, written in place, never as three tensors then
+// concatenated.  Causal (key j visible to query i iff j <= i, both
+// counted from 0: top-left aligned when sq != sk) or full, with the
+// kv_mask lane (`_bwd_e_kernel`'s has_kvm): an optional (b, sk) fp32 key
+// mask, a key attended where it is > 0.  Head dim 64 or 128.  No dropout
+// (later work).
 //
 // Math, per (b, h): p = exp(scale * q k^T - lse) recomputed from the
-// forward's natural-log lse (so no (s, s) matrix is ever stored),
+// forward's natural-log lse (so no (sq, sk) matrix is ever stored),
 // delta_i = sum_d do_i * o_i, ds = p * (do v^T - delta), and
 // dq = scale * ds k, dk = scale * ds^T q, dv = p^T do, all in fp32, cast
-// once to qkv's dtype.  A masked (q, k) pair takes p = 0 by a select
-// made before the exponential is read: a row that attends nothing has
-// lse = -inf from the forward, where exp(s - lse) would be inf.
+// once to the operands' dtype.  `scale` is used as given, in fp32: the
+// JAX backward folds it into v after rounding it to v's dtype, which at
+// d = 128 in bf16 (1/sqrt(128) -> 0.08837890625) moves dq and dk by
+// 1.07e-4 relative; the port keeps the scale its forward used.  A masked
+// (q, k) pair takes p = 0 by a select made before the exponential is
+// read: a row that attends nothing has lse = -inf from the forward,
+// where exp(s - lse) would be inf.
 //
 // What bounds it on the H100: operations.  It does 10 * d operations per
 // (q, k) pair (recomputed scores, do v^T, and the three products) against
-// about 16 * d bytes per row moved in bf16 (qkv, o, do read, dqkv
-// written): at s = 1024 causal that is ~43 GFLOP against ~134 MB for
-// b = 8, h = 16, so the bf16 tensor cores would be the limit (~44 us).
+// about 16 * d bytes per row moved in bf16 (q, k, v, o, do read, dq, dk,
+// dv written): at s = 1024 causal that is ~43 GFLOP against ~134 MB for
+// b = 8, h = 16, d = 64, so the bf16 tensor cores would be the limit
+// (~44 us); at s = 16384 it is 2.7 TFLOP for h = 16, d = 128.
 //
 // What the simple design does about it (correct first, not fast): three
 // passes, every one deterministic (no atomics, every output element
 // written by exactly one thread).
-//  1. delta: one warp per (b, h, row) reduces do . o; the same pass
+//  1. delta: one warp per (b, h, query row) reduces do . o; the same pass
 //     converts lse to base-2 units.
-//  2. dK/dV: one block per (b * h, 64-key tile), four threads per key,
-//     each owning 16 of the 64 dims of k, v, dk and dv in registers.  The
-//     block walks the q rows in 32-row tiles staged through shared memory
-//     as fp32, starting at the tile's first key under causal masking (the
-//     rows above see none of its keys); each (q, k) dot product is four
-//     partial sums joined by two warp shuffles.
+//  2. dK/dV: one block per (b * h, 64-key tile), kTPR threads per key
+//     (4 at d = 64, 8 at d = 128), each owning 16 of the key's dims of
+//     k, v, dk and dv in registers (64 floats at either head dim).  The
+//     block walks the sq query rows in 32-row tiles staged through shared
+//     memory as fp32, starting at the tile's first key under causal
+//     masking (the rows above see none of its keys); each (q, k) dot
+//     product is kTPR partial sums joined by warp shuffles.
 //  3. dQ: one block per (b * h, 64-query tile), the same thread layout
-//     over q, do and dq, walking the k/v rows in 32-row tiles and
+//     over q, do and dq, walking the sk key rows in 32-row tiles and
 //     stopping at the tile's last query under causal masking.
-// A thread's 16 dims are four float4 chunks interleaved with its three
-// neighbours' (dims 16c + 4t .. 16c + 4t + 3), so the four threads of a
-// row read four different shared-memory banks.  With a kv_mask, a dK/dV
-// block whose 64 keys are all masked writes zeros without walking the
-// rows, and the dQ pass skips every staged key tile that is wholly
-// masked (BERT's padded tails cost no products).  The products run on the
-// fp32 pipes, not the tensor cores: mma/wgmma tiles are later work.
+// A thread's 16 dims are four float4 chunks interleaved with its
+// neighbours' (dims 4 * kTPR * c + 4 * t .. + 3), so the threads of a row
+// read different shared-memory banks.  With a kv_mask, a dK/dV block
+// whose 64 keys are all masked writes zeros without walking the rows,
+// and the dQ pass skips every staged key tile that is wholly masked
+// (BERT's padded tails cost no products).  The products run on the fp32
+// pipes, not the tensor cores: mma/wgmma tiles are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -71,43 +84,45 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half(v);
 }
 
-constexpr int D = 64;          // head dim
 constexpr int kTile = 64;      // keys (dK/dV) or queries (dQ) per block
-constexpr int kTPR = 4;        // threads per row
-constexpr int kThreads = kTile * kTPR;
-constexpr int kOwn = D / kTPR; // dims a thread owns
+constexpr int kOwn = 16;       // dims a thread owns (D / kTPR)
 constexpr int kSub = 32;       // rows per staged shared-memory tile
 constexpr float kLog2e = 1.4426950408889634f;
+
+// threads per row at head dim D: D / kOwn
+template <int D> __host__ __device__ constexpr int tpr() { return D / kOwn; }
 
 struct Strides {
   long long b, h, s;
 };
 
-// dims of chunk c owned by thread part t: 16c + 4t .. 16c + 4t + 3
-__device__ __forceinline__ int dim_of(int c, int t) { return 16 * c + 4 * t; }
+// dims of chunk c owned by thread part t: 4 * kTPR * c + 4 * t .. + 3
+template <int kTPR>
+__device__ __forceinline__ int dim_of(int c, int t) { return 4 * kTPR * c + 4 * t; }
 
-template <typename T>
+template <typename T, int kTPR>
 __device__ __forceinline__ void load_own(const T* row, int t, float* out) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < kOwn / 4; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) out[4 * c + e] = to_f<T>(row[dim_of(c, t) + e]);
+    for (int e = 0; e < 4; ++e) out[4 * c + e] = to_f<T>(row[dim_of<kTPR>(c, t) + e]);
 }
 
-template <typename T>
+template <typename T, int kTPR>
 __device__ __forceinline__ void store_own(T* row, int t, const float* in) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < kOwn / 4; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) row[dim_of(c, t) + e] = from_f<T>(in[4 * c + e]);
+    for (int e = 0; e < 4; ++e) row[dim_of<kTPR>(c, t) + e] = from_f<T>(in[4 * c + e]);
 }
 
 // partial dot of a staged fp32 row with the thread's own 16 dims
+template <int kTPR>
 __device__ __forceinline__ float dot_own(const float* srow, int t, const float* own) {
   float acc = 0.f;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float4 v = *reinterpret_cast<const float4*>(srow + dim_of(c, t));
+  for (int c = 0; c < kOwn / 4; ++c) {
+    const float4 v = *reinterpret_cast<const float4*>(srow + dim_of<kTPR>(c, t));
     acc = fmaf(v.x, own[4 * c], acc);
     acc = fmaf(v.y, own[4 * c + 1], acc);
     acc = fmaf(v.z, own[4 * c + 2], acc);
@@ -117,10 +132,11 @@ __device__ __forceinline__ float dot_own(const float* srow, int t, const float* 
 }
 
 // acc += w * staged row (the thread's own 16 dims)
+template <int kTPR>
 __device__ __forceinline__ void axpy_own(float w, const float* srow, int t, float* acc) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float4 v = *reinterpret_cast<const float4*>(srow + dim_of(c, t));
+  for (int c = 0; c < kOwn / 4; ++c) {
+    const float4 v = *reinterpret_cast<const float4*>(srow + dim_of<kTPR>(c, t));
     acc[4 * c] = fmaf(w, v.x, acc[4 * c]);
     acc[4 * c + 1] = fmaf(w, v.y, acc[4 * c + 1]);
     acc[4 * c + 2] = fmaf(w, v.z, acc[4 * c + 2]);
@@ -128,31 +144,35 @@ __device__ __forceinline__ void axpy_own(float w, const float* srow, int t, floa
   }
 }
 
-// sum over the kTPR consecutive lanes of one row
+// sum over the kTPR consecutive lanes of one row (the same order on each)
+template <int kTPR>
 __device__ __forceinline__ float row_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
+#pragma unroll
+  for (int w = 1; w < kTPR; w <<= 1) v += __shfl_xor_sync(0xffffffffu, v, w);
   return v;
 }
 
-// delta[r] = do_r . o_r and lse2[r] = lse[r] * log2(e), r = (b*h + h) * s + i
-template <typename T>
+// delta[r] = do_r . o_r and lse2[r] = lse[r] * log2(e),
+// r = (b*h + h) * sq + i
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
              const float* __restrict__ lse, float* __restrict__ delta,
-             float* __restrict__ lse2, int h, int s, Strides os, Strides dos,
+             float* __restrict__ lse2, int h, int sq, Strides os, Strides dos,
              long long rows) {
   const long long r = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (r >= rows) return;
   const int lane = threadIdx.x & 31;
-  const long long bh = r / s;
-  const int i = (int)(r - bh * s);
+  const long long bh = r / sq;
+  const int i = (int)(r - bh * sq);
   const int bi = (int)(bh / h);
   const int hi = (int)(bh - (long long)bi * h);
   const T* orow = o + bi * os.b + hi * os.h + i * os.s;
   const T* drow = dout + bi * dos.b + hi * dos.h + i * dos.s;
   float acc = to_f<T>(orow[lane]) * to_f<T>(drow[lane]);
-  acc = fmaf(to_f<T>(orow[lane + 32]), to_f<T>(drow[lane + 32]), acc);
+#pragma unroll
+  for (int e = lane + 32; e < D; e += 32)
+    acc = fmaf(to_f<T>(orow[e]), to_f<T>(drow[e]), acc);
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
   if (lane == 0) {
@@ -163,7 +183,7 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 // stage rows [r0, r0 + kSub) of two (s, D) operands as fp32; rows past s
 // are zero
-template <typename T>
+template <typename T, int D, int kThreads>
 __device__ __forceinline__ void stage(float (*a_t)[D], float (*b_t)[D],
                                       const T* a, const T* b, long long as,
                                       long long bs, int r0, int s) {
@@ -181,17 +201,19 @@ __device__ __forceinline__ void stage(float (*a_t)[D], float (*b_t)[D],
   }
 }
 
-// The dK/dV pass.  kMask: the kv_mask lane; the unmasked instantiation
-// has no mask code.
-template <typename T, bool kMask>
+// The dK/dV pass over sk keys, walking sq query rows.  kMask: the kv_mask
+// lane; the unmasked instantiation has no mask code.
+template <typename T, int D, bool kMask>
 __device__ __forceinline__ void
 bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
              const float* __restrict__ lse2, const float* __restrict__ delta,
              const float* __restrict__ kvm, T* __restrict__ dk,
-             T* __restrict__ dv, int h, int s, Strides qs,
+             T* __restrict__ dv, int h, int sq, int sk, Strides qs,
              Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
              float scale, float a, int causal) {
+  constexpr int kTPR = tpr<D>();
+  constexpr int kThreads = kTile * kTPR;
   __shared__ __align__(16) float q_t[kSub][D];
   __shared__ __align__(16) float do_t[kSub][D];
   __shared__ float l_t[kSub];
@@ -203,9 +225,9 @@ bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
   const int j0 = blockIdx.x * kTile;
   const int t = threadIdx.x % kTPR;
   const int j = j0 + threadIdx.x / kTPR;
-  const bool live = j < s;
+  const bool live = j < sk;
   // the thread's key is attended by some row only if the mask keeps it
-  const bool kept = live && (!kMask || kvm[(size_t)bi * s + j] > 0.f);
+  const bool kept = live && (!kMask || kvm[(size_t)bi * sk + j] > 0.f);
   // a block of masked keys has nothing to accumulate: zeros out
   const bool any = kMask ? __syncthreads_or(kept) : true;
 
@@ -215,39 +237,39 @@ bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
     kr[e] = vr[e] = dkr[e] = dvr[e] = 0.f;
   }
   if (live) {
-    load_own<T>(k + bi * ks.b + hi * ks.h + j * ks.s, t, kr);
-    load_own<T>(v + bi * vs.b + hi * vs.h + j * vs.s, t, vr);
+    load_own<T, kTPR>(k + bi * ks.b + hi * ks.h + j * ks.s, t, kr);
+    load_own<T, kTPR>(v + bi * vs.b + hi * vs.h + j * vs.s, t, vr);
   }
   const T* qb = q + bi * qs.b + hi * qs.h;
   const T* db = dout + bi * dos.b + hi * dos.h;
-  const float* lb = lse2 + (size_t)bh * s;
-  const float* deb = delta + (size_t)bh * s;
+  const float* lb = lse2 + (size_t)bh * sq;
+  const float* deb = delta + (size_t)bh * sq;
 
   // causal: rows above the tile's first key see none of its keys
-  for (int i0 = causal ? j0 : 0; any && i0 < s; i0 += kSub) {
+  for (int i0 = causal ? j0 : 0; any && i0 < sq; i0 += kSub) {
     __syncthreads();  // the previous tile is no longer read
-    stage<T>(q_t, do_t, qb, db, qs.s, dos.s, i0, s);
+    stage<T, D, kThreads>(q_t, do_t, qb, db, qs.s, dos.s, i0, sq);
     if (threadIdx.x < kSub) {
       const int i = i0 + threadIdx.x;
-      l_t[threadIdx.x] = i < s ? lb[i] : 0.f;
-      dl_t[threadIdx.x] = i < s ? deb[i] : 0.f;
+      l_t[threadIdx.x] = i < sq ? lb[i] : 0.f;
+      dl_t[threadIdx.x] = i < sq ? deb[i] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
     for (int ii = 0; ii < kSub; ++ii) {
       const int i = i0 + ii;
-      const float sc = row_sum(dot_own(q_t[ii], t, kr));
-      const float dp = row_sum(dot_own(do_t[ii], t, vr));
-      const bool ok = kept && i < s && (!causal || j <= i);
+      const float sc = row_sum<kTPR>(dot_own<kTPR>(q_t[ii], t, kr));
+      const float dp = row_sum<kTPR>(dot_own<kTPR>(do_t[ii], t, vr));
+      const bool ok = kept && i < sq && (!causal || j <= i);
       const float p = ok ? exp2f(fmaf(sc, a, -l_t[ii])) : 0.f;
       const float ds = p * (dp - dl_t[ii]) * scale;
-      axpy_own(p, do_t[ii], t, dvr);
-      axpy_own(ds, q_t[ii], t, dkr);
+      axpy_own<kTPR>(p, do_t[ii], t, dvr);
+      axpy_own<kTPR>(ds, q_t[ii], t, dkr);
     }
   }
   if (live) {
-    store_own<T>(dk + bi * dks.b + hi * dks.h + j * dks.s, t, dkr);
-    store_own<T>(dv + bi * dvs.b + hi * dvs.h + j * dvs.s, t, dvr);
+    store_own<T, kTPR>(dk + bi * dks.b + hi * dks.h + j * dks.s, t, dkr);
+    store_own<T, kTPR>(dv + bi * dvs.b + hi * dvs.h + j * dvs.s, t, dvr);
   }
 }
 
@@ -255,35 +277,41 @@ bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
   const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v,    \
       const T *__restrict__ dout, const float *__restrict__ lse2,               \
       const float *__restrict__ delta, const float *__restrict__ kvm,           \
-      T *__restrict__ dk, T *__restrict__ dv, int h, int s, Strides qs,         \
-      Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,            \
-      float scale, float a, int causal
-#define DKV_ARGS \
-  q, k, v, dout, lse2, delta, kvm, dk, dv, h, s, qs, ks, vs, dos, dks, dvs, scale, a, causal
+      T *__restrict__ dk, T *__restrict__ dv, int h, int sq, int sk,            \
+      Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,             \
+      Strides dvs, float scale, float a, int causal
+#define DKV_ARGS                                                                  \
+  q, k, v, dout, lse2, delta, kvm, dk, dv, h, sq, sk, qs, ks, vs, dos, dks, dvs, \
+      scale, a, causal
 
 // Two kernels, so each keeps its own launch bounds: the unmasked one as
-// it always was (ptxas gives it 128 registers), the masked one held to
-// two blocks an SM (at 256 threads, 128 registers a thread is the most
-// that lets a second block in; unbounded, the mask took it to 130 and one
-// block, 20 % slower).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(DKV_PARAMS) {
-  bwd_dkv_body<T, false>(DKV_ARGS);
+// it always was (ptxas gives it 128 registers at d = 64), the masked one
+// held to the registers that let a second 256-thread block in at d = 64
+// (128 a thread; unbounded, the mask took it to 130 and one block, 20 %
+// slower).  At d = 128 a block is 512 threads, which itself caps a thread
+// at 128 registers, one block an SM.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTile * tpr<D>()) bwd_dkv_kernel(DKV_PARAMS) {
+  bwd_dkv_body<T, D, false>(DKV_ARGS);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) bwd_dkv_masked_kernel(DKV_PARAMS) {
-  bwd_dkv_body<T, true>(DKV_ARGS);
+template <typename T, int D>
+__global__ void __launch_bounds__(kTile * tpr<D>(), 512 / (kTile * tpr<D>()))
+    bwd_dkv_masked_kernel(DKV_PARAMS) {
+  bwd_dkv_body<T, D, true>(DKV_ARGS);
 }
 
-template <typename T, bool kMask>
-__global__ void __launch_bounds__(kThreads)
+// The dQ pass over sq queries, walking sk key rows.
+template <typename T, int D, bool kMask>
+__global__ void __launch_bounds__(kTile * tpr<D>())
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse2, const float* __restrict__ delta,
-              const float* __restrict__ kvm, T* __restrict__ dq, int h, int s,
-              Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
+              const float* __restrict__ kvm, T* __restrict__ dq, int h, int sq,
+              int sk, Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
               float scale, float a, int causal) {
+  constexpr int kTPR = tpr<D>();
+  constexpr int kThreads = kTile * kTPR;
   __shared__ __align__(16) float k_t[kSub][D];
   __shared__ __align__(16) float v_t[kSub][D];
   __shared__ bool km_t[kMask ? kSub : 1];
@@ -294,7 +322,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int i0 = blockIdx.x * kTile;
   const int t = threadIdx.x % kTPR;
   const int i = i0 + threadIdx.x / kTPR;
-  const bool live = i < s;
+  const bool live = i < sq;
 
   float qr[kOwn], dor[kOwn], dqr[kOwn];
 #pragma unroll
@@ -303,77 +331,96 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float l = 0.f, dl = 0.f;
   if (live) {
-    load_own<T>(q + bi * qs.b + hi * qs.h + i * qs.s, t, qr);
-    load_own<T>(dout + bi * dos.b + hi * dos.h + i * dos.s, t, dor);
-    l = lse2[(size_t)bh * s + i];
-    dl = delta[(size_t)bh * s + i];
+    load_own<T, kTPR>(q + bi * qs.b + hi * qs.h + i * qs.s, t, qr);
+    load_own<T, kTPR>(dout + bi * dos.b + hi * dos.h + i * dos.s, t, dor);
+    l = lse2[(size_t)bh * sq + i];
+    dl = delta[(size_t)bh * sq + i];
   }
   const T* kb = k + bi * ks.b + hi * ks.h;
   const T* vb = v + bi * vs.b + hi * vs.h;
-  const float* mb = kMask ? kvm + (size_t)bi * s : nullptr;
+  const float* mb = kMask ? kvm + (size_t)bi * sk : nullptr;
 
   // causal: keys past the tile's last query are in every row's future
-  const int k_end = causal ? min(s, i0 + kTile) : s;
+  const int k_end = causal ? min(sk, i0 + kTile) : sk;
   for (int j0 = 0; j0 < k_end; j0 += kSub) {
     __syncthreads();
     if constexpr (kMask) {
       bool mine = false;
       if (threadIdx.x < kSub) {
         const int j = j0 + threadIdx.x;
-        mine = j < s && mb[j] > 0.f;
+        mine = j < sk && mb[j] > 0.f;
         km_t[threadIdx.x] = mine;
       }
       if (!__syncthreads_or(mine)) continue;  // a wholly masked tile
     }
-    stage<T>(k_t, v_t, kb, vb, ks.s, vs.s, j0, s);
+    stage<T, D, kThreads>(k_t, v_t, kb, vb, ks.s, vs.s, j0, sk);
     __syncthreads();
 #pragma unroll 4
     for (int jj = 0; jj < kSub; ++jj) {
       const int j = j0 + jj;
-      const float sc = row_sum(dot_own(k_t[jj], t, qr));
-      const float dp = row_sum(dot_own(v_t[jj], t, dor));
-      const bool ok = live && j < s && (!causal || j <= i) && (!kMask || km_t[jj]);
+      const float sc = row_sum<kTPR>(dot_own<kTPR>(k_t[jj], t, qr));
+      const float dp = row_sum<kTPR>(dot_own<kTPR>(v_t[jj], t, dor));
+      const bool ok = live && j < sk && (!causal || j <= i) && (!kMask || km_t[jj]);
       const float p = ok ? exp2f(fmaf(sc, a, -l)) : 0.f;
       const float ds = p * (dp - dl) * scale;
-      axpy_own(ds, k_t[jj], t, dqr);
+      axpy_own<kTPR>(ds, k_t[jj], t, dqr);
     }
   }
-  if (live) store_own<T>(dq + bi * dqs.b + hi * dqs.h + i * dqs.s, t, dqr);
+  if (live) store_own<T, kTPR>(dq + bi * dqs.b + hi * dqs.h + i * dqs.s, t, dqr);
+}
+
+template <typename T, int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                     void* delta, void* lse2, const float* kvm, int b, int h, int sq,
+                     int sk, Strides qs, Strides ks, Strides vs, Strides os,
+                     Strides dos, Strides dqs, Strides dks, Strides dvs, float scale,
+                     int causal, cudaStream_t stream) {
+  constexpr int kThreads = kTile * tpr<D>();
+  const float a = scale * kLog2e;
+  const long long rows = (long long)b * h * sq;
+  const int warps = 8;
+  delta_kernel<T, D><<<(unsigned)((rows + warps - 1) / warps), warps * 32, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<float*>(lse2), h, sq, os, dos, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid_kv((sk + kTile - 1) / kTile, b * h);
+  auto dkv = kvm ? bwd_dkv_masked_kernel<T, D> : bwd_dkv_kernel<T, D>;
+  dkv<<<grid_kv, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse2),
+      static_cast<const float*>(delta), kvm, static_cast<T*>(dk), static_cast<T*>(dv),
+      h, sq, sk, qs, ks, vs, dos, dks, dvs, scale, a, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid_q((sq + kTile - 1) / kTile, b * h);
+  auto dq_pass = kvm ? bwd_dq_kernel<T, D, true> : bwd_dq_kernel<T, D, false>;
+  dq_pass<<<grid_q, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse2),
+      static_cast<const float*>(delta), kvm, static_cast<T*>(dq), h, sq, sk, qs, ks,
+      vs, dos, dqs, scale, a, causal);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const void* lse, void* dq, void* dk, void* dv,
-                   void* delta, void* lse2, const float* kvm, int b, int h, int s,
-                   Strides qs,
-                   Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
-                   Strides dks, Strides dvs, float scale, int causal,
-                   cudaStream_t stream) {
-  const float a = scale * kLog2e;
-  const long long rows = (long long)b * h * s;
-  const int warps = 8;
-  delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps), warps * 32, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<float*>(lse2), h, s, os, dos, rows);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const dim3 grid((s + kTile - 1) / kTile, b * h);
-  auto dkv = kvm ? bwd_dkv_masked_kernel<T> : bwd_dkv_kernel<T>;
-  dkv<<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse2),
-      static_cast<const float*>(delta), kvm, static_cast<T*>(dk), static_cast<T*>(dv),
-      h, s, qs, ks, vs, dos, dks, dvs, scale, a, causal);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  auto dq_pass = kvm ? bwd_dq_kernel<T, true> : bwd_dq_kernel<T, false>;
-  dq_pass<<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse2),
-      static_cast<const float*>(delta), kvm, static_cast<T*>(dq), h, s, qs, ks, vs,
-      dos, dqs, scale, a, causal);
-  return cudaGetLastError();
+                   void* delta, void* lse2, const float* kvm, int b, int h, int sq,
+                   int sk, int d, Strides qs, Strides ks, Strides vs, Strides os,
+                   Strides dos, Strides dqs, Strides dks, Strides dvs, float scale,
+                   int causal, cudaStream_t stream) {
+  if (d == 64)
+    return launch_d<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, kvm, b, h,
+                           sq, sk, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal,
+                           stream);
+  if (d == 128)
+    return launch_d<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, kvm, b, h,
+                            sq, sk, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal,
+                            stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -385,23 +432,24 @@ const char* apex_cuda_error_string(int e) {
 }
 
 // Every operand is a (b, h, s, d) view given by element strides over
-// (b, h, s) with a unit stride on d: q/k/v and dq/dk/dv are the lanes of
-// the (b, s, h, 3d) qkv and dqkv buffers, o and do (b, s, h, d) buffers.
-// lse (b, h, s) fp32 contiguous, natural log of the scaled scores' sum;
-// delta and lse2 are fp32 scratch of b * h * s each; kvm null, or the
-// forward's (b, s) fp32 key mask, contiguous.  dtype codes: 0 float32, 1
-// bfloat16, 2 float16.  d = 64.
+// (b, h, s) with a unit stride on d: q, o, do and dq over sq rows; k, v,
+// dk and dv over sk rows (the E entry passes the lanes of the (b, s, h,
+// 3d) qkv and dqkv buffers with sq = sk, the (b, h, s, d) entry its own
+// tensors).  lse (b, h, sq) fp32 contiguous, natural log of the scaled
+// scores' sum; delta and lse2 are fp32 scratch of b * h * sq each; kvm
+// null, or the forward's (b, sk) fp32 key mask, contiguous.  dtype codes:
+// 0 float32, 1 bfloat16, 2 float16.  d = 64 or 128.
 int apex_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* dq, void* dk, void* dv, void* delta, void* lse2,
-    const void* kvm, int b, int h, int s, int d, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh, long long o_ss, long long do_sb,
-    long long do_sh, long long do_ss, long long dq_sb, long long dq_sh,
-    long long dq_ss, long long dk_sb, long long dk_sh, long long dk_ss,
-    long long dv_sb, long long dv_sh, long long dv_ss, float scale, int causal,
-    int dtype, void* stream) {
-  if (b <= 0 || h <= 0 || s <= 0 || d != D || b * h > 65535)
+    const void* kvm, int b, int h, int sq, int sk, int d, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+    long long o_ss, long long do_sb, long long do_sh, long long do_ss,
+    long long dq_sb, long long dq_sh, long long dq_ss, long long dk_sb,
+    long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,
+    long long dv_ss, float scale, int causal, int dtype, void* stream) {
+  if (b <= 0 || h <= 0 || sq <= 0 || sk <= 0 || b * h > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(kvm);
@@ -410,15 +458,15 @@ int apex_flash_attention_bwd(
       dks{dk_sb, dk_sh, dk_ss}, dvs{dv_sb, dv_sh, dv_ss};
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b, h, s,
-                           qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, st);
+      return launch<float>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b, h, sq,
+                           sk, d, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, st);
     case 1:
       return launch<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b,
-                                   h, s, qs, ks, vs, os, dos, dqs, dks, dvs, scale,
-                                   causal, st);
+                                   h, sq, sk, d, qs, ks, vs, os, dos, dqs, dks, dvs,
+                                   scale, causal, st);
     case 2:
-      return launch<__half>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b, h, s,
-                            qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, st);
+      return launch<__half>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b, h, sq,
+                            sk, d, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -5,7 +5,10 @@ runs the plain version only on a CPU tensor; :func:`launch_counts`
 reads how many times each kernel was launched.
 """
 from ._counts import KERNELS, launch_counts, reset_launch_counts
-from .flash_attention import (FlashAttentionEFunction, flash_attention,
+from .flash_attention import (FlashAttentionEFunction,
+                              FlashAttentionFunction, e_mode, flash_attention,
+                              flash_attention_backward,
+                              flash_attention_backward_reference,
                               flash_attention_e, flash_attention_e_backward,
                               flash_attention_e_backward_reference,
                               flash_attention_e_reference,
@@ -36,7 +39,8 @@ from .scaled_softmax import (ScaledMaskedSoftmax,
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "flash_attention", "flash_attention_with_lse", "mha_reference",
-           "flash_attention_e", "flash_attention_e_with_lse",
+           "flash_attention_backward", "flash_attention_backward_reference",
+           "FlashAttentionFunction", "e_mode", "flash_attention_e", "flash_attention_e_with_lse",
            "flash_attention_e_reference",
            "flash_attention_e_backward",
            "flash_attention_e_backward_reference", "FlashAttentionEFunction",

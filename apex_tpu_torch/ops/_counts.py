@@ -5,8 +5,10 @@ succeeds, and nowhere else: the plain PyTorch versions never count.
 The int8-cache branches of the paged kernels count under their own
 names (``flash_decode_int8``, ``flash_decode_multi_int8``), and so do
 the kv_mask lanes of the E flash kernels (``flash_attention_e_kvmask``,
-``flash_attention_e_bwd_kvmask``), so a run can show which branch it
-took.  A caller resets the counts just before the
+``flash_attention_e_bwd_kvmask``), and the E flash kernels past a padded
+sequence of 1024 (``flash_attention_e_blocked``,
+``flash_attention_e_bwd_blocked``: rows 11 and 13, the JAX package's
+blocked walk), so a run can show which branch it took.  A caller resets the counts just before the
 path it wants to prove and reads them just after (``chip_smoke.py``
 does this around each serve and around each train step).
 """
@@ -21,7 +23,9 @@ KERNELS = ("layer_norm", "flash_attention", "flash_decode",
            "scaled_softmax_bwd", "norm_finite", "quant_gemv",
            "quant_tiled", "flash_decode_int8", "flash_decode_multi_int8",
            "scaled_masked_softmax_fwd", "flash_attention_e_kvmask",
-           "flash_attention_e_bwd_kvmask", "lamb_phase1")
+           "flash_attention_e_bwd_kvmask", "lamb_phase1",
+           "flash_attention_bwd", "flash_attention_e_blocked",
+           "flash_attention_e_bwd_blocked")
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -1,16 +1,19 @@
 """Flash attention: the CUDA kernels and their plain versions.
 
 Port of ``apex_tpu/ops/flash_attention.py``'s ``flash_attention``
-(``_flash_fwd`` and its two Pallas bodies) for the (b, h, s, d) layout,
-forward only, and of ``flash_attention_e`` (``_flash_fwd_e`` and
-``_flash_bwd_e``), the projection-native E layout the transformer layer
-trains through, forward and backward.  Causal or full; the E entry also
-takes a (b, s) ``kv_mask`` (a key is attended where it is > 0), the
-padding mask BERT's flash route rides — no offsets or dropout in this
-slice.  The JAX package packs d=64 head
-pairs onto 128 TPU lanes and groups E heads by lane budget; those are
-lane-layout devices of the TPU, so the port keeps heads apart and
-matches the numerics, not the layout.
+(``_flash_fwd`` and its custom VJP's ``_flash_bwd``) for the (b, h, s,
+d) layout, forward and backward, and of ``flash_attention_e``
+(``_flash_fwd_e``/``_flash_bwd_e`` and, past a padded sequence of 1024,
+``_flash_fwd_e_blocked``/``_flash_bwd_e_blocked``), the
+projection-native E layout the transformer layer trains through.
+Causal or full, head dim 64 or 128; the E entry also takes a (b, s)
+``kv_mask`` (a key is attended where it is > 0), the padding mask
+BERT's flash route rides — no offsets, lse cotangent or dropout in this
+slice, and no kv_mask on the (b, h, s, d) entry.  The JAX package packs
+d=64 head pairs onto 128 TPU lanes, groups E heads by lane budget and
+streams long E sequences in (512, 512) VMEM tiles; those are devices of
+the TPU's memory, so the port keeps heads apart, walks shared-memory
+tiles at every length, and matches the numerics, not the layout.
 
 On a CUDA tensor :func:`flash_attention` launches
 ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
@@ -18,23 +21,29 @@ On a CUDA tensor :func:`flash_attention` launches
 (a unit stride on d is all it needs), so the serving model hands it
 views of the fused QKV projection without copies, and it writes o
 into a (b, s, h, d) buffer returned as a (b, h, s, d) view — the
-layout the model's output projection reads.
+layout the model's output projection reads.  It is differentiable
+(:class:`FlashAttentionFunction`): the backward launches
+``csrc/flash_attention_bwd.cu`` on a CUDA tensor and runs
+:func:`flash_attention_backward_reference` on a CPU one.
 
 :func:`flash_attention_e` takes qkv (b, s, h, 3d), lanes [head][q|k|v]
 as the fused QKV projection emits them, and returns (b, s, h*d).  Its
 forward is the same kernel launched on strided views of qkv (no copy,
-no transpose); its backward (``csrc/flash_attention_bwd.cu``) writes dq,
-dk and dv straight into the heads' lanes of one dqkv buffer.  Both
-report natural-log lse of the scaled scores, one convention throughout.
+no transpose); its backward, the same backward kernel, writes dq, dk
+and dv straight into the heads' lanes of one dqkv buffer.  Both report
+natural-log lse of the scaled scores, one convention throughout.  A
+padded length past 1024 (:func:`e_mode` "blocked", JAX's ``_e_mode``)
+runs the same kernels but counts them as ``flash_attention_e_blocked``
+and ``flash_attention_e_bwd_blocked`` (rows 11 and 13).
 
 A batch row whose every key is masked out (or, under causal masking, a
 query row that sees no unmasked key) attends nothing: o = 0 and lse =
 -inf there, and its gradients are 0.  The JAX kernels write o = 0 too
 (their lse is the finite -1e30 * scale, which nothing reads).
 
-:func:`flash_attention` has no backward (row 8, ``_flash_bwd``, is not
-ported): when autograd records and q, k or v requires grad it raises
-``NotImplementedError`` rather than return an output with no graph.
+The backward uses ``scale`` as the forward did.  JAX's ``_flash_bwd``
+rounds it to v's dtype before folding it into v: at d = 128 in bf16
+that moves dq and dk by 1.07e-4 relative; the port does not follow it.
 """
 from __future__ import annotations
 
@@ -47,6 +56,8 @@ from .. import _build
 from ._counts import bump
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "mha_reference",
+           "flash_attention_backward", "flash_attention_backward_reference",
+           "FlashAttentionFunction", "e_mode",
            "flash_attention_e", "flash_attention_e_with_lse",
            "flash_attention_e_reference",
            "flash_attention_e_backward",
@@ -54,7 +65,9 @@ __all__ = ["flash_attention", "flash_attention_with_lse", "mha_reference",
 
 _NEG = -1e30
 _TAKES = (torch.float32, torch.bfloat16, torch.float16)
-_HEAD_DIMS = (64,)
+_HEAD_DIMS = (64, 128)
+# JAX's _E_MAX_SEQ: a longer 128-padded E sequence takes the blocked walk
+_E_MAX_SEQ = 1024
 
 
 def _keep_mask(sq, sk, causal, kv_mask, device):
@@ -164,24 +177,102 @@ def _launch(q, k, v, scale, causal, counter="flash_attention",
     return o, lse
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, scale: Optional[float] = None,
-                             causal: bool = False
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)``: softmax(q k^T * scale [causal]) v and the fp32
-    per-row log-sum-exp, (b, h, sq)."""
-    if _needs_grad(q, k, v):
-        raise NotImplementedError(
-            "flash_attention has no backward in the port yet: row 8 of the "
-            "kernel table, `_flash_bwd` (apex_tpu/ops/flash_attention.py:"
-            "1027), is not ported; call it under torch.no_grad() or "
-            "inference_mode, or train through flash_attention_e")
+def flash_attention_backward_reference(q, k, v, o, lse, do,
+                                       scale: Optional[float] = None,
+                                       causal: bool = False,
+                                       kv_mask: Optional[torch.Tensor]
+                                       = None):
+    """Plain version of the backward kernel: ``(dq, dk, dv)`` from q
+    (b, h, sq, d), k and v (b, h, sk, d), the forward's o (b, h, sq, d)
+    and natural-log lse (b, h, sq), and do (b, h, sq, d) — p recomputed
+    from lse, delta = rowsum(do*o), all in fp32, each cast once to its
+    operand's dtype.  Masked pairs take p = 0 before the exponential is
+    read (a dead row's lse is -inf)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    sc = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(sc - lse.unsqueeze(-1))
+    keep = _keep_mask(q.shape[2], k.shape[2], causal, kv_mask, q.device)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros((), device=p.device))
+    delta = (dof * of).sum(-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_backward(q, k, v, o, lse, do, dq, dk, dv, scale, causal,
+                     counter, kv_mask=None):
+    """One launch of the backward kernel on (b, h, s, d) views: q, o,
+    do, dq over sq rows, k, v, dk, dv over sk rows (outputs written in
+    place)."""
+    _check_qkv(q, k, v, counter)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    kvm = _kv_mask_arg(kv_mask, b, sk, q.device)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or \
+                t.stride(-1) != 1 or t.device != q.device:
+            raise ValueError(f"{name} must be {q.dtype} (b, h, sq, d) = "
+                             f"{tuple(q.shape)} with a unit stride on d, on "
+                             f"{q.device}; got {t.dtype} {tuple(t.shape)}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 {(b, h, sq)}")
+    scratch = torch.empty((2, b, h, sq), dtype=torch.float32,
+                          device=q.device)
+    strides = []
+    for t in (q, k, v, o, do, dq, dk, dv):
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    lib = _build.library("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.apex_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
+            None if kvm is None else kvm.data_ptr(), b, h, sq, sk, d,
+            *strides, float(scale), int(bool(causal)),
+            _build.dtype_code(q.dtype), _build.stream_ptr(q.device))
+    _build.check("flash_attention_bwd", rc, f"{counter} kernel")
+    bump(counter)
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor,
+                             scale: Optional[float] = None,
+                             causal: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention` (row 8), from its
+    inputs, its o and fp32 natural-log lse (b, h, sq), and the output
+    gradient do (b, h, sq, d); each gradient in its operand's shape and
+    dtype.  Counts as ``flash_attention_bwd``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                  scale=scale,
+                                                  causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dq.numel() and dk.numel():
+        _launch_backward(q, k, v, o, lse, do, dq, dk, dv, scale, causal,
+                         "flash_attention_bwd")
+    else:
+        for t in (dq, dk, dv):
+            t.zero_()
+    return dq, dk, dv
+
+
+def _forward(q, k, v, scale, causal):
     if q.device.type == "cpu":
         return mha_reference(q, k, v, scale=scale, causal=causal,
                              return_lse=True)
@@ -191,20 +282,80 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
     return _launch(q, k, v, scale, causal)
 
 
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention over (b, h, s, d) under autograd (the JAX
+    package's ``_flash_attention_fused`` custom VJP): the forward saves
+    q, k, v, o and the fp32 lse and returns ``(o, lse)``; the backward
+    is row 8.  The lse output takes no cotangent (JAX's
+    ``flash_attention_partial`` folds one into delta; that entry, with
+    ring attention, is not ported): a graph that differentiates through
+    it raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        o, lse = _forward(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        if dlse is not None:
+            raise NotImplementedError(
+                "flash_attention_with_lse: a gradient through lse (the lse "
+                "cotangent of JAX's flash_attention_partial) is not ported")
+        q, k, v, o, lse = ctx.saved_tensors
+        do = dout if dout.stride(-1) == 1 else dout.contiguous()
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
+                                              scale=ctx.scale,
+                                              causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, scale: Optional[float] = None,
+                             causal: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)``: softmax(q k^T * scale [causal]) v and the fp32
+    per-row log-sum-exp, (b, h, sq).  Differentiable in o."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return FlashAttentionFunction.apply(q, k, v, float(scale),
+                                        bool(causal))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None,
                     causal: bool = False) -> torch.Tensor:
     """Fused attention: softmax(q k^T * scale [causal]) v.
 
-    q (b, h, sq, d); k, v (b, h, sk, d); ``scale`` defaults to
-    1/sqrt(d).  Causal masking keeps key positions <= the query's (both
-    counted from 0).  Forward only: raises ``NotImplementedError``
-    when autograd records and an input requires grad."""
+    q (b, h, sq, d); k, v (b, h, sk, d); d 64 or 128; ``scale``
+    defaults to 1/sqrt(d).  Causal masking keeps key positions <= the
+    query's (both counted from 0).  Differentiable: the backward is the
+    row-8 kernel on CUDA tensors, its plain version on CPU tensors."""
     return flash_attention_with_lse(q, k, v, scale=scale,
                                     causal=causal)[0]
 
 
 # --- the E layout: qkv (b, s, h, 3d) -> (b, s, h*d) --------------------
+
+def e_mode(s: int) -> str:
+    """``"single"`` or ``"blocked"``: the JAX E route (``_e_mode``) a
+    sequence of ``s`` takes, by its 128-padded length against 1024 — the
+    name the port counts its E launches under (the kernels are the same
+    at every length)."""
+    return "blocked" if -(-s // 128) * 128 > _E_MAX_SEQ else "single"
+
+
+def _e_counter(s: int, kv_mask, bwd: bool = False) -> str:
+    """The launch counter of an E call: the kv_mask lane at any length,
+    else rows 11/13 past a padded length of 1024, else rows 10/12."""
+    name = "flash_attention_e" + ("_bwd" if bwd else "")
+    if kv_mask is not None:
+        return name + "_kvmask"
+    return name + ("_blocked" if e_mode(s) == "blocked" else "")
+
 
 def _split_e(qkv):
     """(b, h, s, d) views of q, k, v inside qkv (b, s, h, 3d) — no
@@ -230,68 +381,14 @@ def flash_attention_e_backward_reference(qkv, o, lse, do,
                                          causal: bool = False,
                                          kv_mask: Optional[torch.Tensor]
                                          = None):
-    """Plain version of the backward kernel: dqkv (b, s, h, 3d) from
-    qkv, the forward's o (b, s, h, d) and natural-log lse (b, h, s),
-    and do (b, s, h, d) — p recomputed from lse, delta = rowsum(do*o),
-    all in fp32, cast once to qkv's dtype.  Masked pairs take p = 0
-    before the exponential is read (a dead row's lse is -inf)."""
-    b, s, h, td = qkv.shape
-    d = td // 3
-    if scale is None:
-        scale = d ** -0.5
-    q, k, v = (t.float() for t in _split_e(qkv))
-    of = o.float().transpose(1, 2)
-    dof = do.float().transpose(1, 2)
-    sc = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    p = torch.exp(sc - lse.unsqueeze(-1))
-    keep = _keep_mask(s, s, causal, kv_mask, qkv.device)
-    if keep is not None:
-        p = torch.where(keep, p, torch.zeros((), device=p.device))
-    delta = (dof * of).sum(-1, keepdim=True)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
-    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, v) - delta) * scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q)
-    dqkv = torch.cat([t.transpose(1, 2) for t in (dq, dk, dv)], dim=-1)
-    return dqkv.to(qkv.dtype)
-
-
-def _launch_backward(qkv, o, lse, do, scale, causal, kv_mask=None):
-    q, k, v = _split_e(qkv)
-    _check_qkv(q, k, v, "flash_attention_e_bwd")
-    b, h, s, d = q.shape
-    kvm = _kv_mask_arg(kv_mask, b, s, qkv.device)
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != (b, s, h, d) or t.dtype != qkv.dtype or \
-                t.stride(-1) != 1 or t.device != qkv.device:
-            raise ValueError(f"{name} must be {qkv.dtype} (b, s, h, d) = "
-                             f"{(b, s, h, d)} with a unit stride on d, on "
-                             f"{qkv.device}; got {t.dtype} "
-                             f"{tuple(t.shape)}")
-    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or \
-            not lse.is_contiguous():
-        raise ValueError(f"lse must be contiguous float32 {(b, h, s)}")
-    dqkv = torch.empty((b, s, h, 3 * d), dtype=qkv.dtype, device=qkv.device)
-    dq, dk, dv = _split_e(dqkv)
-    scratch = torch.empty((2, b, h, s), dtype=torch.float32,
-                          device=qkv.device)
-    strides = []
-    for t in (q, k, v, o.transpose(1, 2), do.transpose(1, 2), dq, dk, dv):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
-    lib = _build.library("flash_attention_bwd")
-    with torch.cuda.device(qkv.device):
-        rc = lib.apex_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            None if kvm is None else kvm.data_ptr(), b, h, s, d, *strides,
-            float(scale), int(bool(causal)), _build.dtype_code(qkv.dtype),
-            _build.stream_ptr(qkv.device))
-    counter = "flash_attention_e_bwd" + ("_kvmask" if kvm is not None
-                                         else "")
-    _build.check("flash_attention_bwd", rc, f"{counter} kernel")
-    bump(counter)
-    return dqkv
+    """Plain version of the E backward: dqkv (b, s, h, 3d) from qkv, the
+    forward's o (b, s, h, d) and natural-log lse (b, h, s), and do (b, s,
+    h, d) — :func:`flash_attention_backward_reference` on the split
+    views, the three gradients laid back into qkv's lanes."""
+    grads = flash_attention_backward_reference(
+        *_split_e(qkv), o.transpose(1, 2), lse, do.transpose(1, 2),
+        scale=scale, causal=causal, kv_mask=kv_mask)
+    return torch.cat([t.transpose(1, 2) for t in grads], dim=-1)
 
 
 def flash_attention_e_backward(qkv: torch.Tensor, o: torch.Tensor,
@@ -303,7 +400,8 @@ def flash_attention_e_backward(qkv: torch.Tensor, o: torch.Tensor,
     """dqkv (b, s, h, 3d) in qkv's layout and dtype, from the forward's
     o (b, s, h, d) and fp32 natural-log lse (b, h, s) and the output
     gradient do (b, s, h, d); ``kv_mask`` the forward's (b, s) mask.
-    The masked lane counts as ``flash_attention_e_bwd_kvmask``."""
+    The masked lane counts as ``flash_attention_e_bwd_kvmask``, a
+    padded length past 1024 as ``flash_attention_e_bwd_blocked``."""
     if scale is None:
         scale = (qkv.shape[-1] // 3) ** -0.5
     if qkv.device.type == "cpu":
@@ -314,20 +412,25 @@ def flash_attention_e_backward(qkv: torch.Tensor, o: torch.Tensor,
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention_e runs on cuda or cpu, not "
                          f"{qkv.device}")
-    return _launch_backward(qkv, o, lse, do, scale, causal, kv_mask)
+    dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+    _launch_backward(*_split_e(qkv), o.transpose(1, 2), lse,
+                     do.transpose(1, 2), *_split_e(dqkv), scale, causal,
+                     _e_counter(qkv.shape[1], kv_mask, bwd=True),
+                     kv_mask=kv_mask)
+    return dqkv
 
 
 def _forward_e(qkv, scale, causal, kv_mask=None):
     """``(o (b, s, h, d), lse (b, h, s))`` of the E forward; with a
-    ``kv_mask`` the launch counts as ``flash_attention_e_kvmask``."""
+    ``kv_mask`` the launch counts as ``flash_attention_e_kvmask``, past
+    a padded length of 1024 as ``flash_attention_e_blocked``."""
     q, k, v = _split_e(qkv)
     if qkv.device.type == "cpu":
         o, lse = mha_reference(q, k, v, scale=scale, causal=causal,
                                return_lse=True, kv_mask=kv_mask)
     elif qkv.device.type == "cuda":
         o, lse = _launch(q, k, v, scale, causal,
-                         counter="flash_attention_e" + (
-                             "_kvmask" if kv_mask is not None else ""),
+                         counter=_e_counter(qkv.shape[1], kv_mask),
                          kv_mask=kv_mask)
     else:
         raise ValueError(f"flash_attention_e runs on cuda or cpu, not "

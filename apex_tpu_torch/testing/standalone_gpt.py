@@ -7,6 +7,8 @@ Counterpart of ``apex_tpu/testing/standalone_gpt.py``: the model
     python -m apex_tpu_torch.testing.standalone_gpt --serve
     python -m apex_tpu_torch.testing.standalone_gpt --train
     python -m apex_tpu_torch.testing.standalone_gpt --train --policy O2
+    python -m apex_tpu_torch.testing.standalone_gpt --train \
+        --model gpt345m_s2048
     python -m apex_tpu_torch.testing.standalone_gpt --serve --speculate-k 2
     python -m apex_tpu_torch.testing.standalone_gpt --serve --speculate-k 2 \
         --draft truncated
@@ -28,7 +30,9 @@ int8 weight-only layer matmuls), with the KV cache stored as
 and prints one ``SERVE_DONE`` line; ``--speculate-k``, ``--prefill-chunk`` and
 ``--prefix-share`` turn on the engine's fast path (speculative decode
 with a ``--draft``, chunked prefill, copy-on-write prefix sharing).
-``--train`` takes ``--steps`` optimizer steps on one seeded batch (seq 1024, batch 8 at GPT-345M) with
+``--train`` takes ``--steps`` optimizer steps on one seeded batch (seq
+1024, batch 8 at GPT-345M; seq 2048, batch 4 at ``gpt345m_s2048``, the
+long-sequence row) with
 ``fused_adam(1e-4)`` and no dropout, in one of the JAX package's two
 train recipes (:data:`TRAIN_RECIPES`), and prints one ``TRAIN_DONE``
 line: ``O5`` is ``bench.py``'s ``bench_gpt345m`` (flash attention, bf16,
@@ -65,7 +69,8 @@ from ..transformer.tensor_parallel import VocabParallelEmbedding
 __all__ = ["MODELS", "TRAIN_RECIPES", "DRAFTS", "model_config", "seeded_prompts",
            "truncated_draft", "serve_smoke",
            "GPTEmbedding", "GPTModel", "gpt_loss", "gpt_params_from_numpy",
-           "TrainSetup", "make_train_setup", "train_step", "TrainResult",
+           "TrainSetup", "make_train_setup", "model_flops", "train_step",
+           "TrainResult",
            "train_smoke", "masters_digest", "main"]
 
 # model presets: the geometry (the ServingModelConfig fields) and the
@@ -75,6 +80,12 @@ MODELS = {
     # bench.py's bench_gpt345m runs
     "gpt345m": dict(vocab_size=50304, hidden_size=1024, num_heads=16,
                     num_layers=24, max_seq=1024, seq=1024, batch=8),
+    # the same model at seq 2048, batch 4: bench.py's gpt2_345m_s2048
+    # (bench_gpt345m(seq=2048, batch=4)), the model-level long sequence,
+    # where every layer's attention is past the JAX package's one-block E
+    # limit (padded s > 1024: the blocked walk, rows 11 and 13)
+    "gpt345m_s2048": dict(vocab_size=50304, hidden_size=1024, num_heads=16,
+                          num_layers=24, max_seq=2048, seq=2048, batch=4),
     # the CPU smoke size
     "tiny": dict(vocab_size=256, hidden_size=128, num_heads=2,
                  num_layers=2, max_seq=128, seq=64, batch=2),
@@ -330,11 +341,19 @@ def make_train_setup(model: str = "gpt345m", *, policy: str = "O5",
     n_params = sum(p.numel() for p in net.parameters())
     opt = fused_adam(TRAIN_LR, kernels=kernels)
     net, amp_opt = amp.initialize(net, opt, opt_level=policy)
-    # bench.py's model FLOPs: 6 N per token plus the attention scores
-    flops = 6.0 * n_params * b * s \
-        + 12.0 * geo["num_layers"] * geo["hidden_size"] * s * s * b
     return TrainSetup(net, amp_opt, tokens, torch.roll(tokens, -1, dims=-1),
-                      n_params, flops)
+                      n_params, model_flops(model, n_params))
+
+
+def model_flops(model: str, n_params: int) -> float:
+    """bench.py's model FLOPs of one train step of the preset
+    (``bench.py:2251-2252``): 6 N per token, N the parameter count (the
+    position table's ``max_seq`` rows included), plus the attention
+    scores, 12 L hidden s^2 a batch row."""
+    geo = MODELS[model]
+    b, s = geo["batch"], geo["seq"]
+    return 6.0 * n_params * b * s \
+        + 12.0 * geo["num_layers"] * geo["hidden_size"] * s * s * b
 
 
 def train_step(setup: TrainSetup):

@@ -32,9 +32,16 @@ Phases, in order; any failure exits non-zero without the result line:
                    E flash forward and backward at b=16 s=512 h=16 d=64
                    with one all-pad batch row (o = 0, zero gradients),
                    LAMB phase 1 over BERT-large's 336M-element group;
-                   and the grad routing (``layer_norm`` on a
-                   grad-requiring input runs the backward kernel,
-                   ``flash_attention`` raises).
+                   the grad routing (``layer_norm`` and ``flash_attention``
+                   on grad-requiring inputs record graphs whose backwards
+                   are the row-2 and row-8 kernels); the long-context
+                   slice's: the (b, h, s, d) backward (row 8) at (1, 16,
+                   1024, 64) causal, at sq != sk full and causal and at
+                   d = 128, row 6's forward at d = 128, the E kernels at
+                   d = 128 and past a padded length of 1024 (rows 11 and
+                   13, counted under their own names) at the long train
+                   step's (4, 2048, 16, 64), and the E kernels' time per
+                   (q, k) pair at s = 1024..8192 (8192 tokens each).
 3. serve O5/O0   — GPT-345M width (vocab 50304, hidden 1024, 24 layers,
                    16 heads, max_seq 1024), O5 bf16 then fp32, seeded
                    random weights: serve 8 seeded prompts of 64..700
@@ -112,18 +119,37 @@ Phases, in order; any failure exits non-zero without the result line:
                    3 plain steps within ``TRAIN_BERT_O2_LOSS_TOL`` (one
                    limit a step) and the same skips; then 8 steps on
                    the all-ones mask.
+6d. long_context — bench.py's bench_long_context: flash attention
+                   forward and backward under autograd (loss sum(o**2)),
+                   causal, bf16, at (b, h, s, d) = (1, 16, 8192, 64),
+                   (1, 16, 16384, 64), (1, 32, 4096, 128), (1, 16, 8192,
+                   128) and (1, 16, 16384, 128), launch counts reset just
+                   before and held exactly (rows 6 and 8 once a shape);
+                   each held against the plain versions on a subset of
+                   its heads (the heads are independent; all 16 heads'
+                   plain scores at s = 16384 would be 17 GB a tensor);
+                   forward and backward device ms, the substep's model
+                   TFLOP/s at 7 b h s^2 d, the bound, SDPA's times.
+6e. train_long   — GPT-345M at seq 2048, batch 4 (bench.py's
+                   gpt2_345m_s2048), O5 as ``train``: 8 steps with launch
+                   counts reset just before and held exactly (the E
+                   kernels under the blocked names, rows 11 and 13, 24 a
+                   step each; the unblocked E counts 0); losses finite
+                   and falling; 3 plain steps within
+                   ``TRAIN_LONG_LOSS_TOL`` (one limit a step).
 7. profiles      — the O5 serve, the O5 speculative serve (self draft), the
                    Q8 serve over an int8 cache, one O5 and one O2 train
                    step of GPT-345M and of BERT-large (on bench.py's
-                   all-ones mask)
+                   all-ones mask), one GPT-345M step at seq 2048
                    under ``torch.profiler``: device time by kernel and
                    the device's idle share.  Last, since the profiler
                    slows every later launch.
 
 ``--phases`` runs a subset (``build`` always runs), for iterating.
-When every phase ran and passed, the last three lines are one JSON
-object ``{"kernels": [...]}``, the card's ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.
+When every phase ran and passed, the last four lines are the whole
+command's time, one JSON object ``{"kernels": [...]}``, the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -179,6 +205,14 @@ LN_WGRAD_RTOL = 1e-2
 # dv each, where bf16 rounding alone gives ~1e-3.
 DQKV_ULP_RTOL = 2.0 ** -7
 DQKV_ATOL = 1e-5
+# The forwards of row 8's cases, the long E cases and the long_context
+# phase hold o the same way, element by element: with bench_long_context's
+# 0.5 * randn inputs at s = 4096-16384 the scores are nearly uniform and
+# |o_i| is about 0.5 / sqrt(i + 1), so ATTN_TOL would be as large as the
+# values it compares.  Sound kernels read an excess <= 1.1e-7; a forward
+# that leaves keys 32-63 out of P.V (not of l) for rows >= 2048 reads
+# 5.89e-3 at (1, 16, 8192, 64), a max |err| of 5.94e-3 that ATTN_TOL
+# passed (PERF.md, Findings)
 DQKV_FROB_RTOL = 5e-3
 # Adam sweep: the same fp32 expression (contraction may differ by an
 # ulp of the O(1) operands); the bf16 copy within one bf16 ulp
@@ -235,6 +269,34 @@ BERT_BATCH = (16, 512)
 # (PERF.md, Findings)
 TRAIN_BERT_LOSS_TOL = (5e-3, 5e-3, 2e-3)
 TRAIN_BERT_O2_LOSS_TOL = (5e-5, 2e-3, 2e-3)
+# GPT-345M at seq 2048 (O5), plain vs kernel losses over the first 3
+# steps, one limit a step.  Sound kernels put them 7.72e-5, 2.86e-5 and
+# 4.67e-5 from the plain run's, the same in every run; a forward that
+# drops each row's diagonal key moves step 1 by 1.11e-3 (and makes the
+# later losses NaN); a dQ pass that skips the last 32 keys of each
+# diagonal tile reads 7.72e-5 (step 1 is the forward alone), 4.77e-6
+# and 2.25e-4; a dK/dV pass that skips the second 32-query sub-tile of
+# each causal block 7.72e-5, 1.06e-2 and 1.40e-2 (PERF.md, Findings)
+TRAIN_LONG_LOSS_TOL = (2e-4, 1e-4, 1e-4)
+# bench.py's bench_long_context shapes (b, h, s, d), causal, bf16
+LONG_CONTEXT_SHAPES = ((1, 16, 8192, 64), (1, 16, 16384, 64),
+                       (1, 32, 4096, 128), (1, 16, 8192, 128),
+                       (1, 16, 16384, 128))
+# heads of a long-context shape held against the plain versions: as
+# many as keep one plain (heads, s, s) fp32 tensor near 1 GiB
+LONG_CONTEXT_PLAIN_ELEMS = 1 << 28
+# row 8's kernel checks, (b, h, sq, sk, d, causal): the first is also
+# held against autograd of the plain forward; those with sq == sk are
+# timed (d = 64: the entry; d = 128: sub-entries of rows 8 and 6)
+BWD_CASES = ((1, 16, 1024, 1024, 64, True), (1, 16, 384, 1000, 64, False),
+             (1, 16, 384, 1000, 64, True), (1, 16, 1000, 384, 64, True),
+             (1, 16, 1024, 1024, 128, True))
+# the E kernels' long-slice checks, (b, s, h, d), causal: d = 128 on the
+# single route (timed: sub-entries of rows 10/12), the long train step's
+# shape on the blocked route (timed: rows 11/13), d = 128 blocked
+E_LONG_CASES = ((2, 1024, 8, 128), (4, 2048, 16, 64), (1, 2048, 8, 128))
+# the E kernels' time per (q, k) pair at a fixed token count
+E_SWEEP_TOKENS, E_SWEEP_SEQS = 8192, (1024, 2048, 4096, 8192)
 
 # the serve: 8 seeded prompt lengths in [64, 700], the last pinned to
 # 700 so one prompt pads past 512 tokens (the gridded prefill case)
@@ -277,6 +339,9 @@ REPLACES = {
     "flash_attention_e_kvmask": "apex_tpu/ops/flash_attention.py:1927",
     "flash_attention_e_bwd_kvmask": "apex_tpu/ops/flash_attention.py:2211",
     "lamb_phase1": "apex_tpu/ops/fused_optim.py:262",
+    "flash_attention_bwd": "apex_tpu/ops/flash_attention.py:1027",
+    "flash_attention_e_blocked": "apex_tpu/ops/flash_attention.py:2067",
+    "flash_attention_e_bwd_blocked": "apex_tpu/ops/flash_attention.py:2404",
 }
 SOURCES = {
     "layer_norm": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -299,6 +364,10 @@ SOURCES = {
     "flash_attention_e_bwd_kvmask":
         "apex_tpu_torch/csrc/flash_attention_bwd.cu",
     "lamb_phase1": "apex_tpu_torch/csrc/fused_lamb.cu",
+    "flash_attention_bwd": "apex_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_e_blocked": "apex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_e_bwd_blocked":
+        "apex_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 # the path each kernel's launches are counted on
 SERVE_KERNELS = ("layer_norm", "flash_attention", "flash_decode")
@@ -320,10 +389,16 @@ TRAIN_BERT_KERNELS = ("layer_norm", "layer_norm_bwd",
 TRAIN_BERT_O2_KERNELS = ("layer_norm", "layer_norm_bwd",
                          "scaled_masked_softmax_fwd", "scaled_softmax_bwd",
                          "norm_finite", "fused_adam_pipeline")
+LONG_CONTEXT_KERNELS = ("flash_attention", "flash_attention_bwd")
+TRAIN_LONG_KERNELS = ("layer_norm", "layer_norm_bwd",
+                      "flash_attention_e_blocked",
+                      "flash_attention_e_bwd_blocked", "fused_adam_pipeline")
 # the kernel checks that draw from a generator of their own (the Q8
-# tier's, then the BERT phases'), so the earlier checks keep their inputs
+# tier's, the BERT phases', the long-context slice's), so the earlier
+# checks keep their inputs
 BERT_CHECKS = ("grad_routing", "scaled_masked_softmax",
                "flash_attention_e_kvmask", "lamb_phase1")
+LONG_CHECKS = ("flash_attention_bwd", "flash_attention_e_long")
 
 
 def log(msg: str) -> None:
@@ -389,6 +464,15 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def grad_excess(got, ref) -> float:
+    """max over elements of |got - ref| beyond one bf16 ulp of the
+    reference (``DQKV_ULP_RTOL`` |ref|): the flash kernels'
+    element-by-element measure against their plain versions (the
+    gradients, and o in the long-context checks)."""
+    diff = (got.float() - ref.float()).abs()
+    return float((diff - DQKV_ULP_RTOL * ref.float().abs()).max())
+
+
 def rel_err(a, b) -> float:
     """max |a - b| over max |b|: the error relative to the output's
     scale (printed beside the absolute error the tolerance holds)."""
@@ -414,7 +498,8 @@ def phase_build():
         f"compiled in {dt:.1f} s ({', '.join(built) or 'cached'})")
     for name, text in _build.LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or \
+                    "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
@@ -1348,12 +1433,15 @@ def bert_large_params() -> int:
 
 
 def check_grad_routing(dev, g):
-    """Repair of the silent gradient loss, on the card: ``layer_norm``
-    with a grad-requiring input records a graph and its backward is the
-    row-2 kernel, equal to the plain backward; ``flash_attention`` with a
-    grad-requiring input raises (row 8 is not ported) and without grad
-    runs its kernel.  Returns no entry."""
-    from apex_tpu_torch.ops import (flash_attention, launch_counts,
+    """Gradient routing on the card: ``layer_norm`` with a grad-requiring
+    input records a graph and its backward is the row-2 kernel, equal to
+    the plain backward; ``flash_attention`` with grad-requiring q, k, v
+    records a graph, launches row 6 then row 8 once each, and its
+    gradients equal the plain backward's on the forward's (o, lse) and
+    the same do; without grad it launches row 6 alone.  Returns no
+    entry."""
+    from apex_tpu_torch.ops import (flash_attention_backward_reference,
+                                    flash_attention_with_lse, launch_counts,
                                     layer_norm, reset_launch_counts)
     from apex_tpu_torch.ops.layer_norm import (layer_norm_backward_reference,
                                                layer_norm_stats_reference)
@@ -1378,23 +1466,42 @@ def check_grad_routing(dev, g):
         err <= LN_BWD_TOL and wrel <= LN_WGRAD_RTOL
     q, k, v = (torch.randn(1, 16, 128, 64, generator=g, device=dev)
                .bfloat16() for _ in range(3))
-    try:
-        flash_attention(q.clone().requires_grad_(True), k, v, causal=True)
-        raised = False
-    except NotImplementedError as e:
-        raised = "row 8" in str(e)
+    # do from a generator of its own: g's later draws stay as they were
+    gd = torch.Generator(device=dev)
+    gd.manual_seed(9)
+    do = torch.randn(1, 16, 128, 64, generator=gd, device=dev).bfloat16()
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launch_counts()
+    o, lse = flash_attention_with_lse(*qkv, causal=True)
+    lse = lse.detach()
+    fgraph = o.grad_fn is not None
+    fwd_counts = {n: c for n, c in launch_counts().items() if c}
+    o.backward(do)
+    torch.cuda.synchronize()
+    bwd_counts = {n: c for n, c in launch_counts().items() if c}
+    want = flash_attention_backward_reference(q, k, v, o.detach(), lse, do,
+                                              causal=True)
+    ferr = max(max_err(t.grad, w) for t, w in zip(qkv, want))
+    fexcess = max(grad_excess(t.grad, w) for t, w in zip(qkv, want))
+    fok = fgraph and fwd_counts == {"flash_attention": 1} and \
+        bwd_counts == {"flash_attention": 1, "flash_attention_bwd": 1} and \
+        fexcess <= DQKV_ATOL
     reset_launch_counts()
     with torch.no_grad():
-        flash_attention(q.clone().requires_grad_(True), k, v, causal=True)
-    ran = launch_counts()["flash_attention"] == 1
-    ok = ok and raised and ran
+        flash_attention_with_lse(*qkv, causal=True)
+    ran = {n: c for n, c in launch_counts().items() if c} == \
+        {"flash_attention": 1}
+    ok = ok and fok and ran
     log(f"grad routing: layer_norm on a grad-requiring bf16 x and fp32 "
         f"gamma/beta records a graph: {graph}, launches {counts}, dx "
         f"max_abs_err={err:.3e} (tol {LN_BWD_TOL}), dgamma/dbeta "
         f"max_rel_err={wrel:.3e} (tol {LN_WGRAD_RTOL}) against the plain "
-        f"backward; flash_attention on a grad-requiring q raises naming row "
-        f"8: {raised}, under no_grad launches its kernel: {ran} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"backward; flash_attention on grad-requiring q, k, v records a "
+        f"graph: {fgraph}, launches {fwd_counts} then {bwd_counts}, "
+        f"dq/dk/dv max_abs_err={ferr:.3e}, max(|err| - "
+        f"{DQKV_ULP_RTOL:.4g}|ref|)={fexcess:.3e} (tol {DQKV_ATOL}) against "
+        f"the plain backward on the same (o, lse, do); under "
+        f"no_grad launches row 6 alone: {ran} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("grad routing wrong on the card")
 
@@ -1649,6 +1756,383 @@ def check_lamb_phase1(dev, g):
     return dict(name="lamb_phase1", shape=f"n={n} bf16 g, fp32 p/m/v",
                 max_abs_err=aerr, ms=ms, ms_wall=ms_w, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# --- phase 2, the long-context slice's shapes ---------------------------
+
+def _attn_bound(b, h, s, d, causal, bwd):
+    """The card's bound on the (b, h, s, d) self-attention forward or
+    backward: bf16 operands read once and outputs written once (forward
+    q, k, v, o; backward q, k, v, o, do, dq, dk, dv; the fp32 lse), 4 d
+    (forward) or 10 d (backward) operations per attended (q, k) pair."""
+    pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
+    nbytes = (8 if bwd else 4) * b * h * s * d * 2 + b * h * s * 4
+    return bound_ms(nbytes, (10.0 if bwd else 4.0) * d * pairs, BF16_FLOPS)
+
+
+def _hold_forward(label, o, o_r, lse, lse_r):
+    """Hold a flash forward against its plain version: o element by
+    element (``grad_excess`` within ``DQKV_ATOL``), the fp32 lse within
+    ``LSE_TOL``; returns ``(max |o err|, max |lse err|)``."""
+    excess, err = grad_excess(o, o_r), max_err(o, o_r)
+    lerr = max_err(lse, lse_r)
+    ok = bool(torch.isfinite(o).all()) and excess <= DQKV_ATOL and \
+        lerr <= LSE_TOL
+    log(f"{label}: o max(|err| - {DQKV_ULP_RTOL:.4g}|ref|)={excess:.3e} "
+        f"(tol {DQKV_ATOL}), max |err| {err:.3e}; lse_err={lerr:.3e} (tol "
+        f"{LSE_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err, lerr
+
+
+def _hold_backward(label, got, want):
+    """Hold (dq, dk, dv) against the plain backward element by element
+    (``grad_excess`` within ``DQKV_ATOL``); returns the max abs error."""
+    parts = [(n, grad_excess(a, b), max_err(a, b))
+             for n, a, b in zip("qkv", got, want)]
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    ok = finite and all(x <= DQKV_ATOL for _, x, _ in parts)
+    log(f"kernel {label} vs the backward's plain version: per gradient "
+        f"max(|err| - {DQKV_ULP_RTOL:.4g}|ref|) (tol {DQKV_ATOL}), max "
+        f"|err|: " + ", ".join(f"d{n} {x:.3e} {e:.3e}" for n, x, e in parts)
+        + f"; finite {finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return max(e for _, _, e in parts)
+
+
+def check_flash_attention_bwd(dev, g):
+    """Row 8, the (b, h, s, d) backward, against its plain version on the
+    same (q, k, v, o, lse, do): at (1, 16, 1024, 64) causal (also against
+    autograd of the plain forward, and timed: the entry), at sq != sk
+    (1, 16, 384, 1000) full and causal and (1, 16, 1000, 384) causal, and
+    at d = 128, (1, 16, 1024, 128) causal (timed: a sub-entry); row 6's
+    forward at d = 128 (timed: a sub-entry of row 6's)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import (flash_attention_backward,
+                                    flash_attention_backward_reference,
+                                    flash_attention_with_lse, mha_reference)
+
+    out = {}
+    for n, (b, h, sq, sk, d, causal) in enumerate(BWD_CASES):
+        shape = (f"b={b} h={h} sq={sq} sk={sk} d={d} "
+                 f"{'causal' if causal else 'full'} bf16")
+        q = torch.randn(b, h, sq, d, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(b, h, sk, d, generator=g, device=dev)
+                .bfloat16() for _ in range(2))
+        do = torch.randn(b, h, sq, d, generator=g, device=dev).bfloat16()
+        o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        o_r, lse_r = mha_reference(q, k, v, causal=causal, return_lse=True)
+        err, lerr = _hold_forward(f"kernel flash_attention {shape}", o, o_r,
+                                  lse, lse_r)
+        grads = flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        want = flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                  causal=causal)
+        berr = _hold_backward(f"flash_attention_bwd {shape}", grads, want)
+        del want
+        if n == 0:
+            refs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out_r = mha_reference(*refs, causal=causal)
+            got_r = torch.autograd.grad(out_r, refs, do)
+            frob = [float((a.float() - r.float()).norm() / r.float().norm())
+                    for a, r in zip(grads, got_r)]
+            ok = all(x <= DQKV_FROB_RTOL for x in frob)
+            log(f"kernel flash_attention_bwd vs autograd of mha_reference: "
+                f"||err|| / ||ref|| " + ", ".join(
+                    f"d{n} {x:.3e}" for n, x in zip("qkv", frob))
+                + f" (tol {DQKV_FROB_RTOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("flash_attention_bwd disagrees with "
+                                     "autograd of the plain forward")
+            del out_r, got_r, refs
+        if sq != sk:
+            continue
+        # timed: the backward at d = 64 and 128, the forward at d = 128
+        ms, ms_w = time_ms(lambda: flash_attention_backward(
+            q, k, v, o, lse, do, causal=True))
+        plain, plain_w = time_ms(lambda: flash_attention_backward_reference(
+            q, k, v, o, lse, do, causal=True), iters=10)
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lib, lib_w = time_ms(lambda: torch.autograd.grad(
+            out_s, (qs, ks, vs), do, retain_graph=True))
+        del out_s
+        b_ms, b_by = _attn_bound(b, h, sq, d, True, bwd=True)
+        log(f"  backward time {shape}, device ms (wall ms per call): kernel "
+            f"{ms:.5f} ({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), "
+            f"SDPA backward {lib:.5f} ({lib_w:.5f}), bound {b_ms:.5f} "
+            f"({b_by})")
+        out[f"bwd{d}"] = dict(
+            name="flash_attention_bwd", shape=shape, max_abs_err=berr,
+            ms=ms, ms_wall=ms_w, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib)
+        if d == 128:
+            ms, ms_w = time_ms(lambda: flash_attention_with_lse(
+                q, k, v, causal=True))
+            plain, plain_w = time_ms(lambda: mha_reference(
+                q, k, v, causal=True, return_lse=True), iters=10)
+            lib, lib_w = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True))
+            b_ms, b_by = _attn_bound(b, h, sq, d, True, bwd=False)
+            log(f"  forward time {shape}, device ms (wall ms per call): "
+                f"kernel {ms:.5f} ({ms_w:.5f}), plain {plain:.5f} "
+                f"({plain_w:.5f}), SDPA {lib:.5f} ({lib_w:.5f}), bound "
+                f"{b_ms:.5f} ({b_by})")
+            out["fwd128"] = dict(
+                name="flash_attention", shape=shape,
+                max_abs_err=max(err, lerr), ms=ms, ms_wall=ms_w,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib)
+        free_memory()
+    entry = out["bwd64"]
+    entry["d128"] = out["bwd128"]
+    return entry, dict(out["fwd128"], of=("flash_attention", "d128"))
+
+
+def _e_case(dev, g, b, s, h, d, causal=True):
+    """One E forward and backward against their plain versions, launch
+    counts reset just before the two launches; returns ``(qkv, o4, lse,
+    do, counts, err, berr)``."""
+    from apex_tpu_torch.ops import (flash_attention_e_backward,
+                                    flash_attention_e_with_lse,
+                                    launch_counts, mha_reference,
+                                    reset_launch_counts)
+    from apex_tpu_torch.ops.flash_attention import \
+        flash_attention_e_backward_reference
+
+    qkv = torch.randn(b, s, h, 3 * d, generator=g, device=dev).bfloat16()
+    do = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+    q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
+    reset_launch_counts()
+    o, lse = flash_attention_e_with_lse(qkv, causal=causal)
+    o4 = o.view(b, s, h, d)
+    dqkv = flash_attention_e_backward(qkv, o4, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in launch_counts().items() if c}
+    o_r, lse_r = mha_reference(q, k, v, causal=causal, return_lse=True)
+    o_r = o_r.transpose(1, 2).reshape(b, s, h * d)
+    shape = f"b={b} s={s} h={h} d={d} {'causal' if causal else 'full'} bf16"
+    err, lerr = _hold_forward(f"kernel flash_attention_e {shape} (launches "
+                              f"{counts})", o, o_r, lse, lse_r)
+    del o_r, lse_r
+    want = flash_attention_e_backward_reference(qkv, o4, lse, do,
+                                                causal=causal)
+    berr = _hold_backward(f"flash_attention_e_bwd {shape}",
+                          dqkv.split(d, dim=-1), want.split(d, dim=-1))
+    return qkv, o4, lse, do, counts, max(err, lerr), berr
+
+
+def _e_times(label, qkv, o4, lse, do, causal=True, iters=30):
+    """The E forward and backward timed against their plain versions,
+    SDPA and the bound: two entries."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import (flash_attention_e_backward,
+                                    flash_attention_e_with_lse,
+                                    mha_reference)
+    from apex_tpu_torch.ops.flash_attention import \
+        flash_attention_e_backward_reference
+
+    b, s, h, d = o4.shape
+    q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
+    ms, ms_w = time_ms(lambda: flash_attention_e_with_lse(
+        qkv, causal=causal), iters=iters)
+    plain, plain_w = time_ms(lambda: mha_reference(
+        q, k, v, causal=causal, return_lse=True), iters=5)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    lib, lib_w = time_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, is_causal=causal))
+    b_ms, b_by = _attn_bound(b, h, s, d, causal, bwd=False)
+    log(f"  {label} forward time, device ms (wall ms per call): kernel "
+        f"{ms:.5f} ({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), SDPA "
+        f"{lib:.5f} ({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
+    fwd = dict(ms=ms, ms_wall=ms_w, plain_ms=plain, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib)
+    ms, ms_w = time_ms(lambda: flash_attention_e_backward(
+        qkv, o4, lse, do, causal=causal), iters=iters)
+    plain, plain_w = time_ms(lambda: flash_attention_e_backward_reference(
+        qkv, o4, lse, do, causal=causal), iters=5)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (qc, kc, vc))
+    out_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    do_s = do.transpose(1, 2).contiguous()
+    lib, lib_w = time_ms(lambda: torch.autograd.grad(
+        out_s, (qs, ks, vs), do_s, retain_graph=True))
+    del out_s
+    b_ms, b_by = _attn_bound(b, h, s, d, causal, bwd=True)
+    log(f"  {label} backward time, device ms (wall ms per call): kernel "
+        f"{ms:.5f} ({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), SDPA "
+        f"backward {lib:.5f} ({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
+    bwd = dict(ms=ms, ms_wall=ms_w, plain_ms=plain, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib)
+    return fwd, bwd
+
+
+def check_flash_attention_e_long(dev, g):
+    """The E kernels at d = 128 (b=2 s=1024 h=8, the single route: rows
+    10/12, timed as sub-entries) and past a padded length of 1024 (rows
+    11/13, counted under the blocked names): at the long train step's
+    (4, 2048, 16, 64) causal (timed: the two entries) and at (1, 2048,
+    8, 128); then forward and backward times per (q, k) pair at 8192
+    tokens, s = 1024, 2048, 4096, 8192 (b = 8192 / s, h=16, d=64), the
+    measure of a cliff past one JAX block.  Returns the entries."""
+    from apex_tpu_torch.ops import (e_mode, flash_attention_e_backward,
+                                    flash_attention_e_with_lse)
+
+    entries = []
+    single = {"flash_attention_e": 1, "flash_attention_e_bwd": 1}
+    blocked = {"flash_attention_e_blocked": 1,
+               "flash_attention_e_bwd_blocked": 1}
+    for n, (b, s, h, d) in enumerate(E_LONG_CASES):
+        want = blocked if e_mode(s) == "blocked" else single
+        qkv, o4, lse, do, counts, err, berr = _e_case(dev, g, b, s, h, d)
+        if counts != want:
+            raise AssertionError(f"E launches at s={s}: {counts} != {want}")
+        shape = f"b={b} s={s} h={h} d={d} causal bf16"
+        if n == 0:
+            fwd, bwd = _e_times(f"d=128 {shape}", qkv, o4, lse, do)
+            entries.append(dict(fwd, name="flash_attention_e", shape=shape,
+                                max_abs_err=err,
+                                of=("flash_attention_e", "d128")))
+            entries.append(dict(bwd, name="flash_attention_e_bwd",
+                                shape=shape, max_abs_err=berr,
+                                of=("flash_attention_e_bwd", "d128")))
+        elif n == 1:
+            fwd, bwd = _e_times(f"blocked {shape}", qkv, o4, lse, do)
+            entries.append(dict(fwd, name="flash_attention_e_blocked",
+                                shape=shape, max_abs_err=err))
+            entries.append(dict(bwd, name="flash_attention_e_bwd_blocked",
+                                shape=shape, max_abs_err=berr))
+        del qkv, o4, lse, do
+        free_memory()
+    sweep = []
+    for s in E_SWEEP_SEQS:
+        b, h, d = E_SWEEP_TOKENS // s, 16, 64
+        qkv = torch.randn(b, s, h, 3 * d, generator=g, device=dev).bfloat16()
+        do = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+        o, lse = flash_attention_e_with_lse(qkv, causal=True)
+        o4 = o.view(b, s, h, d)
+        fms, _ = time_ms(lambda: flash_attention_e_with_lse(
+            qkv, causal=True), iters=10)
+        bms, _ = time_ms(lambda: flash_attention_e_backward(
+            qkv, o4, lse, do, causal=True), iters=10)
+        pairs = b * h * s * (s + 1) / 2
+        sweep.append(dict(b=b, s=s, fwd_ms=fms, bwd_ms=bms,
+                          fwd_ns_per_kpair=fms * 1e9 / pairs,
+                          bwd_ns_per_kpair=bms * 1e9 / pairs))
+        log(f"  E causal b={b} s={s} h={h} d={d} ({b * s} tokens, "
+            f"{pairs:.4g} pairs, {e_mode(s)} route): forward {fms:.5f} ms, "
+            f"backward {bms:.5f} ms; per 1000 (q, k) pairs "
+            f"{fms * 1e9 / pairs:.4f} / {bms * 1e9 / pairs:.4f} ns")
+        del qkv, do, o, lse, o4
+        free_memory()
+    for e in entries:
+        if e["name"] == "flash_attention_e_blocked":
+            e["sweep"] = sweep
+    return tuple(entries)
+
+
+def long_context(dev):
+    """bench.py's bench_long_context on the port: at each shape, q, k, v
+    drawn bf16 (randn * 0.5) and ``flash_attention(q, k, v,
+    causal=True)`` forward and backward under autograd with the loss
+    sum(o.float() ** 2), launch counts reset just before the five
+    substeps and held exactly; then, outside the count, each shape held
+    against the plain versions on its first heads and timed.  Returns
+    the counts."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import (flash_attention,
+                                    flash_attention_backward,
+                                    flash_attention_backward_reference,
+                                    flash_attention_with_lse,
+                                    launch_counts, mha_reference,
+                                    reset_launch_counts)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    cases = []
+    for b, h, s, d in LONG_CONTEXT_SHAPES:
+        q, k, v = ((0.5 * torch.randn(b, h, s, d, generator=g, device=dev))
+                   .bfloat16() for _ in range(3))
+        cases.append((q, k, v))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    grads = []
+    for q, k, v in cases:
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention(*qkv, causal=True)
+        (o.float() ** 2).sum().backward()
+        grads.append(tuple(t.grad for t in qkv))
+        del o, qkv
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n = len(LONG_CONTEXT_SHAPES)
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=n, flash_attention_bwd=n)
+    log(f"long_context: {n} substeps (forward and backward under autograd, "
+        f"loss sum(o**2)) in {wall:.2f} s; launch counts "
+        f"{ {k: v for k, v in counts.items() if v} } (expected "
+        f"{ {k: v for k, v in want.items() if v} })")
+    if counts != want:
+        raise AssertionError(f"long_context launch counts {counts} != "
+                             f"{want}")
+    for (b, h, s, d), (q, k, v), (dq, dk, dv) in zip(LONG_CONTEXT_SHAPES,
+                                                    cases, grads):
+        shape = f"b={b} h={h} s={s} d={d} causal bf16"
+        hs = max(1, min(h, LONG_CONTEXT_PLAIN_ELEMS // (s * s)))
+        o, lse = flash_attention_with_lse(q, k, v, causal=True)
+        do = 2 * o
+        sub = [t[:, :hs] for t in (q, k, v, o, lse, do)]
+        o_r, lse_r = mha_reference(*sub[:3], causal=True, return_lse=True)
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"long_context forward at {shape}: o is "
+                                 f"not finite")
+        _hold_forward(f"long_context flash_attention {shape} (heads "
+                      f"0..{hs - 1} of {h})", sub[3], o_r, sub[4], lse_r)
+        del o_r, lse_r
+        want = flash_attention_backward_reference(*sub, causal=True)
+        _hold_backward(f"long_context flash_attention_bwd {shape} (heads "
+                       f"0..{hs - 1} of {h}, the autograd run's gradients)",
+                       [t[:, :hs] for t in (dq, dk, dv)], want)
+        del want
+        fms, fms_w = time_ms(lambda: flash_attention_with_lse(
+            q, k, v, causal=True), iters=3, warmup=1)
+        bms, bms_w = time_ms(lambda: flash_attention_backward(
+            q, k, v, o, lse, do, causal=True), iters=3, warmup=1)
+        pf, _ = time_ms(lambda: mha_reference(*sub[:3], causal=True,
+                                              return_lse=True), iters=3,
+                        warmup=1)
+        pb, _ = time_ms(lambda: flash_attention_backward_reference(
+            *sub, causal=True), iters=3, warmup=1)
+        lf, _ = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=5, warmup=1)
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lb, _ = time_ms(lambda: torch.autograd.grad(
+            out_s, (qs, ks, vs), do, retain_graph=True), iters=5, warmup=1)
+        del out_s, qs, ks, vs
+        fb, fby = _attn_bound(b, h, s, d, True, bwd=False)
+        bb, bby = _attn_bound(b, h, s, d, True, bwd=True)
+        flops = 7.0 * b * h * s * s * d
+        tf = flops / ((fms + bms) / 1e3) / 1e12
+        log(f"  time {shape}, device ms (wall ms per call): forward kernel "
+            f"{fms:.5f} ({fms_w:.5f}), SDPA {lf:.5f}, bound {fb:.5f} "
+            f"({fby}); backward kernel {bms:.5f} ({bms_w:.5f}), SDPA "
+            f"backward {lb:.5f}, bound {bb:.5f} ({bby}); plain versions on "
+            f"{hs} of {h} heads: forward {pf:.5f}, backward {pb:.5f}; the "
+            f"substep ({flops / 1e12:.4f} TFLOP at 7 b h s^2 d) "
+            f"{fms + bms:.5f} ms, {tf:.3f} model TFLOP/s "
+            f"({100 * tf / (BF16_FLOPS / 1e12):.2f}% of 989)")
+        del o, lse, do, sub
+        free_memory()
+    del cases, grads
+    free_memory()
+    return counts
 
 
 def check_fp16_builds(dev, g):
@@ -2209,14 +2693,20 @@ def serve_q8_legs():
                 dev, layers, policy="Q8", kv_dtype="int8")))
 
 
+# the train phases' model families: label and preset
+TRAIN_FAMILIES = {"gpt": ("train", "gpt345m"),
+                  "gpt_long": ("train_long", "gpt345m_s2048"),
+                  "bert": ("train_bert", "bertlarge")}
+
+
 def _train_module(family: str):
-    """The train entry module and its full-width preset: GPT-345M or
-    BERT-large."""
+    """The train entry module and its full-width preset: GPT-345M (at
+    seq 1024, or at seq 2048 for ``gpt_long``) or BERT-large."""
     if family == "bert":
         from apex_tpu_torch.testing import standalone_bert as mod
-        return mod, "bertlarge"
-    from apex_tpu_torch.testing import standalone_gpt as mod
-    return mod, "gpt345m"
+    else:
+        from apex_tpu_torch.testing import standalone_gpt as mod
+    return mod, TRAIN_FAMILIES[family][1]
 
 
 def _train_want(counts, family: str, policy: str, layers: int,
@@ -2229,6 +2719,11 @@ def _train_want(counts, family: str, policy: str, layers: int,
     if family == "gpt" and policy == "O5":
         want.update(flash_attention_e=layers * TRAIN_STEPS,
                     flash_attention_e_bwd=layers * TRAIN_STEPS,
+                    fused_adam_pipeline=groups * TRAIN_STEPS)
+    elif family == "gpt_long":
+        # past a padded length of 1024: the blocked names (rows 11, 13)
+        want.update(flash_attention_e_blocked=layers * TRAIN_STEPS,
+                    flash_attention_e_bwd_blocked=layers * TRAIN_STEPS,
                     fused_adam_pipeline=groups * TRAIN_STEPS)
     elif family == "gpt":
         want.update(scaled_softmax_causal_fwd=layers * TRAIN_STEPS,
@@ -2260,7 +2755,7 @@ def train_and_check(dev, policy: str = "O5", family: str = "gpt"):
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
 
     mod, model = _train_module(family)
-    label = f"train{'_bert' if family == 'bert' else ''} {policy}"
+    label = f"{TRAIN_FAMILIES[family][0]} {policy}"
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2373,6 +2868,7 @@ def train_plain_and_compare(dev, kernel_losses, policy: str = "O5",
 
     mod, model = _train_module(family)
     tol = {("gpt", "O5"): TRAIN_LOSS_TOL, ("gpt", "O2"): TRAIN_O2_LOSS_TOL,
+           ("gpt_long", "O5"): TRAIN_LONG_LOSS_TOL,
            ("bert", "O5"): TRAIN_BERT_LOSS_TOL,
            ("bert", "O2"): TRAIN_BERT_O2_LOSS_TOL}[family, policy]
     reset_launch_counts()
@@ -2386,7 +2882,7 @@ def train_plain_and_compare(dev, kernel_losses, policy: str = "O5",
     tols = tuple(tol) if isinstance(tol, tuple) else (tol,) * PLAIN_STEPS
     seq = [x[:3] for x in r.steps]
     want_seq = [x[:3] for x in kernel_steps] if kernel_steps else seq
-    log(f"train{'_bert' if family == 'bert' else ''} {policy} plain: "
+    log(f"{TRAIN_FAMILIES[family][0]} {policy} plain: "
         f"{PLAIN_STEPS} steps through the plain "
         f"versions ({wall:.1f} s, median step {r.median_ms:.3f} ms): "
         f"losses {[round(x, 6) for x in r.losses]}, |kernel - plain| "
@@ -2570,10 +3066,12 @@ def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
 
 
 PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "train", "train_o2",
-          "train_bert", "train_bert_o2", "profile")
+          "train_bert", "train_bert_o2", "long_context", "train_long",
+          "profile")
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES} (build "
@@ -2628,6 +3126,8 @@ def main(argv=None) -> int:
         gq.manual_seed(5)
         gb = torch.Generator(device=dev)
         gb.manual_seed(6)
+        gl = torch.Generator(device=dev)
+        gl.manual_seed(7)
         if "kernels" in phases:
             for name, fn in (("layer_norm", check_layer_norm),
                              ("flash_attention", check_flash_attention),
@@ -2648,19 +3148,28 @@ def main(argv=None) -> int:
                              ("scaled_masked_softmax", check_masked_softmax),
                              ("flash_attention_e_kvmask",
                               check_flash_attention_e_kvmask),
-                             ("lamb_phase1", check_lamb_phase1)):
-                # the Q8 tier's and the BERT phases' checks draw from
-                # generators of their own, so the earlier checks see the
-                # inputs they saw before
+                             ("lamb_phase1", check_lamb_phase1),
+                             ("flash_attention_bwd",
+                              check_flash_attention_bwd),
+                             ("flash_attention_e_long",
+                              check_flash_attention_e_long)):
+                # the Q8 tier's, the BERT phases' and the long-context
+                # slice's checks draw from generators of their own, so
+                # the earlier checks see the inputs they saw before
                 gen = gq if name in Q8_CHECKS else \
-                    gb if name in BERT_CHECKS else g
+                    gb if name in BERT_CHECKS else \
+                    gl if name in LONG_CHECKS else g
                 ok, out = run(f"kernel {name}", lambda: fn(dev, gen))
                 if ok and out is not None:
                     for e in (out if isinstance(out, tuple) else (out,)):
+                        # a sub-entry of an earlier entry: (name, key)
+                        of = e.pop("of", None)
                         if name == "layer_norm_bwd" and \
                                 e["name"] == "layer_norm":
-                            if "layer_norm" in entries:
-                                entries["layer_norm"]["train"] = e
+                            of = ("layer_norm", "train")
+                        if of is not None:
+                            if of[0] in entries:
+                                entries[of[0]][of[1]] = e
                         else:
                             entries[e["name"]] = e
                 free_memory()
@@ -2735,6 +3244,18 @@ def main(argv=None) -> int:
                     family="bert"))
                 run(f"{phase} all-ones mask", lambda: train_bert_full_mask(
                     dev, policy))
+        if "long_context" in phases:
+            ok, out = run("long_context", lambda: long_context(dev))
+            if ok:
+                counts["long_context"] = out
+        if "train_long" in phases:
+            ok, out = run("train_long", lambda: train_and_check(
+                dev, "O5", "gpt_long"))
+            if ok:
+                counts["train_long"], long_losses, _ = out
+                run("train_long plain", lambda: train_plain_and_compare(
+                    dev, long_losses[:PLAIN_STEPS], "O5",
+                    family="gpt_long"))
         if "profile" in phases:
             if "serve" in phases:
                 run("serve profile", lambda: profile_serve(dev))
@@ -2754,6 +3275,10 @@ def main(argv=None) -> int:
             if "train_bert_o2" in phases:
                 run("train_bert O2 profile", lambda: profile_train(
                     dev, "O2", "bert"))
+            if "train_long" in phases:
+                run("train_long profile", lambda: profile_train(
+                    dev, "O5", "gpt_long"))
+    log(f"chip_smoke: command time {time.perf_counter() - t_start:.1f} s")
     if failed:
         log(f"chip_smoke FAILED: {failed}")
         return 1
@@ -2771,7 +3296,9 @@ def main(argv=None) -> int:
                     ("train", TRAIN_KERNELS),
                     ("train_o2", TRAIN_O2_KERNELS),
                     ("train_bert", TRAIN_BERT_KERNELS),
-                    ("train_bert_o2", TRAIN_BERT_O2_KERNELS))
+                    ("train_bert_o2", TRAIN_BERT_O2_KERNELS),
+                    ("long_context", LONG_CONTEXT_KERNELS),
+                    ("train_long", TRAIN_LONG_KERNELS))
                    if name in ks}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -2781,8 +3308,8 @@ def main(argv=None) -> int:
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             shape=e["shape"],
-            **{k: e[k] for k in ("train", "fp16", "chunk", "shapes")
-               if k in e}))
+            **{k: e[k] for k in ("train", "fp16", "chunk", "shapes", "d128",
+                                 "sweep") if k in e}))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):

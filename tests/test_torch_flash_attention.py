@@ -73,18 +73,26 @@ def test_cpu_wrapper_is_the_plain_version():
                        mha_reference(q, k, v, causal=True))
 
 
-def test_grad_requiring_input_raises_naming_row_8():
-    # no backward is ported for the (b, h, s, d) entry: a grad-requiring
-    # input under autograd raises instead of getting no gradient; the
-    # decision reads the flags only, so it is the card's too
+def test_grad_requiring_input_gets_the_row_8_backward():
+    # A grad-requiring input under autograd records a graph, and the
+    # gradients equal the backward's plain version on the forward's
+    # (o, lse); the decision reads the flags only, so it is the card's
+    # too.  Without grad (the serving path) the output is the plain
+    # version's, bitwise.
+    from apex_tpu_torch.ops import flash_attention_backward_reference
+
     q, k, v = map(torch.from_numpy, _qkv(1, 2, 16, 16, 64, seed=2))
+    do = torch.from_numpy(_qkv(1, 2, 16, 16, 64, seed=3)[0])
     for which in range(3):
         args = [t.clone().requires_grad_(i == which)
                 for i, t in enumerate((q, k, v))]
-        with pytest.raises(NotImplementedError, match="row 8"):
-            flash_attention(*args, causal=True)
-        with pytest.raises(NotImplementedError, match="row 8"):
-            flash_attention_with_lse(*args)
+        o, lse = flash_attention_with_lse(*args, causal=True)
+        assert o.grad_fn is not None
+        o.backward(do)
+        want = flash_attention_backward_reference(
+            q, k, v, o.detach(), lse, do, causal=True)
+        assert torch.equal(args[which].grad, want[which])
+        assert all(args[i].grad is None for i in range(3) if i != which)
         with torch.no_grad():                  # the serving path
             assert torch.equal(flash_attention(*args, causal=True),
                                mha_reference(q, k, v, causal=True))
