@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 SOURCES = ("layer_norm", "flash_attention", "flash_decode",
            "flash_attention_bwd", "fused_adam", "scaled_softmax",
-           "norm_finite", "quant_matmul", "fused_lamb")
+           "norm_finite", "quant_matmul", "fused_lamb", "moe_routing")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -111,6 +111,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # x, wq, scale, out, m, n, k, x dtype, out dtype, stream
         "apex_quant_gemv": [_P] * 4 + [_I] * 5 + [_P],
         "apex_quant_tiled": [_P] * 4 + [_I] * 5 + [_P],
+    },
+    "moe_routing": {
+        # T, E, C, top_k -> int32 scratch elements; T, E -> fp32 ones
+        "apex_moe_route_scratch_ints": [_I] * 4,
+        "apex_moe_route_scratch_floats": [_I] * 2,
+        # x, logits, u (null unless random), idx, gate, slot, keep, aux,
+        # buf, int32 scratch, fp32 scratch, T, H, E, capacity, top_k,
+        # random, x element bytes, stream
+        "apex_moe_route_dispatch": [_P] * 11 + [_I] * 7 + [_P],
     },
 }
 

@@ -30,6 +30,9 @@ from .quant_matmul import (QuantGPTServingWeights, QuantLayerWeights,
                            quant_matmul, quant_matmul_reference,
                            quantize_weight, quantize_weights)
 from .fused_optim import lamb_phase1, lamb_phase1_reference
+from .moe_routing import (MoERouteDispatchFunction, RouteDispatch,
+                          moe_combine, moe_route_dispatch,
+                          moe_route_dispatch_reference)
 from .scaled_softmax import (ScaledMaskedSoftmax,
                              ScaledUpperTriangMaskedSoftmax, causal_softmax,
                              causal_softmax_reference, masked_softmax,
@@ -60,4 +63,6 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "softmax_backward_reference", "ScaledUpperTriangMaskedSoftmax",
            "scaled_masked_softmax", "masked_softmax",
            "masked_softmax_reference", "ScaledMaskedSoftmax",
-           "lamb_phase1", "lamb_phase1_reference"]
+           "lamb_phase1", "lamb_phase1_reference", "RouteDispatch",
+           "MoERouteDispatchFunction", "moe_route_dispatch",
+           "moe_route_dispatch_reference", "moe_combine"]

@@ -191,6 +191,9 @@ def quantize_weights(weights) -> QuantGPTServingWeights:
     weights)."""
     layers = []
     for lw in weights.layers:
+        if hasattr(lw, "router"):
+            raise ValueError("MoE layers have no Q8 layout: the int8 "
+                             "kernels take no expert stacks")
         fields = lw._asdict()
         for name in QUANTIZED:
             fields[f"{name}_k"], fields[f"{name}_s"] = \

@@ -1,5 +1,5 @@
 """Serving: paged KV cache (float or int8), the GPT prefill/decode/extend
-forward over float or Q8 weights, and the continuous-batching engine
+forward over float, Q8 or MoE weights, and the continuous-batching engine
 with its fast path — speculative decode, chunked prefill, copy-on-write
 prefix sharing (port of ``apex_tpu.serving``'s single-device path)."""
 from .engine import (BucketLadder, Request, ServeSummary, ServingEngine,
@@ -10,7 +10,9 @@ from .kv_cache import (DUMP_BLOCK, CachePoolExhausted, KVCacheConfig,
                        KVCacheManager, PagedKVCache, PrefixMatch, init_cache,
                        prefix_chain_keys, quantize_kv_rows, write_prefill_kv,
                        write_token_kv)
-from .model import (GPTServingWeights, LayerWeights, ServingModelConfig,
+from .ep import expand_moe_weights
+from .model import (GPTServingWeights, LayerWeights, MoELayerWeights,
+                    ServingModelConfig,
                     copy_cache_block, gpt_decode_step, gpt_extend_step,
                     gpt_prefill_step, gpt_sequence_logits)
 from .resilience import SpeculationGovernor
@@ -23,7 +25,8 @@ __all__ = ["BucketLadder", "Request", "ServeSummary", "ServingEngine",
            "prefix_chain_keys", "quantize_kv_rows", "write_prefill_kv",
            "write_token_kv", "GPTServingWeights", "QuantGPTServingWeights",
            "QuantLayerWeights", "quantize_weights", "is_quantized_weights",
-           "LayerWeights", "ServingModelConfig", "copy_cache_block",
+           "LayerWeights", "MoELayerWeights", "expand_moe_weights",
+           "ServingModelConfig", "copy_cache_block",
            "gpt_decode_step", "gpt_extend_step", "gpt_prefill_step",
            "gpt_sequence_logits", "SpeculationGovernor",
            "init_serving_weights", "serving_weights_from_numpy"]

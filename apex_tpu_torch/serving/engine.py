@@ -265,9 +265,11 @@ class ServingEngine:
                                           model_cfg.num_layers):
             raise ValueError("cache config geometry does not match the "
                              "model's")
-        if is_quantized_weights(weights):
-            # a Q8 tree: int8 codes with fp32 column scales, the shapes
-            # the config names (the kernels would refuse anything else)
+        if is_quantized_weights(weights) or any(
+                hasattr(lw, "router") for lw in weights.layers):
+            # a Q8 tree (int8 codes with fp32 column scales) or MoE layers
+            # (an fp32 router, cfg.num_experts experts): the shapes the
+            # config names (the kernels would refuse anything else)
             check_serving_weights(weights, model_cfg)
         self.weights = weights
         self.model_cfg = model_cfg

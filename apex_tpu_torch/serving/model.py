@@ -28,6 +28,15 @@ kernels.
   oracle: same math, no cache.
 * :func:`copy_cache_block` is the copy-on-write of one page.
 
+A layer may be a Switch top-1 mixture of experts instead
+(:class:`MoELayerWeights`: a fp32 router and bias-free expert stacks in
+place of fc1/fc2): ``_layer_tail`` takes it by ``getattr(lw, "router",
+None)``, as JAX's does, so prefill, decode, extend and the oracle all
+route it, through row 18's kernel (:func:`~apex_tpu_torch.ops.moe_routing.
+moe_route_dispatch`) or, under ``cfg.plain()``, its plain version.  Every
+row the step hands in is routed: the decode bucket's padding rows and the
+prompt's right padding claim capacity as they do in JAX.
+
 The fused QKV projection's columns are per head, (h, [q|k|v], d): both
 steps reshape to (.., h, 3d) and split the last axis, as the JAX steps
 do.  Cache writes are in place (see :mod:`.kv_cache`); the steps return
@@ -47,10 +56,13 @@ from ..ops.flash_decode import (flash_decode, flash_decode_multi,
                                 paged_attention_reference)
 from ..ops.layer_norm import layer_norm, layer_norm_reference
 from ..ops.quant_matmul import quant_matmul, quant_matmul_reference
+from ..transformer.expert_parallel import (moe_dispatch_combine_fused,
+                                           router_logits)
 from .kv_cache import (KVCacheConfig, PagedKVCache, write_prefill_kv,
                        write_token_kv)
 
-__all__ = ["LayerWeights", "GPTServingWeights", "ServingModelConfig",
+__all__ = ["LayerWeights", "MoELayerWeights", "GPTServingWeights",
+           "ServingModelConfig",
            "gpt_prefill_step", "gpt_decode_step", "gpt_extend_step",
            "gpt_sequence_logits", "copy_cache_block"]
 
@@ -70,6 +82,24 @@ class LayerWeights(NamedTuple):
     fc1_b: torch.Tensor
     fc2_k: torch.Tensor       # (F, H)
     fc2_b: torch.Tensor
+
+
+class MoELayerWeights(NamedTuple):
+    """A layer whose MLP is a Switch top-1 MoE: the attention and
+    LayerNorm fields of :class:`LayerWeights`, then a router and bias-free
+    expert stacks in place of fc1/fc2."""
+
+    ln1_w: torch.Tensor
+    ln1_b: torch.Tensor
+    qkv_k: torch.Tensor
+    qkv_b: torch.Tensor
+    dense_k: torch.Tensor
+    dense_b: torch.Tensor
+    ln2_w: torch.Tensor
+    ln2_b: torch.Tensor
+    router: torch.Tensor      # (H, E) fp32: routing is precision-sensitive
+    wi: torch.Tensor          # (E, H, F)
+    wo: torch.Tensor          # (E, F, H)
 
 
 class GPTServingWeights(NamedTuple):
@@ -97,11 +127,18 @@ class ServingModelConfig:
     # the kernel wrappers; False: through their plain versions (the
     # oracle configuration, :meth:`plain`)
     kernels: bool = True
+    # MoE layers (``MoELayerWeights``; ignored for dense weights): the
+    # expert count the weights must carry, and the capacity factor that
+    # sizes the (E, capacity, H) dispatch buffer of each routed step
+    num_experts: int = 0
+    moe_capacity_factor: float = 1.25
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
             raise ValueError(f"hidden {self.hidden_size} not divisible by "
                              f"heads {self.num_heads}")
+        if self.num_experts < 0:
+            raise ValueError(f"num_experts {self.num_experts} must be >= 0")
 
     @property
     def head_dim(self) -> int:
@@ -139,10 +176,48 @@ def _linear(x, kernel, bias, cfg: ServingModelConfig, scale=None):
     return _matmul(x, kernel, cfg, scale) + bias.to(cfg.dtype)
 
 
+def _expert_bmm_fp32(a, b):
+    """``a @ b`` batched over experts with an fp32 result from
+    compute-dtype operands (JAX's ``preferred_element_type=fp32``): the
+    gelu's input is never rounded to bf16.  cuBLAS writes fp32 directly;
+    the CPU (no such kernel) multiplies the same values in fp32."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _moe_mlp(m_in, lw: MoELayerWeights, cfg: ServingModelConfig):
+    """The Switch top-1 MoE FFN (JAX ``_moe_mlp`` with ``ep_axis`` None):
+    fp32 router logits, the fused routing front over every row handed in,
+    the bias-free expert GEMMs batched over the (E, capacity, H) buffer
+    (fp32 through the gelu, the second cast to the compute dtype), the
+    gate-weighted combine."""
+    hdim = m_in.shape[-1]
+    x2d = m_in.reshape(-1, hdim)
+    dt = cfg.dtype
+    logits = router_logits(x2d, lw.router)
+
+    def expert_fn(d):
+        h1 = F.gelu(_expert_bmm_fp32(d.to(dt), lw.wi.to(dt)),
+                    approximate="tanh")
+        return torch.bmm(h1.to(dt), lw.wo.to(dt))
+
+    y, _ = moe_dispatch_combine_fused(
+        x2d.to(dt), logits, expert_fn, lw.router.shape[-1],
+        capacity_factor=cfg.moe_capacity_factor, axis_name=None,
+        plain=not cfg.kernels)
+    return y.reshape(m_in.shape)
+
+
 def _layer_tail(x, lw: LayerWeights, attn_out, cfg: ServingModelConfig):
-    """residual + LN + MLP + residual — shared by prefill and decode."""
+    """residual + LN + MLP + residual — shared by prefill and decode; an
+    :class:`MoELayerWeights` layer routes through the MoE FFN."""
     x = x + attn_out.to(x.dtype)
     m_in = _ln(x, lw.ln2_w, lw.ln2_b, cfg)
+    if getattr(lw, "router", None) is not None:
+        return x + _moe_mlp(m_in, lw, cfg).to(x.dtype)
     h1 = F.gelu(_linear(m_in, lw.fc1_k, lw.fc1_b, cfg,
                         getattr(lw, "fc1_s", None)), approximate="tanh")
     return x + _linear(h1, lw.fc2_k, lw.fc2_b, cfg,

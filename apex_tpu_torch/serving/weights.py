@@ -16,6 +16,12 @@ A JAX Q8 tree (``QuantGPTServingWeights``) carries across as the port's
 :class:`~apex_tpu_torch.ops.quant_matmul.QuantGPTServingWeights`: its
 int8 codes and fp32 scales kept as they are, the rest cast as above, so
 a Q8 model computes in the port what it computes in JAX.
+
+A JAX tree with MoE layers (``MoELayerWeights``: a router and expert
+stacks in place of fc1/fc2) carries across layer by layer: the router
+stays fp32 (routing is argmax over its logits), the expert stacks land in
+the compute dtype.  MoE layers have no Q8 layout (the int8 kernels take
+no expert stacks), as in JAX.
 """
 from __future__ import annotations
 
@@ -27,13 +33,15 @@ import torch
 from .. import resolve_device
 from ..ops.quant_matmul import (QUANTIZED, QuantGPTServingWeights,
                                 QuantLayerWeights)
-from .model import GPTServingWeights, LayerWeights, ServingModelConfig
+from .model import (GPTServingWeights, LayerWeights, MoELayerWeights,
+                    ServingModelConfig)
 
 __all__ = ["serving_weights_from_numpy", "init_serving_weights",
            "check_serving_weights"]
 
-# LayerWeights fields that stay fp32 (the mixed-dtype LayerNorm affine)
-_LN_FIELDS = ("ln1_w", "ln1_b", "ln2_w", "ln2_b")
+# layer fields that stay fp32: the mixed-dtype LayerNorm affine and an MoE
+# layer's router
+_FP32_FIELDS = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "router")
 _INIT_STD = 0.02
 
 
@@ -50,11 +58,17 @@ def _has(tree: Any, name: str) -> bool:
 _Q8_FIELDS = tuple(f"{n}_{s}" for n in QUANTIZED for s in "ks")
 
 
+def _layer_type(has) -> type:
+    """The port's tree for a layer; ``has(name)`` tells its fields."""
+    return QuantLayerWeights if has("qkv_s") else \
+        MoELayerWeights if has("router") else LayerWeights
+
+
 def _cast_layer(fields: dict, dtype: torch.dtype):
-    quant = "qkv_s" in fields
-    keep = _Q8_FIELDS if quant else ()
-    return (QuantLayerWeights if quant else LayerWeights)(**{
-        k: (v if k in keep else v.float() if k in _LN_FIELDS else v.to(dtype))
+    keep = _Q8_FIELDS if "qkv_s" in fields else ()
+    return _layer_type(fields.__contains__)(**{
+        k: (v if k in keep else v.float() if k in _FP32_FIELDS
+            else v.to(dtype))
         for k, v in fields.items()})
 
 
@@ -84,10 +98,8 @@ def serving_weights_from_numpy(tree: Any, cfg: ServingModelConfig,
         return torch.from_numpy(a).to(dev)
 
     layer_trees = list(_get(tree, "layers"))
-    fields = QuantLayerWeights._fields \
-        if layer_trees and _has(layer_trees[0], "qkv_s") \
-        else LayerWeights._fields
-    layers = [{f: t(_get(lt, f)) for f in fields} for lt in layer_trees]
+    layers = [{f: t(_get(lt, f)) for f in _layer_type(
+        lambda n, lt=lt: _has(lt, n))._fields} for lt in layer_trees]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree has {len(layers)} layers, config "
                          f"{cfg.num_layers}")
@@ -133,15 +145,23 @@ def init_serving_weights(cfg: ServingModelConfig, seed: int = 0,
 
 
 def check_serving_weights(w, cfg: ServingModelConfig) -> None:
-    """Raise unless ``w`` has ``cfg``'s shapes and, for a Q8 tree, int8
-    codes with one fp32 scale per output column."""
-    hd, f = cfg.hidden_size, cfg.ffn_size
-    want = dict(ln1_w=(hd,), ln1_b=(hd,), qkv_k=(hd, 3 * hd),
+    """Raise unless ``w`` has ``cfg``'s shapes; for a Q8 tree, int8 codes
+    with one fp32 scale per output column; for an MoE layer, an fp32 (H,
+    E) router and (E, H, F) / (E, F, H) expert stacks with E =
+    ``cfg.num_experts``."""
+    hd, f, e = cfg.hidden_size, cfg.ffn_size, cfg.num_experts
+    attn = dict(ln1_w=(hd,), ln1_b=(hd,), qkv_k=(hd, 3 * hd),
                 qkv_b=(3 * hd,), dense_k=(hd, hd), dense_b=(hd,),
-                ln2_w=(hd,), ln2_b=(hd,), fc1_k=(hd, f), fc1_b=(f,),
-                fc2_k=(f, hd), fc2_b=(hd,))
+                ln2_w=(hd,), ln2_b=(hd,))
+    dense = dict(attn, fc1_k=(hd, f), fc1_b=(f,), fc2_k=(f, hd),
+                 fc2_b=(hd,))
+    moe = dict(attn, router=(hd, e), wi=(e, hd, f), wo=(e, f, hd))
     for i, lw in enumerate(w.layers):
-        for name, shape in want.items():
+        is_moe = hasattr(lw, "router")
+        if is_moe and lw.router.dtype != torch.float32:
+            raise ValueError(f"layer {i} router is {lw.router.dtype}; "
+                             f"routing needs fp32")
+        for name, shape in (moe if is_moe else dense).items():
             got = tuple(getattr(lw, name).shape)
             if got != shape:
                 raise ValueError(f"layer {i} {name} is {got}, the "

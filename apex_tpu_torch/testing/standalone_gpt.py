@@ -16,6 +16,9 @@ Counterpart of ``apex_tpu/testing/standalone_gpt.py``: the model
     python -m apex_tpu_torch.testing.standalone_gpt --serve --prefix-share
     python -m apex_tpu_torch.testing.standalone_gpt --serve --policy Q8 \
         --kv-dtype int8
+    python -m apex_tpu_torch.testing.standalone_gpt --serve --moe-experts 8
+    python -m apex_tpu_torch.testing.standalone_gpt --serve --moe-experts 8 \
+        --moe-capacity-factor 1.25
     python -m apex_tpu_torch.testing.standalone_gpt --serve --model tiny \
         --device cpu --requests 4 --new-tokens 4
     python -m apex_tpu_torch.testing.standalone_gpt --train --policy O2 \
@@ -29,7 +32,10 @@ int8 weight-only layer matmuls), with the KV cache stored as
 ``--kv-dtype`` (the model's dtype, bf16, or int8 with per-row scales),
 and prints one ``SERVE_DONE`` line; ``--speculate-k``, ``--prefill-chunk`` and
 ``--prefix-share`` turn on the engine's fast path (speculative decode
-with a ``--draft``, chunked prefill, copy-on-write prefix sharing).
+with a ``--draft``, chunked prefill, copy-on-write prefix sharing);
+``--moe-experts E`` makes every layer's MLP a Switch top-1 mixture of E
+experts (:func:`moe_serving_weights`) routed through row 18's kernel, with
+``--moe-capacity-factor`` (8.0, JAX's serve: nothing drops at E = 8).
 ``--train`` takes ``--steps`` optimizer steps on one seeded batch (seq
 1024, batch 8 at GPT-345M; seq 2048, batch 4 at ``gpt345m_s2048``, the
 long-sequence row) with
@@ -60,14 +66,14 @@ from ..contrib.xentropy import softmax_cross_entropy_loss
 from ..optimizers import fused_adam
 from ..serving import (BucketLadder, GPTServingWeights, Request,
                        ServingEngine, ServingModelConfig,
-                       default_cache_config, init_serving_weights,
-                       quantize_weights)
+                       default_cache_config, expand_moe_weights,
+                       init_serving_weights, quantize_weights)
 from ..serving.kv_cache import KV_DTYPES
 from ..transformer import ParallelTransformer
 from ..transformer.tensor_parallel import VocabParallelEmbedding
 
 __all__ = ["MODELS", "TRAIN_RECIPES", "DRAFTS", "model_config", "seeded_prompts",
-           "truncated_draft", "serve_smoke",
+           "truncated_draft", "moe_serving_weights", "serve_smoke",
            "GPTEmbedding", "GPTModel", "gpt_loss", "gpt_params_from_numpy",
            "TrainSetup", "make_train_setup", "model_flops", "train_step",
            "TrainResult",
@@ -138,6 +144,29 @@ def truncated_draft(weights: GPTServingWeights, cfg: ServingModelConfig,
             dataclasses.replace(cfg, num_layers=num_layers))
 
 
+# the serve's MoE capacity factor: JAX's serve sets 8.0 for MoE
+# (apex_tpu/testing/standalone_gpt.py:1333-1337); with E = 8 every expert
+# then has a slot for every routed row, so nothing drops
+MOE_CAPACITY_FACTOR = 8.0
+
+
+def moe_serving_weights(weights: GPTServingWeights, num_experts: int,
+                        seed: int) -> GPTServingWeights:
+    """The serve's MoE model: every layer expanded to ``num_experts``
+    bias-free experts (:func:`~apex_tpu_torch.serving.expand_moe_weights`)
+    with fp32 ``0.02 * randn`` routers from a generator seeded ``seed``,
+    and expert e's ``wi`` scaled by ``1 + 0.05 e`` so that the experts
+    differ and a wrong route changes the output."""
+    g = torch.Generator(device=weights.wte.device)
+    g.manual_seed(int(seed))
+    moe = expand_moe_weights(weights, num_experts, g)
+    scale = 1.0 + 0.05 * torch.arange(num_experts, dtype=torch.float32,
+                                      device=weights.wte.device)
+    return moe._replace(layers=tuple(
+        lw._replace(wi=(lw.wi.float() * scale[:, None, None]).to(lw.wi.dtype))
+        for lw in moe.layers))
+
+
 def serve_smoke(num_requests: int = 8, *, model: str = "gpt345m",
                 policy: str = "O5", max_new_tokens: int = 32,
                 prompt_lengths: Optional[Sequence[int]] = None,
@@ -145,7 +174,9 @@ def serve_smoke(num_requests: int = 8, *, model: str = "gpt345m",
                 seed: int = 0, device=None, speculate_k: int = 0,
                 draft: str = "self", draft_layers: Optional[int] = None,
                 prefill_chunk: int = 0, prefix_share: bool = False,
-                spec_governor="auto", kv_dtype: str = "model"):
+                spec_governor="auto", kv_dtype: str = "model",
+                moe_experts: int = 0,
+                moe_capacity_factor: float = MOE_CAPACITY_FACTOR):
     """Build the model and engine on ``device`` (cuda unless the CPU is
     asked for), serve ``num_requests`` seeded prompts, and return
     ``(summary, engine)``; ``engine.done`` holds every request with its
@@ -155,6 +186,9 @@ def serve_smoke(num_requests: int = 8, *, model: str = "gpt345m",
     policy-cast (bf16) model to per-column int8 (:func:`quantize_weights`),
     as the JAX smoke does; ``kv_dtype`` ("model", "bf16", "int8") is the
     cache's storage (the JAX flag ``APEX_TPU_SERVE_KV_DTYPE``).
+    ``moe_experts=E`` serves the MoE model of :func:`moe_serving_weights`
+    (router seed ``seed + 2``) at ``moe_capacity_factor``; it does not
+    compose with Q8, as in JAX.
 
     Prompt lengths are drawn from ``seed`` in ``[min_prompt,
     max_prompt]`` (clipped so prompt + ``max_new_tokens`` fits the
@@ -175,7 +209,14 @@ def serve_smoke(num_requests: int = 8, *, model: str = "gpt345m",
     ladder = BucketLadder()
     weights = init_serving_weights(cfg, seed=seed, device=dev)
     if get_policy(policy).quantize_weights == "int8":
+        if moe_experts:
+            raise ValueError("MoE does not compose with the Q8 tier: the "
+                             "int8 kernels have no expert-stack layout")
         weights = quantize_weights(weights)
+    if moe_experts:
+        cfg = dataclasses.replace(cfg, num_experts=moe_experts,
+                                  moe_capacity_factor=moe_capacity_factor)
+        weights = moe_serving_weights(weights, moe_experts, seed + 2)
     draft_weights = draft_cfg = None
     if speculate_k > 0:
         if draft == "self":
@@ -469,6 +510,13 @@ def _parser() -> argparse.ArgumentParser:
                         "tick beside decode")
     p.add_argument("--prefix-share", action="store_true",
                    help="serve: copy-on-write prompt-prefix sharing")
+    p.add_argument("--moe-experts", type=int, default=0, metavar="E",
+                   help="serve: every layer's MLP a Switch top-1 mixture of "
+                        "E experts (row 18's routing kernel)")
+    p.add_argument("--moe-capacity-factor", type=float,
+                   default=MOE_CAPACITY_FACTOR, metavar="CF",
+                   help="serve --moe-experts: expert capacity "
+                        "max(1, int(CF * rows / E)) a routed step")
     return p
 
 
@@ -497,7 +545,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         max_prompt=args.max_prompt, seed=args.seed, device=args.device,
         speculate_k=args.speculate_k, draft=args.draft,
         draft_layers=args.draft_layers, prefill_chunk=args.prefill_chunk,
-        prefix_share=args.prefix_share, kv_dtype=args.kv_dtype)
+        prefix_share=args.prefix_share, kv_dtype=args.kv_dtype,
+        moe_experts=args.moe_experts,
+        moe_capacity_factor=args.moe_capacity_factor)
     fast = ""
     if s.spec_accept_rate is not None:
         fast += (f" spec_accept_rate={s.spec_accept_rate} "
@@ -510,6 +560,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                  f"cow_copies={s.cow_copies}")
     if s.prefill_chunks:
         fast += f" prefill_chunks={s.prefill_chunks}"
+    if args.moe_experts:
+        fast += (f" moe_experts={args.moe_experts} "
+                 f"moe_capacity_factor={args.moe_capacity_factor}")
     print(f"SERVE_DONE policy={args.policy} kv_dtype={args.kv_dtype} "
           f"requests={s.requests_done} "
           f"tokens={s.tokens_generated} tokens_s={s.tokens_per_sec} "

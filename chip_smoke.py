@@ -41,7 +41,14 @@ Phases, in order; any failure exits non-zero without the result line:
                    d = 128 and past a padded length of 1024 (rows 11 and
                    13, counted under their own names) at the long train
                    step's (4, 2048, 16, 64), and the E kernels' time per
-                   (q, k) pair at s = 1024..8192 (8192 tokens each).
+                   (q, k) pair at s = 1024..8192 (8192 tokens each); the
+                   MoE slice's: the fused routing and dispatch (row 18)
+                   at bench.py's bench_moe_ep shape (T 4096, H 256, E 8,
+                   fp32; top1/all, top2/all, top2/random) and at the MoE
+                   serve's decode (8 rows) and prefill (1024 rows) in
+                   bf16 at capacity factors 8.0 and 1.25, integers and
+                   buffer exactly equal, and its gradient (the plain
+                   version at the saved inputs) once on the card.
 3. serve O5/O0   — GPT-345M width (vocab 50304, hidden 1024, 24 layers,
                    16 heads, max_seq 1024), O5 bf16 then fp32, seeded
                    random weights: serve 8 seeded prompts of 64..700
@@ -76,6 +83,18 @@ Phases, in order; any failure exits non-zero without the result line:
                    printed); Q8 over a bf16 cache against
                    ``gpt_sequence_logits`` on the Q8 weights; chunked
                    prefill on the int8 cache.
+3d. serve_moe    — the serve with every layer a Switch top-1 mixture of 8
+                   experts (``serve_smoke(moe_experts=8)``: fp32 0.02
+                   randn routers, expert e's wi scaled by 1 + 0.05 e;
+                   1.76 B parameters); each leg serves once untimed,
+                   then with launch counts reset just before and held
+                   exactly (row 18 once per layer per step), every block
+                   back.  cf 8.0 (nothing drops):
+                   every token against the teacher-forced plain oracle
+                   under the tie rule.  cf 1.25 (decode drops): a
+                   recorded rerun prints the drop share and holds row 18
+                   against the plain version on the (x, logits) of every
+                   25th prefill and decode call it saw.
 4. train O5      — the same width at seq 1024, batch 8 (bench.py's
                    bench_gpt345m), O5, ``fused_adam(1e-4)``, seeded
                    weights: 8 steps through ``standalone_gpt.train_smoke``
@@ -138,7 +157,8 @@ Phases, in order; any failure exits non-zero without the result line:
                    and falling; 3 plain steps within
                    ``TRAIN_LONG_LOSS_TOL`` (one limit a step).
 7. profiles      — the O5 serve, the O5 speculative serve (self draft), the
-                   Q8 serve over an int8 cache, one O5 and one O2 train
+                   Q8 serve over an int8 cache, the MoE serve at cf 8.0
+                   and 1.25, one O5 and one O2 train
                    step of GPT-345M and of BERT-large (on bench.py's
                    all-ones mask), one GPT-345M step at seq 2048
                    under ``torch.profiler``: device time by kernel and
@@ -191,6 +211,16 @@ TOKEN_GAP_TOL_FP32 = 2e-3
 # the Q8 serve, bf16 activations over int8 weights (and an int8 cache held
 # against the int8 replay): the tie rule of the bf16 serve
 TOKEN_GAP_TOL_Q8 = 0.1
+# MoE routing (row 18), kernel vs plain version on the same (x, logits,
+# u): expert_index, slot, keep and the dispatch buffer (a row copy) must be
+# exactly equal; the gates are the same fp32 expressions (the probability
+# sums reassociated: JAX's own 1e-6), the aux loss an fp32 sum over
+# tokens in another order (JAX's 1e-5 relative); the gradient through the
+# Function's backward (the plain version at the saved inputs) against the
+# plain version's own, both from the same fp32 expressions
+MOE_GATE_TOL = 1e-6
+MOE_AUX_RTOL = 1e-5
+MOE_GRAD_TOL = 1e-6
 # LayerNorm backward, bf16 x/dy/gamma: dx like the forward (one bf16 ulp
 # at |dx| up to ~4); dgamma/dbeta are sums over 8192 rows rounded once to
 # bf16, so they are held relative to their largest value (2.5 ulps)
@@ -312,6 +342,15 @@ SERVE_NEW = 32
 SPEC_K = 2
 CHUNK = 32
 SHARE_SYS, SHARE_REQUESTS, SHARE_NEW = 700, 4, 4
+# serve_moe: every layer of the serve's model a Switch top-1 mixture of 8
+# experts; capacity factor 8.0 (JAX's MoE serve: with E = 8 every step's
+# capacity is its row count, nothing drops) and 1.25 (ServingModelConfig's
+# default and bench.py:1757's: decode drops); the cf 1.25 leg's recorded
+# rerun keeps every MOE_SAMPLE_EVERY-th prefill and decode routing call
+MOE_EXPERTS = 8
+MOE_NODROP_CF = 8.0
+MOE_DROP_CF = 1.25
+MOE_SAMPLE_EVERY = 25
 
 # --- the card (NVIDIA H100 SXM data sheet, dense) ----------------------
 HBM_BYTES_S = 3.35e12
@@ -342,6 +381,7 @@ REPLACES = {
     "flash_attention_bwd": "apex_tpu/ops/flash_attention.py:1027",
     "flash_attention_e_blocked": "apex_tpu/ops/flash_attention.py:2067",
     "flash_attention_e_bwd_blocked": "apex_tpu/ops/flash_attention.py:2404",
+    "moe_route_dispatch": "apex_tpu/ops/moe_routing.py:145",
 }
 SOURCES = {
     "layer_norm": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -368,6 +408,7 @@ SOURCES = {
     "flash_attention_e_blocked": "apex_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_e_bwd_blocked":
         "apex_tpu_torch/csrc/flash_attention_bwd.cu",
+    "moe_route_dispatch": "apex_tpu_torch/csrc/moe_routing.cu",
 }
 # the path each kernel's launches are counted on
 SERVE_KERNELS = ("layer_norm", "flash_attention", "flash_decode")
@@ -389,6 +430,8 @@ TRAIN_BERT_KERNELS = ("layer_norm", "layer_norm_bwd",
 TRAIN_BERT_O2_KERNELS = ("layer_norm", "layer_norm_bwd",
                          "scaled_masked_softmax_fwd", "scaled_softmax_bwd",
                          "norm_finite", "fused_adam_pipeline")
+SERVE_MOE_KERNELS = ("layer_norm", "flash_attention", "flash_decode",
+                     "moe_route_dispatch")
 LONG_CONTEXT_KERNELS = ("flash_attention", "flash_attention_bwd")
 TRAIN_LONG_KERNELS = ("layer_norm", "layer_norm_bwd",
                       "flash_attention_e_blocked",
@@ -399,6 +442,7 @@ TRAIN_LONG_KERNELS = ("layer_norm", "layer_norm_bwd",
 BERT_CHECKS = ("grad_routing", "scaled_masked_softmax",
                "flash_attention_e_kvmask", "lamb_phase1")
 LONG_CHECKS = ("flash_attention_bwd", "flash_attention_e_long")
+MOE_CHECKS = ("moe_routing",)
 
 
 def log(msg: str) -> None:
@@ -2035,6 +2079,144 @@ def check_flash_attention_e_long(dev, g):
     return tuple(entries)
 
 
+# --- phase 2, the MoE slice's row 18 -----------------------------------
+
+def _route_bytes(x, logits, u, rd) -> float:
+    """The bytes row 18 must move for these inputs: the logits (and u)
+    read, each x row that some kept choice dispatches read once, every
+    output written once."""
+    k, t = rd.expert_index.shape
+    e, c, h = rd.buf.shape
+    tok = torch.arange(t, device=x.device).repeat(k)[rd.keep]
+    rows = int(torch.unique(tok).numel())
+    return (4.0 * logits.numel() + (4.0 * u.numel() if u is not None else 0)
+            + x.element_size() * (rows * h + e * c * h)
+            + k * t * (4 + 4 + 4 + 1) + 4)
+
+
+def _route_hold(label, x, logits, u, kw, got):
+    """Row 18's output ``got`` against its plain version on the same
+    (x, logits, u): expert_index, slot, keep and buf exactly equal, gates
+    within ``MOE_GATE_TOL``, aux within ``MOE_AUX_RTOL``.  A differing
+    expert prints the plain version's top-2 probability gap at the first
+    such token (a flip needs two probabilities within an ulp).  Returns
+    ``(max |gate| error, the plain version's output)``."""
+    from apex_tpu_torch.ops import moe_route_dispatch_reference
+
+    ref = moe_route_dispatch_reference(x, logits, u, **kw)
+    if not torch.equal(got.expert_index, ref.expert_index):
+        t = int((got.expert_index != ref.expert_index).nonzero()[0, 1])
+        p = torch.softmax(logits[t].float(), dim=-1).topk(2).values
+        raise AssertionError(f"{label}: expert_index differs at token {t} "
+                             f"(plain top-2 probability gap "
+                             f"{float(p[0] - p[1]):.3e})")
+    for name in ("slot", "keep", "buf"):
+        if not torch.equal(getattr(got, name), getattr(ref, name)):
+            raise AssertionError(f"{label}: {name} differs from the plain "
+                                 f"version")
+    gerr = max_err(got.gate, ref.gate)
+    aerr = abs(float(got.load_balancing_loss)
+               / float(ref.load_balancing_loss) - 1.0)
+    if gerr > MOE_GATE_TOL or aerr > MOE_AUX_RTOL:
+        raise AssertionError(f"{label}: gate error {gerr:.3e} (tol "
+                             f"{MOE_GATE_TOL}), aux relative error "
+                             f"{aerr:.3e} (tol {MOE_AUX_RTOL})")
+    return gerr, ref
+
+
+def check_moe_routing(dev, g):
+    """Row 18 against its plain version: bench.py's bench_moe_ep shape
+    (T 4096, H 256, E 8, fp32 x ~ N(0, 1), logits from a 0.02 randn
+    router) at top1/all (capacity 640), top2/all and top2/random (1280);
+    the MoE serve's shapes (E 8, bf16 x, a 0.02 randn router): the decode
+    tick's 8 rows and the 700-token prompt's 1024 padded rows at capacity
+    factors 8.0 and 1.25; shapes off every grain (E 5 and 40, H 100, T
+    130 and 33).  Integers and buf exact, each timed (device, wall,
+    plain, bound; no single PyTorch call computes it).  Then the gradient
+    path once: autograd through ``MoERouteDispatchFunction`` on CUDA
+    tensors against the plain version's own gradient."""
+    from apex_tpu_torch.ops import (launch_counts, moe_combine,
+                                    moe_route_dispatch_reference,
+                                    reset_launch_counts)
+    from apex_tpu_torch.ops.moe_routing import _fused
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    e = MOE_EXPERTS
+    cases = [("bench_moe_ep top1", 4096, 256, e, 640, 1, "all", f32),
+             ("bench_moe_ep top2", 4096, 256, e, 1280, 2, "all", f32),
+             ("bench_moe_ep top2 random", 4096, 256, e, 1280, 2, "random",
+              f32),
+             ("serve decode cf 8", 8, 1024, e, 8, 1, "all", bf16),
+             ("serve decode cf 1.25", 8, 1024, e, 1, 1, "all", bf16),
+             ("serve prefill cf 8", 1024, 1024, e, 1024, 1, "all", bf16),
+             ("serve prefill cf 1.25", 1024, 1024, e, 160, 1, "all", bf16),
+             ("off grain", 130, 100, 5, 33, 2, "random", f32),
+             ("off grain, E > T", 33, 100, 40, 1, 2, "all", bf16)]
+    entries = []
+    reset_launch_counts()
+    for label, t, h, ne, cap, k, pol, dt in cases:
+        x = torch.randn(t, h, generator=g, device=dev)
+        router = 0.02 * torch.randn(h, ne, generator=g, device=dev)
+        logits = x @ router
+        x = x.to(dt)
+        u = torch.rand(t, generator=g, device=dev) if pol == "random" \
+            else None
+        kw = dict(capacity=cap, top_k=k, second_policy=pol)
+        got = _fused(x, logits, u, **kw)
+        torch.cuda.synchronize()
+        gerr, ref = _route_hold(f"moe_route_dispatch {label}", x, logits, u,
+                                kw, got)
+        dropped = int((~ref.keep).sum())
+        ms, ms_w = time_ms(lambda: _fused(x, logits, u, **kw), iters=100)
+        plain, plain_w = time_ms(lambda: moe_route_dispatch_reference(
+            x, logits, u, **kw))
+        b_ms, b_by = bound_ms(_route_bytes(x, logits, u, ref),
+                              10.0 * t * ne, FP32_FLOPS)
+        log(f"kernel moe_route_dispatch {label}: T={t} H={h} E={ne} "
+            f"C={cap} top{k} {pol} {str(dt).replace('torch.', '')} x: "
+            f"expert_index, slot, keep, buf exact; gate error {gerr:.3e} "
+            f"(tol {MOE_GATE_TOL}); {dropped} of {k * t} choices dropped ok")
+        log(f"  time, device ms (wall ms per call): kernel {ms:.5f} "
+            f"({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), no single "
+            f"PyTorch call computes it, bound {b_ms:.5f} ({b_by})")
+        entries.append(dict(
+            name="moe_route_dispatch",
+            shape=f"{label}: T={t} H={h} E={ne} C={cap} top{k} {pol} "
+                  f"{str(dt).replace('torch.', '')}",
+            max_abs_err=gerr, ms=ms, ms_wall=ms_w, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        del x, logits, got, ref
+    if launch_counts()["moe_route_dispatch"] <= 0:
+        raise AssertionError("moe_route_dispatch never launched")
+    # the gradient path: the Function's backward on CUDA tensors is the
+    # plain version differentiated at the saved inputs
+    x = torch.randn(256, 64, generator=g, device=dev)
+    logits = torch.randn(256, e, generator=g, device=dev)
+    u = torch.rand(256, generator=g, device=dev)
+    grads = []
+    for route in (_fused, moe_route_dispatch_reference):
+        xx, ll = x.clone().requires_grad_(), logits.clone().requires_grad_()
+        rd = route(xx, ll, u, capacity=40, top_k=2, second_policy="random")
+        y = moe_combine(rd.buf * 2.0, rd.expert_index, rd.slot, rd.keep,
+                        rd.gate)
+        ((y ** 2).sum() + 0.1 * rd.load_balancing_loss).backward()
+        grads.append((xx.grad, ll.grad))
+    gx, gl = max_err(grads[0][0], grads[1][0]), max_err(grads[0][1],
+                                                        grads[1][1])
+    ok = gx <= MOE_GRAD_TOL and gl <= MOE_GRAD_TOL and \
+        float(grads[0][1].abs().max()) > 0
+    log(f"kernel moe_route_dispatch gradient (T=256 H=64 top2 random, "
+        f"autograd on CUDA tensors): x {gx:.3e}, logits {gl:.3e} against "
+        f"the plain version's (tol {MOE_GRAD_TOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("moe_route_dispatch gradient disagrees")
+    e0 = dict(entries[0])
+    e0["max_abs_err"] = max(x["max_abs_err"] for x in entries)
+    e0["shapes"] = entries[1:]
+    return e0
+
+
 def long_context(dev):
     """bench.py's bench_long_context on the port: at each shape, q, k, v
     drawn bf16 (randn * 0.5) and ``flash_attention(q, k, v,
@@ -2693,6 +2875,156 @@ def serve_q8_legs():
                 dev, layers, policy="Q8", kv_dtype="int8")))
 
 
+# --- phase 3d: MoE serving ----------------------------------------------
+
+def moe_launches(layers: int, ticks: int, prefills: int):
+    """Every kernel's launches for an MoE serve of ``ticks`` decode ticks
+    and ``prefills`` whole-prompt prefills: row 18 once per MoE layer per
+    step."""
+    from apex_tpu_torch.ops import KERNELS
+
+    want = {k: 0 for k in KERNELS}
+    want.update(layer_norm=(2 * layers + 1) * (ticks + prefills),
+                flash_attention=layers * prefills,
+                flash_decode=layers * ticks,
+                moe_route_dispatch=layers * (ticks + prefills))
+    return want
+
+
+def _moe_serve(dev, cf: float):
+    """The serve phase's requests through ``serve_smoke`` with every layer
+    an 8-expert MoE at capacity factor ``cf``: ``(summary, engine)``."""
+    from apex_tpu_torch.testing.standalone_gpt import serve_smoke
+
+    summary, engine = serve_smoke(len(SERVE_LENGTHS), max_new_tokens=SERVE_NEW,
+                                  prompt_lengths=SERVE_LENGTHS, seed=0,
+                                  device=dev, moe_experts=MOE_EXPERTS,
+                                  moe_capacity_factor=cf)
+    torch.cuda.synchronize()
+    return summary, engine
+
+
+def _moe_recorded(dev, cf: float, label: str, digest: str) -> None:
+    """The ``cf`` serve again with row 18's wrapper recorded: the drop
+    share of every prefill and decode routing call (summed on the device),
+    and every ``MOE_SAMPLE_EVERY``-th call of each kind kept with its
+    inputs and held against the plain version on them (integers and buf
+    exact).  The rerun must serve the same tokens."""
+    from apex_tpu_torch.transformer import expert_parallel
+
+    real = expert_parallel._fused
+    tally = {kind: [0, torch.zeros((), dtype=torch.long, device=dev), 0]
+             for kind in ("prefill", "decode")}
+    samples = []
+
+    def recording(x, logits, u, **kw):
+        rd = real(x, logits, u, **kw)
+        kind = "decode" if x.shape[0] <= 8 else "prefill"
+        n, dropped, total = tally[kind]
+        tally[kind] = [n + 1, dropped + (~rd.keep).sum(),
+                       total + rd.keep.numel()]
+        if n % MOE_SAMPLE_EVERY == 0:
+            samples.append((kind, n, x.clone(), logits.clone(), kw, rd))
+        return rd
+
+    expert_parallel._fused = recording
+    try:
+        _, engine = _moe_serve(dev, cf)
+    finally:
+        expert_parallel._fused = real
+    if engine.tokens_digest() != digest:
+        raise AssertionError(f"{label}: the recorded rerun served other "
+                             f"tokens")
+    parts = []
+    for kind, (n, dropped, total) in tally.items():
+        d = int(dropped)
+        parts.append(f"{kind} {d} of {total} choices ({100.0 * d / total:.2f}"
+                     f"%) in {n} calls")
+    log(f"{label}: dropped choices: " + "; ".join(parts))
+    worst = 0.0
+    with torch.inference_mode():
+        for kind, n, x, logits, kw, rd in samples:
+            gerr, _ = _route_hold(f"{label} {kind} call {n}", x, logits,
+                                  None, kw, rd)
+            worst = max(worst, gerr)
+    kinds = sorted({s[0] for s in samples})
+    if kinds != ["decode", "prefill"]:
+        raise AssertionError(f"{label}: samples of {kinds} only")
+    log(f"{label}: row 18 on {len(samples)} recorded calls' own (x, logits) "
+        f"({', '.join(f'{s[0]} {s[1]} T={s[2].shape[0]} C={s[4]['capacity']}' for s in samples)}) "
+        f"against the plain version: expert_index, slot, keep, buf exact, "
+        f"gate error {worst:.3e} ok")
+
+
+def _moe_leg(dev, layers: int, cf: float):
+    """One serve_moe leg: a warm-up serve first (on an H100 the cf 8.0
+    leg read a token p50 of 24.0 ms run first in its process and 15.4 ms
+    after the kernels phase; the warm-up's latencies are printed beside
+    the measured serve's), then the measured serve, launch counts reset just
+    before it and held exactly, every block back; at
+    ``MOE_NODROP_CF`` every token held against the teacher-forced plain
+    oracle, below it (drops: the oracle's whole-sequence rows route
+    otherwise) the recorded rerun.  Returns the counts."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    label = f"serve_moe cf {cf}"
+    warm, _ = _moe_serve(dev, cf)
+    log(f"{label}: warm-up serve ttft_p50_ms={warm.ttft_p50_ms} "
+        f"token_p50_ms={warm.latency_p50_ms} "
+        f"token_p99_ms={warm.latency_p99_ms} wall_s={warm.wall_s}")
+    free_memory()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, engine = _moe_serve(dev, cf)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n = len(SERVE_LENGTHS)
+    want = moe_launches(layers, summary.decode_steps, n)
+    mc = engine.model_cfg
+    n_params = sum(t.numel() for lw in engine.weights.layers for t in lw) \
+        + engine.weights.wte.numel() + engine.weights.wpe.numel()
+    log(f"{label}: gpt345m width, {layers} layers each a top-1 MoE of "
+        f"{mc.num_experts} experts (cf {mc.moe_capacity_factor}), {mc.dtype}, "
+        f"{n_params:,} parameters; weights + serve {wall:.1f} s; launch "
+        f"counts { {k: v for k, v in counts.items() if v} } (expected "
+        f"{ {k: v for k, v in want.items() if v} })")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    if summary.requests_done != n or \
+            summary.tokens_generated != n * SERVE_NEW:
+        raise AssertionError(f"{label}: served {summary.requests_done} "
+                             f"requests / {summary.tokens_generated} tokens")
+    _all_blocks_back(engine, label)
+    log(f"{label}: tokens_per_sec={summary.tokens_per_sec} "
+        f"decode_tokens_per_sec={summary.decode_tokens_per_sec} "
+        f"ttft_p50_ms={summary.ttft_p50_ms} "
+        f"ttft_p99_ms={summary.ttft_p99_ms} "
+        f"token_p50_ms={summary.latency_p50_ms} "
+        f"token_p99_ms={summary.latency_p99_ms} "
+        f"itl_p50_ms={summary.itl_p50_ms} itl_p99_ms={summary.itl_p99_ms} "
+        f"decode_steps={summary.decode_steps} wall_s={summary.wall_s} "
+        f"digest={engine.tokens_digest()}")
+    if cf >= MOE_NODROP_CF:
+        check_tokens(engine, TOKEN_GAP_TOL, dev, label)
+    else:
+        digest = engine.tokens_digest()
+        del engine
+        free_memory()
+        _moe_recorded(dev, cf, label, digest)
+    return counts
+
+
+def serve_moe_legs():
+    """The MoE serve's two legs at GPT-345M width, each ``(name,
+    fn(dev))`` returning its launch counts."""
+    from apex_tpu_torch.testing.standalone_gpt import MODELS
+
+    layers = MODELS["gpt345m"]["num_layers"]
+    return tuple((f"cf {cf}", functools.partial(_moe_leg, layers=layers,
+                                                cf=cf))
+                 for cf in (MOE_NODROP_CF, MOE_DROP_CF))
+
+
 # the train phases' model families: label and preset
 TRAIN_FAMILIES = {"gpt": ("train", "gpt345m"),
                   "gpt_long": ("train_long", "gpt345m_s2048"),
@@ -3019,12 +3351,17 @@ def profile_train(dev, policy: str = "O5", family: str = "gpt"):
 
 
 def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
-                  kv_dtype: str = "model", **fast):
+                  kv_dtype: str = "model", moe_experts: int = 0,
+                  moe_capacity_factor: float = MOE_NODROP_CF, **fast):
     """The serve's ``engine.run()`` once more under ``torch.profiler``
     (weights and engine built outside the window) at ``policy`` (O5, or
     Q8 with its quantized weights) over a ``kv_dtype`` cache, plain or
-    with the fast-path options ``fast`` (a self draft when speculating):
+    with the fast-path options ``fast`` (a self draft when speculating),
+    or with every layer a ``moe_experts``-way MoE at
+    ``moe_capacity_factor``:
     device busy share of the run's wall, and device time by kernel."""
+    import dataclasses
+
     from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch.serving import (Request, ServingEngine,
@@ -3032,14 +3369,21 @@ def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
                                         init_serving_weights,
                                         quantize_weights)
     from apex_tpu_torch.testing.standalone_gpt import (model_config,
+                                                       moe_serving_weights,
                                                        seeded_prompts)
 
     cfg = model_config(model, policy=policy)
     weights = init_serving_weights(cfg, seed=0, device=dev)
     if policy == "Q8":
         weights = quantize_weights(weights)
+    if moe_experts:
+        cfg = dataclasses.replace(cfg, num_experts=moe_experts,
+                                  moe_capacity_factor=moe_capacity_factor)
+        weights = moe_serving_weights(weights, moe_experts, 2)
     label = ", ".join([policy] + ([f"kv {kv_dtype}"] if kv_dtype != "model"
-                                 else []) + ([f"{fast}"] if fast else []))
+                                 else []) + ([f"{fast}"] if fast else [])
+                      + ([f"MoE {moe_experts} experts cf "
+                          f"{moe_capacity_factor}"] if moe_experts else []))
     if fast.get("speculate_k"):
         fast = dict(fast, draft_weights=weights, draft_cfg=cfg)
     engine = ServingEngine(weights, cfg,
@@ -3065,9 +3409,9 @@ def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
             f"{name[:90]}")
 
 
-PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "train", "train_o2",
-          "train_bert", "train_bert_o2", "long_context", "train_long",
-          "profile")
+PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "serve_moe", "train",
+          "train_o2", "train_bert", "train_bert_o2", "long_context",
+          "train_long", "profile")
 
 
 def main(argv=None) -> int:
@@ -3128,6 +3472,8 @@ def main(argv=None) -> int:
         gb.manual_seed(6)
         gl = torch.Generator(device=dev)
         gl.manual_seed(7)
+        gm = torch.Generator(device=dev)
+        gm.manual_seed(8)
         if "kernels" in phases:
             for name, fn in (("layer_norm", check_layer_norm),
                              ("flash_attention", check_flash_attention),
@@ -3152,13 +3498,16 @@ def main(argv=None) -> int:
                              ("flash_attention_bwd",
                               check_flash_attention_bwd),
                              ("flash_attention_e_long",
-                              check_flash_attention_e_long)):
-                # the Q8 tier's, the BERT phases' and the long-context
-                # slice's checks draw from generators of their own, so
-                # the earlier checks see the inputs they saw before
+                              check_flash_attention_e_long),
+                             ("moe_routing", check_moe_routing)):
+                # the Q8 tier's, the BERT phases', the long-context and
+                # the MoE slices' checks draw from generators of their
+                # own, so the earlier checks see the inputs they saw
+                # before
                 gen = gq if name in Q8_CHECKS else \
                     gb if name in BERT_CHECKS else \
-                    gl if name in LONG_CHECKS else g
+                    gl if name in LONG_CHECKS else \
+                    gm if name in MOE_CHECKS else g
                 ok, out = run(f"kernel {name}", lambda: fn(dev, gen))
                 if ok and out is not None:
                     for e in (out if isinstance(out, tuple) else (out,)):
@@ -3217,6 +3566,21 @@ def main(argv=None) -> int:
                 if any(counts["serve_q8"][k] <= 0 for k in SERVE_Q8_KERNELS):
                     failed.append("serve_q8: a kernel of the path never "
                                   "launched")
+        if "serve_moe" in phases:
+            legs = []
+            for name, fn in serve_moe_legs():
+                ok, out = run(f"serve_moe {name}", lambda: fn(dev))
+                legs.append(out if ok else None)
+                free_memory()
+            if all(c is not None for c in legs):
+                counts["serve_moe"] = {k: sum(c[k] for c in legs)
+                                       for k in legs[0]}
+                log(f"serve_moe: launch counts over the two legs "
+                    f"{ {k: v for k, v in counts['serve_moe'].items() if v} }")
+                if any(counts["serve_moe"][k] <= 0
+                       for k in SERVE_MOE_KERNELS):
+                    failed.append("serve_moe: a kernel of the path never "
+                                  "launched")
         if "train" in phases:
             ok, out = run("train O5", lambda: train_and_check(dev))
             if ok:
@@ -3265,6 +3629,10 @@ def main(argv=None) -> int:
             if "serve_q8" in phases:
                 run("serve_q8 profile", lambda: profile_serve(
                     dev, policy="Q8", kv_dtype="int8"))
+            if "serve_moe" in phases:
+                for cf in (MOE_NODROP_CF, MOE_DROP_CF):
+                    run(f"serve_moe cf {cf} profile", lambda: profile_serve(
+                        dev, moe_experts=MOE_EXPERTS, moe_capacity_factor=cf))
             if "train" in phases:
                 run("train profile", lambda: profile_train(dev))
             if "train_o2" in phases:
@@ -3293,6 +3661,7 @@ def main(argv=None) -> int:
                    (("serve", SERVE_KERNELS),
                     ("serve_fast", SERVE_FAST_KERNELS),
                     ("serve_q8", SERVE_Q8_KERNELS),
+                    ("serve_moe", SERVE_MOE_KERNELS),
                     ("train", TRAIN_KERNELS),
                     ("train_o2", TRAIN_O2_KERNELS),
                     ("train_bert", TRAIN_BERT_KERNELS),
