@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 SOURCES = ("layer_norm", "flash_attention", "flash_decode",
            "flash_attention_bwd", "fused_adam", "scaled_softmax",
-           "norm_finite", "quant_matmul", "fused_lamb", "moe_routing")
+           "norm_finite", "quant_matmul", "fused_lamb", "moe_routing",
+           "fused_sgd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -84,6 +85,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # g, p, m, v, lowp, n, lr, beta1, beta2, eps, weight_decay, bc1,
         # bc2, gscale, keep, adam_w_mode, g_dtype, lowp_dtype, stream
         "apex_adam_pipeline": [_P] * 5 + [_L] + [_F] * 9 + [_I] * 3 + [_P],
+        # g, p, m, v, lowp, n, lr, beta1, 1 - beta1, beta2, 1 - beta2,
+        # eps, weight_decay, bc1, bc2, adam_w_mode, g_dtype, lowp_dtype,
+        # stream
+        "apex_adam_step": [_P] * 5 + [_L] + [_F] * 9 + [_I] * 3 + [_P],
+    },
+    "fused_sgd": {
+        # g, p, mom, lowp, n, lr, momentum, 1 - dampening, weight_decay,
+        # first_run, nesterov, wd_after_momentum, g_dtype, lowp_dtype,
+        # stream
+        "apex_sgd_step": [_P] * 4 + [_L] + [_F] * 4 + [_I] * 5 + [_P],
+        # g, p, mom, lowp, gscale, keep (device fp32 scalars), n, lr,
+        # momentum, 1 - dampening, weight_decay, first_run, nesterov,
+        # wd_after_momentum, g_dtype, lowp_dtype, stream
+        "apex_sgd_pipeline": [_P] * 6 + [_L] + [_F] * 4 + [_I] * 5 + [_P],
     },
     "fused_lamb": {
         # g, p, m, v, u, gscale (device fp32 scalar), n, beta1, beta2,

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 __all__ = ["default_bn_predicate", "convert_network", "cast_params",
-           "master_copy"]
+           "cast_dtype", "master_copy"]
 
 # the JAX package's pattern (apex_tpu/amp/cast.py:22)
 _BN_PAT = re.compile(r"(batch_?norm|(^|[^a-z])bn([^a-z]|$))", re.IGNORECASE)
@@ -35,13 +35,29 @@ def convert_network(module: nn.Module, dtype: torch.dtype,
     when asked; returns the module."""
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if not p.is_floating_point():
-                continue
-            want = torch.float32 if keep_batchnorm_fp32 and \
-                default_bn_predicate(name) else dtype
+            want = _target(name, p, dtype, keep_batchnorm_fp32)
             if p.dtype != want:
                 p.data = p.data.to(want)
     return module
+
+
+def _target(name: str, p: torch.Tensor, dtype: torch.dtype,
+            keep_batchnorm_fp32: bool) -> torch.dtype:
+    if not p.is_floating_point():
+        return p.dtype
+    return torch.float32 if keep_batchnorm_fp32 and \
+        default_bn_predicate(name) else dtype
+
+
+def cast_dtype(name: str, p: torch.Tensor, policy) -> torch.dtype:
+    """The dtype :func:`cast_params` gives parameter ``name`` under
+    ``policy``, from its name and dtype alone (a parameter on the
+    ``meta`` device will do)."""
+    if policy.cast_model_type is None:
+        return p.dtype
+    keep_bn = policy.keep_batchnorm_fp32
+    return _target(name, p, policy.cast_model_type,
+                   True if keep_bn is None else keep_bn)
 
 
 def cast_params(module: nn.Module, policy) -> nn.Module:

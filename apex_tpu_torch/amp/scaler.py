@@ -1,9 +1,9 @@
 """Loss scaling: static scales (the bf16 O4/O5 regime) and the dynamic
 schedule (the fp16 O1/O2 regime).
 
-Port of ``apex_tpu/amp/scaler.py:25-176, 219-242`` — ``ScalerState``,
-``init``, ``scale_loss``, ``update``, ``state_dict`` and
-``load_state_dict`` — with the state on the host: the scale and the
+Port of ``apex_tpu/amp/scaler.py:25-242`` — ``ScalerState``, ``init``,
+``scale_loss``, ``all_finite``, ``unscale``, ``update``, ``state_dict``
+and ``load_state_dict`` — with the state on the host: the scale and the
 counters are Python numbers, and the caller hands :func:`update` the
 step's finite flag, read from the device once per step (the reference
 Apex's ``update_scale`` reads its overflow flag with ``.item()`` the
@@ -17,13 +17,14 @@ non-finite step only counts as skipped.
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import List, Sequence, Union
 
 import torch
 
 __all__ = ["DYNAMIC_INIT_SCALE", "GROWTH_FACTOR", "BACKOFF_FACTOR",
-           "GROWTH_INTERVAL", "ScalerState", "init", "scale_loss", "update",
-           "state_dict", "load_state_dict"]
+           "GROWTH_INTERVAL", "ScalerState", "init", "scale_loss",
+           "all_finite", "unscale", "update", "state_dict",
+           "load_state_dict"]
 
 DYNAMIC_INIT_SCALE = 2.0 ** 16
 GROWTH_FACTOR = 2.0
@@ -61,6 +62,33 @@ def init(loss_scale: Union[str, float, int, None] = "dynamic",
 def scale_loss(loss: torch.Tensor, state: ScalerState) -> torch.Tensor:
     """``loss.float() * loss_scale``."""
     return loss.float() * state.loss_scale
+
+
+def all_finite(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Whether every element of every gradient is finite, as a 0-d bool
+    tensor on their device (``apex_tpu/amp/scaler.py:82``, one model
+    without model-parallel axes); the caller reads it once."""
+    if not grads:
+        return torch.ones((), dtype=torch.bool)
+    return torch.stack([torch.isfinite(g).all() for g in grads]).all()
+
+
+def unscale(grads: Sequence[torch.Tensor], state: ScalerState
+            ) -> List[torch.Tensor]:
+    """Each gradient times ``1 / loss_scale`` in its own dtype, fp16 in
+    fp32 (``apex_tpu/amp/scaler.py:122`` with ``out_dtype=None``, the
+    staged single-pass optimizers' form).  The schedule holds only
+    powers of two, so the low-precision multiply is exact; an fp16
+    gradient divided by 2^16 would fall into fp16's subnormals, hence
+    its fp32 result.  A scale of 1 (the bf16 O4/O5 regime) returns the
+    gradients themselves: ``x * 1`` is ``x`` bit for bit, and the fp32
+    value of an fp16 gradient is what the kernels read from it, so the
+    pass JAX makes would change nothing."""
+    inv = 1.0 / state.loss_scale
+    if inv == 1.0:
+        return list(grads)
+    return [g.float() * inv if g.dtype == torch.float16 else g * inv
+            for g in grads]
 
 
 def update(state: ScalerState, grads_finite: bool) -> ScalerState:

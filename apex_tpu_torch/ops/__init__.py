@@ -19,7 +19,8 @@ from .flash_decode import (dequantize_kv, flash_decode, flash_decode_multi,
                            paged_attention_reference)
 from .fused_pipeline import (FlatGroup, adam_pipeline,
                              adam_pipeline_reference, flatten_params,
-                             grad_norm_finite, grad_norm_finite_reference)
+                             grad_norm_finite, grad_norm_finite_reference,
+                             sgd_pipeline, sgd_pipeline_reference)
 from .layer_norm import (FusedLayerNormFunction, fused_layer_norm,
                          layer_norm, layer_norm_backward,
                          layer_norm_backward_reference,
@@ -29,7 +30,9 @@ from .quant_matmul import (QuantGPTServingWeights, QuantLayerWeights,
                            dequantize_weight, is_quantized_weights,
                            quant_matmul, quant_matmul_reference,
                            quantize_weight, quantize_weights)
-from .fused_optim import lamb_phase1, lamb_phase1_reference
+from .fused_optim import (adam_step, adam_step_reference, lamb_phase1,
+                          lamb_phase1_reference, sgd_step,
+                          sgd_step_reference)
 from .moe_routing import (MoERouteDispatchFunction, RouteDispatch,
                           moe_combine, moe_route_dispatch,
                           moe_route_dispatch_reference)
@@ -63,6 +66,8 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "softmax_backward_reference", "ScaledUpperTriangMaskedSoftmax",
            "scaled_masked_softmax", "masked_softmax",
            "masked_softmax_reference", "ScaledMaskedSoftmax",
-           "lamb_phase1", "lamb_phase1_reference", "RouteDispatch",
+           "lamb_phase1", "lamb_phase1_reference", "sgd_step",
+           "sgd_step_reference", "adam_step", "adam_step_reference",
+           "sgd_pipeline", "sgd_pipeline_reference", "RouteDispatch",
            "MoERouteDispatchFunction", "moe_route_dispatch",
            "moe_route_dispatch_reference", "moe_combine"]

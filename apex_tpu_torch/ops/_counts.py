@@ -25,7 +25,8 @@ KERNELS = ("layer_norm", "flash_attention", "flash_decode",
            "scaled_masked_softmax_fwd", "flash_attention_e_kvmask",
            "flash_attention_e_bwd_kvmask", "lamb_phase1",
            "flash_attention_bwd", "flash_attention_e_blocked",
-           "flash_attention_e_bwd_blocked", "moe_route_dispatch")
+           "flash_attention_e_bwd_blocked", "moe_route_dispatch",
+           "sgd_step", "sgd_pipeline", "adam_step")
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -1,9 +1,10 @@
 """The persistent packed optimizer pipeline: flat buffers, the
-norm/finite sweep and the Adam update sweep.
+norm/finite sweep and the Adam and SGD update sweeps.
 
 Port of ``apex_tpu/ops/fused_pipeline.py`` (``grad_norm_finite`` and its
-Pallas ``_norm_finite_pallas``; ``adam_pipeline`` and its Pallas body
-``_adam_pipeline_kernel`` run by ``fused_optim._elementwise_call``) with
+Pallas ``_norm_finite_pallas``; ``adam_pipeline`` and ``sgd_pipeline``
+and their Pallas bodies ``_adam_pipeline_kernel`` and
+``_sgd_pipeline_kernel`` run by ``fused_optim._elementwise_call``) with
 the flat layout it needs from
 ``apex_tpu/ops/multi_tensor.py``.  fp32 masters and the optimizer's
 moments live in one flat fp32 buffer per model dtype group across
@@ -15,12 +16,16 @@ flat parameter buffer — no per-step pack and no assemble.  The JAX
 package's 16M-element chunking (``PACK_MAX_ELEMS``) guards an XLA
 layout temporary and is not needed here.
 
-On CUDA tensors :func:`grad_norm_finite` launches ``csrc/norm_finite.cu``
-and :func:`adam_pipeline` launches ``csrc/fused_adam.cu``, or raise; on
-CPU tensors they run :func:`grad_norm_finite_reference` (the
-``_norm_finite_jnp`` math) and :func:`adam_pipeline_reference` (the
-``_adam_pipeline_jnp`` math).  The Adam sweep updates ``p``, ``m``,
-``v`` and ``lowp`` in place; the norm sweep only reads.
+On CUDA tensors :func:`grad_norm_finite` launches ``csrc/norm_finite.cu``,
+:func:`adam_pipeline` ``csrc/fused_adam.cu`` and :func:`sgd_pipeline`
+``csrc/fused_sgd.cu``, or they raise; on CPU tensors they run
+:func:`grad_norm_finite_reference` (the ``_norm_finite_jnp`` math),
+:func:`adam_pipeline_reference` (the ``_adam_pipeline_jnp`` math) and
+:func:`sgd_pipeline_reference` (``_sgd_pipeline_jnp``'s, rounded as the
+kernel rounds: bit for bit on the card).  The update sweeps write the
+master, the state and ``lowp`` in place; the norm sweep only reads.
+The SGD sweep reads its scale and skip flag from device memory, so
+either may be a 0-d tensor the device computed.
 """
 from __future__ import annotations
 
@@ -31,13 +36,14 @@ import torch
 
 from .. import _build
 from ._counts import bump
+from .fused_optim import _scalar, check_buffers, f32, one_minus
 
 __all__ = ["FlatGroup", "flatten_params", "grad_norm_finite",
            "grad_norm_finite_reference", "adam_pipeline",
-           "adam_pipeline_reference"]
+           "adam_pipeline_reference", "sgd_pipeline",
+           "sgd_pipeline_reference"]
 
 _G_TAKES = (torch.float32, torch.bfloat16, torch.float16)
-_LOWP_TAKES = (torch.bfloat16, torch.float16)
 
 
 @dataclasses.dataclass
@@ -201,22 +207,8 @@ def adam_pipeline_reference(g, p, m, v, lowp=None, *, grad_scale, lr,
 
 
 def _launch(g, p, m, v, lowp, hyp, adam_w_mode):
+    check_buffers("adam_pipeline", g, (p, m, v), lowp)
     n = p.numel()
-    for name, t in (("p", p), ("m", m), ("v", v)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or \
-                t.numel() != n or t.device != p.device:
-            raise ValueError(f"{name} must be a contiguous float32 buffer "
-                             f"of {n} elements on {p.device}")
-    if g.dtype not in _G_TAKES or not g.is_contiguous() or \
-            g.numel() != n or g.device != p.device:
-        raise ValueError(f"g must be a contiguous {_G_TAKES} buffer of "
-                         f"{n} elements on {p.device}")
-    if lowp is not None and (lowp.dtype not in _LOWP_TAKES
-                             or not lowp.is_contiguous()
-                             or lowp.numel() != n
-                             or lowp.device != p.device):
-        raise ValueError(f"lowp must be a contiguous {_LOWP_TAKES} buffer "
-                         f"of {n} elements on {p.device}")
     lib = _build.library("fused_adam")
     with torch.cuda.device(p.device):
         rc = lib.apex_adam_pipeline(
@@ -254,3 +246,67 @@ def adam_pipeline(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
                          f"{p.device}")
     _launch(g, p, m, v, lowp, hyp, adam_w_mode)
     return p, m, v, lowp
+
+
+def sgd_pipeline_reference(g, p, mom, lowp=None, *, grad_scale, lr,
+                           momentum, dampening, weight_decay, nesterov=False,
+                           wd_after_momentum=False, first_run, keep=True):
+    """Plain version of the SGD sweep (``_sgd_pipeline_jnp``'s math, in
+    the kernel's order, one rounding an operation), updating ``p``,
+    ``mom`` and ``lowp`` in place; ``keep`` False (or a 0-d tensor that
+    is 0) leaves ``p`` and ``mom`` as they were."""
+    gs = _scalar(grad_scale, p.device)
+    ok = _scalar(keep, p.device) > 0.5
+    lr_, mo, omd, wd = (_scalar(x, p.device) for x in (
+        f32(lr), f32(momentum), one_minus(dampening), f32(weight_decay)))
+    gf = g.float() * gs
+    if not wd_after_momentum:
+        gf = gf + wd * p
+    mom_new = gf if first_run else mo * mom + omd * gf
+    upd = gf + mo * mom_new if nesterov else mom_new
+    if wd_after_momentum:
+        upd = upd + wd * p
+    p.copy_(torch.where(ok, p - lr_ * upd, p))
+    mom.copy_(torch.where(ok, mom_new, mom))
+    if lowp is not None:
+        lowp.copy_(p)
+    return p, mom, lowp
+
+
+def sgd_pipeline(g: torch.Tensor, p: torch.Tensor, mom: torch.Tensor,
+                 lowp: Optional[torch.Tensor] = None, *, grad_scale,
+                 lr: float, momentum: float, dampening: float,
+                 weight_decay: float, nesterov: bool = False,
+                 wd_after_momentum: bool = False, first_run: bool,
+                 keep=True):
+    """The momentum-SGD update sweep over one flat group, in place: the
+    grads scaled by ``grad_scale`` (unscale times clip), the step, the
+    skip-select ``keep`` (False leaves p and mom bitwise unchanged), and
+    the master->model cast into ``lowp``.  ``grad_scale`` and ``keep``
+    may be numbers or 0-d tensors on the buffers' device.  Returns ``(p,
+    mom, lowp)``."""
+    kw = dict(grad_scale=grad_scale, lr=lr, momentum=momentum,
+              dampening=dampening, weight_decay=weight_decay,
+              nesterov=nesterov, wd_after_momentum=wd_after_momentum,
+              first_run=first_run, keep=keep)
+    if p.device.type == "cpu":
+        return sgd_pipeline_reference(g, p, mom, lowp, **kw)
+    if p.device.type != "cuda":
+        raise ValueError(f"sgd_pipeline runs on cuda or cpu, not "
+                         f"{p.device}")
+    check_buffers("sgd_pipeline", g, (p, mom), lowp)
+    gs, ok = _scalar(grad_scale, p.device), _scalar(keep, p.device)
+    lib = _build.library("fused_sgd")
+    with torch.cuda.device(p.device):
+        rc = lib.apex_sgd_pipeline(
+            g.data_ptr(), p.data_ptr(), mom.data_ptr(),
+            None if lowp is None else lowp.data_ptr(), gs.data_ptr(),
+            ok.data_ptr(), p.numel(), f32(lr), f32(momentum),
+            one_minus(dampening), f32(weight_decay), int(bool(first_run)),
+            int(bool(nesterov)), int(bool(wd_after_momentum)),
+            _build.dtype_code(g.dtype),
+            _build.dtype_code(lowp.dtype) if lowp is not None else 0,
+            _build.stream_ptr(p.device))
+    _build.check("fused_sgd", rc, "sgd_pipeline kernel")
+    bump("sgd_pipeline")
+    return p, mom, lowp

@@ -1,17 +1,21 @@
-"""FusedAdam in its persistent-pipeline form.
+"""FusedAdam in its staged per-leaf form and its persistent-pipeline
+form.
 
 Port of ``apex_tpu/optimizers/fused_adam.py:110-272`` — ``fused_adam``
-with ``pipeline_init`` and ``pipeline_step`` — for the amp pipeline of
-:mod:`apex_tpu_torch.amp.mixed_precision`: the moments live in one flat
-fp32 buffer per group, and one sweep per group (the
-:func:`~apex_tpu_torch.ops.adam_pipeline` kernel) updates masters and
-moments in place and writes the model-dtype copy.  Bias corrections are
-taken at ``count + 1`` in fp32, and the count holds still on a skipped
-step, as in the JAX ``pipeline_step`` (:231-269).  The count lives on
-the host; the step's finite flag is the one amp measured and read back
-(a static scale passes True unchecked).  ``max_grad_norm`` (global norm
-clipping) and learning-rate schedules are not ported yet;
-``max_grad_norm`` raises.
+with ``fused_step`` (:177-215), ``pipeline_init`` and ``pipeline_step``
+— for the two routes of :mod:`apex_tpu_torch.amp.mixed_precision`.
+Staged: the moments live in one fp32 buffer a leaf, and one
+:func:`~apex_tpu_torch.ops.adam_step` kernel a leaf updates the master
+and moments in place and writes the model-dtype copy; the count always
+advances (amp skips around the step).  Pipeline: the moments live in
+one flat fp32 buffer per group, and one sweep per group (the
+:func:`~apex_tpu_torch.ops.adam_pipeline` kernel) does the same with
+amp's unscale and skip folded in; the count holds still on a skipped
+step, as in the JAX ``pipeline_step`` (:231-269).  Bias corrections are
+taken at ``count + 1`` in fp32 on both routes.  The count lives on the
+host; the step's finite flag is the one amp measured and read back (a
+static scale passes True unchecked).  ``max_grad_norm`` (global norm
+clipping) and learning-rate schedules are not ported yet and raise.
 
 ``kernels=False`` runs the sweep's plain version on any device (the
 oracle configuration); otherwise CUDA buffers go through the kernel.
@@ -24,6 +28,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.fused_optim import adam_step, adam_step_reference
 from ..ops.fused_pipeline import adam_pipeline, adam_pipeline_reference
 
 __all__ = ["FusedAdam", "FusedAdamState", "fused_adam"]
@@ -59,14 +64,35 @@ class FusedAdam:
         return (float(one - np.float32(self.beta1) ** c),
                 float(one - np.float32(self.beta2) ** c))
 
+    def init(self, masters: Sequence[torch.Tensor]) -> FusedAdamState:
+        """Zero moments, one pair a master (or a flat master buffer)."""
+        return FusedAdamState(
+            count=0, m=tuple(torch.zeros_like(p) for p in masters),
+            v=tuple(torch.zeros_like(p) for p in masters))
+
+    def fused_step(self, grads: Sequence[torch.Tensor],
+                   state: FusedAdamState, masters: Sequence[torch.Tensor],
+                   lowps: Sequence) -> FusedAdamState:
+        """One Adam step a leaf, in place: each fp32 master and its
+        moments updated, the model copy written into its ``lowps`` entry
+        (None where the master is the parameter itself).  Gradients
+        arrive unscaled, in their own dtype.  Returns the new state."""
+        bc1, bc2 = self.bias_corrections(state.count + 1)
+        step = adam_step if self.kernels else adam_step_reference
+        for g, p, m, v, lowp in zip(grads, masters, state.m, state.v,
+                                    lowps):
+            step(g, p, m, v, lowp, lr=self.learning_rate, beta1=self.beta1,
+                 beta2=self.beta2, eps=self.eps,
+                 weight_decay=self.weight_decay, bias_correction1=bc1,
+                 bias_correction2=bc2, adam_w_mode=self.adam_w_mode)
+        return dataclasses.replace(state, count=state.count + 1)
+
     def pipeline_init(self, masters: Sequence[torch.Tensor],
                       segments=None) -> FusedAdamState:
         """Zero moments in the layout of the flat fp32 master buffers
         (``segments``, the groups' tensor sizes, is not needed: Adam is
         elementwise)."""
-        return FusedAdamState(
-            count=0, m=tuple(torch.zeros_like(p) for p in masters),
-            v=tuple(torch.zeros_like(p) for p in masters))
+        return self.init(masters)
 
     def pipeline_step(self, gbufs: Sequence[torch.Tensor],
                       state: FusedAdamState,
@@ -103,5 +129,8 @@ def fused_adam(learning_rate: float = 1e-3, beta1: float = 0.9,
     if max_grad_norm is not None:
         raise NotImplementedError(
             "max_grad_norm (global-norm clipping) is not ported yet")
+    if callable(learning_rate):
+        raise NotImplementedError(
+            "learning-rate schedules are not ported yet; pass a number")
     return FusedAdam(learning_rate, beta1, beta2, eps, weight_decay,
                      adam_w_mode, bias_correction, kernels)

@@ -320,7 +320,11 @@ def make_train_setup(model: str = "bertlarge", *, policy: str = "O5",
     n_params = sum(p.numel() for p in net.parameters())
     opt = (fused_lamb if recipe["optimizer"] == "lamb" else fused_adam)(
         TRAIN_LR, kernels=kernels)
-    net, amp_opt = amp.initialize(net, opt, opt_level=policy)
+    # the persistent pipeline at every preset, as the recipes were built
+    # and measured (the default route would send the tiny CPU preset to
+    # the staged route, which fused_lamb has no form for)
+    net, amp_opt = amp.initialize(net, opt, opt_level=policy,
+                                  pipeline=True)
     flops = bert_model_flops(n_params, geo["num_layers"],
                              geo["hidden_size"], mask)
     return BertTrainSetup(net, amp_opt, tokens, mask,

@@ -381,7 +381,11 @@ def make_train_setup(model: str = "gpt345m", *, policy: str = "O5",
                            device=dev)
     n_params = sum(p.numel() for p in net.parameters())
     opt = fused_adam(TRAIN_LR, kernels=kernels)
-    net, amp_opt = amp.initialize(net, opt, opt_level=policy)
+    # the persistent pipeline at every preset, as the recipes were built
+    # and measured (the default route would send the tiny CPU preset to
+    # the staged route: under 128 MiB)
+    net, amp_opt = amp.initialize(net, opt, opt_level=policy,
+                                  pipeline=True)
     return TrainSetup(net, amp_opt, tokens, torch.roll(tokens, -1, dims=-1),
                       n_params, model_flops(model, n_params))
 

@@ -48,7 +48,16 @@ Phases, in order; any failure exits non-zero without the result line:
                    serve's decode (8 rows) and prefill (1024 rows) in
                    bf16 at capacity factors 8.0 and 1.25, integers and
                    buffer exactly equal, and its gradient (the plain
-                   version at the saved inputs) once on the card.
+                   version at the saved inputs) once on the card; the
+                   ResNet slice's (row 19's SGD step, Adam step and SGD
+                   pipeline sweep): the steps over ResNet-50's 161 real
+                   leaves (bf16 g and copy on the 55 conv/fc leaves, fp32
+                   on the 106 batch norms') and the sweep over one
+                   25,557,032-element group, each bitwise against its
+                   plain version, with the flag grid (Nesterov,
+                   dampening, weight decay after the momentum, first
+                   run, keep, no/bf16/fp16 copy) on an odd length and on
+                   misaligned views.
 3. serve O5/O0   — GPT-345M width (vocab 50304, hidden 1024, 24 layers,
                    16 heads, max_seq 1024), O5 bf16 then fp32, seeded
                    random weights: serve 8 seeded prompts of 64..700
@@ -100,7 +109,9 @@ Phases, in order; any failure exits non-zero without the result line:
                    weights: 8 steps through ``standalone_gpt.train_smoke``
                    with launch counts reset just before; every train
                    kernel must have launched as often as the step
-                   implies, losses finite, step 8's below step 1's.
+                   implies, losses finite, step 8's below step 1's.  This
+                   and every other GPT and BERT train phase must take
+                   amp's persistent pipeline.
 5. train plain   — the first 3 steps again from the same weights and
                    batch through every kernel's plain version (no kernel
                    may launch); each loss within ``TRAIN_LOSS_TOL`` of
@@ -156,11 +167,44 @@ Phases, in order; any failure exits non-zero without the result line:
                    step each; the unblocked E counts 0); losses finite
                    and falling; 3 plain steps within
                    ``TRAIN_LONG_LOSS_TOL`` (one limit a step).
+6f. train_resnet — bench.py's bench_resnet50 through the port's imagenet
+                   script (``examples/imagenet/main_amp``): ResNet-50,
+                   batch 256, 224x224, 1000 classes, O5 (bf16 convs,
+                   fp32 batch norm), ``fused_sgd(0.1, momentum=0.9,
+                   weight_decay=1e-4)``, seeded weights and one seeded
+                   batch.  The routed default must be the staged route
+                   (51 MB of cast model < 128 MiB): 8 steps, launch
+                   counts reset just before and held exactly (161
+                   ``sgd_step`` a step, nothing else), losses finite and
+                   falling; step ms, images/s, model TFLOP/s at
+                   bench.py's 3 x 4.1 GFLOP an image, the optimizer's
+                   host time and peak memory.  Then, on cuDNN's
+                   deterministic algorithms, 3 steps with the kernels, 3
+                   through the plain versions (no launch) and 3 with
+                   ``pipeline=True`` (2 groups, 2 ``sgd_pipeline`` a
+                   step), losses within ``TRAIN_RESNET_LOSS_TOL`` of the
+                   kernel run's; one staged and one pipeline optimizer
+                   stepped twice on the same captured gradients (masters,
+                   momenta and model copies bitwise equal); 3 Adam steps
+                   (161 ``adam_step`` a step); 4 O2 steps (fp16, a
+                   dynamic scale from 2^16: scale and skips printed, 161
+                   launches an applied step); and the graft entry's eval
+                   forward (batch 8, ``train=False``) against the same
+                   weights in fp32 compute.
+6g. resnet_faults — each fault of ``RESNET_FAULTS`` (the weight decay's
+                   sign flipped; every fourth element frozen) planted in
+                   a temporary copy of ``fused_sgd.cu``, built there, and
+                   the deterministic kernel-against-plain leg of
+                   train_resnet run in that copy: every fault must move a
+                   loss past ``TRAIN_RESNET_LOSS_TOL``.
 7. profiles      — the O5 serve, the O5 speculative serve (self draft), the
                    Q8 serve over an int8 cache, the MoE serve at cf 8.0
                    and 1.25, one O5 and one O2 train
                    step of GPT-345M and of BERT-large (on bench.py's
-                   all-ones mask), one GPT-345M step at seq 2048
+                   all-ones mask), one GPT-345M step at seq 2048 and one
+                   staged ResNet-50 step (device time split into cuDNN
+                   convolutions, the optimizer kernel, max pool and the
+                   plain batch norm and elementwise work)
                    under ``torch.profiler``: device time by kernel and
                    the device's idle share.  Last, since the profiler
                    slows every later launch.
@@ -178,10 +222,13 @@ import functools
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -351,6 +398,40 @@ MOE_EXPERTS = 8
 MOE_NODROP_CF = 8.0
 MOE_DROP_CF = 1.25
 MOE_SAMPLE_EVERY = 25
+# the ResNet slice: bench.py's bench_resnet50 (batch 256, 224x224, 1000
+# classes, O5, fused_sgd(0.1, momentum=0.9, weight_decay=1e-4)); the
+# staged route launches one optimizer kernel a leaf, 161 a step
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 256, 224, 1000
+RESNET_STEPS, RESNET_LEAVES = 8, 161
+RESNET_ADAM_STEPS, RESNET_O2_STEPS, RESNET_EVAL_BATCH = 3, 4, 8
+RESNET_ADAM_LR = 1e-3
+# bench.py:92: a ResNet-50 train step is ~3 x 4.1 GFLOP an image
+RN50_TRAIN_FLOPS_PER_IMG = 3 * 4.1e9
+# the optimizer checks' odd-length buffer (the kernels' scalar tail)
+OPT_ODD_N = 1_000_003
+# (nesterov, dampening, wd_after_momentum, first_run)
+SGD_FLAGS = ((False, 0.0, False, False), (True, 0.0, False, False),
+             (False, 0.1, True, False), (False, 0.1, False, True),
+             (True, 0.0, True, True))
+# ResNet-50 train, kernel vs plain (and pipeline vs staged), over the first
+# PLAIN_STEPS steps on cuDNN's deterministic algorithms, one limit a step:
+# the optimizer kernels equal their plain versions bit for bit, so sound
+# kernels read 0 at every step; an SGD kernel with the weight decay's sign
+# flipped reads 0 (step 1 is the forward alone), 6.08e-3 and 7.27e-3, one
+# that freezes every fourth element 0, 0.214 and 0.053 (PERF.md, Findings)
+TRAIN_RESNET_LOSS_TOL = (1e-6, 1e-4, 1e-4)
+# the faults ``--phases resnet_faults`` plants in a copy of fused_sgd.cu to
+# show that TRAIN_RESNET_LOSS_TOL catches them: (sound line, faulty line)
+RESNET_FAULTS = {
+    "wd_sign": ("g = __fadd_rn(g, __fmul_rn(h.wd, p));",
+                "g = __fsub_rn(g, __fmul_rn(h.wd, p));"),
+    "every_4th_frozen": ("sgd_one(ge, pp[e], mm[e], h, keep);",
+                         "sgd_one(ge, pp[e], mm[e], h, keep && e != 3);"),
+}
+# the eval forward (train=False) in bf16 against the same weights in fp32
+# compute: bf16 rounds ~50 layers of activations (measured 2.2e-3 of
+# max |logit| on the CPU)
+RESNET_EVAL_RTOL = 2e-2
 
 # --- the card (NVIDIA H100 SXM data sheet, dense) ----------------------
 HBM_BYTES_S = 3.35e12
@@ -382,6 +463,9 @@ REPLACES = {
     "flash_attention_e_blocked": "apex_tpu/ops/flash_attention.py:2067",
     "flash_attention_e_bwd_blocked": "apex_tpu/ops/flash_attention.py:2404",
     "moe_route_dispatch": "apex_tpu/ops/moe_routing.py:145",
+    "sgd_step": "apex_tpu/ops/fused_optim.py:393",
+    "adam_step": "apex_tpu/ops/fused_optim.py:220",
+    "sgd_pipeline": "apex_tpu/ops/fused_pipeline.py:453",
 }
 SOURCES = {
     "layer_norm": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -409,6 +493,9 @@ SOURCES = {
     "flash_attention_e_bwd_blocked":
         "apex_tpu_torch/csrc/flash_attention_bwd.cu",
     "moe_route_dispatch": "apex_tpu_torch/csrc/moe_routing.cu",
+    "sgd_step": "apex_tpu_torch/csrc/fused_sgd.cu",
+    "adam_step": "apex_tpu_torch/csrc/fused_adam.cu",
+    "sgd_pipeline": "apex_tpu_torch/csrc/fused_sgd.cu",
 }
 # the path each kernel's launches are counted on
 SERVE_KERNELS = ("layer_norm", "flash_attention", "flash_decode")
@@ -436,13 +523,15 @@ LONG_CONTEXT_KERNELS = ("flash_attention", "flash_attention_bwd")
 TRAIN_LONG_KERNELS = ("layer_norm", "layer_norm_bwd",
                       "flash_attention_e_blocked",
                       "flash_attention_e_bwd_blocked", "fused_adam_pipeline")
+TRAIN_RESNET_KERNELS = ("sgd_step", "adam_step", "sgd_pipeline")
 # the kernel checks that draw from a generator of their own (the Q8
-# tier's, the BERT phases', the long-context slice's), so the earlier
-# checks keep their inputs
+# tier's, the BERT phases', the long-context, MoE and ResNet slices'),
+# so the earlier checks keep their inputs
 BERT_CHECKS = ("grad_routing", "scaled_masked_softmax",
                "flash_attention_e_kvmask", "lamb_phase1")
 LONG_CHECKS = ("flash_attention_bwd", "flash_attention_e_long")
 MOE_CHECKS = ("moe_routing",)
+RESNET_CHECKS = ("sgd_step", "adam_step", "sgd_pipeline")
 
 
 def log(msg: str) -> None:
@@ -488,6 +577,22 @@ def time_ms(fn, iters: int = 30, warmup: int = 3):
             raise RuntimeError(f"issuing one call took {issued_ms:.2f} "
                                f"ms, longer than the sleep that hides it")
         n //= 2
+
+
+def time_ms_wall(fn, iters: int = 10, warmup: int = 2) -> float:
+    """ms per call of ``fn()`` issued back to back, by CUDA events (the
+    wall a caller sees)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -2217,6 +2322,278 @@ def check_moe_routing(dev, g):
     return e0
 
 
+# --- phase 2, the ResNet slice's optimizer kernels ----------------------
+
+def resnet50_leaves():
+    """(name, shape, model dtype under O5) of ResNet-50's 161 parameters,
+    from the port's module on the ``meta`` device: 55 bf16 (the convs and
+    fc), 106 fp32 (the batch norms)."""
+    from apex_tpu_torch.amp import get_policy
+    from apex_tpu_torch.amp.cast import cast_dtype
+    from apex_tpu_torch.models.resnet import ResNet50
+
+    o5 = get_policy("O5")
+    return [(n, tuple(p.shape), cast_dtype(n, p, o5))
+            for n, p in ResNet50(device="meta").named_parameters()]
+
+
+def _leaf_buffers(dev, g, leaves, states: int):
+    """Seeded (grad, master, state...) a leaf: the grad in the leaf's
+    model dtype, fp32 master and ``states`` fp32 state buffers."""
+    out = []
+    for _, shape, dt in leaves:
+        grad = (0.01 * torch.randn(shape, generator=g, device=dev)).to(dt)
+        p = 0.05 * torch.randn(shape, generator=g, device=dev)
+        st = [0.01 * torch.randn(shape, generator=g, device=dev).abs()
+              for _ in range(states)]
+        out.append((grad, p, *st))
+    return out
+
+
+def _step_leaves(step, bufs, leaves, hyp):
+    """``step`` over clones of every leaf's master and state; the model
+    copy in the leaf's dtype (None for an fp32 leaf).  Returns the
+    outputs, per leaf."""
+    outs = []
+    for (grad, *state), (_, _, dt) in zip(bufs, leaves):
+        st = [t.clone() for t in state]
+        lowp = None if dt == torch.float32 else torch.empty_like(grad)
+        step(grad, *st, lowp, **hyp)
+        outs.append(st + ([] if lowp is None else [lowp]))
+    return outs
+
+
+def _bitwise(label, got, want) -> float:
+    """Max |got - want| over paired tensor lists; raises unless every
+    pair is bitwise equal (NaN-free inputs)."""
+    err = 0.0
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            err = max(err, max_err(a, b), 1e-30)
+    if err:
+        raise AssertionError(f"{label}: kernel differs from its plain "
+                             f"version (max |err| {err:.3e})")
+    return err
+
+
+def _odd_cases(dev, g, step, plain, hyp, states: int, grid):
+    """Kernel against plain, bitwise, over ``grid`` (flag dicts) on an
+    odd length (the scalar tail) with each (g, lowp) dtype pair, and
+    once on views one element off alignment (the scalar path)."""
+    n = OPT_ODD_N
+    grad = torch.randn(n + 1, generator=g, device=dev)
+    p = torch.randn(n + 1, generator=g, device=dev)
+    st = [0.1 * torch.randn(n + 1, generator=g, device=dev).abs()
+          for _ in range(states)]
+    cases = 0
+    for flags in grid:
+        for gdt, ldt in ((torch.float32, None),
+                         (torch.bfloat16, torch.bfloat16),
+                         (torch.float16, torch.float16)):
+            for off in ((0, 1) if gdt == torch.bfloat16 else (0,)):
+                gg = grad.to(gdt)[off:off + n]
+                outs = []
+                for fn in (step, plain):
+                    ps = [t[off:off + n].clone() if off == 0 else
+                          t.clone()[off:off + n] for t in [p] + st]
+                    lowp = None if ldt is None else torch.empty(
+                        n + 1, dtype=ldt, device=dev)[off:off + n]
+                    fn(gg, *ps, lowp, **hyp, **flags)
+                    outs.append(ps + ([] if lowp is None else [lowp]))
+                torch.cuda.synchronize()
+                _bitwise(f"{flags} g {gdt} lowp {ldt} offset {off}",
+                         outs[0], outs[1])
+                cases += 1
+    return cases
+
+
+def _opt_entry(name, shape, leaves, bufs, kernel_fn, plain_fn, lib_fn,
+               bytes_per_elem_extra, flops_per_elem):
+    """Time one whole-model step: kernel, plain version, library call;
+    the bound from the bytes each leaf's step must move."""
+    ms, ms_w = time_ms(kernel_fn)
+    try:
+        plain, plain_w = time_ms(plain_fn, iters=5)
+    except RuntimeError:
+        # ~12 launches a leaf: more than the launch queue holds behind
+        # one sleep, so the device time is not separable; back to back
+        # the device runs no faster than this
+        plain_w = time_ms_wall(plain_fn, iters=5)
+        plain = plain_w
+    lib, lib_w = time_ms(lib_fn)
+    nbytes = flops = 0.0
+    for (grad, *_), (_, _, dt) in zip(bufs, leaves):
+        n = grad.numel()
+        copy = 0 if dt == torch.float32 else grad.element_size()
+        nbytes += n * (grad.element_size() + bytes_per_elem_extra + copy)
+        flops += n * flops_per_elem
+    b_ms, b_by = bound_ms(nbytes, flops, FP32_FLOPS)
+    log(f"  {name}: time, device ms (wall ms) of the whole step: kernel "
+        f"{ms:.5f} ({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), "
+        f"library {lib:.5f} ({lib_w:.5f}), bound {b_ms:.5f} ({b_by}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return dict(name=name, shape=shape, ms=ms, ms_wall=ms_w,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib)
+
+
+def check_sgd_step(dev, g):
+    """Row 19's SGD step, one launch a leaf, over ResNet-50's 161 real
+    leaves (bf16 g and copy on the conv/fc leaves, fp32 g on the batch
+    norms') at bench_resnet50's hyperparameters, bitwise against the
+    plain version; the flag grid on an odd length and misaligned views;
+    times of the whole 161-leaf step."""
+    from apex_tpu_torch.ops import sgd_step, sgd_step_reference
+
+    leaves = resnet50_leaves()
+    bufs = _leaf_buffers(dev, g, leaves, 1)
+    hyp = dict(lr=0.1, momentum=0.9, dampening=0.0, weight_decay=1e-4,
+               nesterov=False, wd_after_momentum=False, first_run=False)
+    k = _step_leaves(sgd_step, bufs, leaves, hyp)
+    torch.cuda.synchronize()
+    r = _step_leaves(sgd_step_reference, bufs, leaves, hyp)
+    err = _bitwise("sgd_step (ResNet-50 leaves)",
+                   [t for o in k for t in o], [t for o in r for t in o])
+    cases = _odd_cases(dev, g, sgd_step, sgd_step_reference,
+                       dict(lr=0.1, momentum=0.9, weight_decay=1e-4), 1,
+                       [dict(nesterov=a, dampening=b, wd_after_momentum=c,
+                             first_run=d) for a, b, c, d in SGD_FLAGS])
+    n = sum(int(np.prod(s)) for _, s, _ in leaves)
+    log(f"kernel sgd_step: ResNet-50's {len(leaves)} leaves ({n} elements) "
+        f"bitwise equal to the plain version; {cases} flag/dtype cases at "
+        f"n={OPT_ODD_N} (and misaligned views) bitwise equal ok")
+    g32 = [b[0].float() for b in bufs]
+    ps = [b[1].clone() for b in bufs]
+    ms_ = [b[2].clone() for b in bufs]
+    lows = [None if dt == torch.float32 else torch.empty_like(b[0])
+            for b, (_, _, dt) in zip(bufs, leaves)]
+
+    def run(step):
+        for b, p, m, lowp in zip(bufs, ps, ms_, lows):
+            step(b[0], p, m, lowp, **hyp)
+
+    e = _opt_entry(
+        "sgd_step", f"ResNet-50's {len(leaves)} leaves, {n} elements (bf16 "
+        f"g and copy on 55, fp32 on 106)", leaves, bufs,
+        lambda: run(sgd_step), lambda: run(sgd_step_reference),
+        lambda: torch._fused_sgd_(
+            ps, g32, ms_, weight_decay=1e-4, momentum=0.9, lr=0.1,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False), 16, 8)
+    e["max_abs_err"] = err
+    return e
+
+
+def check_adam_step(dev, g):
+    """Row 19's Adam step over ResNet-50's 161 leaves, bitwise against
+    the plain version (AdamW, ``main_amp``'s ``fused_adam``), the L2 mode
+    and the dtype pairs on an odd length; times of the whole step."""
+    from apex_tpu_torch.ops import adam_step, adam_step_reference
+
+    leaves = resnet50_leaves()
+    bufs = _leaf_buffers(dev, g, leaves, 2)
+    hyp = dict(lr=RESNET_ADAM_LR, beta1=0.9, beta2=0.999, eps=1e-8,
+               weight_decay=1e-4, bias_correction1=1 - 0.9 ** 3,
+               bias_correction2=1 - 0.999 ** 3, adam_w_mode=True)
+    k = _step_leaves(adam_step, bufs, leaves, hyp)
+    torch.cuda.synchronize()
+    r = _step_leaves(adam_step_reference, bufs, leaves, hyp)
+    err = _bitwise("adam_step (ResNet-50 leaves)",
+                   [t for o in k for t in o], [t for o in r for t in o])
+    base = {k_: v for k_, v in hyp.items() if k_ != "adam_w_mode"}
+    cases = _odd_cases(dev, g, adam_step, adam_step_reference, base, 2,
+                       [dict(adam_w_mode=True), dict(adam_w_mode=False)])
+    n = sum(int(np.prod(s)) for _, s, _ in leaves)
+    log(f"kernel adam_step: ResNet-50's {len(leaves)} leaves bitwise equal "
+        f"to the plain version; {cases} mode/dtype cases at n={OPT_ODD_N} "
+        f"(and misaligned views) bitwise equal ok")
+    g32 = [b[0].float() for b in bufs]
+    ps = [b[1].clone() for b in bufs]
+    m1 = [b[2].clone() for b in bufs]
+    v1 = [b[3].clone() for b in bufs]
+    lows = [None if dt == torch.float32 else torch.empty_like(b[0])
+            for b, (_, _, dt) in zip(bufs, leaves)]
+    steps = [torch.full((), 3.0, device=dev) for _ in bufs]
+
+    def run(step):
+        for b, p, m, v, lowp in zip(bufs, ps, m1, v1, lows):
+            step(b[0], p, m, v, lowp, **hyp)
+
+    e = _opt_entry(
+        "adam_step", f"ResNet-50's {len(leaves)} leaves, {n} elements (bf16 "
+        f"g and copy on 55, fp32 on 106)", leaves, bufs,
+        lambda: run(adam_step), lambda: run(adam_step_reference),
+        lambda: torch._fused_adamw_(
+            ps, g32, m1, v1, [], steps, lr=RESNET_ADAM_LR, beta1=0.9,
+            beta2=0.999, weight_decay=1e-4, eps=1e-8, amsgrad=False,
+            maximize=False), 24, 16)
+    e["max_abs_err"] = err
+    return e
+
+
+def check_sgd_pipeline(dev, g):
+    """Row 19's SGD pipeline sweep over one packed group of ResNet-50's
+    element count (bf16 g and copy, fp32 master and momentum), its scale
+    and skip flag read from device memory: keep=1 bitwise against the
+    plain version, keep=0 leaving master and momentum bitwise unchanged
+    with the copy the cast of the old master; the flag grid with keep 0/1
+    on an odd length; times."""
+    from apex_tpu_torch.ops import sgd_pipeline, sgd_pipeline_reference
+
+    n = sum(int(np.prod(s)) for _, s, _ in resnet50_leaves())
+    grad = (0.01 * torch.randn(n, generator=g, device=dev)).bfloat16()
+    p0 = 0.05 * torch.randn(n, generator=g, device=dev)
+    m0 = 0.01 * torch.randn(n, generator=g, device=dev)
+    hyp = dict(lr=0.1, momentum=0.9, dampening=0.0, weight_decay=1e-4,
+               nesterov=False, wd_after_momentum=False, first_run=False)
+    gs = torch.full((), 0.5, device=dev)
+    outs = []
+    for fn in (sgd_pipeline, sgd_pipeline_reference):
+        p, m = p0.clone(), m0.clone()
+        low = torch.empty(n, dtype=torch.bfloat16, device=dev)
+        fn(grad, p, m, low, grad_scale=gs, keep=True, **hyp)
+        outs.append((p, m, low))
+    torch.cuda.synchronize()
+    err = _bitwise("sgd_pipeline keep=1", outs[0], outs[1])
+    p, m = p0.clone(), m0.clone()
+    low = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    sgd_pipeline(grad, p, m, low, grad_scale=gs,
+                 keep=torch.zeros((), dtype=torch.bool, device=dev), **hyp)
+    torch.cuda.synchronize()
+    if not (torch.equal(p, p0) and torch.equal(m, m0)
+            and torch.equal(low, p0.bfloat16())):
+        raise AssertionError("sgd_pipeline keep=0 moved the state")
+    grid = [dict(nesterov=a, dampening=b, wd_after_momentum=c, first_run=d,
+                 keep=kp, grad_scale=0.25)
+            for a, b, c, d in SGD_FLAGS for kp in (True, False)]
+    cases = _odd_cases(dev, g, sgd_pipeline, sgd_pipeline_reference,
+                       dict(lr=0.1, momentum=0.9, weight_decay=1e-4), 1,
+                       grid)
+    log(f"kernel sgd_pipeline: n={n} bf16 g, fp32 p/mom, bf16 copy, device "
+        f"scale 0.5: keep=1 bitwise equal to the plain version; keep=0 "
+        f"(a device flag) leaves p/mom bitwise and the copy = bf16(p); "
+        f"{cases} flag/keep/dtype cases at n={OPT_ODD_N} bitwise equal ok")
+    low = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    g32 = [grad.float()]
+    inv = torch.full((), 2.0, device=dev)
+    found = torch.zeros((), device=dev)
+    bufs = [(grad,)]
+    leaves = [("flat", (n,), torch.bfloat16)]
+    e = _opt_entry(
+        "sgd_pipeline", f"one packed group, n={n} (ResNet-50's elements), "
+        f"bf16 g and copy, device scale and flag", leaves, bufs,
+        lambda: sgd_pipeline(grad, p, m, low, grad_scale=gs, keep=True,
+                             **hyp),
+        lambda: sgd_pipeline_reference(grad, p, m, low, grad_scale=gs,
+                                       keep=True, **hyp),
+        lambda: torch._fused_sgd_(
+            [p], g32, [m], weight_decay=1e-4, momentum=0.9, lr=0.1,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False, grad_scale=inv, found_inf=found), 16, 9)
+    e["max_abs_err"] = err
+    return e
+
+
 def long_context(dev):
     """bench.py's bench_long_context on the port: at each shape, q, k, v
     drawn bf16 (randn * 0.5) and ``flash_attention(q, k, v,
@@ -3098,6 +3475,9 @@ def train_and_check(dev, policy: str = "O5", family: str = "gpt"):
     counts = launch_counts()
     geo = mod.MODELS[model]
     layers = geo["num_layers"]
+    if not r.setup.amp_opt.use_pipeline:
+        raise AssertionError(f"{label} did not take the persistent "
+                             f"pipeline")
     groups = len(r.setup.amp_opt.groups)
     gdtypes = "/".join(str(g.dtype).replace("torch.", "")
                        for g in r.setup.amp_opt.groups)
@@ -3110,7 +3490,8 @@ def train_and_check(dev, policy: str = "O5", family: str = "gpt"):
     log(f"{label}: {model} (vocab {geo['vocab_size']}, hidden "
         f"{geo['hidden_size']}, {layers} layers, {geo['num_heads']} heads), "
         f"seq {geo['seq']} batch {geo['batch']}{padded}, "
-        f"{r.setup.n_params} params in {groups} group(s) ({gdtypes}), "
+        f"{r.setup.n_params} params in {groups} pipeline group(s) "
+        f"({gdtypes}), "
         f"{TRAIN_STEPS} steps (setup + steps {wall:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB)")
     log(f"{label}: launch counts {counts} (expected {want})")
@@ -3292,6 +3673,360 @@ def overflow_leg(dev):
                              f"{OVERFLOW_MAX_STEPS} steps from 2^40")
 
 
+# --- phase 6f, the ResNet-50 train step ---------------------------------
+
+def _resnet_setup(dev, **kw):
+    """bench_resnet50's ResNet-50 from seed 0 through the port's ``main_amp``:
+    batch 256 (unless ``batch`` says otherwise), 224x224, 1000 classes,
+    O5 and fused_sgd(0.1, momentum=0.9, weight_decay=1e-4) unless ``kw``
+    says otherwise."""
+    from apex_tpu_torch.examples.imagenet import main_amp
+
+    kw.setdefault("batch", RESNET_BATCH)
+    return main_amp.make_train_setup(
+        "resnet50", image_size=RESNET_IMAGE, num_classes=RESNET_CLASSES,
+        seed=0, device=dev, **kw)
+
+
+def _resnet_run(dev, label, steps, want, **kw):
+    """A fresh seeded setup, then ``steps`` steps on its batch with the
+    launch counts reset just before and held to ``want(result)`` (every
+    other count 0); losses finite.  Returns ``(result, counts)``."""
+    from apex_tpu_torch.examples.imagenet import main_amp
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    setup = _resnet_setup(dev, **kw)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    r = main_amp.run_steps(setup, steps)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect = {k: 0 for k in counts}
+    expect.update(want(r))
+    route = "pipeline" if setup.amp_opt.use_pipeline else "staged"
+    log(f"train_resnet {label}: route {route}, launch counts "
+        f"{ {k: v for k, v in counts.items() if v} } (expected "
+        f"{ {k: v for k, v in expect.items() if v} }); losses "
+        f"{[round(x, 6) for x in r.losses]}")
+    if counts != expect:
+        raise AssertionError(f"{label}: launch counts {counts} != {expect}")
+    if not all(math.isfinite(x) for x in r.losses):
+        raise AssertionError(f"{label}: losses not finite: {r.losses}")
+    return r, counts
+
+
+def _masters(r) -> dict:
+    return {k: v.detach().clone() for k, v in
+            r.setup.amp_opt.masters().items()}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(max_err(a[k], b[k]) for k in a)
+
+
+def _add_counts(total: dict, counts: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
+def _resnet_same_grads(dev) -> None:
+    """One staged and one pipeline optimizer from the same weights, two
+    steps, the pipeline fed the staged run's captured gradients: the
+    masters, momenta and model copies must be equal bit for bit (the
+    same math, the scale 1 multiply exact)."""
+    from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
+
+    st = _resnet_setup(dev)
+    pp = _resnet_setup(dev, pipeline=True)
+    assert not st.amp_opt.use_pipeline and pp.amp_opt.use_pipeline
+    pnamed = dict(pp.model.named_parameters())
+    for step in range(2):
+        st.amp_opt.zero_grad()
+        loss = softmax_cross_entropy_loss(
+            st.model(st.images, train=True), st.labels,
+            half_to_float=True).mean()
+        st.amp_opt.scale_loss(loss).backward()
+        grads = {n: p.grad.clone() for n, p in st.model.named_parameters()}
+        st.amp_opt.apply_gradients()
+        pp.amp_opt.zero_grad()
+        for n, gr in grads.items():
+            pnamed[n].grad.copy_(gr)
+        pp.amp_opt.apply_gradients()
+        torch.cuda.synchronize()
+        ms, mp = st.amp_opt.masters(), pp.amp_opt.masters()
+        mom_s = {n: m for (n, _), m in zip(st.amp_opt.params,
+                                            st.amp_opt.state.momentum)}
+        mom_p = {n: grp_m[o:o + p.numel()].view(p.shape)
+                 for grp, grp_m in zip(pp.amp_opt.groups,
+                                       pp.amp_opt.state.momentum)
+                 for n, p, o in zip(grp.names, grp.params, grp.offsets)}
+        same = (all(torch.equal(ms[n], mp[n]) for n in ms)
+                and all(torch.equal(mom_s[n], mom_p[n]) for n in mom_s)
+                and all(torch.equal(p, pnamed[n])
+                        for n, p in st.model.named_parameters()))
+        log(f"train_resnet same gradients, step {step + 1}: staged "
+            f"(161 sgd_step launches) and pipeline (2 sgd_pipeline "
+            f"launches) masters, momenta and model copies bitwise equal: "
+            f"{same} (max |master diff| {_max_diff(ms, mp):.3e}) "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("staged and pipeline steps differ on the "
+                                 "same gradients")
+    del st, pp
+    free_memory()
+
+
+def _resnet_eval(dev) -> None:
+    """The graft entry's eval forward: batch 8, ``train=False`` (the
+    running averages of a fresh model), bf16, against the same weights
+    in fp32 compute (TF32 off)."""
+    setup = _resnet_setup(dev, batch=RESNET_EVAL_BATCH)
+    m = setup.model
+    with torch.no_grad():
+        lo = m(setup.images, train=False)
+        m.dtype = torch.float32
+        ref = m(setup.images.float(), train=False)
+        m.dtype = torch.bfloat16
+    rel = rel_err(lo, ref)
+    ok = lo.shape == (RESNET_EVAL_BATCH, RESNET_CLASSES) and \
+        bool(torch.isfinite(lo).all()) and rel <= RESNET_EVAL_RTOL
+    log(f"train_resnet eval: batch {RESNET_EVAL_BATCH} train=False logits "
+        f"{tuple(lo.shape)} finite, bf16 against fp32 compute on the same "
+        f"weights: max |err| {max_err(lo, ref):.4e} = {rel:.3e} of max "
+        f"|logit| {float(ref.abs().max()):.4f} (tol {RESNET_EVAL_RTOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the eval forward disagrees")
+    del setup
+    free_memory()
+
+
+def train_resnet(dev) -> dict:
+    """bench_resnet50's train step through the port's ``main_amp``:
+    the routed default (staged) and the pipeline route timed, the plain,
+    deterministic pipeline, Adam and O2 legs, the same-gradient comparison
+    and the eval forward.  Returns the path's launch counts summed over
+    the legs."""
+    from apex_tpu_torch import amp
+
+    per_step = {"sgd_step": RESNET_LEAVES}
+    torch.cuda.reset_peak_memory_stats(dev)
+    r, total = _resnet_run(
+        dev, "staged O5", RESNET_STEPS,
+        lambda r: {"sgd_step": RESNET_LEAVES * RESNET_STEPS})
+    aopt = r.setup.amp_opt
+    nbytes = amp.packed_nbytes(r.setup.model.named_parameters(),
+                               amp.get_policy("O5"))
+    if aopt.use_pipeline or len(aopt.params) != RESNET_LEAVES:
+        raise AssertionError("ResNet-50 did not take the staged route")
+    if not r.losses[-1] < r.losses[0]:
+        raise AssertionError(f"losses not falling: {r.losses}")
+    med, host = r.median_ms, r.opt_median_ms
+    tf = r.tflops_per_sec
+    peak = BF16_FLOPS / 1e12
+    log(f"train_resnet staged O5: ResNet-50, batch {RESNET_BATCH}, "
+        f"{RESNET_IMAGE}x{RESNET_IMAGE}, {r.setup.n_params} params in "
+        f"{len(aopt.params)} leaves, cast model {nbytes} bytes < "
+        f"{amp.PIPELINE_PACK_MIN_BYTES} (the routed default: staged), "
+        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+        f"GiB")
+    log(f"train_resnet staged O5: step ms {[round(x, 3) for x in r.step_ms]};"
+        f" median of steps 3-{RESNET_STEPS} {med:.3f} ms, images/s "
+        f"{r.images_per_sec:.1f}, model TFLOP/s {tf:.3f} "
+        f"({r.setup.flops_per_step / 1e12:.4f} TFLOP a step at bench.py's "
+        f"3 x 4.1 GFLOP an image, {100 * tf / peak:.2f}% of the "
+        f"{peak:.0f} TFLOP/s bf16 dense peak); the optimizer step's host "
+        f"time {host:.3f} ms ({[round(x, 3) for x in r.opt_ms]}), "
+        f"{100 * host / med:.2f}% of the step ({RESNET_LEAVES} ctypes "
+        f"launches)")
+    del r, aopt
+    free_memory()
+    # the same step on the other route, timed alike, for the routing
+    # cutoff's cost on this card
+    rt, ct = _resnet_run(
+        dev, "pipeline=True O5, timed", RESNET_STEPS,
+        lambda r: {"sgd_pipeline": 2 * RESNET_STEPS}, pipeline=True)
+    log(f"train_resnet pipeline=True O5: step ms "
+        f"{[round(x, 3) for x in rt.step_ms]}; median of steps "
+        f"3-{RESNET_STEPS} {rt.median_ms:.3f} ms ({rt.median_ms - med:+.3f}"
+        f" ms against the staged route), images/s "
+        f"{rt.images_per_sec:.1f}; the optimizer step's host time "
+        f"{rt.opt_median_ms:.3f} ms (2 ctypes launches)")
+    total = _add_counts(total, ct)
+    del rt
+    free_memory()
+    # the plain and pipeline legs against a kernel run, all on cuDNN's
+    # deterministic algorithms: the optimizer kernels equal their plain
+    # versions bit for bit, so the runs may differ only by a fault
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rk, ck = _resnet_run(
+            dev, "staged O5, deterministic cuDNN", PLAIN_STEPS,
+            lambda r: {"sgd_step": RESNET_LEAVES * PLAIN_STEPS})
+        kl, km = rk.losses, _masters(rk)
+        del rk
+        free_memory()
+        rp, _ = _resnet_run(dev, "plain", PLAIN_STEPS, lambda r: {},
+                            kernels=False)
+        pl, pm = rp.losses, _masters(rp)
+        del rp
+        free_memory()
+        rq, cq = _resnet_run(dev, "pipeline=True", PLAIN_STEPS,
+                             lambda r: {"sgd_pipeline": 2 * PLAIN_STEPS},
+                             pipeline=True)
+        if len(rq.setup.amp_opt.groups) != 2:
+            raise AssertionError("the pipeline leg is not 2 groups")
+        ql, qm = rq.losses, _masters(rq)
+        del rq
+        free_memory()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    total = _add_counts(_add_counts(total, ck), cq)
+    for what, losses, masters in (("plain", pl, pm), ("pipeline", ql, qm)):
+        diffs = [abs(a - b) for a, b in zip(losses, kl)]
+        log(f"train_resnet {what} vs staged kernels: |loss diff| "
+            f"{[f'{x:.2e}' for x in diffs]} (tol {TRAIN_RESNET_LOSS_TOL}); "
+            f"max |master diff| after {PLAIN_STEPS} steps "
+            f"{_max_diff(km, masters):.3e}")
+        if any(d > t for d, t in zip(diffs, TRAIN_RESNET_LOSS_TOL)):
+            raise AssertionError(f"{what} losses differ: {diffs}")
+    del km, pm, qm
+    _resnet_same_grads(dev)
+    ra, ca = _resnet_run(
+        dev, f"Adam (fused_adam({RESNET_ADAM_LR}, weight_decay=1e-4))",
+        RESNET_ADAM_STEPS,
+        lambda r: {"adam_step": RESNET_LEAVES * RESNET_ADAM_STEPS},
+        optimizer="adam", lr=RESNET_ADAM_LR)
+    del ra
+    free_memory()
+    ro, co = _resnet_run(
+        dev, "O2 (fp16 convs, fp32 batch norm, dynamic scale)",
+        RESNET_O2_STEPS,
+        lambda r: {k: v * sum(1 for f, _, _ in r.steps if f)
+                   for k, v in per_step.items()}, opt_level="O2")
+    for i, (fin, scale, skipped) in enumerate(ro.steps):
+        log(f"  O2 step {i + 1}: loss {ro.losses[i]:.6f} finite {fin} "
+            f"scale {scale:g} skipped {skipped} step ms "
+            f"{ro.step_ms[i]:.3f}")
+    del ro
+    free_memory()
+    total = _add_counts(_add_counts(total, ca), co)
+    _resnet_eval(dev)
+    return total
+
+
+# run in a copy of the port with a planted fault: 3 kernel and 3 plain
+# steps on deterministic cuDNN, one JSON line of the loss differences
+_FAULT_LEG = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+n = cs.PLAIN_STEPS
+rk, _ = cs._resnet_run(dev, "fault kernel", n,
+                       lambda r: {"sgd_step": cs.RESNET_LEAVES * n})
+kl, km = rk.losses, cs._masters(rk)
+del rk
+cs.free_memory()
+rp, _ = cs._resnet_run(dev, "fault plain", n, lambda r: {}, kernels=False)
+print("FAULT " + json.dumps({
+    "diffs": [abs(a - b) for a, b in zip(kl, rp.losses)],
+    "master": cs._max_diff(km, cs._masters(rp))}), flush=True)
+"""
+
+
+def resnet_faults(dev) -> None:
+    """Each fault of ``RESNET_FAULTS`` planted in a temporary copy of the
+    port (``fused_sgd.cu`` edited, built afresh there), then the
+    deterministic kernel-against-plain leg of ``train_resnet`` in that
+    copy: every fault must move a loss past ``TRAIN_RESNET_LOSS_TOL``."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (sound, faulty) in RESNET_FAULTS.items():
+            d = Path(tmp) / name
+            shutil.copytree(root / "apex_tpu_torch", d / "apex_tpu_torch",
+                            ignore=shutil.ignore_patterns("_build",
+                                                          "__pycache__"))
+            shutil.copy(root / "chip_smoke.py", d)
+            src = d / "apex_tpu_torch" / "csrc" / "fused_sgd.cu"
+            text = src.read_text()
+            if sound not in text:
+                raise AssertionError(f"fault {name}: {sound!r} not found")
+            src.write_text(text.replace(sound, faulty))
+            out = subprocess.run([sys.executable, "-c", _FAULT_LEG], cwd=d,
+                                 capture_output=True, text=True, timeout=900)
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith("FAULT ")]
+            if out.returncode != 0 or not lines:
+                raise AssertionError(f"fault {name}: the leg failed "
+                                     f"({out.returncode}):\n"
+                                     f"{out.stderr[-3000:]}")
+            r = json.loads(lines[-1][len("FAULT "):])
+            caught = any(x > t for x, t in zip(r["diffs"],
+                                               TRAIN_RESNET_LOSS_TOL))
+            log(f"resnet_faults {name} ({faulty.strip()}): |kernel - plain| "
+                f"losses {[f'{x:.3e}' for x in r['diffs']]} (tol "
+                f"{TRAIN_RESNET_LOSS_TOL}), max |master diff| "
+                f"{r['master']:.3e}: caught {caught} "
+                f"{'ok' if caught else 'FAIL'}")
+            if not caught:
+                raise AssertionError(f"fault {name} passed the loss limit")
+
+
+def profile_resnet(dev) -> None:
+    """One staged O5 step of bench_resnet50 under ``torch.profiler``
+    (built and two steps taken outside the window): device time by kernel
+    and by part (cuDNN convolutions and the fc GEMM, the max pool, the
+    optimizer kernel, the plain batch norm and the other elementwise
+    work), and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.examples.imagenet import main_amp
+
+    setup = _resnet_setup(dev)
+    for _ in range(2):
+        main_amp.train_step(setup)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(main_amp.train_step(setup)[0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = _profile_rows(prof)
+    busy = sum(r[1] for r in rows)
+    # max pool first: ATen's channels-last pool kernels end in "_nhwc"
+    conv_marks = ("xmma", "cudnn", "conv", "implicit", "cutlass", "dgrad",
+                  "wgrad", "fprop", "gemm")
+    parts = {"optimizer (sgd_kernel)": 0.0,
+             "cuDNN convolutions and the fc GEMM": 0.0, "max pool": 0.0,
+             "batch norm, ReLU, casts, loss (plain)": 0.0}
+    for name, ms, _ in rows:
+        low = name.lower()
+        if "sgd_kernel" in name:
+            parts["optimizer (sgd_kernel)"] += ms
+        elif "max_pool" in low:
+            parts["max pool"] += ms
+        elif any(k in low for k in conv_marks):
+            parts["cuDNN convolutions and the fc GEMM"] += ms
+        else:
+            parts["batch norm, ReLU, casts, loss (plain)"] += ms
+    log(f"train_resnet profile (staged O5, one step, profiler on): wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms summed over kernels "
+        f"({100 * busy / wall:.2f}% of the wall, so "
+        f"{100 - 100 * busy / wall:.2f}% idle); by part: "
+        + "; ".join(f"{k} {v:.3f} ms ({100 * v / busy:.2f}%)"
+                    for k, v in parts.items()))
+    for name, ms, n in rows[:18]:
+        log(f"  {ms:10.3f} ms {100 * ms / busy:6.2f}%  x{n:<6d} "
+            f"{name[:90]}")
+    del setup
+    free_memory()
+
+
 def _profile_rows(prof):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -3411,7 +4146,7 @@ def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
 
 PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "serve_moe", "train",
           "train_o2", "train_bert", "train_bert_o2", "long_context",
-          "train_long", "profile")
+          "train_long", "train_resnet", "resnet_faults", "profile")
 
 
 def main(argv=None) -> int:
@@ -3474,6 +4209,8 @@ def main(argv=None) -> int:
         gl.manual_seed(7)
         gm = torch.Generator(device=dev)
         gm.manual_seed(8)
+        gr = torch.Generator(device=dev)
+        gr.manual_seed(9)
         if "kernels" in phases:
             for name, fn in (("layer_norm", check_layer_norm),
                              ("flash_attention", check_flash_attention),
@@ -3499,15 +4236,19 @@ def main(argv=None) -> int:
                               check_flash_attention_bwd),
                              ("flash_attention_e_long",
                               check_flash_attention_e_long),
-                             ("moe_routing", check_moe_routing)):
-                # the Q8 tier's, the BERT phases', the long-context and
-                # the MoE slices' checks draw from generators of their
+                             ("moe_routing", check_moe_routing),
+                             ("sgd_step", check_sgd_step),
+                             ("adam_step", check_adam_step),
+                             ("sgd_pipeline", check_sgd_pipeline)):
+                # the Q8 tier's, the BERT phases', the long-context, MoE
+                # and ResNet slices' checks draw from generators of their
                 # own, so the earlier checks see the inputs they saw
                 # before
                 gen = gq if name in Q8_CHECKS else \
                     gb if name in BERT_CHECKS else \
                     gl if name in LONG_CHECKS else \
-                    gm if name in MOE_CHECKS else g
+                    gm if name in MOE_CHECKS else \
+                    gr if name in RESNET_CHECKS else g
                 ok, out = run(f"kernel {name}", lambda: fn(dev, gen))
                 if ok and out is not None:
                     for e in (out if isinstance(out, tuple) else (out,)):
@@ -3620,6 +4361,12 @@ def main(argv=None) -> int:
                 run("train_long plain", lambda: train_plain_and_compare(
                     dev, long_losses[:PLAIN_STEPS], "O5",
                     family="gpt_long"))
+        if "train_resnet" in phases:
+            ok, out = run("train_resnet", lambda: train_resnet(dev))
+            if ok:
+                counts["train_resnet"] = out
+        if "resnet_faults" in phases:
+            run("resnet_faults", lambda: resnet_faults(dev))
         if "profile" in phases:
             if "serve" in phases:
                 run("serve profile", lambda: profile_serve(dev))
@@ -3646,6 +4393,8 @@ def main(argv=None) -> int:
             if "train_long" in phases:
                 run("train_long profile", lambda: profile_train(
                     dev, "O5", "gpt_long"))
+            if "train_resnet" in phases:
+                run("train_resnet profile", lambda: profile_resnet(dev))
     log(f"chip_smoke: command time {time.perf_counter() - t_start:.1f} s")
     if failed:
         log(f"chip_smoke FAILED: {failed}")
@@ -3667,7 +4416,8 @@ def main(argv=None) -> int:
                     ("train_bert", TRAIN_BERT_KERNELS),
                     ("train_bert_o2", TRAIN_BERT_O2_KERNELS),
                     ("long_context", LONG_CONTEXT_KERNELS),
-                    ("train_long", TRAIN_LONG_KERNELS))
+                    ("train_long", TRAIN_LONG_KERNELS),
+                    ("train_resnet", TRAIN_RESNET_KERNELS))
                    if name in ks}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],

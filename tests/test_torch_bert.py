@@ -210,7 +210,7 @@ def _runs(batch, policy, dt):
                        int(info.steps_skipped)))
     net = _port_model(use_flash, TORCHD[dt], params_np)
     opt = fused_lamb(LR) if use_flash else fused_adam(LR)
-    net, ao = amp.initialize(net, opt, opt_level=policy)
+    net, ao = amp.initialize(net, opt, opt_level=policy, pipeline=True)
     t = [_t(batch[k]) for k in ("toks", "mask", "labels", "nsp")]
     tl, ti = [], []
     for _ in range(STEPS):

@@ -84,7 +84,8 @@ def _port_run(dtype, params_np, toks, labels):
     net = GPTModel(VOCAB, HIDDEN, LAYERS, HEADS, SEQ, dtype=dtype,
                    device="cpu")
     net.load_state_dict(gpt_params_from_numpy(params_np))
-    net, aopt = amp.initialize(net, fused_adam(LR), opt_level="O5")
+    net, aopt = amp.initialize(net, fused_adam(LR), opt_level="O5",
+                               pipeline=True)
     t, lab = torch.from_numpy(toks).long(), torch.from_numpy(labels).long()
     losses = []
     for _ in range(STEPS):
@@ -132,7 +133,8 @@ def test_grads_are_views_of_the_flat_buffer():
     # tied embedding's two uses summed
     net = GPTModel(64, 128, 1, 2, 16, device="cpu").reset_parameters(
         torch.Generator().manual_seed(1))
-    net, aopt = amp.initialize(net, fused_adam(1e-3), opt_level="O5")
+    net, aopt = amp.initialize(net, fused_adam(1e-3), opt_level="O5",
+                               pipeline=True)
     (group,) = aopt.groups
     toks = torch.randint(0, 64, (2, 16), generator=torch.Generator()
                          .manual_seed(2))
@@ -176,7 +178,8 @@ def test_batchnorm_params_stay_fp32_in_their_own_group():
             return self.bn(self.dense(x.to(self.dense.weight.dtype)).float())
 
     net = Net()
-    net, aopt = amp.initialize(net, fused_adam(1e-2), opt_level="O5")
+    net, aopt = amp.initialize(net, fused_adam(1e-2), opt_level="O5",
+                               pipeline=True)
     assert [g.dtype for g in aopt.groups] == [torch.bfloat16, torch.float32]
     low, full = aopt.groups
     assert full.master is full.data and full.lowp is None

@@ -88,7 +88,8 @@ def _port_run(dtype, params_np, toks, labels):
     net = GPTModel(VOCAB, HIDDEN, LAYERS, HEADS, SEQ, dtype=dtype,
                    device="cpu")
     net.load_state_dict(gpt_params_from_numpy(params_np))
-    net, aopt = amp.initialize(net, fused_adam(LR), opt_level="O5")
+    net, aopt = amp.initialize(net, fused_adam(LR), opt_level="O5",
+                               pipeline=True)
     t, lab = torch.from_numpy(toks).long(), torch.from_numpy(labels).long()
     losses = []
     for _ in range(STEPS):

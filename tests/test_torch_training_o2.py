@@ -110,7 +110,8 @@ def _port_run(dtype, params_np, steps, start_scale=None):
     net = GPTModel(VOCAB, HIDDEN, LAYERS, HEADS, SEQ, use_flash=False,
                    dtype=dtype, device="cpu")
     net.load_state_dict(gpt_params_from_numpy(params_np))
-    net, aopt = amp.initialize(net, fused_adam(LR), opt_level="O2")
+    net, aopt = amp.initialize(net, fused_adam(LR), opt_level="O2",
+                               pipeline=True)
     if start_scale is not None:
         aopt.scaler = dataclasses.replace(aopt.scaler,
                                           loss_scale=start_scale)
@@ -239,7 +240,7 @@ def test_check_finite_false_is_refused_for_a_dynamic_scale():
     net = GPTModel(64, 128, 1, 2, 16, device="cpu").reset_parameters(
         torch.Generator().manual_seed(0))
     net, aopt = amp.initialize(net, fused_adam(1e-3), opt_level="O5",
-                               check_finite=True)
+                               check_finite=True, pipeline=True)
     toks = torch.randint(0, 64, (2, 16),
                          generator=torch.Generator().manual_seed(1))
     aopt.zero_grad()
