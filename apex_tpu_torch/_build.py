@@ -6,8 +6,9 @@ own into ``csrc/_build/<name>-<hash>.so`` with::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas=-v -o <lib> <source>
 
-The hash covers the source and the flags, so an edited source never
-loads a stale library.  :func:`build` starts one ``nvcc`` per missing
+The hash covers the source, the shared headers it includes
+(``csrc/*.cuh``) and the flags, so an edited source never loads a stale
+library.  :func:`build` starts one ``nvcc`` per missing
 library, all at once, and waits for them together; :func:`library`
 builds on first use and sets every exported function's ``argtypes``
 (``c_void_p`` for pointers and the stream, so no pointer is cut to 32
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,10 +55,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "flash_attention": {
         # q, k, v, o, lse, kv_mask (null: none), b, h, sq, sk, d,
-        # q/k/v/o strides (b, h, s) in elements, scale, causal, dtype,
-        # stream
+        # q/k/v/o strides (b, h, s) in elements, scale, causal, dropout
+        # seed, hash width, threshold (0: no dropout) and 1 / (1 - rate),
+        # dtype, stream
         "apex_flash_attention_fwd": [_P] * 6 + [_I] * 5 + [_L] * 12
-        + [_F, _I, _I, _P],
+        + [_F, _I, _I, _I, _I, _F, _I, _P],
     },
     "flash_decode": {
         # q, k_cache, v_cache, k_scale, v_scale (null for a float
@@ -77,9 +80,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_attention_bwd": {
         # q, k, v, o, do, lse, dq, dk, dv, delta, lse2, kv_mask (null:
         # none), b, h, sq, sk, d, q/k/v/o/do/dq/dk/dv strides (b, h, s)
-        # in elements, scale, causal, dtype, stream
+        # in elements, scale, causal, the forward's dropout arguments,
+        # dtype, stream
         "apex_flash_attention_bwd": [_P] * 12 + [_I] * 5 + [_L] * 24
-        + [_F, _I, _I, _P],
+        + [_F, _I, _I, _I, _I, _F, _I, _P],
     },
     "fused_adam": {
         # g, p, m, v, lowp, n, lr, beta1, beta2, eps, weight_decay, bc1,
@@ -168,6 +172,9 @@ def nvcc_path() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # and the shared headers it includes
+    for header in re.findall(rb'#include "(\w+\.cuh)"', src):
+        src += (CSRC / header.decode()).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

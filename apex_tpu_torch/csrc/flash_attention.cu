@@ -3,13 +3,18 @@
 // Replaces: apex_tpu/ops/flash_attention.py `_flash_fwd` — both of its
 // Pallas bodies, `_fwd_single_kernel` (the whole padded sequence in one
 // block) and `_fwd_kernel` (the gridded online softmax) — for the
-// (b, h, s, d) layout, causal or not, without offsets or dropout — and,
-// through the E-layout entry, `_flash_fwd_e` (row 10) with its kv_mask
-// lane (`_fwd_e_kernel`'s has_kvm): an optional (b, sk) fp32 key mask,
-// a key attended where it is > 0 — and `_flash_fwd_e_blocked` (row 11),
-// the E forward the JAX package streams in (512, 512) tiles once the
-// padded sequence outgrows one VMEM block: this kernel walks keys in
+// (b, h, s, d) layout, causal or not, without offsets — and, through the
+// E-layout entry, `_flash_fwd_e` (row 10) with its kv_mask lane
+// (`_fwd_e_kernel`'s has_kvm): an optional (b, sk) fp32 key mask, a key
+// attended where it is > 0 — and `_flash_fwd_e_blocked` (row 11), the E
+// forward the JAX package streams in (512, 512) tiles once the padded
+// sequence outgrows one VMEM block: this kernel walks keys in
 // shared-memory tiles whatever s is, so the same launch serves it.
+// The E forward's dropout lane (`_fwd_e_kernel`'s keep at :1913 and the
+// blocked walk's at :2043) drops the unnormalized p of each (q, k) pair
+// whose counter hash (`flash_dropout.cuh`, JAX's `_rand_keep`) falls under the
+// rate, and scales the kept ones by 1 / (1 - rate); l sums the undropped
+// p, as in JAX.
 // It writes o in the input dtype and the fp32 per-row log-sum-exp
 // (natural log) the backward will read.  A row with no attended key
 // (every key masked, or under causal masking none at or before it)
@@ -49,11 +54,19 @@
 // the whole block (one __syncthreads_or): padding costs no products.
 // This runs on the fp32 pipes, not the tensor cores: mma/wgmma tiles and
 // TMA staging are later work.
+// Dropout adds no memory traffic: each (q, k) pair's keep bit is hashed
+// from the pair's global coordinates (about ten integer operations beside
+// the pair's 3 * d fused multiply-adds), so the kernel's 32-key tiles need
+// not match JAX's (ps, ps) or (512, 512) tiles, and the backward
+// regenerates the same bits.  The lane is a template parameter: the
+// dropout-free instantiations carry no hash code.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_dropout.cuh"
 
 namespace {
 
@@ -88,14 +101,15 @@ template <int kTPR>
 __device__ __forceinline__ int dim_of(int c, int t) { return 4 * kTPR * c + 4 * t; }
 
 // D: the head dim; kTPR: threads per q row (1 at d = 64, 2 at d = 128);
-// kMask: the kv_mask lane (the unmasked instantiation has no mask code)
-template <typename T, int D, int kTPR, bool kMask>
+// kMask: the kv_mask lane (the unmasked instantiation has no mask code);
+// kDrop: the dropout lane (likewise)
+template <typename T, int D, int kTPR, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kBQ * kTPR)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, const float* __restrict__ kvm, int h,
                  int sq, int sk, Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale, float a, int causal) {
+                 float scale, float a, int causal, Drop dr) {
   constexpr int kThreads = kBQ * kTPR;
   constexpr int kOwn = D / kTPR;  // dims a thread owns
   __shared__ __align__(16) float k_tile[kBK][D];
@@ -126,6 +140,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   float m = -INFINITY;  // running max of the raw logits
   float l = 0.f;        // running sum of exp2((s - m) * a)
+  DropRow drow;         // the row's part of each pair's hash
+  if constexpr (kDrop) drow = drop_row(dr, bi, hi, row);
 
   // causal: keys past the tile's last row are in every row's future
   const int k_end = causal ? min(sk, q0 + kBQ) : sk;
@@ -182,11 +198,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (m_new == -INFINITY) continue;  // every key so far masked
     const float corr = exp2f((m - m_new) * a);
     float psum = 0.f;
+    uint32_t x0 = 0;  // the hash counter of the tile's first key
+    if constexpr (kDrop) x0 = drop_counter(dr, drow, j0);
 #pragma unroll
     for (int jj = 0; jj < kBK; ++jj) {
       const float p = exp2f((s[jj] - m_new) * a);  // masked: exp2(-inf) = 0
-      s[jj] = p;
-      psum += p;
+      psum += p;  // l sums the undropped p
+      if constexpr (kDrop)
+        s[jj] = drop_keep(x0 + (uint32_t)jj, dr.thr) ? p * dr.inv : 0.f;
+      else
+        s[jj] = p;
     }
     l = l * corr + psum;
 #pragma unroll
@@ -224,15 +245,17 @@ template <typename T, int D, int kTPR>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
                      const float* kvm, int b, int h, int sq, int sk, Strides qs,
                      Strides ks, Strides vs, Strides os, float scale, int causal,
-                     cudaStream_t stream) {
+                     Drop dr, cudaStream_t stream) {
   const float a = scale * 1.4426950408889634f;  // scale * log2(e)
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
-  auto kernel = kvm ? flash_fwd_kernel<T, D, kTPR, true>
-                    : flash_fwd_kernel<T, D, kTPR, false>;
+  auto kernel = kvm ? (dr.thr ? flash_fwd_kernel<T, D, kTPR, true, true>
+                              : flash_fwd_kernel<T, D, kTPR, true, false>)
+                    : (dr.thr ? flash_fwd_kernel<T, D, kTPR, false, true>
+                              : flash_fwd_kernel<T, D, kTPR, false, false>);
   kernel<<<grid, kBQ * kTPR, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), kvm, h, sq, sk, qs, ks, vs, os,
-      scale, a, causal);
+      scale, a, causal, dr);
   return cudaGetLastError();
 }
 
@@ -240,13 +263,13 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
                    const float* kvm, int b, int h, int sq, int sk, int d, Strides qs,
                    Strides ks, Strides vs, Strides os, float scale, int causal,
-                   cudaStream_t stream) {
+                   Drop dr, cudaStream_t stream) {
   if (d == 64)
     return launch_d<T, 64, 1>(q, k, v, o, lse, kvm, b, h, sq, sk, qs, ks, vs, os, scale,
-                              causal, stream);
+                              causal, dr, stream);
   if (d == 128)
     return launch_d<T, 128, 2>(q, k, v, o, lse, kvm, b, h, sq, sk, qs, ks, vs, os,
-                               scale, causal, stream);
+                               scale, causal, dr, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -261,7 +284,10 @@ const char* apex_cuda_error_string(int e) {
 // q (b, h, sq, d), k/v (b, h, sk, d), o (b, h, sq, d) given by element
 // strides over (b, h, s) with a unit stride on d; lse (b, h, sq) fp32
 // contiguous; kvm null, or the (b, sk) fp32 key mask, contiguous.  dtype
-// codes: 0 float32, 1 bfloat16, 2 float16.  d = 64 or 128.
+// codes: 0 float32, 1 bfloat16, 2 float16.  d = 64 or 128.  Dropout
+// (`flash_dropout.cuh`): drop_thr 0 runs none; else drop_seed >= 0, the
+// hash's row stride and tile drop_w, a multiple of 32 or at least sq and
+// sk, and drop_inv = float32(1 / (1 - rate)).
 int apex_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, const void* kvm, int b, int h, int sq,
                              int sk, int d,
@@ -269,8 +295,12 @@ int apex_flash_attention_fwd(const void* q, const void* k, const void* v, void* 
                              long long k_sb, long long k_sh, long long k_ss,
                              long long v_sb, long long v_sh, long long v_ss,
                              long long o_sb, long long o_sh, long long o_ss,
-                             float scale, int causal, int dtype, void* stream) {
+                             float scale, int causal, int drop_seed, int drop_w,
+                             int drop_thr, float drop_inv, int dtype, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0 || sk <= 0 || b * h > 65535)
+    return cudaErrorInvalidValue;
+  Drop dr;
+  if (!make_drop(drop_seed, drop_w, drop_thr, drop_inv, sq, sk, &dr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(kvm);
@@ -279,13 +309,13 @@ int apex_flash_attention_fwd(const void* q, const void* k, const void* v, void* 
   switch (dtype) {
     case 0:
       return launch<float>(q, k, v, o, lse, m, b, h, sq, sk, d, qs, ks, vs, os, scale,
-                           causal, s);
+                           causal, dr, s);
     case 1:
       return launch<__nv_bfloat16>(q, k, v, o, lse, m, b, h, sq, sk, d, qs, ks, vs, os,
-                                   scale, causal, s);
+                                   scale, causal, dr, s);
     case 2:
       return launch<__half>(q, k, v, o, lse, m, b, h, sq, sk, d, qs, ks, vs, os, scale,
-                            causal, s);
+                            causal, dr, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -14,8 +14,12 @@
 // concatenated.  Causal (key j visible to query i iff j <= i, both
 // counted from 0: top-left aligned when sq != sk) or full, with the
 // kv_mask lane (`_bwd_e_kernel`'s has_kvm): an optional (b, sk) fp32 key
-// mask, a key attended where it is > 0.  Head dim 64 or 128.  No dropout
-// (later work).
+// mask, a key attended where it is > 0.  Head dim 64 or 128.  The E
+// backward's dropout lane (`_bwd_e_kernel`'s keep at :2191, the blocked
+// walk's at :2336 and :2374) regenerates the forward's keep mask from the
+// same counter hash (`flash_dropout.cuh`): dv reads the dropped, rescaled
+// p and dp = (do v^T) keep / (1 - rate), so ds = p (dp - delta) with delta
+// from the dropped o.
 //
 // Math, per (b, h): p = exp(scale * q k^T - lse) recomputed from the
 // forward's natural-log lse (so no (sq, sk) matrix is ever stored),
@@ -63,6 +67,8 @@
 #include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_dropout.cuh"
 
 namespace {
 
@@ -202,8 +208,9 @@ __device__ __forceinline__ void stage(float (*a_t)[D], float (*b_t)[D],
 }
 
 // The dK/dV pass over sk keys, walking sq query rows.  kMask: the kv_mask
-// lane; the unmasked instantiation has no mask code.
-template <typename T, int D, bool kMask>
+// lane, kDrop: the dropout lane; an instantiation without one has none of
+// its code.
+template <typename T, int D, bool kMask, bool kDrop>
 __device__ __forceinline__ void
 bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
@@ -211,7 +218,7 @@ bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
              const float* __restrict__ kvm, T* __restrict__ dk,
              T* __restrict__ dv, int h, int sq, int sk, Strides qs,
              Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
-             float scale, float a, int causal) {
+             float scale, float a, int causal, Drop dr) {
   constexpr int kTPR = tpr<D>();
   constexpr int kThreads = kTile * kTPR;
   __shared__ __align__(16) float q_t[kSub][D];
@@ -244,6 +251,8 @@ bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
   const T* db = dout + bi * dos.b + hi * dos.h;
   const float* lb = lse2 + (size_t)bh * sq;
   const float* deb = delta + (size_t)bh * sq;
+  DropRow dkey;  // the key's part of each pair's hash
+  if constexpr (kDrop) dkey = drop_key(dr, bi, hi, j);
 
   // causal: rows above the tile's first key see none of its keys
   for (int i0 = causal ? j0 : 0; any && i0 < sq; i0 += kSub) {
@@ -254,16 +263,24 @@ bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
       l_t[threadIdx.x] = i < sq ? lb[i] : 0.f;
       dl_t[threadIdx.x] = i < sq ? deb[i] : 0.f;
     }
+    uint32_t x0 = 0;  // the hash counter of the tile's first row
+    if constexpr (kDrop) x0 = drop_counter_rows(dr, dkey, i0);
     __syncthreads();
 #pragma unroll 4
     for (int ii = 0; ii < kSub; ++ii) {
       const int i = i0 + ii;
       const float sc = row_sum<kTPR>(dot_own<kTPR>(q_t[ii], t, kr));
-      const float dp = row_sum<kTPR>(dot_own<kTPR>(do_t[ii], t, vr));
+      float dp = row_sum<kTPR>(dot_own<kTPR>(do_t[ii], t, vr));
       const bool ok = kept && i < sq && (!causal || j <= i);
       const float p = ok ? exp2f(fmaf(sc, a, -l_t[ii])) : 0.f;
+      float pv = p;  // the probability dv reads
+      if constexpr (kDrop) {
+        const bool keep = drop_keep(x0 + (uint32_t)ii * (uint32_t)dr.w, dr.thr);
+        pv = keep ? p * dr.inv : 0.f;
+        dp = keep ? dp * dr.inv : 0.f;
+      }
       const float ds = p * (dp - dl_t[ii]) * scale;
-      axpy_own<kTPR>(p, do_t[ii], t, dvr);
+      axpy_own<kTPR>(pv, do_t[ii], t, dvr);
       axpy_own<kTPR>(ds, q_t[ii], t, dkr);
     }
   }
@@ -279,10 +296,10 @@ bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
       const float *__restrict__ delta, const float *__restrict__ kvm,           \
       T *__restrict__ dk, T *__restrict__ dv, int h, int sq, int sk,            \
       Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,             \
-      Strides dvs, float scale, float a, int causal
+      Strides dvs, float scale, float a, int causal, Drop dr
 #define DKV_ARGS                                                                  \
   q, k, v, dout, lse2, delta, kvm, dk, dv, h, sq, sk, qs, ks, vs, dos, dks, dvs, \
-      scale, a, causal
+      scale, a, causal, dr
 
 // Two kernels, so each keeps its own launch bounds: the unmasked one as
 // it always was (ptxas gives it 128 registers at d = 64), the masked one
@@ -292,24 +309,33 @@ bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
 // at 128 registers, one block an SM.
 template <typename T, int D>
 __global__ void __launch_bounds__(kTile * tpr<D>()) bwd_dkv_kernel(DKV_PARAMS) {
-  bwd_dkv_body<T, D, false>(DKV_ARGS);
+  bwd_dkv_body<T, D, false, false>(DKV_ARGS);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kTile * tpr<D>(), 512 / (kTile * tpr<D>()))
     bwd_dkv_masked_kernel(DKV_PARAMS) {
-  bwd_dkv_body<T, D, true>(DKV_ARGS);
+  bwd_dkv_body<T, D, true, false>(DKV_ARGS);
+}
+
+// The dropout lane, with or without the kv_mask, held to the masked
+// kernel's registers (the hash's few live values would otherwise push
+// d = 64 past 128 and to one block an SM).
+template <typename T, int D, bool kMask>
+__global__ void __launch_bounds__(kTile * tpr<D>(), 512 / (kTile * tpr<D>()))
+    bwd_dkv_drop_kernel(DKV_PARAMS) {
+  bwd_dkv_body<T, D, kMask, true>(DKV_ARGS);
 }
 
 // The dQ pass over sq queries, walking sk key rows.
-template <typename T, int D, bool kMask>
+template <typename T, int D, bool kMask, bool kDrop>
 __global__ void __launch_bounds__(kTile * tpr<D>())
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse2, const float* __restrict__ delta,
               const float* __restrict__ kvm, T* __restrict__ dq, int h, int sq,
               int sk, Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
-              float scale, float a, int causal) {
+              float scale, float a, int causal, Drop dr) {
   constexpr int kTPR = tpr<D>();
   constexpr int kThreads = kTile * kTPR;
   __shared__ __align__(16) float k_t[kSub][D];
@@ -339,6 +365,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + bi * ks.b + hi * ks.h;
   const T* vb = v + bi * vs.b + hi * vs.h;
   const float* mb = kMask ? kvm + (size_t)bi * sk : nullptr;
+  DropRow drow;  // the row's part of each pair's hash
+  if constexpr (kDrop) drow = drop_row(dr, bi, hi, i);
 
   // causal: keys past the tile's last query are in every row's future
   const int k_end = causal ? min(sk, i0 + kTile) : sk;
@@ -354,14 +382,18 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (!__syncthreads_or(mine)) continue;  // a wholly masked tile
     }
     stage<T, D, kThreads>(k_t, v_t, kb, vb, ks.s, vs.s, j0, sk);
+    uint32_t x0 = 0;  // the hash counter of the tile's first key
+    if constexpr (kDrop) x0 = drop_counter(dr, drow, j0);
     __syncthreads();
 #pragma unroll 4
     for (int jj = 0; jj < kSub; ++jj) {
       const int j = j0 + jj;
       const float sc = row_sum<kTPR>(dot_own<kTPR>(k_t[jj], t, qr));
-      const float dp = row_sum<kTPR>(dot_own<kTPR>(v_t[jj], t, dor));
+      float dp = row_sum<kTPR>(dot_own<kTPR>(v_t[jj], t, dor));
       const bool ok = live && j < sk && (!causal || j <= i) && (!kMask || km_t[jj]);
       const float p = ok ? exp2f(fmaf(sc, a, -l)) : 0.f;
+      if constexpr (kDrop)
+        dp = drop_keep(x0 + (uint32_t)jj, dr.thr) ? dp * dr.inv : 0.f;
       const float ds = p * (dp - dl) * scale;
       axpy_own<kTPR>(ds, k_t[jj], t, dqr);
     }
@@ -375,7 +407,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* o,
                      void* delta, void* lse2, const float* kvm, int b, int h, int sq,
                      int sk, Strides qs, Strides ks, Strides vs, Strides os,
                      Strides dos, Strides dqs, Strides dks, Strides dvs, float scale,
-                     int causal, cudaStream_t stream) {
+                     int causal, Drop dr, cudaStream_t stream) {
   constexpr int kThreads = kTile * tpr<D>();
   const float a = scale * kLog2e;
   const long long rows = (long long)b * h * sq;
@@ -387,21 +419,26 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* o,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 grid_kv((sk + kTile - 1) / kTile, b * h);
-  auto dkv = kvm ? bwd_dkv_masked_kernel<T, D> : bwd_dkv_kernel<T, D>;
+  auto dkv = dr.thr ? (kvm ? bwd_dkv_drop_kernel<T, D, true>
+                            : bwd_dkv_drop_kernel<T, D, false>)
+                    : (kvm ? bwd_dkv_masked_kernel<T, D> : bwd_dkv_kernel<T, D>);
   dkv<<<grid_kv, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse2),
       static_cast<const float*>(delta), kvm, static_cast<T*>(dk), static_cast<T*>(dv),
-      h, sq, sk, qs, ks, vs, dos, dks, dvs, scale, a, causal);
+      h, sq, sk, qs, ks, vs, dos, dks, dvs, scale, a, causal, dr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 grid_q((sq + kTile - 1) / kTile, b * h);
-  auto dq_pass = kvm ? bwd_dq_kernel<T, D, true> : bwd_dq_kernel<T, D, false>;
+  auto dq_pass = kvm ? (dr.thr ? bwd_dq_kernel<T, D, true, true>
+                               : bwd_dq_kernel<T, D, true, false>)
+                     : (dr.thr ? bwd_dq_kernel<T, D, false, true>
+                               : bwd_dq_kernel<T, D, false, false>);
   dq_pass<<<grid_q, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse2),
       static_cast<const float*>(delta), kvm, static_cast<T*>(dq), h, sq, sk, qs, ks,
-      vs, dos, dqs, scale, a, causal);
+      vs, dos, dqs, scale, a, causal, dr);
   return cudaGetLastError();
 }
 
@@ -411,15 +448,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    void* delta, void* lse2, const float* kvm, int b, int h, int sq,
                    int sk, int d, Strides qs, Strides ks, Strides vs, Strides os,
                    Strides dos, Strides dqs, Strides dks, Strides dvs, float scale,
-                   int causal, cudaStream_t stream) {
+                   int causal, Drop dr, cudaStream_t stream) {
   if (d == 64)
     return launch_d<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, kvm, b, h,
                            sq, sk, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal,
-                           stream);
+                           dr, stream);
   if (d == 128)
     return launch_d<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, kvm, b, h,
                             sq, sk, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal,
-                            stream);
+                            dr, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -438,7 +475,8 @@ const char* apex_cuda_error_string(int e) {
 // tensors).  lse (b, h, sq) fp32 contiguous, natural log of the scaled
 // scores' sum; delta and lse2 are fp32 scratch of b * h * sq each; kvm
 // null, or the forward's (b, sk) fp32 key mask, contiguous.  dtype codes:
-// 0 float32, 1 bfloat16, 2 float16.  d = 64 or 128.
+// 0 float32, 1 bfloat16, 2 float16.  d = 64 or 128.  Dropout: the
+// forward's drop_seed, drop_w, drop_thr and drop_inv (drop_thr 0: none).
 int apex_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* dq, void* dk, void* dv, void* delta, void* lse2,
@@ -448,8 +486,12 @@ int apex_flash_attention_bwd(
     long long o_ss, long long do_sb, long long do_sh, long long do_ss,
     long long dq_sb, long long dq_sh, long long dq_ss, long long dk_sb,
     long long dk_sh, long long dk_ss, long long dv_sb, long long dv_sh,
-    long long dv_ss, float scale, int causal, int dtype, void* stream) {
+    long long dv_ss, float scale, int causal, int drop_seed, int drop_w,
+    int drop_thr, float drop_inv, int dtype, void* stream) {
   if (b <= 0 || h <= 0 || sq <= 0 || sk <= 0 || b * h > 65535)
+    return cudaErrorInvalidValue;
+  Drop dr;
+  if (!make_drop(drop_seed, drop_w, drop_thr, drop_inv, sq, sk, &dr))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(kvm);
@@ -459,14 +501,16 @@ int apex_flash_attention_bwd(
   switch (dtype) {
     case 0:
       return launch<float>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b, h, sq,
-                           sk, d, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, st);
+                           sk, d, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, dr,
+                           st);
     case 1:
       return launch<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b,
                                    h, sq, sk, d, qs, ks, vs, os, dos, dqs, dks, dvs,
-                                   scale, causal, st);
+                                   scale, causal, dr, st);
     case 2:
       return launch<__half>(q, k, v, o, dout, lse, dq, dk, dv, delta, lse2, m, b, h, sq,
-                            sk, d, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, st);
+                            sk, d, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, dr,
+                           st);
     default:
       return cudaErrorInvalidValue;
   }

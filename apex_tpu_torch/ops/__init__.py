@@ -6,14 +6,16 @@ reads how many times each kernel was launched.
 """
 from ._counts import KERNELS, launch_counts, reset_launch_counts
 from .flash_attention import (FlashAttentionEFunction,
-                              FlashAttentionFunction, e_mode, flash_attention,
+                              FlashAttentionFunction, dropout_seed, e_mode,
+                              flash_attention,
                               flash_attention_backward,
                               flash_attention_backward_reference,
                               flash_attention_e, flash_attention_e_backward,
                               flash_attention_e_backward_reference,
                               flash_attention_e_reference,
                               flash_attention_e_with_lse,
-                              flash_attention_with_lse, mha_reference)
+                              flash_attention_with_lse, mha_reference,
+                              rand_keep)
 from .flash_decode import (dequantize_kv, flash_decode, flash_decode_multi,
                            paged_attention_multi_reference,
                            paged_attention_reference)
@@ -46,7 +48,8 @@ from .scaled_softmax import (ScaledMaskedSoftmax,
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "flash_attention", "flash_attention_with_lse", "mha_reference",
            "flash_attention_backward", "flash_attention_backward_reference",
-           "FlashAttentionFunction", "e_mode", "flash_attention_e", "flash_attention_e_with_lse",
+           "FlashAttentionFunction", "e_mode", "rand_keep", "dropout_seed",
+           "flash_attention_e", "flash_attention_e_with_lse",
            "flash_attention_e_reference",
            "flash_attention_e_backward",
            "flash_attention_e_backward_reference", "FlashAttentionEFunction",

@@ -8,9 +8,13 @@ the kv_mask lanes of the E flash kernels (``flash_attention_e_kvmask``,
 ``flash_attention_e_bwd_kvmask``), and the E flash kernels past a padded
 sequence of 1024 (``flash_attention_e_blocked``,
 ``flash_attention_e_bwd_blocked``: rows 11 and 13, the JAX package's
-blocked walk), so a run can show which branch it took.  A caller resets the counts just before the
-path it wants to prove and reads them just after (``chip_smoke.py``
-does this around each serve and around each train step).
+blocked walk), and the E kernels' dropout lanes, with or without a
+kv_mask (``flash_attention_e_dropout``, ``flash_attention_e_bwd_dropout``
+and, past a padded sequence of 1024, ``flash_attention_e_blocked_dropout``,
+``flash_attention_e_bwd_blocked_dropout``), so a run can show which
+branch it took.  A caller resets the counts just before the path it
+wants to prove and reads them just after (``chip_smoke.py`` does this
+around each serve and around each train step).
 """
 from __future__ import annotations
 
@@ -26,7 +30,10 @@ KERNELS = ("layer_norm", "flash_attention", "flash_decode",
            "flash_attention_e_bwd_kvmask", "lamb_phase1",
            "flash_attention_bwd", "flash_attention_e_blocked",
            "flash_attention_e_bwd_blocked", "moe_route_dispatch",
-           "sgd_step", "sgd_pipeline", "adam_step")
+           "sgd_step", "sgd_pipeline", "adam_step",
+           "flash_attention_e_dropout", "flash_attention_e_bwd_dropout",
+           "flash_attention_e_blocked_dropout",
+           "flash_attention_e_bwd_blocked_dropout")
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
 

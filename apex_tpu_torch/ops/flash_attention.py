@@ -8,8 +8,9 @@ d) layout, forward and backward, and of ``flash_attention_e``
 projection-native E layout the transformer layer trains through.
 Causal or full, head dim 64 or 128; the E entry also takes a (b, s)
 ``kv_mask`` (a key is attended where it is > 0), the padding mask
-BERT's flash route rides — no offsets, lse cotangent or dropout in this
-slice, and no kv_mask on the (b, h, s, d) entry.  The JAX package packs
+BERT's flash route rides, and attention dropout (``dropout_rate``,
+``dropout_seed``) — no offsets, lse cotangent or dropout on the (b, h,
+s, d) entry, and no kv_mask there either.  The JAX package packs
 d=64 head pairs onto 128 TPU lanes, groups E heads by lane budget and
 streams long E sequences in (512, 512) VMEM tiles; those are devices of
 the TPU's memory, so the port keeps heads apart, walks shared-memory
@@ -36,6 +37,23 @@ padded length past 1024 (:func:`e_mode` "blocked", JAX's ``_e_mode``)
 runs the same kernels but counts them as ``flash_attention_e_blocked``
 and ``flash_attention_e_bwd_blocked`` (rows 11 and 13).
 
+Attention dropout on the E entry runs inside the kernels (the dropout
+lanes of rows 10-13): each (q, k) pair's keep bit is JAX's counter hash
+(``_rand_keep``) of the pair's coordinates, regenerated bit for bit by
+the backward and by :func:`rand_keep`, the plain version.  The hash's
+form follows the route JAX's ``_e_mode(s, h, d, drop=True)`` gives the
+shape (:func:`e_mode`): the 128-padded s as its row stride on the
+single-block route, 512-wide salted tiles on the blocked walk, s on
+JAX's fallback.  The forward drops the unnormalized p and normalizes by
+the undropped sum; dv reads the dropped p / (1 - rate) and ds = p (dp
+keep / (1 - rate) - delta).  These launches count as
+``flash_attention_e_dropout`` / ``flash_attention_e_bwd_dropout`` (the
+kv_mask lane included), past a padded length of 1024 as
+``flash_attention_e_blocked_dropout`` /
+``flash_attention_e_bwd_blocked_dropout``.  The seed is a non-negative
+int32 on the host (:func:`dropout_seed` draws one from a CPU
+generator), so no launch waits on the card.
+
 A batch row whose every key is masked out (or, under causal masking, a
 query row that sees no unmasked key) attends nothing: o = 0 and lse =
 -inf there, and its gradients are 0.  The JAX kernels write o = 0 too
@@ -48,7 +66,8 @@ that moves dq and dk by 1.07e-4 relative; the port does not follow it.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+import struct
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,7 +76,7 @@ from ._counts import bump
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "mha_reference",
            "flash_attention_backward", "flash_attention_backward_reference",
-           "FlashAttentionFunction", "e_mode",
+           "FlashAttentionFunction", "e_mode", "rand_keep", "dropout_seed",
            "flash_attention_e", "flash_attention_e_with_lse",
            "flash_attention_e_reference",
            "flash_attention_e_backward",
@@ -66,8 +85,17 @@ __all__ = ["flash_attention", "flash_attention_with_lse", "mha_reference",
 _NEG = -1e30
 _TAKES = (torch.float32, torch.bfloat16, torch.float16)
 _HEAD_DIMS = (64, 128)
-# JAX's _E_MAX_SEQ: a longer 128-padded E sequence takes the blocked walk
+# JAX's E routing (apex_tpu/ops/flash_attention.py:1750-1825) at its flag
+# defaults (apex_tpu/analysis/flags.py): a longer 128-padded E sequence
+# than _E_MAX_SEQ takes the blocked walk, up to _E_MAX_SEQ_BLOCKED, in
+# (_E_BLOCK, _E_BLOCK) tiles; head groups fit _E_LANE_BUDGET lanes and a
+# VMEM budget for the score temporaries, halved with dropout
 _E_MAX_SEQ = 1024
+_E_MAX_SEQ_BLOCKED = 32768
+_E_BLOCK = 512
+_E_LANE_BUDGET = 768
+_E_TEMP_BUDGET = 4 << 20
+_E_TEMP_BUDGET_BLOCKED = 2 << 20
 
 
 def _keep_mask(sq, sk, causal, kv_mask, device):
@@ -82,16 +110,29 @@ def _keep_mask(sq, sk, causal, kv_mask, device):
     return keep
 
 
+def _dropped(p, rate, keep):
+    """p with dropped pairs 0 and kept ones times float32(1 / (1 - rate)),
+    the kernels' factor."""
+    if keep is None:
+        return p
+    return torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
+
+
 def mha_reference(q, k, v, scale: Optional[float] = None,
                   causal: bool = False, return_lse: bool = False,
-                  kv_mask: Optional[torch.Tensor] = None):
+                  kv_mask: Optional[torch.Tensor] = None,
+                  dropout_rate: float = 0.0,
+                  dropout_keep: Optional[torch.Tensor] = None):
     """Unfused reference (the jnp twin ``mha_reference``): fp32 scores
     materialized as (b, h, sq, sk), masked with -1e30, fp32 softmax,
     output in q's dtype.  ``return_lse=True`` also returns the fp32
     (b, h, sq) log-sum-exp of the scaled scores, the kernel's second
     output.  ``kv_mask`` (b, sk) keeps the keys where it is > 0, as the
     kernels do: a row with no key left gives o = 0 and lse = -inf (the
-    jnp twin gives the uniform mix there; the JAX kernels give 0)."""
+    jnp twin gives the uniform mix there; the JAX kernels give 0).
+    ``dropout_keep`` (b, h, sq, sk) bool drops the probabilities where it
+    is False and scales the kept ones by 1 / (1 - ``dropout_rate``)
+    after the softmax (lse stays the undropped one)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -100,7 +141,7 @@ def mha_reference(q, k, v, scale: Optional[float] = None,
         if causal:
             s = s.masked_fill(~_keep_mask(sq, sk, True, None, s.device),
                               _NEG)
-        p = torch.softmax(s, dim=-1)
+        p = _dropped(torch.softmax(s, dim=-1), dropout_rate, dropout_keep)
         o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
         if return_lse:
             return o, torch.logsumexp(s, dim=-1)
@@ -112,8 +153,8 @@ def mha_reference(q, k, v, scale: Optional[float] = None,
     m = s.amax(dim=-1, keepdim=True).detach()
     e = torch.exp(s - m.masked_fill(m == -math.inf, 0.0))
     l = e.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", e / l.masked_fill(l == 0, 1.0),
-                     v.float()).to(q.dtype)
+    p = _dropped(e / l.masked_fill(l == 0, 1.0), dropout_rate, dropout_keep)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
     if return_lse:
         return o, (m + torch.log(l)).squeeze(-1)
     return o
@@ -151,8 +192,26 @@ def _kv_mask_arg(kv_mask, b, sk, device):
     return kv_mask.to(torch.float32).contiguous()
 
 
+class _Drop(NamedTuple):
+    """The kernels' dropout arguments (:func:`_drop_args`)."""
+
+    rate: float
+    seed: int          # s31 of the caller's seed
+    width: int         # the hash's row stride and tile, W
+    threshold: int     # keep iff (fmix32 >> 8) >= threshold
+    inv: float         # 1 / (1 - rate), rounded to fp32 by the launch
+
+
+_NO_DROP = (0, 0, 0, 1.0)      # the launchers' (seed, W, threshold, inv)
+
+
+def _launch_drop(drop):
+    return _NO_DROP if drop is None else \
+        (drop.seed, drop.width, drop.threshold, drop.inv)
+
+
 def _launch(q, k, v, scale, causal, counter="flash_attention",
-            kv_mask=None):
+            kv_mask=None, drop=None):
     _check_qkv(q, k, v, counter)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -171,7 +230,8 @@ def _launch(q, k, v, scale, causal, counter="flash_attention",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), None if kvm is None else kvm.data_ptr(), b, h,
             sq, sk, d, *strides, float(scale), int(bool(causal)),
-            _build.dtype_code(q.dtype), _build.stream_ptr(q.device))
+            *_launch_drop(drop), _build.dtype_code(q.dtype),
+            _build.stream_ptr(q.device))
     _build.check("flash_attention", rc, f"{counter} kernel")
     bump(counter)
     return o, lse
@@ -181,13 +241,18 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
                                        scale: Optional[float] = None,
                                        causal: bool = False,
                                        kv_mask: Optional[torch.Tensor]
+                                       = None,
+                                       dropout_rate: float = 0.0,
+                                       dropout_keep: Optional[torch.Tensor]
                                        = None):
     """Plain version of the backward kernel: ``(dq, dk, dv)`` from q
     (b, h, sq, d), k and v (b, h, sk, d), the forward's o (b, h, sq, d)
     and natural-log lse (b, h, sq), and do (b, h, sq, d) — p recomputed
     from lse, delta = rowsum(do*o), all in fp32, each cast once to its
     operand's dtype.  Masked pairs take p = 0 before the exponential is
-    read (a dead row's lse is -inf)."""
+    read (a dead row's lse is -inf).  With the forward's
+    ``dropout_keep``, dv reads the dropped p / (1 - rate) and dp is
+    dropped and scaled alike before ds = p (dp - delta)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
@@ -197,15 +262,18 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
     if keep is not None:
         p = torch.where(keep, p, torch.zeros((), device=p.device))
     delta = (dof * of).sum(-1, keepdim=True)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
-    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", _dropped(p, dropout_rate,
+                                                  dropout_keep), dof)
+    dp = _dropped(torch.einsum("bhqd,bhkd->bhqk", dof, vf), dropout_rate,
+                  dropout_keep)
+    ds = p * (dp - delta) * scale
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _launch_backward(q, k, v, o, lse, do, dq, dk, dv, scale, causal,
-                     counter, kv_mask=None):
+                     counter, kv_mask=None, drop=None):
     """One launch of the backward kernel on (b, h, s, d) views: q, o,
     do, dq over sq rows, k, v, dk, dv over sk rows (outputs written in
     place)."""
@@ -234,7 +302,7 @@ def _launch_backward(q, k, v, o, lse, do, dq, dk, dv, scale, causal,
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
             None if kvm is None else kvm.data_ptr(), b, h, sq, sk, d,
-            *strides, float(scale), int(bool(causal)),
+            *strides, float(scale), int(bool(causal)), *_launch_drop(drop),
             _build.dtype_code(q.dtype), _build.stream_ptr(q.device))
     _build.check("flash_attention_bwd", rc, f"{counter} kernel")
     bump(counter)
@@ -340,21 +408,169 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # --- the E layout: qkv (b, s, h, 3d) -> (b, s, h*d) --------------------
 
-def e_mode(s: int) -> str:
-    """``"single"`` or ``"blocked"``: the JAX E route (``_e_mode``) a
-    sequence of ``s`` takes, by its 128-padded length against 1024 — the
-    name the port counts its E launches under (the kernels are the same
-    at every length)."""
-    return "blocked" if -(-s // 128) * 128 > _E_MAX_SEQ else "single"
+def _padded(s: int) -> int:
+    return -(-s // 128) * 128
 
 
-def _e_counter(s: int, kv_mask, bwd: bool = False) -> str:
-    """The launch counter of an E call: the kv_mask lane at any length,
-    else rows 11/13 past a padded length of 1024, else rows 10/12."""
+def _heads_per_group(h: int, d: int, tile: int, budget: int):
+    """JAX's ``_pick_heads_per_group`` (tile = the padded s) and
+    ``_pick_heads_per_group_blocked`` (tile = the block): the largest
+    divisor hg of h whose 3 hg d lanes fit the lane budget and are a
+    multiple of 128, and few enough that hg is at most ``budget`` over
+    tile^2 (at least 1); None when no hg qualifies."""
+    cap = max(1, _E_LANE_BUDGET // (3 * d))
+    cap = min(cap, max(1, budget // (tile * tile)))
+    for hg in range(min(cap, h), 0, -1):
+        if h % hg == 0 and (3 * hg * d) % 128 == 0:
+            return hg
+    return None
+
+
+def e_mode(s: int, h: Optional[int] = None, d: Optional[int] = None,
+           drop: bool = False) -> str:
+    """The route JAX's ``_e_mode(s, h, d, drop)`` gives an E call of
+    sequence ``s`` with ``h`` heads of dim ``d``: ``"single"`` (one
+    block of the 128-padded s), ``"blocked"`` (the (512, 512) tile walk)
+    or ``"fallback"`` (JAX's transposing path; with dropout its
+    ``_fallback_dropout_attention``).  The port's kernels serve every
+    route; the route picks the form of the dropout hash
+    (:func:`rand_keep`).  Without ``h`` and ``d``: by the padded length
+    alone, ``"blocked"`` past 1024 — the names the launch counters use
+    (the kernels are the same at every length)."""
+    ps = _padded(s)
+    if h is None or d is None:
+        return "blocked" if ps > _E_MAX_SEQ else "single"
+    halve = 2 if drop else 1
+    if ps <= _E_MAX_SEQ and _heads_per_group(
+            h, d, ps, _E_TEMP_BUDGET // halve) is not None:
+        return "single"
+    if ps <= _E_MAX_SEQ_BLOCKED and _heads_per_group(
+            h, d, min(_E_BLOCK, ps),
+            _E_TEMP_BUDGET_BLOCKED // halve) is not None:
+        return "blocked"
+    return "fallback"
+
+
+def _drop_width(mode: str, sq: int, sk: int) -> int:
+    """The hash's row stride and tile W on a route: the 128-padded s on
+    the single block, the (512 or, below 512, padded) block on the
+    blocked walk, sk on the fallback."""
+    ps = _padded(sq)
+    return {"single": ps, "blocked": min(_E_BLOCK, ps), "fallback": sk}[mode]
+
+
+def _seed31(seed) -> int:
+    """JAX's fold of a dropout seed: the int32's low 31 bits."""
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 31:
+        raise ValueError(f"dropout_seed {seed} is not an int32")
+    return seed & 0x7FFFFFFF
+
+
+def _threshold(rate: float) -> int:
+    """ceil(float32(rate) * 2^24): JAX keeps a pair iff its hash's top 24
+    bits times 2^-24 are >= float32(rate), that is iff the bits are >=
+    this (an exact integer compare)."""
+    r32 = struct.unpack("f", struct.pack("f", rate))[0]
+    return math.ceil(r32 * (1 << 24))
+
+
+def dropout_seed(generator: torch.Generator) -> int:
+    """A seed for the E kernels' dropout: a non-negative int32, uniform in
+    [0, 2^31 - 1) as JAX's ``dropout_seed_from_key`` draws it, from the
+    CPU ``generator`` — drawn on the host, so no launch waits on the
+    card for it."""
+    if generator.device.type != "cpu":
+        raise ValueError(f"dropout seeds come from a CPU generator, not "
+                         f"one on {generator.device}")
+    return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+
+
+def _drop_args(rate, seed, s: int, h: int, d: int) -> Optional[_Drop]:
+    """The dropout of an E call of (s, h, d), or None at rate 0."""
+    rate = float(rate)
+    if rate == 0.0:
+        return None
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    return _Drop(rate, _seed31(seed),
+                 _drop_width(e_mode(s, h, d, drop=True), s, s),
+                 _threshold(rate), 1.0 / (1.0 - rate))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(x * k) mod 2^32 for int64 x in [0, 2^32) and a 32-bit k, in two
+    16-bit halves of k so no int64 product overflows."""
+    return (x * (k & 0xFFFF) + (((x * (k >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _hash24(bi: int, h: int, sq: int, sk: int, seed31: int, width: int,
+            device) -> torch.Tensor:
+    """The top 24 bits of JAX's counter hash (``_rand_keep``) for every
+    (head, query, key) pair of batch row ``bi``: int64 (h, sq, sk)."""
+    r = torch.arange(sq, device=device)
+    c = torch.arange(sk, device=device)
+    ri, ci = r // width, c // width
+    x = ((r - ri * width) * width)[:, None] + (c - ci * width)[None, :]
+    tile = ((ri * 0x165667B1) & _M32)[:, None] ^ \
+        ((ci * 0x9E3779B9) & _M32)[None, :]
+    # made on the device: a host list copied there would wait for the
+    # card to drain
+    heads = ((torch.arange(h, device=device) * 0x27D4EB2F) & _M32) ^ \
+        ((seed31 * 0x85EBCA6B ^ bi * 0xC2B2AE35) & _M32)
+    x = (x + (tile[None] ^ heads[:, None, None])) & _M32
+    x = _mul32(x ^ (x >> 16), 0x85EBCA6B)
+    x = _mul32(x ^ (x >> 13), 0xC2B2AE35)
+    return (x ^ (x >> 16)) >> 8
+
+
+def _keep_of(drop: _Drop, b: int, h: int, sq: int, sk: int, device):
+    keep = torch.empty((b, h, sq, sk), dtype=torch.bool, device=device)
+    for bi in range(b):   # one batch row's int64 temporaries at a time
+        keep[bi] = _hash24(bi, h, sq, sk, drop.seed, drop.width,
+                           device) >= drop.threshold
+    return keep
+
+
+def rand_keep(b: int, h: int, sq: int, sk: int, seed, rate: float,
+              mode: str, device=None) -> torch.Tensor:
+    """Plain version of the kernels' dropout mask: the (b, h, sq, sk)
+    bool of kept (query, key) pairs, JAX's counter hash bit for bit in
+    the form of route ``mode`` (:func:`e_mode` with ``drop=True``):
+    ``"single"`` hashes (ps, ps) with ps the 128-padded sq, ``"blocked"``
+    (512, 512) tiles salted by their (q-block, k-block), ``"fallback"``
+    (sq, sk).  Built a batch row at a time: the int64 temporaries of a
+    whole (8, 16, 1024, 1024) batch would be 1 GiB each."""
+    thr = _threshold(float(rate))
+    drop = _Drop(float(rate), _seed31(seed), _drop_width(mode, sq, sk), thr,
+                 1.0 / (1.0 - float(rate)))
+    return _keep_of(drop, b, h, sq, sk, device)
+
+
+def _ref_drop(drop: Optional[_Drop], b, h, s, device) -> dict:
+    """The plain versions' dropout arguments for ``drop``."""
+    if drop is None:
+        return {}
+    return dict(dropout_rate=drop.rate,
+                dropout_keep=_keep_of(drop, b, h, s, s, device))
+
+
+def _e_counter(s: int, kv_mask, bwd: bool = False,
+               drop: bool = False) -> str:
+    """The launch counter of an E call: the dropout lane (with or without
+    a kv_mask), else the kv_mask lane at any length, else rows 10/12 —
+    each past a padded length of 1024 under the row-11/13 name."""
     name = "flash_attention_e" + ("_bwd" if bwd else "")
-    if kv_mask is not None:
+    if kv_mask is not None and not drop:
         return name + "_kvmask"
-    return name + ("_blocked" if e_mode(s) == "blocked" else "")
+    if e_mode(s) == "blocked":
+        name += "_blocked"
+    return name + ("_dropout" if drop else "")
 
 
 def _split_e(qkv):
@@ -367,71 +583,98 @@ def _split_e(qkv):
 
 def flash_attention_e_reference(qkv, scale: Optional[float] = None,
                                 causal: bool = False,
-                                kv_mask: Optional[torch.Tensor] = None):
+                                kv_mask: Optional[torch.Tensor] = None,
+                                dropout_rate: float = 0.0,
+                                dropout_seed=None):
     """Plain version of :func:`flash_attention_e`: :func:`mha_reference`
-    on the split views, differentiated by autograd."""
+    on the split views with :func:`rand_keep`'s mask, differentiated by
+    autograd."""
     b, s, h, td = qkv.shape
+    drop = _drop_args(dropout_rate, dropout_seed, s, h, td // 3)
     q, k, v = _split_e(qkv)
-    o = mha_reference(q, k, v, scale=scale, causal=causal, kv_mask=kv_mask)
+    o = mha_reference(q, k, v, scale=scale, causal=causal, kv_mask=kv_mask,
+                      **_ref_drop(drop, b, h, s, qkv.device))
     return o.transpose(1, 2).reshape(b, s, h * (td // 3))
+
+
+def _backward_e_reference(qkv, o, lse, do, scale, causal, kv_mask, drop):
+    b, s, h, _ = qkv.shape
+    grads = flash_attention_backward_reference(
+        *_split_e(qkv), o.transpose(1, 2), lse, do.transpose(1, 2),
+        scale=scale, causal=causal, kv_mask=kv_mask,
+        **_ref_drop(drop, b, h, s, qkv.device))
+    return torch.cat([t.transpose(1, 2) for t in grads], dim=-1)
 
 
 def flash_attention_e_backward_reference(qkv, o, lse, do,
                                          scale: Optional[float] = None,
                                          causal: bool = False,
                                          kv_mask: Optional[torch.Tensor]
-                                         = None):
+                                         = None,
+                                         dropout_rate: float = 0.0,
+                                         dropout_seed=None):
     """Plain version of the E backward: dqkv (b, s, h, 3d) from qkv, the
     forward's o (b, s, h, d) and natural-log lse (b, h, s), and do (b, s,
     h, d) — :func:`flash_attention_backward_reference` on the split
-    views, the three gradients laid back into qkv's lanes."""
-    grads = flash_attention_backward_reference(
-        *_split_e(qkv), o.transpose(1, 2), lse, do.transpose(1, 2),
-        scale=scale, causal=causal, kv_mask=kv_mask)
-    return torch.cat([t.transpose(1, 2) for t in grads], dim=-1)
+    views (with the forward's dropout mask), the three gradients laid
+    back into qkv's lanes."""
+    b, s, h, td = qkv.shape
+    return _backward_e_reference(
+        qkv, o, lse, do, scale, causal, kv_mask,
+        _drop_args(dropout_rate, dropout_seed, s, h, td // 3))
 
 
-def flash_attention_e_backward(qkv: torch.Tensor, o: torch.Tensor,
-                               lse: torch.Tensor, do: torch.Tensor,
-                               scale: Optional[float] = None,
-                               causal: bool = False,
-                               kv_mask: Optional[torch.Tensor] = None
-                               ) -> torch.Tensor:
-    """dqkv (b, s, h, 3d) in qkv's layout and dtype, from the forward's
-    o (b, s, h, d) and fp32 natural-log lse (b, h, s) and the output
-    gradient do (b, s, h, d); ``kv_mask`` the forward's (b, s) mask.
-    The masked lane counts as ``flash_attention_e_bwd_kvmask``, a
-    padded length past 1024 as ``flash_attention_e_bwd_blocked``."""
-    if scale is None:
-        scale = (qkv.shape[-1] // 3) ** -0.5
+def _backward_e(qkv, o, lse, do, scale, causal, kv_mask, drop):
     if qkv.device.type == "cpu":
-        return flash_attention_e_backward_reference(qkv, o, lse, do,
-                                                    scale=scale,
-                                                    causal=causal,
-                                                    kv_mask=kv_mask)
+        return _backward_e_reference(qkv, o, lse, do, scale, causal,
+                                     kv_mask, drop)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention_e runs on cuda or cpu, not "
                          f"{qkv.device}")
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
     _launch_backward(*_split_e(qkv), o.transpose(1, 2), lse,
                      do.transpose(1, 2), *_split_e(dqkv), scale, causal,
-                     _e_counter(qkv.shape[1], kv_mask, bwd=True),
-                     kv_mask=kv_mask)
+                     _e_counter(qkv.shape[1], kv_mask, bwd=True,
+                                drop=drop is not None),
+                     kv_mask=kv_mask, drop=drop)
     return dqkv
 
 
-def _forward_e(qkv, scale, causal, kv_mask=None):
-    """``(o (b, s, h, d), lse (b, h, s))`` of the E forward; with a
-    ``kv_mask`` the launch counts as ``flash_attention_e_kvmask``, past
-    a padded length of 1024 as ``flash_attention_e_blocked``."""
+def flash_attention_e_backward(qkv: torch.Tensor, o: torch.Tensor,
+                               lse: torch.Tensor, do: torch.Tensor,
+                               scale: Optional[float] = None,
+                               causal: bool = False,
+                               kv_mask: Optional[torch.Tensor] = None,
+                               dropout_rate: float = 0.0,
+                               dropout_seed=None) -> torch.Tensor:
+    """dqkv (b, s, h, 3d) in qkv's layout and dtype, from the forward's
+    o (b, s, h, d) and fp32 natural-log lse (b, h, s) and the output
+    gradient do (b, s, h, d); ``kv_mask``, ``dropout_rate`` and
+    ``dropout_seed`` the forward's.  The masked lane counts as
+    ``flash_attention_e_bwd_kvmask``, the dropout lane as
+    ``flash_attention_e_bwd_dropout``, a padded length past 1024 under
+    the ``_bwd_blocked`` names."""
+    b, s, h, td = qkv.shape
+    if scale is None:
+        scale = (td // 3) ** -0.5
+    return _backward_e(qkv, o, lse, do, scale, causal, kv_mask,
+                       _drop_args(dropout_rate, dropout_seed, s, h, td // 3))
+
+
+def _forward_e(qkv, scale, causal, kv_mask=None, drop=None):
+    """``(o (b, s, h, d), lse (b, h, s))`` of the E forward; counted as
+    :func:`_e_counter` names the call."""
     q, k, v = _split_e(qkv)
     if qkv.device.type == "cpu":
+        b, s, h, _ = qkv.shape
         o, lse = mha_reference(q, k, v, scale=scale, causal=causal,
-                               return_lse=True, kv_mask=kv_mask)
+                               return_lse=True, kv_mask=kv_mask,
+                               **_ref_drop(drop, b, h, s, qkv.device))
     elif qkv.device.type == "cuda":
         o, lse = _launch(q, k, v, scale, causal,
-                         counter=_e_counter(qkv.shape[1], kv_mask),
-                         kv_mask=kv_mask)
+                         counter=_e_counter(qkv.shape[1], kv_mask,
+                                            drop=drop is not None),
+                         kv_mask=kv_mask, drop=drop)
     else:
         raise ValueError(f"flash_attention_e runs on cuda or cpu, not "
                          f"{qkv.device}")
@@ -441,27 +684,33 @@ def _forward_e(qkv, scale, causal, kv_mask=None):
 def flash_attention_e_with_lse(qkv: torch.Tensor,
                                scale: Optional[float] = None,
                                causal: bool = False,
-                               kv_mask: Optional[torch.Tensor] = None
+                               kv_mask: Optional[torch.Tensor] = None,
+                               dropout_rate: float = 0.0,
+                               dropout_seed=None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The E forward without autograd: ``(o, lse)`` with o (b, s, h*d)
-    and the fp32 natural-log lse (b, h, s)."""
+    and the fp32 natural-log lse (b, h, s) of the undropped scores."""
+    b, s, h, td = qkv.shape
     if scale is None:
-        scale = (qkv.shape[-1] // 3) ** -0.5
-    o, lse = _forward_e(qkv, scale, causal, kv_mask)
+        scale = (td // 3) ** -0.5
+    o, lse = _forward_e(qkv, scale, causal, kv_mask,
+                        _drop_args(dropout_rate, dropout_seed, s, h, td // 3))
     return o.flatten(2), lse
 
 
 class FlashAttentionEFunction(torch.autograd.Function):
     """Flash attention over the E layout under autograd (the JAX
-    package's ``_flash_e_fused`` and ``_flash_e_masked`` custom VJPs):
-    the forward saves qkv, o, the fp32 lse and the kv_mask; the backward
+    package's ``_flash_e_fused``, ``_flash_e_masked``, ``_flash_e_drop``
+    and ``_flash_e_masked_drop`` custom VJPs): the forward saves qkv, o,
+    the fp32 lse and the kv_mask, and keeps the dropout's arguments (the
+    seed a Python int); the backward regenerates the keep mask and
     writes one dqkv in qkv's layout.  The mask takes no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv, kv_mask, scale, causal):
-        o, lse = _forward_e(qkv, scale, causal, kv_mask)
+    def forward(ctx, qkv, kv_mask, scale, causal, drop):
+        o, lse = _forward_e(qkv, scale, causal, kv_mask, drop)
         ctx.save_for_backward(qkv, o, lse, kv_mask)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.drop = scale, causal, drop
         return o.flatten(2)
 
     @staticmethod
@@ -470,23 +719,29 @@ class FlashAttentionEFunction(torch.autograd.Function):
         do = dout.reshape(o.shape)
         if do.stride(-1) != 1:
             do = do.contiguous()
-        dqkv = flash_attention_e_backward(qkv, o, lse, do, scale=ctx.scale,
-                                          causal=ctx.causal, kv_mask=kv_mask)
-        return dqkv, None, None, None
+        dqkv = _backward_e(qkv, o, lse, do, ctx.scale, ctx.causal, kv_mask,
+                           ctx.drop)
+        return dqkv, None, None, None, None
 
 
 def flash_attention_e(qkv: torch.Tensor, scale: Optional[float] = None,
                       causal: bool = False,
-                      kv_mask: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      kv_mask: Optional[torch.Tensor] = None,
+                      dropout_rate: float = 0.0,
+                      dropout_seed=None) -> torch.Tensor:
     """Self-attention over the projection-native layout: ``qkv`` (b, s,
     h, 3*d), lanes [head][q|k|v] as ``proj(x).reshape(b, s, h, 3*d)``
     gives them, to the context (b, s, h*d) the output projection reads.
     ``kv_mask`` (b, s): a key is attended where it is > 0 (pass it as
     contiguous fp32, the kernels' format, to spare a conversion a call).
+    ``dropout_rate`` > 0 drops attention probabilities inside the kernels
+    by JAX's counter hash of ``dropout_seed`` (a non-negative int32, a
+    Python int: :func:`dropout_seed`); rate 0 is the dropout-free call.
     Differentiable; the kernels on CUDA tensors, their plain versions on
     CPU tensors."""
+    b, s, h, td = qkv.shape
     if scale is None:
-        scale = (qkv.shape[-1] // 3) ** -0.5
-    return FlashAttentionEFunction.apply(qkv, kv_mask, float(scale),
-                                         bool(causal))
+        scale = (td // 3) ** -0.5
+    return FlashAttentionEFunction.apply(
+        qkv, kv_mask, float(scale), bool(causal),
+        _drop_args(dropout_rate, dropout_seed, s, h, td // 3))

@@ -9,6 +9,8 @@ loop with its CLI::
     python -m apex_tpu_torch.testing.standalone_bert --train
     python -m apex_tpu_torch.testing.standalone_bert --train --policy O2
     python -m apex_tpu_torch.testing.standalone_bert --train --full-mask
+    python -m apex_tpu_torch.testing.standalone_bert --train \
+        --attention-dropout 0.1 --hidden-dropout 0.1
     python -m apex_tpu_torch.testing.standalone_bert --train --model tiny \
         --device cpu --steps 4
 
@@ -28,6 +30,11 @@ mask, ``bench.py:2337``), in one of the JAX package's two BERT recipes
   ``use_flash=False`` (the extended (b, 1, s, s) mask through
   ``FusedScaleMaskSoftmax``'s padding branch, the padding-mask softmax
   kernel), ``fused_adam(1e-3)``, fp32 masters, a dynamic loss scale.
+
+Both recipes run without dropout, as the JAX ones do, unless
+``--attention-dropout`` / ``--hidden-dropout`` set rates (the
+embedding's is the hidden rate): at O5 the padded batch then takes the
+E kernels' kv_mask + dropout lane.
 
 The loss is the JAX step's: the mean of the per-token LM cross-entropy
 over every position (labels = tokens rolled by one) plus the mean NSP
@@ -56,7 +63,7 @@ from ..amp import get_policy
 from ..contrib.xentropy import softmax_cross_entropy_loss
 from ..normalization import FusedLayerNorm
 from ..optimizers import fused_adam, fused_lamb
-from ..transformer import ParallelTransformer
+from ..transformer import DropoutRNG, ParallelTransformer
 from ..transformer.enums import AttnMaskType
 from ..transformer.tensor_parallel import (ColumnParallelLinear,
                                            VocabParallelEmbedding)
@@ -106,18 +113,21 @@ class BertEmbedding(GPTEmbedding):
 
     def __init__(self, vocab_size: int, hidden_size: int,
                  max_sequence_length: int, *, num_tokentypes: int = 2,
+                 embedding_dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__(vocab_size, hidden_size, max_sequence_length,
-                         dtype=dtype, device=device)
+                         embedding_dropout=embedding_dropout, dtype=dtype,
+                         device=device)
         self.num_tokentypes = num_tokentypes
         if num_tokentypes > 0:
             self.tokentype_embeddings = VocabParallelEmbedding(
                 num_tokentypes, hidden_size, dtype=dtype, device=device)
 
     def forward(self, tokens: torch.Tensor,
-                tokentype_ids: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        h = super().forward(tokens)
+                tokentype_ids: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        h = super().forward(tokens, deterministic, rng)
         if tokentype_ids is not None and self.num_tokentypes > 0:
             h = h + self.tokentype_embeddings(tokentype_ids)
         return h
@@ -164,7 +174,10 @@ class BertLMHead(nn.Module):
 class BertModel(nn.Module):
     """Embedding -> padding-mask transformer -> LM head, and the NSP
     binary head over the pooled [CLS] state (ref:
-    ``standalone_bert.py:104-177``), without dropout.  ``use_flash``
+    ``standalone_bert.py:104-177``); a forward with
+    ``deterministic=False`` and a :class:`DropoutRNG` applies
+    ``attention_dropout`` and ``hidden_dropout`` (the embedding's rate
+    too), JAX's defaults 0.1 each.  ``use_flash``
     routes the (b, s) mask through the E flash kernels' kv_mask lane;
     without it the extended (b, 1, s, s) mask goes through the
     padding-mask softmax.  The mask is put into that one device format
@@ -177,17 +190,21 @@ class BertModel(nn.Module):
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
                  num_attention_heads: int, max_sequence_length: int, *,
-                 num_tokentypes: int = 2, use_flash: bool = False,
+                 num_tokentypes: int = 2, attention_dropout: float = 0.1,
+                 hidden_dropout: float = 0.1, use_flash: bool = False,
                  kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.use_flash = use_flash
         self.embedding = BertEmbedding(
             vocab_size, hidden_size, max_sequence_length,
-            num_tokentypes=num_tokentypes, dtype=dtype, device=device)
+            num_tokentypes=num_tokentypes, embedding_dropout=hidden_dropout,
+            dtype=dtype, device=device)
         self.transformer = ParallelTransformer(
             num_layers, hidden_size, num_attention_heads,
-            attn_mask_type=AttnMaskType.padding, use_flash=use_flash,
+            attn_mask_type=AttnMaskType.padding,
+            attention_dropout=attention_dropout,
+            hidden_dropout=hidden_dropout, use_flash=use_flash,
             kernels=kernels, dtype=dtype, device=device)
         self.lm_head = BertLMHead(hidden_size, vocab_size, kernels=kernels,
                                   dtype=dtype, device=device)
@@ -209,16 +226,18 @@ class BertModel(nn.Module):
 
     def forward(self, tokens: torch.Tensor, attention_mask: torch.Tensor,
                 tokentype_ids: Optional[torch.Tensor] = None,
-                lm_labels: Optional[torch.Tensor] = None):
+                lm_labels: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None):
         """``(lm_logits, binary_logits)``, or with ``lm_labels`` the fp32
         per-token LM loss (b, s) in place of the logits."""
-        h = self.embedding(tokens, tokentype_ids)
+        h = self.embedding(tokens, tokentype_ids, deterministic, rng)
         if self.use_flash:
             kv_mask = attention_mask.to(torch.float32).contiguous()
-            h = self.transformer(h, None, kv_mask)
+            h = self.transformer(h, None, kv_mask, deterministic, rng)
         else:
             h = self.transformer(h, bert_extended_attention_mask(
-                attention_mask))
+                attention_mask), None, deterministic, rng)
         binary_logits = self.binary_head(self.pooler(h).float())
         lm_logits = self.lm_head(h, self.embedding.attend)
         if lm_labels is None:
@@ -278,6 +297,7 @@ class BertTrainSetup:
     n_params: int
     flops_per_step: float
     real_tokens: int
+    rng: Optional[DropoutRNG] = None
 
     @property
     def tokens_per_step(self) -> int:
@@ -286,7 +306,8 @@ class BertTrainSetup:
 
 def make_train_setup(model: str = "bertlarge", *, policy: str = "O5",
                      seed: int = 0, kernels: bool = True,
-                     full_mask: bool = False,
+                     full_mask: bool = False, attention_dropout: float = 0.0,
+                     hidden_dropout: float = 0.0,
                      device=None) -> BertTrainSetup:
     """Build the preset's BERT from seeded weights on ``device`` (cuda
     unless the CPU is asked for) in the ``policy``'s recipe
@@ -296,7 +317,8 @@ def make_train_setup(model: str = "bertlarge", *, policy: str = "O5",
     (:func:`padded_mask`; all ones with ``full_mask``, as bench.py's),
     labels = tokens rolled by one, NSP labels in {0, 1}.
     ``kernels=False`` runs every kernel's plain version, on the same
-    weights and data."""
+    weights and data.  With a dropout rate > 0 the setup owns the step's
+    :class:`DropoutRNG`, seeded ``seed + 1``, as the GPT recipe's."""
     if policy not in TRAIN_RECIPES:
         raise ValueError(f"the BERT train recipes are "
                          f"{sorted(TRAIN_RECIPES)}, not {policy!r}")
@@ -308,7 +330,9 @@ def make_train_setup(model: str = "bertlarge", *, policy: str = "O5",
     b, s = geo["batch"], geo["seq"]
     net = BertModel(geo["vocab_size"], geo["hidden_size"],
                     geo["num_layers"], geo["num_heads"], s,
-                    num_tokentypes=0, use_flash=recipe["use_flash"],
+                    num_tokentypes=0, attention_dropout=attention_dropout,
+                    hidden_dropout=hidden_dropout,
+                    use_flash=recipe["use_flash"],
                     kernels=kernels, dtype=get_policy(policy).param_dtype,
                     device=dev).reset_parameters(g)
     tokens = torch.randint(0, geo["vocab_size"], (b, s), generator=g,
@@ -327,15 +351,19 @@ def make_train_setup(model: str = "bertlarge", *, policy: str = "O5",
                                   pipeline=True)
     flops = bert_model_flops(n_params, geo["num_layers"],
                              geo["hidden_size"], mask)
+    rng = DropoutRNG(seed + 1, dev) \
+        if attention_dropout > 0.0 or hidden_dropout > 0.0 else None
     return BertTrainSetup(net, amp_opt, tokens, mask,
                           torch.roll(tokens, -1, dims=-1), nsp, n_params,
-                          flops, int(mask.sum()))
+                          flops, int(mask.sum()), rng)
 
 
-def bert_loss(model: BertModel, tokens, mask, labels, nsp) -> torch.Tensor:
+def bert_loss(model: BertModel, tokens, mask, labels, nsp,
+              rng: Optional[DropoutRNG] = None) -> torch.Tensor:
     """The JAX step's loss: mean LM cross-entropy plus mean NSP
-    cross-entropy, fp32."""
-    lm_loss, bin_logits = model(tokens, mask, lm_labels=labels)
+    cross-entropy, fp32; with ``rng``, through a dropout forward."""
+    lm_loss, bin_logits = model(tokens, mask, lm_labels=labels,
+                                deterministic=rng is None, rng=rng)
     nsp_loss = softmax_cross_entropy_loss(bin_logits, nsp, 0.0,
                                           True).mean()
     return lm_loss.mean() + nsp_loss
@@ -347,7 +375,7 @@ def train_step(setup: BertTrainSetup):
     loss, still on the device, and the step's ``StepInfo``."""
     setup.amp_opt.zero_grad()
     loss = bert_loss(setup.model, setup.tokens, setup.mask, setup.labels,
-                     setup.nsp)
+                     setup.nsp, setup.rng)
     setup.amp_opt.scale_loss(loss).backward()
     info = setup.amp_opt.apply_gradients()
     return loss.detach(), info
@@ -355,12 +383,14 @@ def train_step(setup: BertTrainSetup):
 
 def train_smoke(steps: int = 8, *, model: str = "bertlarge",
                 policy: str = "O5", seed: int = 0, kernels: bool = True,
-                full_mask: bool = False, device=None) -> TrainResult:
+                full_mask: bool = False, attention_dropout: float = 0.0,
+                hidden_dropout: float = 0.0, device=None) -> TrainResult:
     """:func:`make_train_setup`, then ``steps`` :func:`train_step` s on
     its one batch, each timed through the read of its loss."""
     setup = make_train_setup(model, policy=policy, seed=seed,
                              kernels=kernels, full_mask=full_mask,
-                             device=device)
+                             attention_dropout=attention_dropout,
+                             hidden_dropout=hidden_dropout, device=device)
     losses, step_ms, infos = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -389,6 +419,14 @@ def _parser() -> argparse.ArgumentParser:
                    help="every row real (bench.py's all-ones mask), not "
                         "the seeded padded rows")
     p.add_argument("--steps", type=int, default=8)
+    p.add_argument("--attention-dropout", type=float, default=0.0,
+                   metavar="RATE",
+                   help="attention dropout (at O5 in the E flash kernels' "
+                        "kv_mask + dropout lane)")
+    p.add_argument("--hidden-dropout", type=float, default=0.0,
+                   metavar="RATE",
+                   help="hidden dropout after attention and the MLP, and "
+                        "the embedding's")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
@@ -398,11 +436,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = _parser().parse_args(argv)
     r = train_smoke(args.steps, model=args.model, policy=args.policy,
                     seed=args.seed, full_mask=args.full_mask,
-                    device=args.device)
+                    attention_dropout=args.attention_dropout,
+                    hidden_dropout=args.hidden_dropout, device=args.device)
     _, scale, skipped, _ = r.steps[-1]
     real = r.setup.real_tokens
     print(f"TRAIN_DONE model=bert-{args.model} policy={args.policy} "
-          f"steps={len(r.losses)} loss_first={r.losses[0]:.6f} "
+          f"steps={len(r.losses)} "
+          f"attention_dropout={args.attention_dropout:g} "
+          f"hidden_dropout={args.hidden_dropout:g} "
+          f"loss_first={r.losses[0]:.6f} "
           f"loss_last={r.losses[-1]:.6f} skipped={skipped} scale={scale:g} "
           f"real_tokens={real}/{r.setup.mask.numel()} "
           f"step_ms_p50={r.median_ms:.3f} "

@@ -9,6 +9,8 @@ Counterpart of ``apex_tpu/testing/standalone_gpt.py``: the model
     python -m apex_tpu_torch.testing.standalone_gpt --train --policy O2
     python -m apex_tpu_torch.testing.standalone_gpt --train \
         --model gpt345m_s2048
+    python -m apex_tpu_torch.testing.standalone_gpt --train \
+        --attention-dropout 0.1
     python -m apex_tpu_torch.testing.standalone_gpt --serve --speculate-k 2
     python -m apex_tpu_torch.testing.standalone_gpt --serve --speculate-k 2 \
         --draft truncated
@@ -38,10 +40,12 @@ experts (:func:`moe_serving_weights`) routed through row 18's kernel, with
 ``--moe-capacity-factor`` (8.0, JAX's serve: nothing drops at E = 8).
 ``--train`` takes ``--steps`` optimizer steps on one seeded batch (seq
 1024, batch 8 at GPT-345M; seq 2048, batch 4 at ``gpt345m_s2048``, the
-long-sequence row) with
-``fused_adam(1e-4)`` and no dropout, in one of the JAX package's two
-train recipes (:data:`TRAIN_RECIPES`), and prints one ``TRAIN_DONE``
-line: ``O5`` is ``bench.py``'s ``bench_gpt345m`` (flash attention, bf16,
+long-sequence row) with ``fused_adam(1e-4)``, in one of the JAX
+package's two train recipes (:data:`TRAIN_RECIPES`), without dropout
+unless ``--attention-dropout`` / ``--hidden-dropout`` set rates (the
+embedding's is the hidden rate, as in JAX; ``--attention-dropout 0.1``
+alone is ``bench.py``'s ``gpt2_345m_dropout``, a fresh seed for every
+layer every step), and prints one ``TRAIN_DONE`` line: ``O5`` is ``bench.py``'s ``bench_gpt345m`` (flash attention, bf16,
 a static scale of 1); ``O2`` is ``make_smoke_setup``'s route
 (``use_flash=False``: materialized scores through the fused causal
 softmax; fp16 parameters and compute, fp32 masters, a dynamic loss
@@ -69,7 +73,8 @@ from ..serving import (BucketLadder, GPTServingWeights, Request,
                        default_cache_config, expand_moe_weights,
                        init_serving_weights, quantize_weights)
 from ..serving.kv_cache import KV_DTYPES
-from ..transformer import ParallelTransformer
+from ..transformer import DropoutRNG, ParallelTransformer
+from ..transformer.layers import dropout, dropout_rng
 from ..transformer.tensor_parallel import VocabParallelEmbedding
 
 __all__ = ["MODELS", "TRAIN_RECIPES", "DRAFTS", "model_config", "seeded_prompts",
@@ -253,22 +258,27 @@ def serve_smoke(num_requests: int = 8, *, model: str = "gpt345m",
 
 class GPTEmbedding(nn.Module):
     """Token + learned position embeddings (ref:
-    ``apex_tpu/testing/standalone_gpt.py:69-102``); ``attend`` is the
-    tied LM head.  Both tables are ``embedding`` parameters, as in the
-    flax tree."""
+    ``apex_tpu/testing/standalone_gpt.py:69-102``), then
+    ``embedding_dropout`` in a ``deterministic=False`` forward; ``attend``
+    is the tied LM head.  Both tables are ``embedding`` parameters, as in
+    the flax tree."""
 
     def __init__(self, vocab_size: int, hidden_size: int,
-                 max_sequence_length: int, *,
+                 max_sequence_length: int, *, embedding_dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.embedding_dropout = embedding_dropout
         self.word_embeddings = VocabParallelEmbedding(
             vocab_size, hidden_size, dtype=dtype, device=device)
         self.position_embeddings = VocabParallelEmbedding(
             max_sequence_length, hidden_size, dtype=dtype, device=device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         pos = torch.arange(tokens.shape[-1], device=tokens.device)
-        return self.word_embeddings(tokens) + self.position_embeddings(pos)
+        h = self.word_embeddings(tokens) + self.position_embeddings(pos)
+        return dropout(h, self.embedding_dropout, dropout_rng(
+            deterministic, (self.embedding_dropout,), rng))
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         return self.word_embeddings.attend(x)
@@ -277,23 +287,28 @@ class GPTEmbedding(nn.Module):
 class GPTModel(nn.Module):
     """Embedding -> transformer -> tied head, returning (b, s, vocab)
     logits in the compute ``dtype`` (ref:
-    ``apex_tpu/testing/standalone_gpt.py:105-149``), without dropout.
-    Parameters are fp32 until :func:`apex_tpu_torch.amp.initialize` casts them;
-    ``kernels=False`` runs every kernel's plain version (the oracle
-    configuration)."""
+    ``apex_tpu/testing/standalone_gpt.py:105-149``).  A forward with
+    ``deterministic=False`` and a :class:`DropoutRNG` applies
+    ``attention_dropout`` and ``hidden_dropout`` (the embedding's rate
+    too), JAX's defaults 0.1 each.  Parameters are fp32 until
+    :func:`apex_tpu_torch.amp.initialize` casts them; ``kernels=False``
+    runs every kernel's plain version (the oracle configuration)."""
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
                  num_attention_heads: int, max_sequence_length: int, *,
+                 attention_dropout: float = 0.1, hidden_dropout: float = 0.1,
                  use_flash: bool = True, kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.embedding = GPTEmbedding(vocab_size, hidden_size,
-                                      max_sequence_length, dtype=dtype,
-                                      device=device)
+                                      max_sequence_length,
+                                      embedding_dropout=hidden_dropout,
+                                      dtype=dtype, device=device)
         self.transformer = ParallelTransformer(
             num_layers, hidden_size, num_attention_heads,
-            use_flash=use_flash, kernels=kernels, dtype=dtype,
-            device=device)
+            attention_dropout=attention_dropout,
+            hidden_dropout=hidden_dropout, use_flash=use_flash,
+            kernels=kernels, dtype=dtype, device=device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None
@@ -306,8 +321,11 @@ class GPTModel(nn.Module):
                 m.reset_parameters(generator)
         return self
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embedding.attend(self.transformer(self.embedding(tokens)))
+    def forward(self, tokens: torch.Tensor, deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        h = self.embedding(tokens, deterministic, rng)
+        return self.embedding.attend(self.transformer(
+            h, deterministic=deterministic, rng=rng))
 
 
 def gpt_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -342,7 +360,8 @@ def gpt_params_from_numpy(flax_params: Mapping[str, Any]
 @dataclasses.dataclass
 class TrainSetup:
     """A model ready to train: the cast module, its amp optimizer, one
-    seeded batch, and the step's size."""
+    seeded batch, the step's size, and the dropout's random state (None
+    without dropout)."""
 
     model: GPTModel
     amp_opt: Any
@@ -350,6 +369,7 @@ class TrainSetup:
     labels: torch.Tensor
     n_params: int
     flops_per_step: float
+    rng: Optional[DropoutRNG] = None
 
     @property
     def tokens_per_step(self) -> int:
@@ -358,13 +378,18 @@ class TrainSetup:
 
 def make_train_setup(model: str = "gpt345m", *, policy: str = "O5",
                      seed: int = 0, kernels: bool = True,
+                     attention_dropout: float = 0.0,
+                     hidden_dropout: float = 0.0,
                      device=None) -> TrainSetup:
     """Build the preset's GPT from seeded weights on ``device`` (cuda
     unless the CPU is asked for) in the ``policy``'s train recipe
     (:data:`TRAIN_RECIPES`), ``amp.initialize`` it with
     ``fused_adam(TRAIN_LR)`` at that policy, and draw one batch (labels =
     tokens shifted by one) from the same ``seed``.  ``kernels=False``
-    runs every kernel's plain version, on the same weights and data."""
+    runs every kernel's plain version, on the same weights and data.
+    With a dropout rate > 0 the setup owns the step's
+    :class:`DropoutRNG`, seeded ``seed + 1``: a kernel and a plain run
+    from one seed draw the same dropout seeds."""
     if policy not in TRAIN_RECIPES:
         raise ValueError(f"the train recipes are {sorted(TRAIN_RECIPES)}, "
                          f"not {policy!r}")
@@ -373,7 +398,9 @@ def make_train_setup(model: str = "gpt345m", *, policy: str = "O5",
     g = torch.Generator(device=dev)
     g.manual_seed(int(seed))
     net = GPTModel(geo["vocab_size"], geo["hidden_size"], geo["num_layers"],
-                   geo["num_heads"], geo["max_seq"], kernels=kernels,
+                   geo["num_heads"], geo["max_seq"],
+                   attention_dropout=attention_dropout,
+                   hidden_dropout=hidden_dropout, kernels=kernels,
                    dtype=get_policy(policy).param_dtype, device=dev,
                    **TRAIN_RECIPES[policy]).reset_parameters(g)
     b, s = geo["batch"], geo["seq"]
@@ -386,15 +413,17 @@ def make_train_setup(model: str = "gpt345m", *, policy: str = "O5",
     # the staged route: under 128 MiB)
     net, amp_opt = amp.initialize(net, opt, opt_level=policy,
                                   pipeline=True)
+    rng = DropoutRNG(seed + 1, dev) \
+        if attention_dropout > 0.0 or hidden_dropout > 0.0 else None
     return TrainSetup(net, amp_opt, tokens, torch.roll(tokens, -1, dims=-1),
-                      n_params, model_flops(model, n_params))
+                      n_params, model_flops(model, n_params), rng)
 
 
 def model_flops(model: str, n_params: int) -> float:
     """bench.py's model FLOPs of one train step of the preset
     (``bench.py:2251-2252``): 6 N per token, N the parameter count (the
     position table's ``max_seq`` rows included), plus the attention
-    scores, 12 L hidden s^2 a batch row."""
+    scores, 12 L hidden s^2 a batch row (dropout adds none)."""
     geo = MODELS[model]
     b, s = geo["batch"], geo["seq"]
     return 6.0 * n_params * b * s \
@@ -402,11 +431,14 @@ def model_flops(model: str, n_params: int) -> float:
 
 
 def train_step(setup: TrainSetup):
-    """One step: zero the flat grads, forward, the scaled loss's
-    backward, and the fused optimizer sweeps.  Returns the (unscaled)
-    loss, still on the device, and the step's ``StepInfo``."""
+    """One step: zero the flat grads, forward (with dropout, fresh seeds
+    and masks from the setup's RNG), the scaled loss's backward, and the
+    fused optimizer sweeps.  Returns the (unscaled) loss, still on the
+    device, and the step's ``StepInfo``."""
     setup.amp_opt.zero_grad()
-    loss = gpt_loss(setup.model(setup.tokens), setup.labels)
+    logits = setup.model(setup.tokens, deterministic=setup.rng is None,
+                         rng=setup.rng)
+    loss = gpt_loss(logits, setup.labels)
     setup.amp_opt.scale_loss(loss).backward()
     info = setup.amp_opt.apply_gradients()
     return loss.detach(), info
@@ -452,11 +484,14 @@ def masters_digest(amp_opt) -> str:
 
 def train_smoke(steps: int = 8, *, model: str = "gpt345m",
                 policy: str = "O5", seed: int = 0, kernels: bool = True,
+                attention_dropout: float = 0.0, hidden_dropout: float = 0.0,
                 device=None) -> TrainResult:
     """:func:`make_train_setup`, then ``steps`` :func:`train_step` s on
     its one batch, each timed through the read of its loss."""
     setup = make_train_setup(model, policy=policy, seed=seed,
-                             kernels=kernels, device=device)
+                             kernels=kernels,
+                             attention_dropout=attention_dropout,
+                             hidden_dropout=hidden_dropout, device=device)
     losses, step_ms, infos = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -490,6 +525,14 @@ def _parser() -> argparse.ArgumentParser:
                         "bf16, or int8 with one fp32 scale per cached row")
     p.add_argument("--steps", type=int, default=8,
                    help="train: optimizer steps")
+    p.add_argument("--attention-dropout", type=float, default=0.0,
+                   metavar="RATE",
+                   help="train: attention dropout (in the E flash kernels "
+                        "at O5); 0.1 alone is bench.py's gpt2_345m_dropout")
+    p.add_argument("--hidden-dropout", type=float, default=0.0,
+                   metavar="RATE",
+                   help="train: hidden dropout after attention and the MLP, "
+                        "and the embedding's")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--new-tokens", type=int, default=32)
     p.add_argument("--min-prompt", type=int, default=64)
@@ -532,9 +575,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             parser.error(f"--train runs at {sorted(TRAIN_RECIPES)}, not "
                          f"{args.policy}")
         r = train_smoke(args.steps, model=args.model, policy=args.policy,
-                        seed=args.seed, device=args.device)
+                        seed=args.seed,
+                        attention_dropout=args.attention_dropout,
+                        hidden_dropout=args.hidden_dropout,
+                        device=args.device)
         _, scale, skipped, _ = r.steps[-1]
         print(f"TRAIN_DONE policy={args.policy} steps={len(r.losses)} "
+              f"attention_dropout={args.attention_dropout:g} "
+              f"hidden_dropout={args.hidden_dropout:g} "
               f"loss_first={r.losses[0]:.6f} loss_last={r.losses[-1]:.6f} "
               f"skipped={skipped} scale={scale:g} "
               f"step_ms_p50={r.median_ms:.3f} "

@@ -30,12 +30,23 @@ explicit (b, 1, sq, sk) ``attention_mask`` (True = masked) always takes
 the materialized route, through the padding-mask softmax (row 5).
 Passing both masks raises ``ValueError``.
 
+Dropout, as the JAX modules apply it (``:97-233``), in a forward called
+with ``deterministic=False`` and a :class:`DropoutRNG`: attention
+dropout (``attention_dropout``) inside the E flash kernels on the flash
+route, from one host-drawn seed a layer a call (JAX's
+``dropout_seed_from_key``), and on the materialized route on the
+probabilities, ``where(keep, probs / (1 - rate), 0)``; hidden dropout
+(``hidden_dropout``) on the attention's and the MLP's outputs before
+each residual add, in their dtype.  Those Bernoulli masks come from
+:func:`dropout_mask` on the RNG's device generator: they cannot match
+JAX's threefry bits, only their law.  The rates default to JAX's 0.1;
+``deterministic=True`` (the default) runs none.
+
 Submodule and parameter names mirror the flax tree
 (``layer_{i}.self_attention.query_key_value.kernel``, ...).
 ``kernels=False`` routes LayerNorm and attention through their plain
 versions under autograd (the oracle configuration).  The MLP is 4x
-wide and there is no dropout (the JAX train paths run with rate 0):
-other widths and dropout are not ported yet.
+wide: other widths are not ported yet.
 """
 from __future__ import annotations
 
@@ -46,14 +57,65 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..normalization import FusedLayerNorm
-from ..ops.flash_attention import (flash_attention_e,
+from ..ops.flash_attention import (dropout_seed, flash_attention_e,
                                    flash_attention_e_reference)
 from .enums import AttnMaskType
 from .functional import FusedScaleMaskSoftmax
 from .tensor_parallel import ColumnParallelLinear, RowParallelLinear
 
 __all__ = ["ParallelMLP", "ParallelSelfAttention", "ParallelTransformerLayer",
-           "ParallelTransformer"]
+           "ParallelTransformer", "DropoutRNG", "dropout_mask", "dropout",
+           "dropout_rng"]
+
+
+def dropout_mask(shape, rate: float, generator: torch.Generator
+                 ) -> torch.Tensor:
+    """The Bernoulli keep mask of the hidden, embedding and materialized
+    attention dropout: bool ``shape``, True with probability 1 - ``rate``,
+    drawn on the ``generator``'s device."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) >= rate
+
+
+class DropoutRNG:
+    """The random state of dropout in a train step (JAX's ``"dropout"``
+    rng stream): a CPU generator for the E kernels' seeds, one a layer a
+    call drawn on the host (:func:`~apex_tpu_torch.ops.dropout_seed`), and
+    a generator on ``device`` for the Bernoulli masks
+    (:func:`dropout_mask`).  Both seeded from ``seed``."""
+
+    def __init__(self, seed: int, device=None):
+        self.seeds = torch.Generator().manual_seed(int(seed))
+        self.masks = torch.Generator(device=device or "cpu")
+        self.masks.manual_seed(int(seed))
+
+    def seed(self) -> int:
+        return dropout_seed(self.seeds)
+
+    def keep(self, shape, rate: float) -> torch.Tensor:
+        return dropout_mask(shape, rate, self.masks)
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRNG]
+            ) -> torch.Tensor:
+    """JAX's ``where(keep, x / (1 - rate), 0)`` in x's dtype (``1 - rate``
+    rounded to that dtype first, as a weakly typed JAX scalar is);
+    ``rng`` None or rate 0: x itself."""
+    if rng is None or rate == 0.0:
+        return x
+    c = float(torch.tensor(1.0 - rate, dtype=x.dtype))
+    return torch.where(rng.keep(x.shape, rate), x / c, 0.0)
+
+
+def dropout_rng(deterministic: bool, rates, rng) -> Optional[DropoutRNG]:
+    """The RNG a forward with dropout ``rates`` draws from, or None when
+    it runs no dropout; raises when dropout is on and no RNG was given."""
+    if deterministic or not any(r > 0.0 for r in rates):
+        return None
+    if rng is None:
+        raise ValueError("a forward with deterministic=False and a dropout "
+                         "rate > 0 needs rng (a DropoutRNG)")
+    return rng
 
 
 class ParallelMLP(nn.Module):
@@ -81,6 +143,7 @@ class ParallelSelfAttention(nn.Module):
 
     def __init__(self, hidden_size: int, num_attention_heads: int, *,
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
+                 attention_dropout: float = 0.1,
                  use_flash: bool = True, kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
@@ -90,6 +153,7 @@ class ParallelSelfAttention(nn.Module):
         self.num_heads = num_attention_heads
         self.head_dim = hidden_size // num_attention_heads
         self.attn_mask_type = attn_mask_type
+        self.attention_dropout = attention_dropout
         self.use_flash = use_flash
         self.kernels = kernels
         self.dtype = dtype
@@ -100,12 +164,14 @@ class ParallelSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                key_padding_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         if key_padding_mask is not None and attention_mask is not None:
             raise ValueError(
                 "pass either attention_mask or key_padding_mask, not both "
                 "(fold padding into the attention_mask yourself)")
+        rng = dropout_rng(deterministic, (self.attention_dropout,), rng)
         b, s, _ = x.shape
         h, d = self.num_heads, self.head_dim
         qkv = self.query_key_value(x).view(b, s, h, 3 * d)
@@ -114,8 +180,10 @@ class ParallelSelfAttention(nn.Module):
         if self.use_flash and attention_mask is None:
             attn = flash_attention_e if self.kernels \
                 else flash_attention_e_reference
+            drop = {} if rng is None else dict(
+                dropout_rate=self.attention_dropout, dropout_seed=rng.seed())
             return self.dense(attn(qkv, scale=scale, causal=causal,
-                                   kv_mask=key_padding_mask))
+                                   kv_mask=key_padding_mask, **drop))
         mask_type = self.attn_mask_type
         if key_padding_mask is not None:
             # the padding keys (and a causal model's triangle, which the
@@ -139,7 +207,8 @@ class ParallelSelfAttention(nn.Module):
             attn_mask_type=mask_type,
             scaled_masked_softmax_fusion=True, mask_func=None,
             softmax_in_fp32=True, scale=scale, kernels=self.kernels)
-        probs = softmax(scores, attention_mask)
+        probs = dropout(softmax(scores, attention_mask),
+                        self.attention_dropout, rng)
         ctx = torch.matmul(probs.to(self.dtype), v)
         return self.dense(ctx.transpose(1, 2).reshape(b, s, h * d))
 
@@ -150,18 +219,20 @@ class ParallelTransformerLayer(nn.Module):
 
     def __init__(self, hidden_size: int, num_attention_heads: int, *,
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
+                 attention_dropout: float = 0.1, hidden_dropout: float = 0.1,
                  use_flash: bool = True, layernorm_epsilon: float = 1e-5,
                  kernels: bool = True, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
         self.dtype = dtype
+        self.hidden_dropout = hidden_dropout
         self.input_layernorm = FusedLayerNorm(
             hidden_size, eps=layernorm_epsilon, kernels=kernels,
             device=device)
         self.self_attention = ParallelSelfAttention(
             hidden_size, num_attention_heads, attn_mask_type=attn_mask_type,
-            use_flash=use_flash, kernels=kernels, dtype=dtype,
-            device=device)
+            attention_dropout=attention_dropout, use_flash=use_flash,
+            kernels=kernels, dtype=dtype, device=device)
         self.post_attention_layernorm = FusedLayerNorm(
             hidden_size, eps=layernorm_epsilon, kernels=kernels,
             device=device)
@@ -169,14 +240,17 @@ class ParallelTransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                key_padding_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        rng = dropout_rng(deterministic, (self.self_attention.attention_dropout,
+                                      self.hidden_dropout), rng)
         attn_out = self.self_attention(
             self.input_layernorm(x).to(self.dtype), attention_mask,
-            key_padding_mask)
-        x = x + attn_out.to(x.dtype)
+            key_padding_mask, rng is None, rng)
+        x = x + dropout(attn_out, self.hidden_dropout, rng).to(x.dtype)
         out = self.mlp(self.post_attention_layernorm(x).to(self.dtype))
-        return x + out.to(x.dtype)
+        return x + dropout(out, self.hidden_dropout, rng).to(x.dtype)
 
 
 class ParallelTransformer(nn.Module):
@@ -187,6 +261,7 @@ class ParallelTransformer(nn.Module):
     def __init__(self, num_layers: int, hidden_size: int,
                  num_attention_heads: int, *,
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
+                 attention_dropout: float = 0.1, hidden_dropout: float = 0.1,
                  use_flash: bool = True, layernorm_epsilon: float = 1e-5,
                  kernels: bool = True, dtype: torch.dtype = torch.float32,
                  device=None):
@@ -196,7 +271,9 @@ class ParallelTransformer(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer_{i}", ParallelTransformerLayer(
                 hidden_size, num_attention_heads,
-                attn_mask_type=attn_mask_type, use_flash=use_flash,
+                attn_mask_type=attn_mask_type,
+                attention_dropout=attention_dropout,
+                hidden_dropout=hidden_dropout, use_flash=use_flash,
                 layernorm_epsilon=layernorm_epsilon, kernels=kernels,
                 dtype=dtype, device=device))
         self.final_layernorm = FusedLayerNorm(
@@ -205,9 +282,11 @@ class ParallelTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                key_padding_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, attention_mask,
-                                            key_padding_mask)
+                                            key_padding_mask, deterministic,
+                                            rng)
         return self.final_layernorm(x).to(self.dtype)

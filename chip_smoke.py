@@ -57,7 +57,19 @@ Phases, in order; any failure exits non-zero without the result line:
                    plain version, with the flag grid (Nesterov,
                    dampening, weight decay after the momentum, first
                    run, keep, no/bf16/fp16 copy) on an odd length and on
-                   misaligned views.
+                   misaligned views; the dropout slice's (the dropout
+                   lanes of rows 10-13, rate 0.1, from a seventh
+                   generator): the E forward and backward against their
+                   plain versions with the same seed (o and lse one bf16
+                   ulp of each element + 1e-5, dqkv likewise) and timed
+                   beside SDPA with ``dropout_p`` at GPT's (8, 1024, 16,
+                   64) causal, BERT's padded (16, 512, 16, 64) with an
+                   all-pad row (the kv_mask + dropout lane), (2, 1024, 8,
+                   128), the blocked walk's (4, 2048, 16, 64) and JAX's
+                   fallback form (2, 1000, 3, 64); then each kernel's
+                   keep mask (forward, dQ and dK/dV passes) read back bit
+                   for bit against ``rand_keep`` at (2, 1024, 16, 64) and
+                   (2, 2048, 16, 64).
 3. serve O5/O0   — GPT-345M width (vocab 50304, hidden 1024, 24 layers,
                    16 heads, max_seq 1024), O5 bf16 then fp32, seeded
                    random weights: serve 8 seeded prompts of 64..700
@@ -167,6 +179,17 @@ Phases, in order; any failure exits non-zero without the result line:
                    step each; the unblocked E counts 0); losses finite
                    and falling; 3 plain steps within
                    ``TRAIN_LONG_LOSS_TOL`` (one limit a step).
+6e'. train_dropout — bench.py's gpt2_345m_dropout (bench_gpt345m(dropout=
+                   0.1)): GPT-345M at seq 1024, batch 8, O5, attention
+                   dropout 0.1 inside the E kernels (a fresh host-drawn
+                   seed for every layer every step), no hidden dropout:
+                   8 steps with launch counts reset just before and held
+                   exactly (the E kernels only under the dropout names,
+                   24 a step each), losses finite and falling, the step's
+                   ratio to the dropout-free train step; 3 plain steps
+                   (the same seeds) within ``TRAIN_DROPOUT_LOSS_TOL``.
+                   Then the same recipe at seq 2048, batch 4, 8 steps:
+                   the blocked dropout names, exact counts.
 6f. train_resnet — bench.py's bench_resnet50 through the port's imagenet
                    script (``examples/imagenet/main_amp``): ResNet-50,
                    batch 256, 224x224, 1000 classes, O5 (bf16 convs,
@@ -201,7 +224,8 @@ Phases, in order; any failure exits non-zero without the result line:
                    Q8 serve over an int8 cache, the MoE serve at cf 8.0
                    and 1.25, one O5 and one O2 train
                    step of GPT-345M and of BERT-large (on bench.py's
-                   all-ones mask), one GPT-345M step at seq 2048 and one
+                   all-ones mask), one GPT-345M step at seq 2048, one at
+                   attention dropout 0.1 and one
                    staged ResNet-50 step (device time split into cuDNN
                    convolutions, the optimizer kernel, max pool and the
                    plain batch norm and elementwise work)
@@ -209,8 +233,16 @@ Phases, in order; any failure exits non-zero without the result line:
                    the device's idle share.  Last, since the profiler
                    slows every later launch.
 
+8. dropout_faults — only when named: each fault of ``DROPOUT_FAULTS`` (a
+                   head salt off by one in the backward's passes; the
+                   keep compare >= written >) planted in a temporary copy
+                   of the port, its source rebuilt there, and the keep
+                   readback and 3 kernel and 3 plain train_dropout steps
+                   run in that copy: each fault must be caught, and what
+                   caught it is printed.
+
 ``--phases`` runs a subset (``build`` always runs), for iterating.
-When every phase ran and passed, the last four lines are the whole
+When every default phase ran and passed, the last four lines are the whole
 command's time, one JSON object ``{"kernels": [...]}``, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -374,6 +406,45 @@ BWD_CASES = ((1, 16, 1024, 1024, 64, True), (1, 16, 384, 1000, 64, False),
 E_LONG_CASES = ((2, 1024, 8, 128), (4, 2048, 16, 64), (1, 2048, 8, 128))
 # the E kernels' time per (q, k) pair at a fixed token count
 E_SWEEP_TOKENS, E_SWEEP_SEQS = 8192, (1024, 2048, 4096, 8192)
+# attention dropout, the dropout lanes of rows 10-13, at bench.py's
+# gpt2_345m_dropout rate.  Kernel cases (b, s, h, d, causal, kv_mask):
+# GPT's step (timed: rows 10/12's entries), BERT's padded batch with an
+# all-pad row (the kv_mask + dropout lane), d = 128, the long step's
+# shape past a padded 1024 (the blocked walk's salted tiles; timed: rows
+# 11/13's entries), and an odd head count at d = 64 with s not a multiple
+# of 128 (JAX's fallback form, the hash's stride s itself)
+DROPOUT_RATE = 0.1
+DROPOUT_CASES = ((8, 1024, 16, 64, True, False), (16, 512, 16, 64, False, True),
+                 (2, 1024, 8, 128, True, False), (4, 2048, 16, 64, True, False),
+                 (2, 1000, 3, 64, True, False))
+# the keep masks read back bit for bit, (b, s, h, d): the single route
+# and the blocked walk; at this seed 5 and 8 of their pairs hash exactly
+# onto the rate's threshold
+DROPOUT_READBACK = ((2, 1024, 16, 64), (2, 2048, 16, 64))
+DROPOUT_READBACK_SEED = 1001
+# train_dropout (bench.py's gpt2_345m_dropout: attention dropout 0.1, no
+# hidden dropout), plain vs kernel losses over the first 3 steps, one
+# limit a step.  Sound kernels put them 2.19e-5, 4.10e-5 and 1.97e-4 from
+# the plain run's (the same in every run); a backward that hashes each
+# pair with the next head's salt reads 2.19e-5 (step 1 is the forward
+# alone), 5.49e-4 and 8.96e-4.  A keep compare written > for >= flips
+# only the pairs hashing exactly onto the threshold (~100 of a step's
+# 1.6e9): 3.53e-5, 9.92e-5, 1.54e-4, inside the sound spread, so the keep
+# readback (DROPOUT_READBACK, 13 such pairs) is what catches it (PERF.md,
+# Findings)
+TRAIN_DROPOUT_LOSS_TOL = (1e-4, 2e-4, 4e-4)
+# the faults ``--phases dropout_faults`` plants in a copy of the port:
+# (source, sound text, faulty text, ...); a head salt off by one in the
+# backward's two passes only, and the keep compare >= written >
+DROPOUT_FAULTS = {
+    "bwd_head_salt": ("flash_attention_bwd.cu",
+                      "dkey = drop_key(dr, bi, hi, j);",
+                      "dkey = drop_key(dr, bi, hi + 1, j);",
+                      "drow = drop_row(dr, bi, hi, i);",
+                      "drow = drop_row(dr, bi, hi + 1, i);"),
+    "keep_compare": ("flash_dropout.cuh", "return (x >> 8) >= thr;",
+                     "return (x >> 8) > thr;"),
+}
 
 # the serve: 8 seeded prompt lengths in [64, 700], the last pinned to
 # 700 so one prompt pads past 512 tokens (the gridded prefill case)
@@ -466,6 +537,12 @@ REPLACES = {
     "sgd_step": "apex_tpu/ops/fused_optim.py:393",
     "adam_step": "apex_tpu/ops/fused_optim.py:220",
     "sgd_pipeline": "apex_tpu/ops/fused_pipeline.py:453",
+    "flash_attention_e_dropout": "apex_tpu/ops/flash_attention.py:1913",
+    "flash_attention_e_bwd_dropout": "apex_tpu/ops/flash_attention.py:2191",
+    "flash_attention_e_blocked_dropout":
+        "apex_tpu/ops/flash_attention.py:2043",
+    "flash_attention_e_bwd_blocked_dropout":
+        "apex_tpu/ops/flash_attention.py:2336",
 }
 SOURCES = {
     "layer_norm": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -496,6 +573,13 @@ SOURCES = {
     "sgd_step": "apex_tpu_torch/csrc/fused_sgd.cu",
     "adam_step": "apex_tpu_torch/csrc/fused_adam.cu",
     "sgd_pipeline": "apex_tpu_torch/csrc/fused_sgd.cu",
+    "flash_attention_e_dropout": "apex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_e_bwd_dropout":
+        "apex_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_e_blocked_dropout":
+        "apex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_e_bwd_blocked_dropout":
+        "apex_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 # the path each kernel's launches are counted on
 SERVE_KERNELS = ("layer_norm", "flash_attention", "flash_decode")
@@ -524,6 +608,14 @@ TRAIN_LONG_KERNELS = ("layer_norm", "layer_norm_bwd",
                       "flash_attention_e_blocked",
                       "flash_attention_e_bwd_blocked", "fused_adam_pipeline")
 TRAIN_RESNET_KERNELS = ("sgd_step", "adam_step", "sgd_pipeline")
+TRAIN_DROPOUT_KERNELS = ("layer_norm", "layer_norm_bwd",
+                         "flash_attention_e_dropout",
+                         "flash_attention_e_bwd_dropout",
+                         "fused_adam_pipeline")
+TRAIN_DROPOUT_LONG_KERNELS = ("layer_norm", "layer_norm_bwd",
+                              "flash_attention_e_blocked_dropout",
+                              "flash_attention_e_bwd_blocked_dropout",
+                              "fused_adam_pipeline")
 # the kernel checks that draw from a generator of their own (the Q8
 # tier's, the BERT phases', the long-context, MoE and ResNet slices'),
 # so the earlier checks keep their inputs
@@ -532,6 +624,7 @@ BERT_CHECKS = ("grad_routing", "scaled_masked_softmax",
 LONG_CHECKS = ("flash_attention_bwd", "flash_attention_e_long")
 MOE_CHECKS = ("moe_routing",)
 RESNET_CHECKS = ("sgd_step", "adam_step", "sgd_pipeline")
+DROPOUT_CHECKS = ("flash_attention_e_dropout",)
 
 
 def log(msg: str) -> None:
@@ -1209,123 +1302,41 @@ def check_layer_norm_bwd(dev, g, dtype=torch.bfloat16):
 
 
 def check_flash_attention_e(dev, g):
-    """The E forward and backward at the train step's shape; returns the
-    two kernel entries."""
-    import torch.nn.functional as F
-
-    from apex_tpu_torch.ops import (flash_attention_e_backward,
-                                    flash_attention_e_reference,
-                                    flash_attention_e_with_lse,
-                                    mha_reference)
-    from apex_tpu_torch.ops.flash_attention import \
-        flash_attention_e_backward_reference
+    """The E forward and backward at the train step's shape against their
+    plain versions (:func:`_e_case`), the backward also against autograd
+    of the plain forward; returns the two kernel entries."""
+    from apex_tpu_torch.ops import flash_attention_e_reference
 
     b, s, h, d = 8, 1024, 16, 64
-    qkv = torch.randn(b, s, h, 3 * d, generator=g, device=dev).bfloat16()
-    do = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
-    q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
-    o, lse = flash_attention_e_with_lse(qkv, causal=True)
-    torch.cuda.synchronize()
-    o_r, lse_r = mha_reference(q, k, v, causal=True, return_lse=True)
-    o_r = o_r.transpose(1, 2).reshape(b, s, h * d)
-    err, lerr = max_err(o, o_r), max_err(lse, lse_r)
-    ok = err <= ATTN_TOL and lerr <= LSE_TOL
-    log(f"kernel flash_attention_e b={b} s={s} h={h} d={d} causal bf16: "
-        f"max_abs_err={err:.3e} (tol {ATTN_TOL}) max_rel_err="
-        f"{rel_err(o, o_r):.3e} lse_err={lerr:.3e} (tol {LSE_TOL}) "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("flash_attention_e kernel disagrees")
-    o4 = o.view(b, s, h, d)
-    dqkv = flash_attention_e_backward(qkv, o4, lse, do, causal=True)
-    torch.cuda.synchronize()
+    qkv, o4, lse, do, dqkv, counts, err, berr = _e_case(dev, g, b, s, h, d)
+    want = {"flash_attention_e": 1, "flash_attention_e_bwd": 1}
+    if counts != want:
+        raise AssertionError(f"E launches {counts} != {want}")
     if dqkv.shape != qkv.shape:
         raise AssertionError(f"dqkv {tuple(dqkv.shape)} != qkv's shape")
-    # against the backward's plain version on the same (qkv, o, lse, do),
-    # element by element and part by part
-    dqkv_p = flash_attention_e_backward_reference(qkv, o4, lse, do,
-                                                  causal=True)
-    berr = max_err(dqkv, dqkv_p)
-    parts = []
-    for i, part in enumerate("qkv"):
-        kp, rp = (t[..., i * d:(i + 1) * d].float() for t in (dqkv, dqkv_p))
-        diff = (kp - rp).abs()
-        excess = float((diff - DQKV_ULP_RTOL * rp.abs()).max())
-        parts.append((part, excess, int((diff > 0).sum()),
-                      float(rp.abs().median())))
-    ok = all(x <= DQKV_ATOL for _, x, _, _ in parts)
-    log(f"kernel flash_attention_e_bwd (dqkv in qkv's lanes) vs the "
-        f"backward's plain version: max_abs_err={berr:.3e}; per part, "
-        f"max(|err| - {DQKV_ULP_RTOL:.4g}|ref|) (tol {DQKV_ATOL}), "
-        f"elements that differ, median |ref|: "
-        + ", ".join(f"d{n} {x:.3e} {c} {m:.3e}" for n, x, c, m in parts)
-        + f" {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("flash_attention_e_bwd kernel disagrees with "
-                             "its plain version")
-    del dqkv_p
     # against autograd of the forward's plain version (fp32 throughout,
     # delta from the unrounded o): relative Frobenius error per part
     qr = qkv.clone().requires_grad_(True)
     out_r = flash_attention_e_reference(qr, causal=True)
-    do_flat = do.reshape(b, s, h * d)
-    dqkv_r, = torch.autograd.grad(out_r, qr, do_flat, retain_graph=True)
-    frob = []
-    for i, part in enumerate("qkv"):
-        kp, rp = (t[..., i * d:(i + 1) * d].float() for t in (dqkv, dqkv_r))
-        frob.append((part, float((kp - rp).norm() / rp.norm())))
-    ok = all(x <= DQKV_FROB_RTOL for _, x in frob)
+    dqkv_r, = torch.autograd.grad(out_r, qr, do.reshape(b, s, h * d))
+    del out_r
+    frob = [float((a.float() - r.float()).norm() / r.float().norm())
+            for a, r in zip(dqkv.split(d, dim=-1), dqkv_r.split(d, dim=-1))]
+    ok = all(x <= DQKV_FROB_RTOL for x in frob)
     log(f"kernel flash_attention_e_bwd vs autograd of mha_reference: "
         f"||err|| / ||ref|| per part "
-        + ", ".join(f"d{n} {x:.3e}" for n, x in frob)
+        + ", ".join(f"d{n} {x:.3e}" for n, x in zip("qkv", frob))
         + f" (tol {DQKV_FROB_RTOL}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("flash_attention_e_bwd kernel disagrees with "
                              "autograd of the plain forward")
-    pairs = b * h * s * (s + 1) / 2
-    # forward
-    ms, ms_w = time_ms(lambda: flash_attention_e_with_lse(qkv, causal=True))
-    plain, plain_w = time_ms(
-        lambda: mha_reference(q, k, v, causal=True, return_lse=True),
-        iters=10)
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    lib, lib_w = time_ms(lambda: F.scaled_dot_product_attention(
-        qc, kc, vc, is_causal=True))
-    nbytes = b * s * h * 3 * d * 2 + b * s * h * d * 2 + b * h * s * 4
-    b_ms, b_by = bound_ms(nbytes, 4.0 * d * pairs, BF16_FLOPS)
-    log(f"  forward time, device ms (wall ms per call): kernel {ms:.5f} "
-        f"({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), SDPA "
-        f"{lib:.5f} ({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
-    fwd = dict(name="flash_attention_e",
-               shape=f"b={b} s={s} h={h} d={d} causal bf16",
-               max_abs_err=max(err, lerr), ms=ms, ms_wall=ms_w,
-               plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-    # backward: the plain version, autograd's and SDPA's backward alone
-    # (these two through a graph kept from one forward)
-    ms, ms_w = time_ms(lambda: flash_attention_e_backward(
-        qkv, o4, lse, do, causal=True))
-    plain, plain_w = time_ms(lambda: flash_attention_e_backward_reference(
-        qkv, o4, lse, do, causal=True), iters=10)
-    ag, ag_w = time_ms(lambda: torch.autograd.grad(
-        out_r, qr, do_flat, retain_graph=True), iters=10)
-    del out_r, dqkv_r
-    qs, ks, vs = (t.clone().requires_grad_(True) for t in (qc, kc, vc))
-    out_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    do_s = do.transpose(1, 2).contiguous()
-    lib, lib_w = time_ms(lambda: torch.autograd.grad(
-        out_s, (qs, ks, vs), do_s, retain_graph=True))
-    nbytes = 2 * b * s * h * 3 * d * 2 + 2 * b * s * h * d * 2 \
-        + b * h * s * 4
-    b_ms, b_by = bound_ms(nbytes, 10.0 * d * pairs, BF16_FLOPS)
-    log(f"  backward time, device ms (wall ms per call): kernel {ms:.5f} "
-        f"({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), autograd of "
-        f"mha_reference {ag:.5f} ({ag_w:.5f}), SDPA backward {lib:.5f} "
-        f"({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
-    bwd = dict(name="flash_attention_e_bwd",
-               shape=f"b={b} s={s} h={h} d={d} causal bf16",
-               max_abs_err=berr, ms=ms, ms_wall=ms_w, plain_ms=plain,
-               bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-    return fwd, bwd
+    del qr, dqkv_r, dqkv
+    shape = f"b={b} s={s} h={h} d={d} causal bf16"
+    fwd, bwd = _e_times(shape, qkv, o4, lse, do)
+    return (dict(fwd, name="flash_attention_e", shape=shape,
+                 max_abs_err=err),
+            dict(bwd, name="flash_attention_e_bwd", shape=shape,
+                 max_abs_err=berr))
 
 
 def check_fused_adam(dev, g, dtype=torch.bfloat16):
@@ -1909,24 +1920,34 @@ def check_lamb_phase1(dev, g):
 
 # --- phase 2, the long-context slice's shapes ---------------------------
 
-def _attn_bound(b, h, s, d, causal, bwd):
+def _attn_bound(b, h, s, d, causal, bwd, kv_mask=None):
     """The card's bound on the (b, h, s, d) self-attention forward or
     backward: bf16 operands read once and outputs written once (forward
-    q, k, v, o; backward q, k, v, o, do, dq, dk, dv; the fp32 lse), 4 d
-    (forward) or 10 d (backward) operations per attended (q, k) pair."""
-    pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
-    nbytes = (8 if bwd else 4) * b * h * s * d * 2 + b * h * s * 4
+    q, k, v, o; backward q, k, v, o, do, dq, dk, dv; the fp32 lse; a
+    (b, s) fp32 ``kv_mask``), 4 d (forward) or 10 d (backward)
+    operations per attended (q, k) pair (with a full ``kv_mask``, each
+    row's s queries against its live keys).  Dropout's keep bits are
+    hashed in the kernels: no bytes, and the same products."""
+    if kv_mask is not None:
+        assert not causal
+        pairs = float(h * s * kv_mask.sum())
+    else:
+        pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
+    nbytes = (8 if bwd else 4) * b * h * s * d * 2 + b * h * s * 4 \
+        + (0 if kv_mask is None else b * s * 4)
     return bound_ms(nbytes, (10.0 if bwd else 4.0) * d * pairs, BF16_FLOPS)
 
 
 def _hold_forward(label, o, o_r, lse, lse_r):
     """Hold a flash forward against its plain version: o element by
     element (``grad_excess`` within ``DQKV_ATOL``), the fp32 lse within
-    ``LSE_TOL``; returns ``(max |o err|, max |lse err|)``."""
+    ``LSE_TOL`` (a row that attends nothing -inf on both sides); returns
+    ``(max |o err|, max |lse err|)``."""
     excess, err = grad_excess(o, o_r), max_err(o, o_r)
-    lerr = max_err(lse, lse_r)
+    live = torch.isfinite(lse_r)
+    lerr = max_err(lse[live], lse_r[live])
     ok = bool(torch.isfinite(o).all()) and excess <= DQKV_ATOL and \
-        lerr <= LSE_TOL
+        lerr <= LSE_TOL and torch.equal(torch.isfinite(lse), live)
     log(f"{label}: o max(|err| - {DQKV_ULP_RTOL:.4g}|ref|)={excess:.3e} "
         f"(tol {DQKV_ATOL}), max |err| {err:.3e}; lse_err={lerr:.3e} (tol "
         f"{LSE_TOL}) {'ok' if ok else 'FAIL'}")
@@ -2042,79 +2063,116 @@ def check_flash_attention_bwd(dev, g):
     return entry, dict(out["fwd128"], of=("flash_attention", "d128"))
 
 
-def _e_case(dev, g, b, s, h, d, causal=True):
-    """One E forward and backward against their plain versions, launch
-    counts reset just before the two launches; returns ``(qkv, o4, lse,
-    do, counts, err, berr)``."""
-    from apex_tpu_torch.ops import (flash_attention_e_backward,
+def _e_case(dev, g, b, s, h, d, causal=True, kv_mask=None, drop=None):
+    """One E forward and backward against their plain versions (with the
+    ``kv_mask`` and the dropout ``drop``, ``dict(dropout_rate=,
+    dropout_seed=)``, when given), launch counts reset just before the
+    two launches; returns ``(qkv, o4, lse, do, dqkv, counts, err,
+    berr)``."""
+    from apex_tpu_torch.ops import (e_mode, flash_attention_e_backward,
                                     flash_attention_e_with_lse,
-                                    launch_counts, mha_reference,
+                                    launch_counts, mha_reference, rand_keep,
                                     reset_launch_counts)
     from apex_tpu_torch.ops.flash_attention import \
         flash_attention_e_backward_reference
 
+    drop = drop or {}
     qkv = torch.randn(b, s, h, 3 * d, generator=g, device=dev).bfloat16()
     do = torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
     q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
     reset_launch_counts()
-    o, lse = flash_attention_e_with_lse(qkv, causal=causal)
+    o, lse = flash_attention_e_with_lse(qkv, causal=causal, kv_mask=kv_mask,
+                                        **drop)
     o4 = o.view(b, s, h, d)
-    dqkv = flash_attention_e_backward(qkv, o4, lse, do, causal=causal)
+    dqkv = flash_attention_e_backward(qkv, o4, lse, do, causal=causal,
+                                      kv_mask=kv_mask, **drop)
     torch.cuda.synchronize()
     counts = {n: c for n, c in launch_counts().items() if c}
-    o_r, lse_r = mha_reference(q, k, v, causal=causal, return_lse=True)
+    keep = {}
+    if drop:
+        keep = dict(dropout_rate=drop["dropout_rate"], dropout_keep=rand_keep(
+            b, h, s, s, drop["dropout_seed"], drop["dropout_rate"],
+            e_mode(s, h, d, drop=True), device=dev))
+    o_r, lse_r = mha_reference(q, k, v, causal=causal, return_lse=True,
+                               kv_mask=kv_mask, **keep)
+    del keep
     o_r = o_r.transpose(1, 2).reshape(b, s, h * d)
-    shape = f"b={b} s={s} h={h} d={d} {'causal' if causal else 'full'} bf16"
+    shape = (f"b={b} s={s} h={h} d={d} {'causal' if causal else 'full'}"
+             f"{' kv_mask' if kv_mask is not None else ''}"
+             f"{' dropout %g' % drop['dropout_rate'] if drop else ''} bf16")
     err, lerr = _hold_forward(f"kernel flash_attention_e {shape} (launches "
                               f"{counts})", o, o_r, lse, lse_r)
     del o_r, lse_r
     want = flash_attention_e_backward_reference(qkv, o4, lse, do,
-                                                causal=causal)
+                                                causal=causal,
+                                                kv_mask=kv_mask, **drop)
     berr = _hold_backward(f"flash_attention_e_bwd {shape}",
                           dqkv.split(d, dim=-1), want.split(d, dim=-1))
-    return qkv, o4, lse, do, counts, max(err, lerr), berr
+    return qkv, o4, lse, do, dqkv, counts, max(err, lerr), berr
 
 
-def _e_times(label, qkv, o4, lse, do, causal=True, iters=30):
-    """The E forward and backward timed against their plain versions,
-    SDPA and the bound: two entries."""
+def _e_times(label, qkv, o4, lse, do, causal=True, iters=30, kv_mask=None,
+             drop=None):
+    """The E forward and backward (with the ``kv_mask`` and the dropout
+    ``drop``, as :func:`_e_case` takes them) timed against their plain
+    versions (with dropout: the keep mask's hash included), SDPA (a
+    boolean (b, 1, 1, s) mask for the kv_mask; ``dropout_p`` at the rate:
+    its own Philox mask, the same work on another mask) and the bound:
+    two entries."""
     import torch.nn.functional as F
 
-    from apex_tpu_torch.ops import (flash_attention_e_backward,
+    from apex_tpu_torch.ops import (e_mode, flash_attention_e_backward,
                                     flash_attention_e_with_lse,
-                                    mha_reference)
+                                    mha_reference, rand_keep)
     from apex_tpu_torch.ops.flash_attention import \
         flash_attention_e_backward_reference
 
+    drop = drop or {}
     b, s, h, d = o4.shape
     q, k, v = (t.transpose(1, 2) for t in qkv.split(d, dim=-1))
+
+    def plain_fwd():
+        keep = {} if not drop else dict(
+            dropout_rate=drop["dropout_rate"], dropout_keep=rand_keep(
+                b, h, s, s, drop["dropout_seed"], drop["dropout_rate"],
+                e_mode(s, h, d, drop=True), device=qkv.device))
+        return mha_reference(q, k, v, causal=causal, return_lse=True,
+                             kv_mask=kv_mask, **keep)
+
     ms, ms_w = time_ms(lambda: flash_attention_e_with_lse(
-        qkv, causal=causal), iters=iters)
-    plain, plain_w = time_ms(lambda: mha_reference(
-        q, k, v, causal=causal, return_lse=True), iters=5)
+        qkv, causal=causal, kv_mask=kv_mask, **drop), iters=iters)
+    plain, plain_w = time_ms(plain_fwd, iters=5)
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    sdpa = dict(is_causal=causal,
+                dropout_p=drop.get("dropout_rate", 0.0))
+    if kv_mask is not None:
+        sdpa["attn_mask"] = (kv_mask > 0)[:, None, None, :]
     lib, lib_w = time_ms(lambda: F.scaled_dot_product_attention(
-        qc, kc, vc, is_causal=causal))
-    b_ms, b_by = _attn_bound(b, h, s, d, causal, bwd=False)
+        qc, kc, vc, **sdpa))
+    b_ms, b_by = _attn_bound(b, h, s, d, causal, bwd=False, kv_mask=kv_mask)
+    lib_name = "SDPA" + (f" dropout_p={sdpa['dropout_p']:g}"
+                         if drop else "")
     log(f"  {label} forward time, device ms (wall ms per call): kernel "
-        f"{ms:.5f} ({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), SDPA "
-        f"{lib:.5f} ({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
+        f"{ms:.5f} ({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), "
+        f"{lib_name} {lib:.5f} ({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
     fwd = dict(ms=ms, ms_wall=ms_w, plain_ms=plain, bound_ms=b_ms,
                bound_by=b_by, library_ms=lib)
     ms, ms_w = time_ms(lambda: flash_attention_e_backward(
-        qkv, o4, lse, do, causal=causal), iters=iters)
+        qkv, o4, lse, do, causal=causal, kv_mask=kv_mask, **drop),
+        iters=iters)
     plain, plain_w = time_ms(lambda: flash_attention_e_backward_reference(
-        qkv, o4, lse, do, causal=causal), iters=5)
+        qkv, o4, lse, do, causal=causal, kv_mask=kv_mask, **drop), iters=5)
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (qc, kc, vc))
-    out_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    out_s = F.scaled_dot_product_attention(qs, ks, vs, **sdpa)
     do_s = do.transpose(1, 2).contiguous()
     lib, lib_w = time_ms(lambda: torch.autograd.grad(
         out_s, (qs, ks, vs), do_s, retain_graph=True))
     del out_s
-    b_ms, b_by = _attn_bound(b, h, s, d, causal, bwd=True)
+    b_ms, b_by = _attn_bound(b, h, s, d, causal, bwd=True, kv_mask=kv_mask)
     log(f"  {label} backward time, device ms (wall ms per call): kernel "
-        f"{ms:.5f} ({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), SDPA "
-        f"backward {lib:.5f} ({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
+        f"{ms:.5f} ({ms_w:.5f}), plain {plain:.5f} ({plain_w:.5f}), "
+        f"{lib_name} backward {lib:.5f} ({lib_w:.5f}), bound {b_ms:.5f} "
+        f"({b_by})")
     bwd = dict(ms=ms, ms_wall=ms_w, plain_ms=plain, bound_ms=b_ms,
                bound_by=b_by, library_ms=lib)
     return fwd, bwd
@@ -2137,7 +2195,7 @@ def check_flash_attention_e_long(dev, g):
                "flash_attention_e_bwd_blocked": 1}
     for n, (b, s, h, d) in enumerate(E_LONG_CASES):
         want = blocked if e_mode(s) == "blocked" else single
-        qkv, o4, lse, do, counts, err, berr = _e_case(dev, g, b, s, h, d)
+        qkv, o4, lse, do, _, counts, err, berr = _e_case(dev, g, b, s, h, d)
         if counts != want:
             raise AssertionError(f"E launches at s={s}: {counts} != {want}")
         shape = f"b={b} s={s} h={h} d={d} causal bf16"
@@ -2181,6 +2239,136 @@ def check_flash_attention_e_long(dev, g):
     for e in entries:
         if e["name"] == "flash_attention_e_blocked":
             e["sweep"] = sweep
+    return tuple(entries)
+
+
+# --- phase 2, the dropout slice's lanes of rows 10-13 -------------------
+
+def _readback_keep(dev, b, s, h, d, seed):
+    """The keep mask each dropout kernel drew at (b, s, h, d), read back
+    bit for bit through the unmasked, full-attention lane.  q = 0 makes
+    every score 0, so each row's p is 1/s over all s keys.  Per window of
+    d keys from c0: v (and k) one-hot on it, v[c] = e_(c - c0), zero
+    elsewhere, so the forward's o[r, dim] is keep(r, c0 + dim) (1 - rate)^-1
+    / s, nonzero exactly where kept; with do all ones the dQ pass's
+    dq[r, dim] = scale (keep (1 - rate)^-1 - delta_r) / s, positive
+    exactly where kept (delta_r <= d / s (1 - rate)^-1).  Per window of d
+    rows from r0, with q = k = v = 0 and do one-hot on it, the dK/dV
+    pass's dv[c, dim] is keep(r0 + dim, c) (1 - rate)^-1 / s.  Returns
+    the three (b, h, s, s) bool masks."""
+    from apex_tpu_torch.ops import (flash_attention_e_backward,
+                                    flash_attention_e_with_lse)
+
+    kw = dict(dropout_rate=DROPOUT_RATE, dropout_seed=seed)
+    fwd, dq, dkv = (torch.empty((b, h, s, s), dtype=torch.bool, device=dev)
+                    for _ in range(3))
+    eye = torch.eye(d, device=dev, dtype=torch.bfloat16)[:, None, :]
+    qkv = torch.zeros(b, s, h, 3 * d, device=dev, dtype=torch.bfloat16)
+    ones = torch.ones(b, s, h, d, device=dev, dtype=torch.bfloat16)
+    for c0 in range(0, s, d):
+        qkv.zero_()
+        qkv[:, c0:c0 + d, :, d:2 * d] = eye
+        qkv[:, c0:c0 + d, :, 2 * d:] = eye
+        o, lse = flash_attention_e_with_lse(qkv, **kw)
+        o4 = o.view(b, s, h, d)
+        fwd[..., c0:c0 + d] = (o4 != 0).permute(0, 2, 1, 3)
+        grad = flash_attention_e_backward(qkv, o4, lse, ones, **kw)
+        dq[..., c0:c0 + d] = (grad[..., :d] > 0).permute(0, 2, 1, 3)
+    qkv.zero_()
+    o, lse = flash_attention_e_with_lse(qkv, **kw)
+    o4 = o.view(b, s, h, d)
+    do = torch.zeros_like(ones)
+    for r0 in range(0, s, d):
+        do.zero_()
+        do[:, r0:r0 + d] = eye
+        grad = flash_attention_e_backward(qkv, o4, lse, do, **kw)
+        dkv[:, :, r0:r0 + d] = (grad[..., 2 * d:] != 0).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    return fwd, dq, dkv
+
+
+def _hold_keep(dev, b, s, h, d, seed):
+    """The kernels' keep masks at (b, s, h, d), read back
+    (:func:`_readback_keep`), against ``rand_keep`` bit for bit; the
+    pairs whose hash sits exactly on the threshold are counted, and at
+    least one must be among them (a compare written > for >= drops them,
+    and must fail here)."""
+    from apex_tpu_torch.ops import e_mode, rand_keep
+    from apex_tpu_torch.ops.flash_attention import (_drop_width, _hash24,
+                                                    _threshold)
+
+    mode = e_mode(s, h, d, drop=True)
+    want = rand_keep(b, h, s, s, seed, DROPOUT_RATE, mode, device=dev)
+    thr, width = _threshold(DROPOUT_RATE), _drop_width(mode, s, s)
+    ties = sum(int((_hash24(bi, h, s, s, seed, width, dev) == thr).sum())
+               for bi in range(b))
+    got = _readback_keep(dev, b, s, h, d, seed)
+    wrong = [int((m != want).sum()) for m in got]
+    ok = not any(wrong) and ties > 0
+    log(f"kernel dropout keep masks read back at b={b} s={s} h={h} d={d} "
+        f"({mode} route, seed {seed}, rate {DROPOUT_RATE}): forward, dQ "
+        f"and dK/dV passes against rand_keep, pairs that differ {wrong} of "
+        f"{want.numel()} ({float(want.float().mean()):.5f} kept; {ties} "
+        f"pairs on the threshold) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the kernels' keep masks at s={s} differ from "
+                             f"rand_keep (or no pair tests the threshold)")
+
+
+def check_flash_attention_e_dropout(dev, g):
+    """The dropout lanes of rows 10-13 at rate ``DROPOUT_RATE``, each case
+    of ``DROPOUT_CASES`` against the plain versions with the same seed
+    (o and lse by :func:`_hold_forward`, dqkv by :func:`_hold_backward`)
+    and timed; then the keep masks read back bit for bit at
+    ``DROPOUT_READBACK``'s single and blocked shapes.  Returns the four
+    entries (GPT's step shape for rows 10/12's lane, the long step's for
+    rows 11/13's) with the kv_mask, d = 128 and fallback cases as their
+    sub-entries."""
+    from apex_tpu_torch.ops import e_mode
+
+    entries = []
+    for n, (b, s, h, d, causal, masked) in enumerate(DROPOUT_CASES):
+        seed = 1000 + n
+        drop = dict(dropout_rate=DROPOUT_RATE, dropout_seed=seed)
+        kv = bert_mask(dev, g, dead_row=True).float() if masked else None
+        qkv, o4, lse, do, dqkv, counts, err, berr = _e_case(
+            dev, g, b, s, h, d, causal=causal, kv_mask=kv, drop=drop)
+        blocked = "_blocked" if e_mode(s) == "blocked" else ""
+        fname = f"flash_attention_e{blocked}_dropout"
+        bname = f"flash_attention_e_bwd{blocked}_dropout"
+        if counts != {fname: 1, bname: 1}:
+            raise AssertionError(f"dropout launches at {(b, s, h, d)}: "
+                                 f"{counts}")
+        if masked:
+            zeros = bool((o4[-1] == 0).all()) and \
+                bool((dqkv[-1] == 0).all()) and \
+                bool((dqkv[..., d:][kv == 0] == 0).all())
+            log(f"  the all-pad row's o and dqkv and the masked keys' dk, dv "
+                f"exactly 0: {zeros} {'ok' if zeros else 'FAIL'}")
+            if not zeros:
+                raise AssertionError("the kv_mask + dropout lane wrote "
+                                     "nonzeros where nothing is attended")
+        del dqkv
+        route = e_mode(s, h, d, drop=True)
+        shape = (f"b={b} s={s} h={h} d={d} {'causal' if causal else 'full'}"
+                 f"{' kv_mask' if masked else ''} dropout {DROPOUT_RATE} "
+                 f"({route} route) bf16")
+        fwd, bwd = _e_times(shape, qkv, o4, lse, do, causal=causal,
+                            iters=10 if n else 30, kv_mask=kv, drop=drop)
+        fwd.update(name=fname, shape=shape, max_abs_err=err)
+        bwd.update(name=bname, shape=shape, max_abs_err=berr)
+        # rows 10/12's other lanes are sub-entries of GPT's shape
+        sub = "kvmask" if masked else "d128" if d == 128 else \
+            "fallback" if route == "fallback" else None
+        if sub:
+            fwd["of"] = ("flash_attention_e_dropout", sub)
+            bwd["of"] = ("flash_attention_e_bwd_dropout", sub)
+        entries += [fwd, bwd]
+        del qkv, o4, lse, do
+        free_memory()
+    for shape in DROPOUT_READBACK:
+        _hold_keep(dev, *shape, seed=DROPOUT_READBACK_SEED)
+        free_memory()
     return tuple(entries)
 
 
@@ -3405,7 +3593,15 @@ def serve_moe_legs():
 # the train phases' model families: label and preset
 TRAIN_FAMILIES = {"gpt": ("train", "gpt345m"),
                   "gpt_long": ("train_long", "gpt345m_s2048"),
-                  "bert": ("train_bert", "bertlarge")}
+                  "bert": ("train_bert", "bertlarge"),
+                  "gpt_dropout": ("train_dropout", "gpt345m"),
+                  "gpt_dropout_long": ("train_dropout long",
+                                       "gpt345m_s2048")}
+# the train_smoke arguments of a family: bench.py's gpt2_345m_dropout
+# (bench_gpt345m(dropout=0.1): attention dropout 0.1, hidden 0), and the
+# same recipe at seq 2048
+TRAIN_KW = {"gpt_dropout": dict(attention_dropout=DROPOUT_RATE),
+            "gpt_dropout_long": dict(attention_dropout=DROPOUT_RATE)}
 
 
 def _train_module(family: str):
@@ -3434,6 +3630,16 @@ def _train_want(counts, family: str, policy: str, layers: int,
         want.update(flash_attention_e_blocked=layers * TRAIN_STEPS,
                     flash_attention_e_bwd_blocked=layers * TRAIN_STEPS,
                     fused_adam_pipeline=groups * TRAIN_STEPS)
+    elif family == "gpt_dropout":
+        # the dropout lane only: no dropout-free E launch
+        want.update(flash_attention_e_dropout=layers * TRAIN_STEPS,
+                    flash_attention_e_bwd_dropout=layers * TRAIN_STEPS,
+                    fused_adam_pipeline=groups * TRAIN_STEPS)
+    elif family == "gpt_dropout_long":
+        want.update(flash_attention_e_blocked_dropout=layers * TRAIN_STEPS,
+                    flash_attention_e_bwd_blocked_dropout=layers
+                    * TRAIN_STEPS,
+                    fused_adam_pipeline=groups * TRAIN_STEPS)
     elif family == "gpt":
         want.update(scaled_softmax_causal_fwd=layers * TRAIN_STEPS,
                     scaled_softmax_bwd=layers * TRAIN_STEPS,
@@ -3459,8 +3665,9 @@ def train_and_check(dev, policy: str = "O5", family: str = "gpt"):
     reset just before.  GPT-345M (O5: flash, bf16, static scale; O2: the
     fused causal softmax, fp16, dynamic scale) or BERT-large on its
     padded batch (O5: the flash kv_mask lane, bf16, fused LAMB; O2: the
-    padding-mask softmax, fp16, fused Adam, dynamic scale).  Returns
-    ``(counts, losses, steps)``."""
+    padding-mask softmax, fp16, fused Adam, dynamic scale); GPT-345M with
+    attention dropout (``TRAIN_KW``).  Returns ``(counts, losses, steps,
+    median step ms)``."""
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
 
     mod, model = _train_module(family)
@@ -3469,7 +3676,7 @@ def train_and_check(dev, policy: str = "O5", family: str = "gpt"):
     reset_launch_counts()
     t0 = time.perf_counter()
     r = mod.train_smoke(TRAIN_STEPS, model=model, policy=policy, seed=0,
-                        device=dev)
+                        device=dev, **TRAIN_KW.get(family, {}))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -3519,10 +3726,10 @@ def train_and_check(dev, policy: str = "O5", family: str = "gpt"):
         log(f"{label}: a step under torch.cuda.set_sync_debug_mode('error') "
             f"made no host synchronisation")
     _log_speed(label, r, policy)
-    steps = r.steps
+    steps, median = r.steps, r.median_ms
     del r
     free_memory()
-    return counts, losses, steps
+    return counts, losses, steps, median
 
 
 def _log_speed(label: str, r, policy: str) -> None:
@@ -3583,11 +3790,13 @@ def train_plain_and_compare(dev, kernel_losses, policy: str = "O5",
     tol = {("gpt", "O5"): TRAIN_LOSS_TOL, ("gpt", "O2"): TRAIN_O2_LOSS_TOL,
            ("gpt_long", "O5"): TRAIN_LONG_LOSS_TOL,
            ("bert", "O5"): TRAIN_BERT_LOSS_TOL,
-           ("bert", "O2"): TRAIN_BERT_O2_LOSS_TOL}[family, policy]
+           ("bert", "O2"): TRAIN_BERT_O2_LOSS_TOL,
+           ("gpt_dropout", "O5"): TRAIN_DROPOUT_LOSS_TOL}[family, policy]
     reset_launch_counts()
     t0 = time.perf_counter()
     r = mod.train_smoke(PLAIN_STEPS, model=model, policy=policy, seed=0,
-                        kernels=False, device=dev)
+                        kernels=False, device=dev,
+                        **TRAIN_KW.get(family, {}))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -3610,6 +3819,7 @@ def train_plain_and_compare(dev, kernel_losses, policy: str = "O5",
     if seq != want_seq:
         raise AssertionError(f"plain skip sequence {seq} != the kernel "
                              f"run's {want_seq}")
+    return diffs
 
 
 def overflow_leg(dev):
@@ -3977,6 +4187,86 @@ def resnet_faults(dev) -> None:
                 raise AssertionError(f"fault {name} passed the loss limit")
 
 
+# run in a copy of the port with a planted dropout fault: the keep masks
+# read back at DROPOUT_READBACK, then 3 kernel and 3 plain steps of
+# train_dropout; one JSON line of the mismatches and the loss differences
+_DROPOUT_FAULT_LEG = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from apex_tpu_torch import _build
+from apex_tpu_torch.ops import e_mode, rand_keep
+from apex_tpu_torch.testing import standalone_gpt
+_build.build()
+dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+seed, rate = cs.DROPOUT_READBACK_SEED, cs.DROPOUT_RATE
+wrong = []
+for b, s, h, d in cs.DROPOUT_READBACK:
+    want = rand_keep(b, h, s, s, seed, rate, e_mode(s, h, d, drop=True),
+                     device=dev)
+    wrong.append([int((m != want).sum())
+                  for m in cs._readback_keep(dev, b, s, h, d, seed)])
+    del want
+    cs.free_memory()
+n, kw = cs.PLAIN_STEPS, cs.TRAIN_KW["gpt_dropout"]
+kl = standalone_gpt.train_smoke(n, seed=0, device=dev, **kw).losses
+cs.free_memory()
+pl = standalone_gpt.train_smoke(n, seed=0, kernels=False, device=dev,
+                                **kw).losses
+print("FAULT " + json.dumps({
+    "wrong": wrong, "diffs": [abs(a - b) for a, b in zip(kl, pl)]}),
+    flush=True)
+"""
+
+
+def dropout_faults(dev) -> None:
+    """Each fault of ``DROPOUT_FAULTS`` planted in a temporary copy of the
+    port (its built libraries copied, the edited source rebuilt there),
+    then the keep-mask readback and 3 kernel and 3 plain steps of
+    ``train_dropout`` in that copy: each fault must be caught, by a
+    readback mismatch or a loss past ``TRAIN_DROPOUT_LOSS_TOL``; which
+    one catches it is printed."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (source, *edits) in DROPOUT_FAULTS.items():
+            d = Path(tmp) / name
+            shutil.copytree(root / "apex_tpu_torch", d / "apex_tpu_torch",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy(root / "chip_smoke.py", d)
+            src = d / "apex_tpu_torch" / "csrc" / source
+            text = src.read_text()
+            for sound, faulty in zip(edits[::2], edits[1::2]):
+                if sound not in text:
+                    raise AssertionError(f"fault {name}: {sound!r} not "
+                                         f"found")
+                text = text.replace(sound, faulty)
+            src.write_text(text)
+            out = subprocess.run([sys.executable, "-c", _DROPOUT_FAULT_LEG],
+                                 cwd=d, capture_output=True, text=True,
+                                 timeout=900)
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith("FAULT ")]
+            if out.returncode != 0 or not lines:
+                raise AssertionError(f"fault {name}: the leg failed "
+                                     f"({out.returncode}):\n"
+                                     f"{out.stderr[-3000:]}")
+            r = json.loads(lines[-1][len("FAULT "):])
+            by_loss = any(x > t for x, t in zip(r["diffs"],
+                                                TRAIN_DROPOUT_LOSS_TOL))
+            by_readback = any(any(w) for w in r["wrong"])
+            log(f"dropout_faults {name} ({' / '.join(edits[1::2])}): keep "
+                f"pairs that differ (forward, dQ, dK/dV) per readback shape "
+                f"{r['wrong']}; train_dropout |kernel - plain| losses "
+                f"{[f'{x:.3e}' for x in r['diffs']]} (tol "
+                f"{TRAIN_DROPOUT_LOSS_TOL}): caught by the readback "
+                f"{by_readback}, by the loss limit {by_loss} "
+                f"{'ok' if by_loss or by_readback else 'FAIL'}")
+            if not (by_loss or by_readback):
+                raise AssertionError(f"fault {name} was not caught")
+
+
 def profile_resnet(dev) -> None:
     """One staged O5 step of bench_resnet50 under ``torch.profiler``
     (built and two steps taken outside the window): device time by kernel
@@ -4049,7 +4339,7 @@ def profile_train(dev, policy: str = "O5", family: str = "gpt"):
     # BERT on bench.py's own batch, the all-ones mask
     full = dict(full_mask=True) if family == "bert" else {}
     setup = make_train_setup(model, policy=policy, seed=0, device=dev,
-                             **full)
+                             **full, **TRAIN_KW.get(family, {}))
     for _ in range(2):
         train_step(setup)
     torch.cuda.synchronize()
@@ -4062,7 +4352,9 @@ def profile_train(dev, policy: str = "O5", family: str = "gpt"):
     counts = launch_counts()
     rows = _profile_rows(prof)
     busy = sum(r[1] for r in rows)
+    drop = TRAIN_KW.get(family, {}).get("attention_dropout")
     log(f"train profile ({model} {policy}{', all-ones mask' if full else ''}"
+        f"{f', attention dropout {drop}' if drop else ''}"
         f", one step, profiler on): step "
         f"wall {wall:.3f} ms, device busy {busy:.3f} ms summed over kernels "
         f"({100 * busy / wall:.2f}% of the wall, so "
@@ -4146,16 +4438,21 @@ def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
 
 PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "serve_moe", "train",
           "train_o2", "train_bert", "train_bert_o2", "long_context",
-          "train_long", "train_resnet", "resnet_faults", "profile")
+          "train_long", "train_dropout", "train_resnet", "resnet_faults",
+          "profile", "dropout_faults")
+# every phase but the planted dropout faults (two rebuilds of the flash
+# sources), which runs only when named
+DEFAULT_PHASES = tuple(p for p in PHASES if p != "dropout_faults")
 
 
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
+    ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help=f"comma-separated subset of {PHASES} (build "
-                         f"always runs); the result lines print only when "
-                         f"all run")
+                         f"always runs; the default all but "
+                         f"dropout_faults); the result lines print only "
+                         f"when all of the default run")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not phases <= set(PHASES):
         ap.error(f"unknown phase in {sorted(phases)}")
@@ -4211,6 +4508,8 @@ def main(argv=None) -> int:
         gm.manual_seed(8)
         gr = torch.Generator(device=dev)
         gr.manual_seed(9)
+        gd = torch.Generator(device=dev)
+        gd.manual_seed(10)
         if "kernels" in phases:
             for name, fn in (("layer_norm", check_layer_norm),
                              ("flash_attention", check_flash_attention),
@@ -4239,16 +4538,19 @@ def main(argv=None) -> int:
                              ("moe_routing", check_moe_routing),
                              ("sgd_step", check_sgd_step),
                              ("adam_step", check_adam_step),
-                             ("sgd_pipeline", check_sgd_pipeline)):
-                # the Q8 tier's, the BERT phases', the long-context, MoE
-                # and ResNet slices' checks draw from generators of their
-                # own, so the earlier checks see the inputs they saw
-                # before
+                             ("sgd_pipeline", check_sgd_pipeline),
+                             ("flash_attention_e_dropout",
+                              check_flash_attention_e_dropout)):
+                # the Q8 tier's, the BERT phases', the long-context, MoE,
+                # ResNet and dropout slices' checks draw from generators
+                # of their own, so the earlier checks see the inputs they
+                # saw before
                 gen = gq if name in Q8_CHECKS else \
                     gb if name in BERT_CHECKS else \
                     gl if name in LONG_CHECKS else \
                     gm if name in MOE_CHECKS else \
-                    gr if name in RESNET_CHECKS else g
+                    gr if name in RESNET_CHECKS else \
+                    gd if name in DROPOUT_CHECKS else g
                 ok, out = run(f"kernel {name}", lambda: fn(dev, gen))
                 if ok and out is not None:
                     for e in (out if isinstance(out, tuple) else (out,)):
@@ -4322,16 +4624,17 @@ def main(argv=None) -> int:
                        for k in SERVE_MOE_KERNELS):
                     failed.append("serve_moe: a kernel of the path never "
                                   "launched")
+        train_ms = None
         if "train" in phases:
             ok, out = run("train O5", lambda: train_and_check(dev))
             if ok:
-                counts["train"], kernel_losses, _ = out
+                counts["train"], kernel_losses, _, train_ms = out
                 run("train plain", lambda: train_plain_and_compare(
                     dev, kernel_losses[:PLAIN_STEPS]))
         if "train_o2" in phases:
             ok, out = run("train O2", lambda: train_and_check(dev, "O2"))
             if ok:
-                counts["train_o2"], o2_losses, o2_steps = out
+                counts["train_o2"], o2_losses, o2_steps, _ = out
                 run("train O2 plain", lambda: train_plain_and_compare(
                     dev, o2_losses[:PLAIN_STEPS], "O2",
                     o2_steps[:PLAIN_STEPS]))
@@ -4342,7 +4645,7 @@ def main(argv=None) -> int:
             ok, out = run(phase, lambda: train_and_check(dev, policy,
                                                          "bert"))
             if ok:
-                counts[phase], b_losses, b_steps = out
+                counts[phase], b_losses, b_steps, _ = out
                 run(f"{phase} plain", lambda: train_plain_and_compare(
                     dev, b_losses[:PLAIN_STEPS], policy,
                     b_steps[:PLAIN_STEPS] if policy == "O2" else None,
@@ -4357,16 +4660,34 @@ def main(argv=None) -> int:
             ok, out = run("train_long", lambda: train_and_check(
                 dev, "O5", "gpt_long"))
             if ok:
-                counts["train_long"], long_losses, _ = out
+                counts["train_long"], long_losses, _, _ = out
                 run("train_long plain", lambda: train_plain_and_compare(
                     dev, long_losses[:PLAIN_STEPS], "O5",
                     family="gpt_long"))
+        if "train_dropout" in phases:
+            ok, out = run("train_dropout", lambda: train_and_check(
+                dev, "O5", "gpt_dropout"))
+            if ok:
+                counts["train_dropout"], drop_losses, _, drop_ms = out
+                if train_ms is not None:
+                    log(f"train_dropout: the step {drop_ms:.3f} ms against "
+                        f"the dropout-free train step's {train_ms:.3f} ms in "
+                        f"this run: {drop_ms / train_ms:.4f}x")
+                run("train_dropout plain", lambda: train_plain_and_compare(
+                    dev, drop_losses[:PLAIN_STEPS], "O5",
+                    family="gpt_dropout"))
+            ok, out = run("train_dropout long", lambda: train_and_check(
+                dev, "O5", "gpt_dropout_long"))
+            if ok:
+                counts["train_dropout_long"] = out[0]
         if "train_resnet" in phases:
             ok, out = run("train_resnet", lambda: train_resnet(dev))
             if ok:
                 counts["train_resnet"] = out
         if "resnet_faults" in phases:
             run("resnet_faults", lambda: resnet_faults(dev))
+        if "dropout_faults" in phases:
+            run("dropout_faults", lambda: dropout_faults(dev))
         if "profile" in phases:
             if "serve" in phases:
                 run("serve profile", lambda: profile_serve(dev))
@@ -4393,15 +4714,18 @@ def main(argv=None) -> int:
             if "train_long" in phases:
                 run("train_long profile", lambda: profile_train(
                     dev, "O5", "gpt_long"))
+            if "train_dropout" in phases:
+                run("train_dropout profile", lambda: profile_train(
+                    dev, "O5", "gpt_dropout"))
             if "train_resnet" in phases:
                 run("train_resnet profile", lambda: profile_resnet(dev))
     log(f"chip_smoke: command time {time.perf_counter() - t_start:.1f} s")
     if failed:
         log(f"chip_smoke FAILED: {failed}")
         return 1
-    if phases != set(PHASES):
+    if not phases >= set(DEFAULT_PHASES):
         log(f"chip_smoke: phases {sorted(phases)} passed; the result lines "
-            f"print only when every phase runs")
+            f"print only when every default phase runs")
         return 0
     kernels = []
     for name in REPLACES:
@@ -4417,7 +4741,9 @@ def main(argv=None) -> int:
                     ("train_bert_o2", TRAIN_BERT_O2_KERNELS),
                     ("long_context", LONG_CONTEXT_KERNELS),
                     ("train_long", TRAIN_LONG_KERNELS),
-                    ("train_resnet", TRAIN_RESNET_KERNELS))
+                    ("train_resnet", TRAIN_RESNET_KERNELS),
+                    ("train_dropout", TRAIN_DROPOUT_KERNELS),
+                    ("train_dropout_long", TRAIN_DROPOUT_LONG_KERNELS))
                    if name in ks}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -4428,7 +4754,7 @@ def main(argv=None) -> int:
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             shape=e["shape"],
             **{k: e[k] for k in ("train", "fp16", "chunk", "shapes", "d128",
-                                 "sweep") if k in e}))
+                                 "sweep", "kvmask", "fallback") if k in e}))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):
