@@ -33,7 +33,7 @@ BUILD_DIR = CSRC / "_build"
 SOURCES = ("layer_norm", "flash_attention", "flash_decode",
            "flash_attention_bwd", "fused_adam", "scaled_softmax",
            "norm_finite", "quant_matmul", "fused_lamb", "moe_routing",
-           "fused_sgd")
+           "fused_sgd", "fused_optim_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -103,6 +103,23 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # momentum, 1 - dampening, weight_decay, first_run, nesterov,
         # wd_after_momentum, g_dtype, lowp_dtype, stream
         "apex_sgd_pipeline": [_P] * 6 + [_L] + [_F] * 4 + [_I] * 5 + [_P],
+    },
+    "fused_optim_update": {
+        # g, p, m, v, delta, m_out, v_out, n, lr, beta1, 1 - beta1, beta2,
+        # 1 - beta2, eps, weight_decay, bc1, bc2, adam_w_mode, g_dtype,
+        # p_dtype, stream
+        "apex_adam_update": [_P] * 7 + [_L] + [_F] * 9 + [_I] * 3 + [_P],
+        # g, p, h, delta, h_out, n, lr, eps, weight_decay, g_dtype,
+        # p_dtype, stream
+        "apex_adagrad_update": [_P] * 5 + [_L] + [_F] * 3 + [_I] * 2 + [_P],
+        # g, p, m, denom, delta, m_out, n, lr, beta1, beta3, weight_decay,
+        # bc1, g_dtype, p_dtype, stream
+        "apex_novograd_update": [_P] * 6 + [_L] + [_F] * 5 + [_I] * 2
+        + [_P],
+        # g, p, mom, delta, mom_out, n, lr, momentum, 1 - dampening,
+        # weight_decay, first_run, nesterov, wd_after_momentum, g_dtype,
+        # p_dtype, stream
+        "apex_sgd_update": [_P] * 5 + [_L] + [_F] * 4 + [_I] * 5 + [_P],
     },
     "fused_lamb": {
         # g, p, m, v, u, gscale (device fp32 scalar), n, beta1, beta2,

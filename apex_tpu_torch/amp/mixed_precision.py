@@ -30,11 +30,12 @@ state, and writes the model copy into the parameters in place.
 kept one a parameter (an fp32 parameter, such as a batch norm's under
 O5, is its own master), ``.grad`` are ordinary tensors, and a step
 unscales the gradients in their own dtype (:func:`~.scaler.unscale`),
-then runs ``optimizer.fused_step`` — one kernel a parameter, which
-steps the master and state and writes the model copy straight into the
-parameter's storage when the kernel emits it (JAX's ``_lowp_dtype_for``:
-the model dtype differs from the master's); an fp32 parameter is
-stepped in place.
+then runs ``optimizer.fused_step`` on the state of
+``optimizer.staged_init`` (one buffer a master) — one kernel a
+parameter, which steps the master and state and writes the model copy
+straight into the parameter's storage when the kernel emits it (JAX's
+``_lowp_dtype_for``: the model dtype differs from the master's); an
+fp32 parameter is stepped in place.
 
 On both routes, whether the step inspects the gradients follows
 ``check_finite`` (:meth:`AmpOptimizer._resolve_check`): by default only
@@ -161,7 +162,7 @@ class AmpOptimizer:
         # an fp32 parameter is its own master (stepped in place)
         self._masters = [p.data if p.dtype == torch.float32
                          else masters[n].contiguous() for n, p in named]
-        self.state = self.optimizer.init(self._masters)
+        self.state = self.optimizer.staged_init(self._masters)
         return self
 
     def scale_loss(self, loss: torch.Tensor) -> torch.Tensor:

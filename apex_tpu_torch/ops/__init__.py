@@ -32,9 +32,13 @@ from .quant_matmul import (QuantGPTServingWeights, QuantLayerWeights,
                            dequantize_weight, is_quantized_weights,
                            quant_matmul, quant_matmul_reference,
                            quantize_weight, quantize_weights)
-from .fused_optim import (adam_step, adam_step_reference, lamb_phase1,
-                          lamb_phase1_reference, sgd_step,
-                          sgd_step_reference)
+from .fused_optim import (adagrad_update, adagrad_update_reference,
+                          adam_step, adam_step_reference, adam_update,
+                          adam_update_reference, lamb_phase1,
+                          lamb_phase1_reference, novograd_update,
+                          novograd_update_reference, sgd_step,
+                          sgd_step_reference, sgd_update,
+                          sgd_update_reference)
 from .moe_routing import (MoERouteDispatchFunction, RouteDispatch,
                           moe_combine, moe_route_dispatch,
                           moe_route_dispatch_reference)
@@ -71,6 +75,9 @@ __all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
            "masked_softmax_reference", "ScaledMaskedSoftmax",
            "lamb_phase1", "lamb_phase1_reference", "sgd_step",
            "sgd_step_reference", "adam_step", "adam_step_reference",
+           "adam_update", "adam_update_reference", "adagrad_update",
+           "adagrad_update_reference", "novograd_update",
+           "novograd_update_reference", "sgd_update", "sgd_update_reference",
            "sgd_pipeline", "sgd_pipeline_reference", "RouteDispatch",
            "MoERouteDispatchFunction", "moe_route_dispatch",
            "moe_route_dispatch_reference", "moe_combine"]

@@ -33,7 +33,8 @@ KERNELS = ("layer_norm", "flash_attention", "flash_decode",
            "sgd_step", "sgd_pipeline", "adam_step",
            "flash_attention_e_dropout", "flash_attention_e_bwd_dropout",
            "flash_attention_e_blocked_dropout",
-           "flash_attention_e_bwd_blocked_dropout")
+           "flash_attention_e_bwd_blocked_dropout", "adam_update",
+           "adagrad_update", "novograd_update", "sgd_update")
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -1,8 +1,10 @@
-"""The per-leaf optimizer steps and LAMB phase 1: CUDA kernels and their
-plain versions.
+"""The per-leaf optimizer steps, LAMB phase 1 and the optax-style update
+bodies: CUDA kernels and their plain versions.
 
-Port of three bodies of ``apex_tpu/ops/fused_optim.py`` (row 19 of the
-kernel table), each run there by ``_elementwise_call``:
+Port of seven bodies of ``apex_tpu/ops/fused_optim.py`` (row 19 of the
+kernel table), each run there by ``_elementwise_call``: the four update
+bodies (``adam_update``, ``adagrad_update``, ``novograd_update``,
+``sgd_update``; see the section below) and
 
 * ``sgd_step`` (:393, body ``_sgd_step_kernel`` :368) and ``adam_step``
   (:220, body ``_adam_step_kernel`` :196): the single-pass steps the
@@ -54,7 +56,11 @@ from .. import _build
 from ._counts import bump
 
 __all__ = ["lamb_phase1", "lamb_phase1_reference", "sgd_step",
-           "sgd_step_reference", "adam_step", "adam_step_reference"]
+           "sgd_step_reference", "adam_step", "adam_step_reference",
+           "check_update_buffers", "adam_update", "adam_update_reference",
+           "adagrad_update", "adagrad_update_reference", "novograd_update",
+           "novograd_update_reference", "sgd_update",
+           "sgd_update_reference"]
 
 _G_TAKES = (torch.float32, torch.bfloat16, torch.float16)
 _LOWP_TAKES = (torch.bfloat16, torch.float16)
@@ -284,3 +290,197 @@ def adam_step(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
     _build.check("fused_adam", rc, "adam_step kernel")
     bump("adam_step")
     return p, m, v, lowp
+
+
+# --- the optax-style update bodies ----------------------------------------
+#
+# Port of ``adam_update`` (:170, body ``_adam_kernel`` :148),
+# ``adagrad_update`` (:253, ``_adagrad_kernel`` :242), ``novograd_update``
+# (:323, ``_novograd_kernel`` :309) and ``sgd_update`` (:356, ``_sgd_kernel``
+# :338): each takes the gradient ``g`` and the parameter ``p`` (fp32, bf16
+# or fp16) and fp32 state over one flat buffer or one leaf, and returns
+# new tensors — the delta in ``p``'s dtype and the new state — as the JAX
+# functions return new arrays; nothing is updated in place.  On CUDA
+# tensors each launches its body of ``csrc/fused_optim_update.cu`` or
+# raises; on CPU tensors it runs its plain version.
+
+def check_update_buffers(what: str, g, p, state) -> None:
+    """Raise unless ``g`` and ``p`` are contiguous buffers of one length
+    on one device in dtypes the update kernels take, and ``state`` are
+    contiguous float32 buffers of that length there: what the update
+    kernels read as flat arrays (the delta takes ``p``'s dtype)."""
+    n = p.numel()
+    for name, t in (("g", g), ("p", p)):
+        if t.dtype not in _G_TAKES or not t.is_contiguous() or \
+                t.numel() != n or t.device != p.device:
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{_G_TAKES} buffer of {n} elements on "
+                             f"{p.device}")
+    for t in state:
+        if t.dtype != torch.float32 or not t.is_contiguous() or \
+                t.numel() != n or t.device != p.device:
+            raise ValueError(f"{what}: the state must be contiguous float32 "
+                             f"buffers of {n} elements on {p.device}")
+
+
+def _update_launch(name: str, fn: str, g, p, state, outs, *hyp):
+    """Check the buffers, launch ``fn`` of ``csrc/fused_optim_update.cu``
+    on (g, p, state) -> (delta, new state) and count it; returns the new
+    delta and state tensors."""
+    check_update_buffers(name, g, p, state)
+    delta = torch.empty_like(p)
+    new = [torch.empty_like(t) for t in state[:outs]]
+    lib = _build.library("fused_optim_update")
+    with torch.cuda.device(p.device):
+        rc = getattr(lib, fn)(
+            g.data_ptr(), p.data_ptr(), *(t.data_ptr() for t in state),
+            delta.data_ptr(), *(t.data_ptr() for t in new), p.numel(), *hyp,
+            _build.dtype_code(g.dtype), _build.dtype_code(p.dtype),
+            _build.stream_ptr(p.device))
+    _build.check("fused_optim_update", rc, f"{name} kernel")
+    bump(name)
+    return (delta, *new)
+
+
+def _on_cpu(what: str, p) -> bool:
+    if p.device.type == "cpu":
+        return True
+    if p.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {p.device}")
+    return False
+
+
+@torch.no_grad()
+def adam_update_reference(g, p, m, v, *, lr, beta1, beta2, eps,
+                          weight_decay, bias_correction1, bias_correction2,
+                          adam_w_mode=True):
+    """Plain version of ``adam_update`` (the ``_adam_kernel`` math, in its
+    order, one rounding an operation) -> ``(delta, m, v)``, all new."""
+    nlr, b1, omb1, b2, omb2, eps_, wd, bc1, bc2 = (
+        _scalar(x, p.device) for x in (
+            -f32(lr), f32(beta1), one_minus(beta1), f32(beta2),
+            one_minus(beta2), f32(eps), f32(weight_decay),
+            f32(bias_correction1), f32(bias_correction2)))
+    gf, pf = g.float(), p.float()
+    if not adam_w_mode:
+        gf = gf + wd * pf
+    m_new = b1 * m + omb1 * gf
+    v_new = b2 * v + omb2 * gf * gf
+    u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps_)
+    if adam_w_mode:
+        u = u + wd * pf
+    return (nlr * u).to(p.dtype), m_new, v_new
+
+
+@torch.no_grad()
+def adam_update(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
+                v: torch.Tensor, *, lr: float, beta1: float, beta2: float,
+                eps: float, weight_decay: float, bias_correction1: float,
+                bias_correction2: float, adam_w_mode: bool = True):
+    """One Adam (``adam_w_mode=False``: L2) or AdamW update over one
+    buffer -> ``(delta, m, v)``: the delta in ``p``'s dtype, new fp32
+    moments."""
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, bias_correction1=bias_correction1,
+              bias_correction2=bias_correction2, adam_w_mode=adam_w_mode)
+    if _on_cpu("adam_update", p):
+        return adam_update_reference(g, p, m, v, **kw)
+    return _update_launch(
+        "adam_update", "apex_adam_update", g, p, (m, v), 2, f32(lr),
+        f32(beta1), one_minus(beta1), f32(beta2), one_minus(beta2), f32(eps),
+        f32(weight_decay), f32(bias_correction1), f32(bias_correction2),
+        int(bool(adam_w_mode)))
+
+
+@torch.no_grad()
+def adagrad_update_reference(g, p, h, *, lr, eps, weight_decay):
+    """Plain version of ``adagrad_update`` (the ``_adagrad_kernel`` math)
+    -> ``(delta, h)``, both new."""
+    nlr, eps_, wd = (_scalar(x, p.device)
+                     for x in (-f32(lr), f32(eps), f32(weight_decay)))
+    gf = g.float() + wd * p.float()
+    h_new = h + gf * gf
+    return (nlr * gf / (torch.sqrt(h_new) + eps_)).to(p.dtype), h_new
+
+
+@torch.no_grad()
+def adagrad_update(g: torch.Tensor, p: torch.Tensor, h: torch.Tensor, *,
+                   lr: float, eps: float, weight_decay: float):
+    """One Adagrad update (L2 decay into g) over one buffer -> ``(delta,
+    h)``: the delta in ``p``'s dtype, the new fp32 sum of squares."""
+    if _on_cpu("adagrad_update", p):
+        return adagrad_update_reference(g, p, h, lr=lr, eps=eps,
+                                        weight_decay=weight_decay)
+    return _update_launch("adagrad_update", "apex_adagrad_update", g, p,
+                          (h,), 1, f32(lr), f32(eps), f32(weight_decay))
+
+
+@torch.no_grad()
+def novograd_update_reference(g, p, m, denom, *, lr, beta1, beta3,
+                              weight_decay, bias_correction1):
+    """Plain version of ``novograd_update`` (the ``_novograd_kernel``
+    math) -> ``(delta, m)``, both new.  ``denom`` broadcasts against
+    ``g``: the per-element buffer, or one tensor's 0-d denominator."""
+    nlr, b1, b3, wd, bc1 = (_scalar(x, p.device) for x in (
+        -f32(lr), f32(beta1), f32(beta3), f32(weight_decay),
+        f32(bias_correction1)))
+    scaled = g.float() / denom + wd * p.float()
+    m_new = b1 * m + b3 * scaled
+    return (nlr * m_new / bc1).to(p.dtype), m_new
+
+
+@torch.no_grad()
+def novograd_update(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
+                    denom_elem: torch.Tensor, *, lr: float, beta1: float,
+                    beta3: float, weight_decay: float,
+                    bias_correction1: float):
+    """One NovoGrad update over one packed buffer -> ``(delta, m)``.  The
+    per-tensor denominator (``sqrt(v / bc2) + eps`` of the tensor's scalar
+    second moment) arrives broadcast into ``denom_elem``, one fp32 value
+    an element, as JAX's caller builds it; ``beta3`` is taken as given
+    (``1 - beta1`` formed by the caller, or 1)."""
+    kw = dict(lr=lr, beta1=beta1, beta3=beta3, weight_decay=weight_decay,
+              bias_correction1=bias_correction1)
+    if _on_cpu("novograd_update", p):
+        return novograd_update_reference(g, p, m, denom_elem, **kw)
+    return _update_launch(
+        "novograd_update", "apex_novograd_update", g, p, (m, denom_elem), 1,
+        f32(lr), f32(beta1), f32(beta3), f32(weight_decay),
+        f32(bias_correction1))
+
+
+@torch.no_grad()
+def sgd_update_reference(g, p, mom, *, lr, momentum, dampening,
+                         weight_decay, nesterov=False,
+                         wd_after_momentum=False, first_run):
+    """Plain version of ``sgd_update`` (the ``_sgd_kernel`` math) ->
+    ``(delta, mom)``, both new."""
+    nlr, mo, omd, wd = (_scalar(x, p.device) for x in (
+        -f32(lr), f32(momentum), one_minus(dampening), f32(weight_decay)))
+    gf, pf = g.float(), p.float()
+    if not wd_after_momentum:
+        gf = gf + wd * pf
+    mom_new = gf.clone() if first_run else mo * mom + omd * gf
+    upd = gf + mo * mom_new if nesterov else mom_new
+    if wd_after_momentum:
+        upd = upd + wd * pf
+    return (nlr * upd).to(p.dtype), mom_new
+
+
+@torch.no_grad()
+def sgd_update(g: torch.Tensor, p: torch.Tensor, mom: torch.Tensor, *,
+               lr: float, momentum: float, dampening: float,
+               weight_decay: float, nesterov: bool = False,
+               wd_after_momentum: bool = False, first_run: bool):
+    """One momentum-SGD update over one buffer -> ``(delta, mom)``.
+    ``first_run``: torch's first step, ``mom <- g``."""
+    kw = dict(lr=lr, momentum=momentum, dampening=dampening,
+              weight_decay=weight_decay, nesterov=nesterov,
+              wd_after_momentum=wd_after_momentum, first_run=first_run)
+    if _on_cpu("sgd_update", p):
+        return sgd_update_reference(g, p, mom, **kw)
+    return _update_launch(
+        "sgd_update", "apex_sgd_update", g, p, (mom,), 1, f32(lr),
+        f32(momentum), one_minus(dampening), f32(weight_decay),
+        int(bool(first_run)), int(bool(nesterov)),
+        int(bool(wd_after_momentum)))

@@ -69,7 +69,14 @@ Phases, in order; any failure exits non-zero without the result line:
                    fallback form (2, 1000, 3, 64); then each kernel's
                    keep mask (forward, dQ and dK/dV passes) read back bit
                    for bit against ``rand_keep`` at (2, 1024, 16, 64) and
-                   (2, 2048, 16, 64).
+                   (2, 2048, 16, 64); the update slice's (row 19's four
+                   optax-style bodies, from an eighth generator): Adam
+                   (both modes), Adagrad, NovoGrad (with and without grad
+                   averaging) and momentum SGD (the flag grid) bitwise
+                   against their plain versions at every (g, p) pair of
+                   fp32, bf16 and fp16 on an odd length and on misaligned
+                   views, then timed at n = 67,108,864 with bf16 g and fp32
+                   p beside PyTorch's fused in-place steps.
 3. serve O5/O0   — GPT-345M width (vocab 50304, hidden 1024, 24 layers,
                    16 heads, max_seq 1024), O5 bf16 then fp32, seeded
                    random weights: serve 8 seeded prompts of 64..700
@@ -220,12 +227,32 @@ Phases, in order; any failure exits non-zero without the result line:
                    the deterministic kernel-against-plain leg of
                    train_resnet run in that copy: every fault must move a
                    loss past ``TRAIN_RESNET_LOSS_TOL``.
+6h. zero_adam    — bench.py's bench_zero_adam pair at 355,000,320 fp32
+                   parameters (``_synthetic_params(355_000_000)``'s ten
+                   leaves, seeded): ``fused_adam(1e-3, kernels=False)``
+                   (the plain version, no launch), then
+                   ``fused_adam(1e-3).update`` + ``apply_updates`` (10
+                   ``adam_update`` launches a step, one a leaf), then
+                   ``distributed_fused_adam(1e-3)`` over a one-rank NCCL
+                   group the script makes and destroys (1 a step, one
+                   packed group), 8 steps each with launch counts reset
+                   just before and held exactly; each kernel side's
+                   parameters and moments bitwise equal to the plain
+                   side's after the steps; device and wall ms a step,
+                   ``sharded_vs_dense_device``, peak memory, the bound.
+6i. optim_update — ``update`` of fused_adam, fused_sgd (momentum 0.9),
+                   fused_adagrad and fused_novograd on bench.py's
+                   small_leaves_26m_packed tree (398 leaves, 26,000,384
+                   elements) with every leaf packed: 8 steps each, 2
+                   launches a step (two 2^24-element chunks) held exactly;
+                   parameters and state bitwise equal to ``kernels=False``.
 7. profiles      — the O5 serve, the O5 speculative serve (self draft), the
                    Q8 serve over an int8 cache, the MoE serve at cf 8.0
                    and 1.25, one O5 and one O2 train
                    step of GPT-345M and of BERT-large (on bench.py's
                    all-ones mask), one GPT-345M step at seq 2048, one at
-                   attention dropout 0.1 and one
+                   attention dropout 0.1, one step of each side of the
+                   zero_adam pair and one
                    staged ResNet-50 step (device time split into cuDNN
                    convolutions, the optimizer kernel, max pool and the
                    plain batch norm and elementwise work)
@@ -250,6 +277,7 @@ command's time, one JSON object ``{"kernels": [...]}``, the card's
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import gc
 import json
@@ -504,6 +532,42 @@ RESNET_FAULTS = {
 # max |logit| on the CPU)
 RESNET_EVAL_RTOL = 2e-2
 
+# the update slice (row 19's four optax-style update bodies): the kernel
+# checks' timing length, row 19's other rows' (bf16 g, fp32 p)
+UPDATE_N = 67_108_864
+UPDATE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+UPDATE_ADAM = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                   weight_decay=0.01, bias_correction1=1 - 0.9 ** 3,
+                   bias_correction2=1 - 0.999 ** 3)
+UPDATE_ADAGRAD = dict(lr=1e-2, eps=1e-10, weight_decay=0.01)
+UPDATE_NOVOGRAD = dict(lr=1e-3, beta1=0.95, weight_decay=0.01,
+                       bias_correction1=1 - 0.95 ** 3)
+UPDATE_SGD = dict(lr=0.1, momentum=0.9, weight_decay=0.01)
+# bytes an element each body moves at bf16 g, fp32 p (g 2, p 4 and each
+# fp32 state 4 read; the fp32 delta and each new state 4 written) and its
+# fp32 operations an element (AdamW, Adagrad, NovoGrad, SGD without
+# Nesterov, decay before the momentum)
+UPDATE_BYTES = {"adam_update": 26, "adagrad_update": 18,
+                "novograd_update": 22, "sgd_update": 18}
+UPDATE_FLOPS = {"adam_update": 15, "adagrad_update": 8,
+                "novograd_update": 8, "sgd_update": 6}
+# bench.py's bench_zero_adam: _synthetic_params(355_000_000) (8 leaves of
+# (43334, 1024), one (7, 1024), one (1, 1024): 355,000,320 fp32
+# elements), g = p * 1e-3 + 1e-3, g_t = g + 1e-12 p inside each of K = 8
+# steps, fused_adam(1e-3) dense against distributed_fused_adam(1e-3) on a
+# one-rank group
+ZERO_SHAPES = ((43_334, 1024),) * 8 + ((7, 1024), (1, 1024))
+ZERO_STEPS = 8
+ZERO_LR = 1e-3
+# bench.py's small_leaves_26m_packed (_synthetic_params(26_000_000,
+# leaf_elems=65_536)): 396 leaves of (64, 1024), one (46, 1024), one (1,
+# 1024), 26,000,384 fp32 elements, every leaf packed (DIRECT_MIN_ELEMS
+# raised above the leaf size): 256 leaves fill the first 2^24-element
+# chunk and 142 the second, so 2 launches a step an optimizer
+OPTIM_SHAPES = ((64, 1024),) * 396 + ((46, 1024), (1, 1024))
+OPTIM_STEPS = 8
+OPTIM_GROUPS = 2
+
 # --- the card (NVIDIA H100 SXM data sheet, dense) ----------------------
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -543,6 +607,10 @@ REPLACES = {
         "apex_tpu/ops/flash_attention.py:2043",
     "flash_attention_e_bwd_blocked_dropout":
         "apex_tpu/ops/flash_attention.py:2336",
+    "adam_update": "apex_tpu/ops/fused_optim.py:170",
+    "adagrad_update": "apex_tpu/ops/fused_optim.py:253",
+    "novograd_update": "apex_tpu/ops/fused_optim.py:323",
+    "sgd_update": "apex_tpu/ops/fused_optim.py:356",
 }
 SOURCES = {
     "layer_norm": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -580,6 +648,10 @@ SOURCES = {
         "apex_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_e_bwd_blocked_dropout":
         "apex_tpu_torch/csrc/flash_attention_bwd.cu",
+    "adam_update": "apex_tpu_torch/csrc/fused_optim_update.cu",
+    "adagrad_update": "apex_tpu_torch/csrc/fused_optim_update.cu",
+    "novograd_update": "apex_tpu_torch/csrc/fused_optim_update.cu",
+    "sgd_update": "apex_tpu_torch/csrc/fused_optim_update.cu",
 }
 # the path each kernel's launches are counted on
 SERVE_KERNELS = ("layer_norm", "flash_attention", "flash_decode")
@@ -616,15 +688,19 @@ TRAIN_DROPOUT_LONG_KERNELS = ("layer_norm", "layer_norm_bwd",
                               "flash_attention_e_blocked_dropout",
                               "flash_attention_e_bwd_blocked_dropout",
                               "fused_adam_pipeline")
+ZERO_ADAM_KERNELS = ("adam_update",)
+OPTIM_UPDATE_KERNELS = ("adam_update", "adagrad_update", "novograd_update",
+                        "sgd_update")
 # the kernel checks that draw from a generator of their own (the Q8
-# tier's, the BERT phases', the long-context, MoE and ResNet slices'),
-# so the earlier checks keep their inputs
+# tier's, the BERT phases', the long-context, MoE, ResNet, dropout and
+# update slices'), so the earlier checks keep their inputs
 BERT_CHECKS = ("grad_routing", "scaled_masked_softmax",
                "flash_attention_e_kvmask", "lamb_phase1")
 LONG_CHECKS = ("flash_attention_bwd", "flash_attention_e_long")
 MOE_CHECKS = ("moe_routing",)
 RESNET_CHECKS = ("sgd_step", "adam_step", "sgd_pipeline")
 DROPOUT_CHECKS = ("flash_attention_e_dropout",)
+UPDATE_CHECKS = ("optim_update",)
 
 
 def log(msg: str) -> None:
@@ -2554,6 +2630,9 @@ def _step_leaves(step, bufs, leaves, hyp):
 def _bitwise(label, got, want) -> float:
     """Max |got - want| over paired tensor lists; raises unless every
     pair is bitwise equal (NaN-free inputs)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} tensors against "
+                             f"{len(want)}")
     err = 0.0
     for a, b in zip(got, want):
         if not torch.equal(a, b):
@@ -2780,6 +2859,118 @@ def check_sgd_pipeline(dev, g):
             is_first_step=False, grad_scale=inv, found_inf=found), 16, 9)
     e["max_abs_err"] = err
     return e
+
+
+# --- phase 2, the update slice's kernels (row 19's update bodies) -------
+
+def _update_bodies():
+    """(name, kernel, plain version, fp32 state buffers, hyperparameters,
+    flag grid) of the four update bodies."""
+    from apex_tpu_torch.ops import fused_optim as fo
+
+    sgd_grid = [dict(nesterov=a, dampening=b, wd_after_momentum=c,
+                     first_run=d) for a, b, c, d in SGD_FLAGS]
+    return (
+        ("adam_update", fo.adam_update, fo.adam_update_reference, 2,
+         UPDATE_ADAM, [dict(adam_w_mode=True), dict(adam_w_mode=False)]),
+        ("adagrad_update", fo.adagrad_update, fo.adagrad_update_reference,
+         1, UPDATE_ADAGRAD, [{}]),
+        ("novograd_update", fo.novograd_update,
+         fo.novograd_update_reference, 2, UPDATE_NOVOGRAD,
+         [dict(beta3=1.0 - 0.95), dict(beta3=1.0)]),
+        ("sgd_update", fo.sgd_update, fo.sgd_update_reference, 1,
+         UPDATE_SGD, sgd_grid))
+
+
+def _update_library(name, g32, p, st):
+    """One PyTorch call doing ``name``'s work on the same inputs (in place
+    on p and the state: no delta written), or None where PyTorch has
+    none."""
+    step = [torch.full((), 3.0, device=p.device)]
+    if name == "adam_update":
+        h = UPDATE_ADAM
+        return lambda: torch._fused_adamw_(
+            [p], [g32], [st[0]], [st[1]], [], step, lr=h["lr"],
+            beta1=h["beta1"], beta2=h["beta2"], weight_decay=h["weight_decay"],
+            eps=h["eps"], amsgrad=False, maximize=False)
+    if name == "adagrad_update":
+        h = UPDATE_ADAGRAD
+        return lambda: torch._fused_adagrad_(
+            [p], [g32], [st[0]], step, lr=h["lr"], lr_decay=0.0,
+            weight_decay=h["weight_decay"], eps=h["eps"], maximize=False)
+    if name == "sgd_update":
+        h = UPDATE_SGD
+        return lambda: torch._fused_sgd_(
+            [p], [g32], [st[0]], weight_decay=h["weight_decay"],
+            momentum=h["momentum"], lr=h["lr"], dampening=0.0,
+            nesterov=False, maximize=False, is_first_step=False)
+    return None              # NovoGrad: no PyTorch call
+
+
+def check_optim_update(dev, g):
+    """Row 19's four update bodies, each bitwise against its plain version
+    on the card at every (g, p) pair of fp32, bf16 and fp16 and every flag
+    (Adam's two modes, NovoGrad with and without grad averaging, SGD's
+    Nesterov, dampening, decay after the momentum and first run) on an odd
+    length, and on views one element off alignment (the scalar path); then
+    timed at row 19's n = 67,108,864 with bf16 g and fp32 p (AdamW,
+    NovoGrad averaging, plain momentum SGD) beside the plain version, the
+    bound and, where one exists, PyTorch's fused in-place step."""
+    n = OPT_ODD_N
+    base_g = torch.randn(n + 1, generator=g, device=dev)
+    base_p = torch.randn(n + 1, generator=g, device=dev)
+    base_s = [0.1 * torch.randn(n + 1, generator=g, device=dev).abs() + 0.01
+              for _ in range(2)]
+    out = []
+    for name, kernel, plain, states, hyp, grid in _update_bodies():
+        cases = 0
+        for flags in grid:
+            for gdt in UPDATE_DTYPES:
+                for pdt in UPDATE_DTYPES:
+                    both16 = gdt == pdt == torch.bfloat16
+                    for off in ((0, 1) if both16 else (0,)):
+                        args = [base_g.to(gdt)[off:off + n],
+                                base_p.to(pdt)[off:off + n]] + \
+                            [t[off:off + n] for t in base_s[:states]]
+                        got = kernel(*args, **hyp, **flags)
+                        torch.cuda.synchronize()
+                        want = plain(*args, **hyp, **flags)
+                        _bitwise(f"{name} {flags} g {gdt} p {pdt} offset "
+                                 f"{off}", got, want)
+                        cases += 1
+        log(f"kernel {name}: {cases} flag/dtype cases at n={n} (g and p "
+            f"each fp32, bf16, fp16; bf16 views one element off alignment) "
+            f"bitwise equal to the plain version ok")
+        # the timing shape
+        N = UPDATE_N
+        gb = (0.01 * torch.randn(N, generator=g, device=dev)).bfloat16()
+        p = torch.randn(N, generator=g, device=dev)
+        st = [0.01 * torch.randn(N, generator=g, device=dev).abs() + 0.01
+              for _ in range(states)]
+        flags = grid[0]
+        ms, ms_w = time_ms(lambda: kernel(gb, p, *st, **hyp, **flags))
+        plain_ms, plain_w = time_ms(
+            lambda: plain(gb, p, *st, **hyp, **flags), iters=5)
+        lib = _update_library(name, gb.float(), p.clone(),
+                              [t.clone() for t in st])
+        lib_ms = lib_w = None
+        lib_txt = "none (no PyTorch call)"
+        if lib is not None:
+            lib_ms, lib_w = time_ms(lib)
+            lib_txt = f"{lib_ms:.5f} ({lib_w:.5f}, in place, fp32 g)"
+        b_ms, b_by = bound_ms(UPDATE_BYTES[name] * N,
+                              UPDATE_FLOPS[name] * N, FP32_FLOPS)
+        log(f"  {name} n={N} bf16 g, fp32 p, {flags or 'defaults'}: time, "
+            f"device ms (wall ms per call): kernel {ms:.5f} ({ms_w:.5f}), "
+            f"plain {plain_ms:.5f} ({plain_w:.5f}), library {lib_txt}, bound "
+            f"{b_ms:.5f} ({b_by}, {UPDATE_BYTES[name]} bytes an element)")
+        out.append(dict(name=name, shape=f"n={N} bf16 g, fp32 p and state"
+                        f"{', ' + str(flags) if flags else ''}", ms=ms,
+                        ms_wall=ms_w, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms, max_abs_err=0.0))
+        del gb, p, st, lib
+        free_memory()
+    return tuple(out)
 
 
 def long_context(dev):
@@ -4267,6 +4458,270 @@ def dropout_faults(dev) -> None:
                 raise AssertionError(f"fault {name} was not caught")
 
 
+# --- the update slice's phases -------------------------------------------
+
+def _seeded_leaves(dev, seed: int, shapes):
+    """bench.py's synthetic parameters (0.01 randn, fp32) from a seeded
+    generator on the card, and the gradients g = p * 1e-3 + 1e-3."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    p = [0.01 * torch.randn(s, generator=gen, device=dev) for s in shapes]
+    return p, [x * 1e-3 + 1e-3 for x in p]
+
+
+def _update_step(tx, p, g, holder):
+    """One ``update`` + ``apply_updates`` step on g_t = g + 1e-12 p (the
+    bench's step-dependent gradients), the state kept in ``holder``."""
+    from apex_tpu_torch.optimizers import apply_updates
+
+    g_t = [gg + 1e-12 * pp for gg, pp in zip(g, p)]
+    u, holder[0] = tx.update(g_t, holder[0], p)
+    apply_updates(p, u)
+
+
+def _state_tensors(state):
+    """The tensors of an optimizer state dataclass, count left out, field
+    by field."""
+    return [t for f in dataclasses.fields(state) if f.name != "count"
+            for t in getattr(state, f.name)]
+
+
+def _zero_side(dev, tx, label: str, want: dict):
+    """One side of bench_zero_adam's pair: ``ZERO_STEPS`` counted steps
+    from fresh parameters and state (launch counts reset just before and
+    held to ``want``; peak memory; wall ms a step), then the device and
+    back-to-back times a step on further steps.  Returns (the parameters
+    and the state tensors after the counted steps, the launch counts read
+    after them, device ms, wall ms, peak GiB above what the caller
+    holds)."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    held = torch.cuda.memory_allocated(dev)     # what the caller keeps
+    p, g = _seeded_leaves(dev, 12, ZERO_SHAPES)
+    holder = [tx.init(p)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(ZERO_STEPS):
+        _update_step(tx, p, g, holder)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / ZERO_STEPS
+    counts = launch_counts()
+    peak = (torch.cuda.max_memory_allocated(dev) - held) / 2 ** 30
+    expect = {k: 0 for k in counts}
+    expect.update(want)
+    log(f"zero_adam {label}: launch counts "
+        f"{ {k: v for k, v in counts.items() if v} } (expected {want}); "
+        f"wall {wall:.3f} ms a step over the {ZERO_STEPS} counted steps; "
+        f"peak memory {peak:.2f} GiB")
+    if counts != expect:
+        raise AssertionError(f"zero_adam {label}: launch counts {counts} "
+                             f"!= {expect}")
+    final = [x.clone() for x in p]
+    # update() returns new state tensors: the timed steps leave these be
+    state = _state_tensors(holder[0])
+    if not all(bool(torch.isfinite(x).all()) for x in final + state):
+        raise AssertionError(f"zero_adam {label}: parameters or state not "
+                             f"finite")
+    dev_ms, wall_b2b = time_ms(lambda: _update_step(tx, p, g, holder),
+                               iters=ZERO_STEPS, warmup=1)
+    log(f"zero_adam {label}: device {dev_ms:.3f} ms a step (back to back "
+        f"{wall_b2b:.3f} ms)")
+    del p, g, holder
+    free_memory()
+    return final, state, counts, dev_ms, wall, peak
+
+
+def zero_adam(dev) -> dict:
+    """bench.py's bench_zero_adam pair at 355,000,320 parameters, each
+    side held to the plain version at its own shapes: first
+    ``fused_adam(1e-3, kernels=False)`` (no launch), then the dense
+    ``fused_adam(1e-3).update`` + ``apply_updates`` (10 ``adam_update``
+    launches a step, one a leaf), then ``distributed_fused_adam(1e-3)``
+    over a one-rank NCCL group (one launch a step, on the one packed fp32
+    group), ``ZERO_STEPS`` steps each from the same seeded parameters:
+    exact launch counts; each kernel side's parameters and moments after
+    the steps bitwise equal to the plain side's (the sharded moments
+    against the plain ones packed; world 1 divides by 1, and every
+    element meets the same arithmetic); device and wall ms a step, the
+    sides' ratio (``sharded_vs_dense_device``, bench.py's name), peak
+    memory and the bound.  Returns the launch counts the two kernel
+    sides read."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.contrib.optimizers import distributed_fused_adam
+    from apex_tpu_torch.ops import multi_tensor
+    from apex_tpu_torch.optimizers import fused_adam
+
+    n = sum(a * b for a, b in ZERO_SHAPES)
+    plain_p, plain_st, _, plain_ms, plain_wall, _ = _zero_side(
+        dev, fused_adam(ZERO_LR, kernels=False), "plain fused_adam "
+        "(kernels=False)", {})
+    dense_p, dense_st, dense_counts, dense_ms, dense_wall, dense_peak = \
+        _zero_side(dev, fused_adam(ZERO_LR), "dense fused_adam",
+                   {"adam_update": len(ZERO_SHAPES) * ZERO_STEPS})
+    _bitwise("zero_adam dense against plain (parameters, m, v)",
+             dense_p + dense_st, plain_p + plain_st)
+    del dense_p, dense_st
+    free_memory()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        # NCCL builds its communicator at the first collective: outside
+        # the counted steps' wall
+        dist.all_reduce(torch.zeros(1, device=dev))
+        zero_p, zero_st, zero_counts, zero_ms, zero_wall, zero_peak = \
+            _zero_side(dev, distributed_fused_adam(ZERO_LR), "sharded "
+                       "distributed_fused_adam (one-rank NCCL group)",
+                       {"adam_update": ZERO_STEPS})
+    finally:
+        dist.destroy_process_group()
+    half = len(plain_st) // 2           # the plain m leaves, then the v
+    packed = [b for leaves in (plain_st[:half], plain_st[half:])
+              for b in multi_tensor.pack(
+                  leaves, multi_tensor.compute_metas(leaves))]
+    _bitwise("zero_adam sharded against plain (parameters, packed m, v)",
+             zero_p + zero_st, plain_p + packed)
+    b_ms, b_by = bound_ms(28 * n, UPDATE_FLOPS["adam_update"] * n,
+                          FP32_FLOPS)
+    log(f"zero_adam: {n} fp32 parameters in {len(ZERO_SHAPES)} leaves, "
+        f"{ZERO_STEPS} steps a side; dense device {dense_ms:.3f} ms a step "
+        f"(wall {dense_wall:.3f}), sharded {zero_ms:.3f} (wall "
+        f"{zero_wall:.3f}), plain {plain_ms:.3f} (wall {plain_wall:.3f}): "
+        f"sharded_vs_dense_device {zero_ms / dense_ms:.4f}, "
+        f"sharded_vs_dense_wall {zero_wall / dense_wall:.4f}; peak memory "
+        f"dense {dense_peak:.2f} GiB, sharded {zero_peak:.2f} GiB; the "
+        f"Adam update's bound {b_ms:.3f} ms a step ({b_by}, 28 bytes an "
+        f"element); parameters and moments of both sides after "
+        f"{ZERO_STEPS} steps bitwise equal to the plain version's ok")
+    del zero_p, zero_st, plain_p, plain_st, packed
+    free_memory()
+    return {k: dense_counts[k] + zero_counts[k] for k in dense_counts}
+
+
+def optim_update(dev) -> dict:
+    """``update`` of fused_adam, fused_sgd (momentum 0.9), fused_adagrad
+    and fused_novograd on bench.py's small_leaves_26m_packed tree with
+    every leaf packed (``multi_tensor.DIRECT_MIN_ELEMS`` raised above the
+    leaf size, restored after): ``OPTIM_STEPS`` steps each with launch
+    counts reset just before and held exactly (``OPTIM_GROUPS`` launches a
+    step, the grouping's count, checked before the run), then the same
+    steps with ``kernels=False``: parameters and state bitwise equal.
+    Returns the path's launch counts."""
+    from apex_tpu_torch.ops import (launch_counts, multi_tensor,
+                                    reset_launch_counts)
+    from apex_tpu_torch.optimizers import (fused_adagrad, fused_adam,
+                                           fused_novograd, fused_sgd)
+
+    opts = (("adam_update", lambda k: fused_adam(1e-3, kernels=k)),
+            ("sgd_update", lambda k: fused_sgd(0.1, momentum=0.9,
+                                               kernels=k)),
+            ("adagrad_update", lambda k: fused_adagrad(1e-2, kernels=k)),
+            ("novograd_update", lambda k: fused_novograd(1e-3, kernels=k)))
+    saved = multi_tensor.DIRECT_MIN_ELEMS
+    multi_tensor.DIRECT_MIN_ELEMS = max(a * b for a, b in OPTIM_SHAPES) + 1
+    total = {}
+    try:
+        p, _ = _seeded_leaves(dev, 13, OPTIM_SHAPES)
+        for align in (1, multi_tensor.LANE):
+            metas = multi_tensor.compute_metas(p, align=align,
+                                               split_direct=True)
+            if len(metas) != OPTIM_GROUPS or any(m.direct for m in metas):
+                raise AssertionError(f"optim_update: {len(metas)} groups "
+                                     f"at align {align}, not "
+                                     f"{OPTIM_GROUPS} packed")
+        log(f"optim_update: {len(OPTIM_SHAPES)} leaves, "
+            f"{sum(a * b for a, b in OPTIM_SHAPES)} fp32 elements, "
+            f"DIRECT_MIN_ELEMS {multi_tensor.DIRECT_MIN_ELEMS}: "
+            f"{OPTIM_GROUPS} packed groups of "
+            f"{[len(m.sizes) for m in metas]} leaves, so {OPTIM_GROUPS} "
+            f"launches a step an optimizer")
+        del p
+        for name, make in opts:
+            runs = []
+            for kernels in (True, False):
+                p, g = _seeded_leaves(dev, 13, OPTIM_SHAPES)
+                tx = make(kernels)
+                holder = [tx.init(p)]
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                for _ in range(OPTIM_STEPS):
+                    _update_step(tx, p, g, holder)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / OPTIM_STEPS
+                counts = launch_counts()
+                want = {k: 0 for k in counts}
+                if kernels:
+                    want[name] = OPTIM_GROUPS * OPTIM_STEPS
+                if counts != want:
+                    raise AssertionError(f"optim_update {name} kernels="
+                                         f"{kernels}: launch counts {counts}")
+                if kernels:
+                    total[name] = counts[name]
+                runs.append((p, _state_tensors(holder[0]), wall))
+            _bitwise(f"optim_update {name}", runs[0][0] + runs[0][1],
+                     runs[1][0] + runs[1][1])
+            log(f"optim_update {name}: {OPTIM_STEPS} steps, "
+                f"{total[name]} launches (held); parameters "
+                f"and state bitwise equal to kernels=False ok; wall "
+                f"{runs[0][2]:.3f} ms a step (plain {runs[1][2]:.3f})")
+            del runs
+            free_memory()
+    finally:
+        multi_tensor.DIRECT_MIN_ELEMS = saved
+    return total
+
+
+def profile_zero_adam(dev) -> None:
+    """One step of each side of bench_zero_adam's pair under
+    ``torch.profiler`` (parameters, state and two steps outside the
+    window): device time by kernel, the Adam kernel's share and the idle
+    share of the step's wall."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.contrib.optimizers import distributed_fused_adam
+    from apex_tpu_torch.optimizers import fused_adam
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        for label, make in (("dense", lambda: fused_adam(ZERO_LR)),
+                            ("sharded", lambda: distributed_fused_adam(
+                                ZERO_LR))):
+            p, g = _seeded_leaves(dev, 12, ZERO_SHAPES)
+            tx = make()
+            holder = [tx.init(p)]
+            for _ in range(2):
+                _update_step(tx, p, g, holder)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _update_step(tx, p, g, holder)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            rows = _profile_rows(prof)
+            busy = sum(r[1] for r in rows)
+            if busy <= 0:
+                raise AssertionError("zero_adam profile: no device time")
+            adam = sum(ms for name, ms, _ in rows if "update_kernel" in name)
+            log(f"zero_adam profile ({label}, one step, profiler on): wall "
+                f"{wall:.3f} ms, device busy {busy:.3f} ms summed over "
+                f"kernels ({100 - 100 * busy / wall:.2f}% idle); the Adam "
+                f"update kernel {adam:.3f} ms ({100 * adam / busy:.2f}%)")
+            for name, ms, cnt in rows[:10]:
+                log(f"  {ms:10.3f} ms {100 * ms / busy:6.2f}%  x{cnt:<6d} "
+                    f"{name[:90]}")
+            del p, g, holder, tx
+            free_memory()
+    finally:
+        dist.destroy_process_group()
+
+
 def profile_resnet(dev) -> None:
     """One staged O5 step of bench_resnet50 under ``torch.profiler``
     (built and two steps taken outside the window): device time by kernel
@@ -4439,7 +4894,7 @@ def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
 PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "serve_moe", "train",
           "train_o2", "train_bert", "train_bert_o2", "long_context",
           "train_long", "train_dropout", "train_resnet", "resnet_faults",
-          "profile", "dropout_faults")
+          "zero_adam", "optim_update", "profile", "dropout_faults")
 # every phase but the planted dropout faults (two rebuilds of the flash
 # sources), which runs only when named
 DEFAULT_PHASES = tuple(p for p in PHASES if p != "dropout_faults")
@@ -4510,6 +4965,8 @@ def main(argv=None) -> int:
         gr.manual_seed(9)
         gd = torch.Generator(device=dev)
         gd.manual_seed(10)
+        gu = torch.Generator(device=dev)
+        gu.manual_seed(11)
         if "kernels" in phases:
             for name, fn in (("layer_norm", check_layer_norm),
                              ("flash_attention", check_flash_attention),
@@ -4540,17 +4997,19 @@ def main(argv=None) -> int:
                              ("adam_step", check_adam_step),
                              ("sgd_pipeline", check_sgd_pipeline),
                              ("flash_attention_e_dropout",
-                              check_flash_attention_e_dropout)):
+                              check_flash_attention_e_dropout),
+                             ("optim_update", check_optim_update)):
                 # the Q8 tier's, the BERT phases', the long-context, MoE,
-                # ResNet and dropout slices' checks draw from generators
-                # of their own, so the earlier checks see the inputs they
-                # saw before
+                # ResNet, dropout and update slices' checks draw from
+                # generators of their own, so the earlier checks see the
+                # inputs they saw before
                 gen = gq if name in Q8_CHECKS else \
                     gb if name in BERT_CHECKS else \
                     gl if name in LONG_CHECKS else \
                     gm if name in MOE_CHECKS else \
                     gr if name in RESNET_CHECKS else \
-                    gd if name in DROPOUT_CHECKS else g
+                    gd if name in DROPOUT_CHECKS else \
+                    gu if name in UPDATE_CHECKS else g
                 ok, out = run(f"kernel {name}", lambda: fn(dev, gen))
                 if ok and out is not None:
                     for e in (out if isinstance(out, tuple) else (out,)):
@@ -4686,6 +5145,14 @@ def main(argv=None) -> int:
                 counts["train_resnet"] = out
         if "resnet_faults" in phases:
             run("resnet_faults", lambda: resnet_faults(dev))
+        if "zero_adam" in phases:
+            ok, out = run("zero_adam", lambda: zero_adam(dev))
+            if ok:
+                counts["zero_adam"] = out
+        if "optim_update" in phases:
+            ok, out = run("optim_update", lambda: optim_update(dev))
+            if ok:
+                counts["optim_update"] = out
         if "dropout_faults" in phases:
             run("dropout_faults", lambda: dropout_faults(dev))
         if "profile" in phases:
@@ -4719,6 +5186,8 @@ def main(argv=None) -> int:
                     dev, "O5", "gpt_dropout"))
             if "train_resnet" in phases:
                 run("train_resnet profile", lambda: profile_resnet(dev))
+            if "zero_adam" in phases:
+                run("zero_adam profile", lambda: profile_zero_adam(dev))
     log(f"chip_smoke: command time {time.perf_counter() - t_start:.1f} s")
     if failed:
         log(f"chip_smoke FAILED: {failed}")
@@ -4743,7 +5212,9 @@ def main(argv=None) -> int:
                     ("train_long", TRAIN_LONG_KERNELS),
                     ("train_resnet", TRAIN_RESNET_KERNELS),
                     ("train_dropout", TRAIN_DROPOUT_KERNELS),
-                    ("train_dropout_long", TRAIN_DROPOUT_LONG_KERNELS))
+                    ("train_dropout_long", TRAIN_DROPOUT_LONG_KERNELS),
+                    ("zero_adam", ZERO_ADAM_KERNELS),
+                    ("optim_update", OPTIM_UPDATE_KERNELS))
                    if name in ks}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
