@@ -7,8 +7,8 @@ own into ``csrc/_build/<name>-<hash>.so`` with::
          -Xcompiler -fPIC -Xptxas=-v -o <lib> <source>
 
 The hash covers the source, the shared headers it includes
-(``csrc/*.cuh``) and the flags, so an edited source never loads a stale
-library.  :func:`build` starts one ``nvcc`` per missing
+(``csrc/*.cuh``, and the headers those include) and the flags, so an
+edited source never loads a stale library.  :func:`build` starts one ``nvcc`` per missing
 library, all at once, and waits for them together; :func:`library`
 builds on first use and sets every exported function's ``argtypes``
 (``c_void_p`` for pointers and the stream, so no pointer is cut to 32
@@ -33,7 +33,7 @@ BUILD_DIR = CSRC / "_build"
 SOURCES = ("layer_norm", "flash_attention", "flash_decode",
            "flash_attention_bwd", "fused_adam", "scaled_softmax",
            "norm_finite", "quant_matmul", "fused_lamb", "moe_routing",
-           "fused_sgd", "fused_optim_update")
+           "fused_sgd", "fused_optim_update", "flash_attention_partial")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -84,6 +84,19 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # dtype, stream
         "apex_flash_attention_bwd": [_P] * 12 + [_I] * 5 + [_L] * 24
         + [_F, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_attention_partial": {
+        # q, k, v, o, lse, b, h, sq, sk, d, q/k/v/o strides (b, h, s) in
+        # elements, scale, causal, diag (q_off - k_off), a dead row's lse,
+        # dropout seed, threshold (0: none), 1 / (1 - rate), the
+        # coordinate hash's q0, k0 and h0, dtype, stream
+        "apex_flash_partial_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12
+        + [_F, _I, _I, _F, _I, _I, _F, _I, _I, _I, _I, _P],
+        # q, k, v, o, do, lse, dlse (null: none), dq, dk, dv, delta,
+        # lse2, b, h, sq, sk, d, q/k/v/o/do/dq/dk/dv strides, scale,
+        # causal, diag, the forward's dropout arguments, dtype, stream
+        "apex_flash_partial_bwd": [_P] * 12 + [_I] * 5 + [_L] * 24
+        + [_F, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     },
     "fused_adam": {
         # g, p, m, v, lowp, n, lr, beta1, beta2, eps, weight_decay, bc1,
@@ -187,11 +200,24 @@ def nvcc_path() -> str:
                        "the CUDA toolkit under /usr/local/cuda")
 
 
+def _sources(name: str) -> bytes:
+    """The bytes of ``csrc/<name>`` and of every ``csrc`` header it
+    includes, directly or through another header."""
+    seen, todo, out = set(), [name], b""
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.add(f)
+        text = (CSRC / f).read_bytes()
+        out += text
+        todo += [h.decode() for h in re.findall(rb'#include "(\w+\.cuh)"',
+                                                 text)]
+    return out
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    # and the shared headers it includes
-    for header in re.findall(rb'#include "(\w+\.cuh)"', src):
-        src += (CSRC / header.decode()).read_bytes()
+    src = _sources(f"{name}.cu")
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

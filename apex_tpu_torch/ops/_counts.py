@@ -12,7 +12,13 @@ blocked walk), and the E kernels' dropout lanes, with or without a
 kv_mask (``flash_attention_e_dropout``, ``flash_attention_e_bwd_dropout``
 and, past a padded sequence of 1024, ``flash_attention_e_blocked_dropout``,
 ``flash_attention_e_bwd_blocked_dropout``), so a run can show which
-branch it took.  A caller resets the counts just before the path it
+branch it took.  So do the lanes of the (b, h, s, d) kernels: the
+kv_mask (``flash_attention_kvmask``, ``flash_attention_bwd_kvmask``),
+the partial entry's offsets and lse cotangent
+(``flash_attention_partial``, ``flash_attention_partial_bwd``) and its
+coordinate-hash dropout (``flash_attention_partial_dropout``,
+``flash_attention_partial_bwd_dropout``), and the packed-qkv launches of
+rows 7 and 9 (``flash_attention_qkv``, ``flash_attention_qkv_bwd``).  A caller resets the counts just before the path it
 wants to prove and reads them just after (``chip_smoke.py`` does this
 around each serve and around each train step).
 """
@@ -34,7 +40,12 @@ KERNELS = ("layer_norm", "flash_attention", "flash_decode",
            "flash_attention_e_dropout", "flash_attention_e_bwd_dropout",
            "flash_attention_e_blocked_dropout",
            "flash_attention_e_bwd_blocked_dropout", "adam_update",
-           "adagrad_update", "novograd_update", "sgd_update")
+           "adagrad_update", "novograd_update", "sgd_update",
+           "flash_attention_kvmask", "flash_attention_bwd_kvmask",
+           "flash_attention_partial", "flash_attention_partial_bwd",
+           "flash_attention_partial_dropout",
+           "flash_attention_partial_bwd_dropout", "flash_attention_qkv",
+           "flash_attention_qkv_bwd")
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -1,16 +1,17 @@
 """Flash attention: the CUDA kernels and their plain versions.
 
-Port of ``apex_tpu/ops/flash_attention.py``'s ``flash_attention``
-(``_flash_fwd`` and its custom VJP's ``_flash_bwd``) for the (b, h, s,
-d) layout, forward and backward, and of ``flash_attention_e``
+Port of every entry of ``apex_tpu/ops/flash_attention.py``:
+``flash_attention`` (``_flash_fwd`` and its custom VJPs' ``_flash_bwd``,
+with the (b, sk) ``kv_mask`` of ``_flash_attention_masked``) for the
+(b, h, s, d) layout, forward and backward; ``flash_attention_partial``
+(the same kernels' offsets, lse-cotangent and coordinate-hash dropout
+lanes); ``flash_attention_qkv`` (``_flash_fwd_packed`` /
+``_flash_bwd_packed``, rows 7 and 9); and ``flash_attention_e``
 (``_flash_fwd_e``/``_flash_bwd_e`` and, past a padded sequence of 1024,
 ``_flash_fwd_e_blocked``/``_flash_bwd_e_blocked``), the
 projection-native E layout the transformer layer trains through.
-Causal or full, head dim 64 or 128; the E entry also takes a (b, s)
-``kv_mask`` (a key is attended where it is > 0), the padding mask
-BERT's flash route rides, and attention dropout (``dropout_rate``,
-``dropout_seed``) — no offsets, lse cotangent or dropout on the (b, h,
-s, d) entry, and no kv_mask there either.  The JAX package packs
+Causal or full, head dim 64 or 128; a ``kv_mask`` keeps a key where it
+is > 0 (the padding mask BERT's flash route rides).  The JAX package packs
 d=64 head pairs onto 128 TPU lanes, groups E heads by lane budget and
 streams long E sequences in (512, 512) VMEM tiles; those are devices of
 the TPU's memory, so the port keeps heads apart, walks shared-memory
@@ -57,7 +58,36 @@ generator), so no launch waits on the card.
 A batch row whose every key is masked out (or, under causal masking, a
 query row that sees no unmasked key) attends nothing: o = 0 and lse =
 -inf there, and its gradients are 0.  The JAX kernels write o = 0 too
-(their lse is the finite -1e30 * scale, which nothing reads).
+(their lse is the finite -1e30 * scale, which nothing reads but the
+partial entry's merge).
+
+:func:`flash_attention_partial` is ring attention's building block:
+``(o, lse)`` of q against one block of keys at global positions
+(``q_offset + i`` sees ``k_offset + j`` iff ``k_offset + j <= q_offset +
+i`` under causal masking; the offsets act only under causal masking, as
+in JAX), differentiable in both outputs (:class:`FlashAttentionPartialFunction`:
+the lse cotangent enters the backward's delta pass).  A row that sees
+no key there writes JAX's finite lse, -1e30 * scale in fp32, not -inf:
+the logaddexp merge of two such partials then stays finite where -inf
+would give NaN.  Its dropout hashes each pair's GLOBAL coordinates
+(JAX's ``_rand_keep_coords``; :func:`rand_keep_global` is the plain
+mask), salted by the global head (``head_offset`` + the head), so the
+shards of one score matrix draw disjoint windows of one mask.  Its
+kernels are rows 6/8's with their offsets lane, instantiated in
+``csrc/flash_attention_partial.cu`` (so the other lanes compile as they
+were).  These launches count as ``flash_attention_partial`` /
+``flash_attention_partial_bwd``, with dropout as
+``flash_attention_partial_dropout`` /
+``flash_attention_partial_bwd_dropout``.
+
+:func:`flash_attention_qkv` takes the packed (3, b, h, s, d) projections.
+JAX's packed kernels exist so that q, k and v can be row ranges of one
+operand without relayout copies; the port's kernels read through strides
+already, so rows 7 and 9 are the row-6/8 kernels launched on the views
+``qkv[0]``, ``qkv[1]``, ``qkv[2]`` (the backward writing dq, dk, dv into
+the three views of one dqkv buffer), counted as ``flash_attention_qkv``
+/ ``flash_attention_qkv_bwd``.  The kv_mask of the (b, h, s, d) entry
+counts as ``flash_attention_kvmask`` / ``flash_attention_bwd_kvmask``.
 
 The backward uses ``scale`` as the forward did.  JAX's ``_flash_bwd``
 rounds it to v's dtype before folding it into v: at d = 128 in bf16
@@ -76,7 +106,11 @@ from ._counts import bump
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "mha_reference",
            "flash_attention_backward", "flash_attention_backward_reference",
-           "FlashAttentionFunction", "e_mode", "rand_keep", "dropout_seed",
+           "FlashAttentionFunction", "flash_attention_partial",
+           "flash_attention_partial_reference",
+           "FlashAttentionPartialFunction", "rand_keep_global",
+           "flash_attention_qkv", "flash_attention_qkv_reference",
+           "FlashAttentionQKVFunction", "e_mode", "rand_keep", "dropout_seed",
            "flash_attention_e", "flash_attention_e_with_lse",
            "flash_attention_e_reference",
            "flash_attention_e_backward",
@@ -98,12 +132,14 @@ _E_TEMP_BUDGET = 4 << 20
 _E_TEMP_BUDGET_BLOCKED = 2 << 20
 
 
-def _keep_mask(sq, sk, causal, kv_mask, device):
+def _keep_mask(sq, sk, causal, kv_mask, device, diag: int = 0):
     """The (b or 1, 1, sq or 1, sk) boolean of attended (query, key)
-    pairs, or None when every pair is attended."""
+    pairs, or None when every pair is attended; under causal masking
+    query i sees key j iff j <= i + ``diag``."""
     keep = None
     if causal:
-        keep = torch.ones(sq, sk, dtype=torch.bool, device=device).tril()
+        keep = torch.ones(sq, sk, dtype=torch.bool,
+                          device=device).tril(diag)
     if kv_mask is not None:
         km = (kv_mask > 0)[:, None, None, :]
         keep = km if keep is None else keep & km
@@ -118,11 +154,20 @@ def _dropped(p, rate, keep):
     return torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
 
 
+def _diag(causal: bool, q_offset, k_offset, sq: int, sk: int) -> int:
+    """q_offset - k_offset under causal masking (0 otherwise), clamped to
+    [-sq, sk], where it already hides every key or shows them all."""
+    if not causal:
+        return 0
+    return max(-sq, min(sk, int(q_offset) - int(k_offset)))
+
+
 def mha_reference(q, k, v, scale: Optional[float] = None,
                   causal: bool = False, return_lse: bool = False,
                   kv_mask: Optional[torch.Tensor] = None,
                   dropout_rate: float = 0.0,
-                  dropout_keep: Optional[torch.Tensor] = None):
+                  dropout_keep: Optional[torch.Tensor] = None,
+                  q_offset: int = 0, k_offset: int = 0):
     """Unfused reference (the jnp twin ``mha_reference``): fp32 scores
     materialized as (b, h, sq, sk), masked with -1e30, fp32 softmax,
     output in q's dtype.  ``return_lse=True`` also returns the fp32
@@ -132,21 +177,24 @@ def mha_reference(q, k, v, scale: Optional[float] = None,
     jnp twin gives the uniform mix there; the JAX kernels give 0).
     ``dropout_keep`` (b, h, sq, sk) bool drops the probabilities where it
     is False and scales the kept ones by 1 / (1 - ``dropout_rate``)
-    after the softmax (lse stays the undropped one)."""
+    after the softmax (lse stays the undropped one).  Under causal
+    masking query i sits at ``q_offset + i`` and key j at ``k_offset +
+    j``; a row that then sees no key gives o = 0 and lse = -inf."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     sq, sk = s.shape[-2:]
-    if kv_mask is None:
+    diag = _diag(causal, q_offset, k_offset, sq, sk)
+    if kv_mask is None and diag >= 0:
         if causal:
-            s = s.masked_fill(~_keep_mask(sq, sk, True, None, s.device),
-                              _NEG)
+            s = s.masked_fill(~_keep_mask(sq, sk, True, None, s.device,
+                                          diag), _NEG)
         p = _dropped(torch.softmax(s, dim=-1), dropout_rate, dropout_keep)
         o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
         if return_lse:
             return o, torch.logsumexp(s, dim=-1)
         return o
-    s = s.masked_fill(~_keep_mask(sq, sk, causal, kv_mask, s.device),
+    s = s.masked_fill(~_keep_mask(sq, sk, causal, kv_mask, s.device, diag),
                       -math.inf)
     # the row max is a shift softmax does not see, so it takes no
     # gradient; a dead row (max -inf) shifts by 0 and sums to 0
@@ -192,26 +240,45 @@ def _kv_mask_arg(kv_mask, b, sk, device):
     return kv_mask.to(torch.float32).contiguous()
 
 
+_TILE_HASH, _COORD_HASH = 1, 2   # flash_dropout.cuh's DropMode
+
+
 class _Drop(NamedTuple):
-    """The kernels' dropout arguments (:func:`_drop_args`)."""
+    """The kernels' dropout arguments (:func:`_drop_args`,
+    :func:`_partial_drop`)."""
 
     rate: float
     seed: int          # s31 of the caller's seed
-    width: int         # the hash's row stride and tile, W
+    width: int         # the tile hash's row stride and tile, W
     threshold: int     # keep iff (fmix32 >> 8) >= threshold
     inv: float         # 1 / (1 - rate), rounded to fp32 by the launch
+    mode: int = _TILE_HASH
+    q0: int = 0        # the coordinate hash's offsets and head 0
+    k0: int = 0
+    h0: int = 0
 
 
-_NO_DROP = (0, 0, 0, 1.0)      # the launchers' (seed, W, threshold, inv)
-
-
-def _launch_drop(drop):
-    return _NO_DROP if drop is None else \
+def _launch_drop(drop, partial: bool = False):
+    """The dropout arguments of a launch: the tile hash's (seed, W,
+    threshold, inv), or the partial entry's coordinate hash's (seed,
+    threshold, inv, q0, k0, h0); threshold 0 runs none."""
+    if partial:
+        return (0, 0, 1.0, 0, 0, 0) if drop is None else \
+            (drop.seed, drop.threshold, drop.inv, drop.q0, drop.k0, drop.h0)
+    return (0, 0, 0, 1.0) if drop is None else \
         (drop.seed, drop.width, drop.threshold, drop.inv)
 
 
+def _strides(*ts):
+    """The (b, h, s) element strides of each (b, h, s, d) view."""
+    return [x for t in ts for x in (t.stride(0), t.stride(1), t.stride(2))]
+
+
 def _launch(q, k, v, scale, causal, counter="flash_attention",
-            kv_mask=None, drop=None):
+            kv_mask=None, drop=None, diag=None):
+    """One forward launch; ``diag`` not None launches the partial entry's
+    lanes (``csrc/flash_attention_partial.cu``: causal offsets q_off -
+    k_off = ``diag``, JAX's dead-row lse, the coordinate-hash ``drop``)."""
     _check_qkv(q, k, v, counter)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -220,19 +287,25 @@ def _launch(q, k, v, scale, causal, counter="flash_attention",
                     device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if sq == 0 or sk == 0 or b * h == 0:
-        return o.zero_(), lse.fill_(-math.inf)
-    lib = _build.library("flash_attention")
-    strides = []
-    for t in (q, k, v, o):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
+        return o.zero_(), lse.fill_(-math.inf if diag is None
+                                    else _dead_lse(scale))
+    tail = (_build.dtype_code(q.dtype), _build.stream_ptr(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr())
     with torch.cuda.device(q.device):
-        rc = lib.apex_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), None if kvm is None else kvm.data_ptr(), b, h,
-            sq, sk, d, *strides, float(scale), int(bool(causal)),
-            *_launch_drop(drop), _build.dtype_code(q.dtype),
-            _build.stream_ptr(q.device))
-    _build.check("flash_attention", rc, f"{counter} kernel")
+        if diag is None:
+            name = "flash_attention"
+            rc = _build.library(name).apex_flash_attention_fwd(
+                *ptrs, None if kvm is None else kvm.data_ptr(), b, h, sq, sk,
+                d, *_strides(q, k, v, o), float(scale), int(bool(causal)),
+                *_launch_drop(drop), *tail)
+        else:
+            name = "flash_attention_partial"
+            rc = _build.library(name).apex_flash_partial_fwd(
+                *ptrs, b, h, sq, sk, d, *_strides(q, k, v, o), float(scale),
+                int(bool(causal)), int(diag), _dead_lse(scale),
+                *_launch_drop(drop, partial=True), *tail)
+    _build.check(name, rc, f"{counter} kernel")
     bump(counter)
     return o, lse
 
@@ -244,24 +317,33 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
                                        = None,
                                        dropout_rate: float = 0.0,
                                        dropout_keep: Optional[torch.Tensor]
-                                       = None):
+                                       = None,
+                                       q_offset: int = 0, k_offset: int = 0,
+                                       dlse: Optional[torch.Tensor] = None):
     """Plain version of the backward kernel: ``(dq, dk, dv)`` from q
     (b, h, sq, d), k and v (b, h, sk, d), the forward's o (b, h, sq, d)
     and natural-log lse (b, h, sq), and do (b, h, sq, d) — p recomputed
     from lse, delta = rowsum(do*o), all in fp32, each cast once to its
     operand's dtype.  Masked pairs take p = 0 before the exponential is
-    read (a dead row's lse is -inf).  With the forward's
-    ``dropout_keep``, dv reads the dropped p / (1 - rate) and dp is
-    dropped and scaled alike before ds = p (dp - delta)."""
+    read (a dead row's lse is -inf, or the partial's -1e30 * scale).
+    With the forward's ``dropout_keep``, dv reads the dropped p / (1 -
+    rate) and dp is dropped and scaled alike before ds = p (dp - delta).
+    ``q_offset``/``k_offset``: the forward's causal offsets; ``dlse``
+    (b, h, sq): the cotangent of lse, folded in as delta - dlse (d lse_i
+    / d s_ij is scale p_ij)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     sc = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
     p = torch.exp(sc - lse.unsqueeze(-1))
-    keep = _keep_mask(q.shape[2], k.shape[2], causal, kv_mask, q.device)
+    sq, sk = q.shape[2], k.shape[2]
+    keep = _keep_mask(sq, sk, causal, kv_mask, q.device,
+                      _diag(causal, q_offset, k_offset, sq, sk))
     if keep is not None:
         p = torch.where(keep, p, torch.zeros((), device=p.device))
     delta = (dof * of).sum(-1, keepdim=True)
+    if dlse is not None:
+        delta = delta - dlse.float().unsqueeze(-1)
     dv = torch.einsum("bhqk,bhqd->bhkd", _dropped(p, dropout_rate,
                                                   dropout_keep), dof)
     dp = _dropped(torch.einsum("bhqd,bhkd->bhqk", dof, vf), dropout_rate,
@@ -273,10 +355,11 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
 
 
 def _launch_backward(q, k, v, o, lse, do, dq, dk, dv, scale, causal,
-                     counter, kv_mask=None, drop=None):
+                     counter, kv_mask=None, drop=None, diag=None, dlse=None):
     """One launch of the backward kernel on (b, h, s, d) views: q, o,
     do, dq over sq rows, k, v, dk, dv over sk rows (outputs written in
-    place)."""
+    place).  ``diag`` not None launches the partial entry's lanes, with
+    ``dlse`` None or the lse cotangent (b, h, sq)."""
     _check_qkv(q, k, v, counter)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -290,21 +373,36 @@ def _launch_backward(q, k, v, o, lse, do, dq, dk, dv, scale, causal,
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or \
             not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 {(b, h, sq)}")
+    if dlse is not None:
+        if dlse.shape != (b, h, sq) or dlse.device != q.device:
+            raise ValueError(f"dlse must be {(b, h, sq)} on {q.device}, got "
+                             f"{tuple(dlse.shape)} on {dlse.device}")
+        dlse = dlse.to(torch.float32).contiguous()
     scratch = torch.empty((2, b, h, sq), dtype=torch.float32,
                           device=q.device)
-    strides = []
-    for t in (q, k, v, o, do, dq, dk, dv):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
-    lib = _build.library("flash_attention_bwd")
+    strides = _strides(q, k, v, o, do, dq, dk, dv)
+    tail = (_build.dtype_code(q.dtype), _build.stream_ptr(q.device))
     with torch.cuda.device(q.device):
-        rc = lib.apex_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            None if kvm is None else kvm.data_ptr(), b, h, sq, sk, d,
-            *strides, float(scale), int(bool(causal)), *_launch_drop(drop),
-            _build.dtype_code(q.dtype), _build.stream_ptr(q.device))
-    _build.check("flash_attention_bwd", rc, f"{counter} kernel")
+        if diag is None:
+            name = "flash_attention_bwd"
+            rc = _build.library(name).apex_flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
+                None if kvm is None else kvm.data_ptr(), b, h, sq, sk, d,
+                *strides, float(scale), int(bool(causal)),
+                *_launch_drop(drop), *tail)
+        else:
+            name = "flash_attention_partial"
+            rc = _build.library(name).apex_flash_partial_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(),
+                None if dlse is None else dlse.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), scratch[0].data_ptr(),
+                scratch[1].data_ptr(), b, h, sq, sk, d, *strides,
+                float(scale), int(bool(causal)), int(diag),
+                *_launch_drop(drop, partial=True), *tail)
+    _build.check(name, rc, f"{counter} kernel")
     bump(counter)
 
 
@@ -312,57 +410,68 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, do: torch.Tensor,
                              scale: Optional[float] = None,
-                             causal: bool = False
+                             causal: bool = False,
+                             kv_mask: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention` (row 8), from its
     inputs, its o and fp32 natural-log lse (b, h, sq), and the output
     gradient do (b, h, sq, d); each gradient in its operand's shape and
-    dtype.  Counts as ``flash_attention_bwd``."""
+    dtype.  Counts as ``flash_attention_bwd``, with a ``kv_mask`` as
+    ``flash_attention_bwd_kvmask``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, lse, do,
                                                   scale=scale,
-                                                  causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+                                                  causal=causal,
+                                                  kv_mask=kv_mask)
+    _on_cuda(q, "flash_attention")
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
     if dq.numel() and dk.numel():
         _launch_backward(q, k, v, o, lse, do, dq, dk, dv, scale, causal,
-                         "flash_attention_bwd")
+                         "flash_attention_bwd" if kv_mask is None
+                         else "flash_attention_bwd_kvmask",
+                         kv_mask=kv_mask)
     else:
         for t in (dq, dk, dv):
             t.zero_()
     return dq, dk, dv
 
 
-def _forward(q, k, v, scale, causal):
+def _on_cuda(t, what):
+    """Raise unless ``t`` lies on a CUDA device (its CPU case is handled
+    before)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+
+
+def _forward(q, k, v, scale, causal, kv_mask=None):
+    kv_mask = _kv_mask_arg(kv_mask, q.shape[0], k.shape[2], q.device)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, scale=scale, causal=causal,
-                             return_lse=True)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    return _launch(q, k, v, scale, causal)
+                             return_lse=True, kv_mask=kv_mask)
+    _on_cuda(q, "flash_attention")
+    return _launch(q, k, v, scale, causal,
+                   counter="flash_attention" if kv_mask is None
+                   else "flash_attention_kvmask", kv_mask=kv_mask)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention over (b, h, s, d) under autograd (the JAX
-    package's ``_flash_attention_fused`` custom VJP): the forward saves
-    q, k, v, o and the fp32 lse and returns ``(o, lse)``; the backward
-    is row 8.  The lse output takes no cotangent (JAX's
-    ``flash_attention_partial`` folds one into delta; that entry, with
-    ring attention, is not ported): a graph that differentiates through
-    it raises."""
+    package's ``_flash_attention_fused`` and ``_flash_attention_masked``
+    custom VJPs): the forward saves q, k, v, o, the fp32 lse and the
+    kv_mask and returns ``(o, lse)``; the backward is row 8.  The lse
+    output takes no cotangent here (a graph that differentiates through
+    it raises): :class:`FlashAttentionPartialFunction`, the partial
+    entry's, folds one into the backward's delta.  The mask takes no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        o, lse = _forward(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, scale, causal, kv_mask=None):
+        o, lse = _forward(q, k, v, scale, causal, kv_mask)
+        ctx.save_for_backward(q, k, v, o, lse, kv_mask)
         ctx.scale, ctx.causal = scale, causal
         ctx.set_materialize_grads(False)
         return o, lse
@@ -371,39 +480,47 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         if dlse is not None:
             raise NotImplementedError(
-                "flash_attention_with_lse: a gradient through lse (the lse "
-                "cotangent of JAX's flash_attention_partial) is not ported")
-        q, k, v, o, lse = ctx.saved_tensors
+                "flash_attention_with_lse: lse takes no gradient (use "
+                "flash_attention_partial, whose backward folds the lse "
+                "cotangent in)")
+        q, k, v, o, lse, kv_mask = ctx.saved_tensors
         do = dout if dout.stride(-1) == 1 else dout.contiguous()
         dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
                                               scale=ctx.scale,
-                                              causal=ctx.causal)
-        return dq, dk, dv, None, None
+                                              causal=ctx.causal,
+                                              kv_mask=kv_mask)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, scale: Optional[float] = None,
-                             causal: bool = False
+                             causal: bool = False,
+                             kv_mask: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)``: softmax(q k^T * scale [causal]) v and the fp32
-    per-row log-sum-exp, (b, h, sq).  Differentiable in o."""
+    """``(o, lse)``: softmax(q k^T * scale [causal] [kv_mask]) v and the
+    fp32 per-row log-sum-exp, (b, h, sq).  Differentiable in o."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return FlashAttentionFunction.apply(q, k, v, float(scale),
-                                        bool(causal))
+                                        bool(causal), kv_mask)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None,
-                    causal: bool = False) -> torch.Tensor:
-    """Fused attention: softmax(q k^T * scale [causal]) v.
+                    causal: bool = False,
+                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused attention: softmax(q k^T * scale [masked]) v.
 
     q (b, h, sq, d); k, v (b, h, sk, d); d 64 or 128; ``scale``
     defaults to 1/sqrt(d).  Causal masking keeps key positions <= the
-    query's (both counted from 0).  Differentiable: the backward is the
-    row-8 kernel on CUDA tensors, its plain version on CPU tensors."""
-    return flash_attention_with_lse(q, k, v, scale=scale,
-                                    causal=causal)[0]
+    query's (both counted from 0).  ``kv_mask`` (b, sk) keeps the keys
+    where it is > 0 (JAX's ``_flash_attention_masked``; pass it as
+    contiguous fp32, the kernels' format, to spare a conversion a call):
+    a row with no key left gives o = 0, as JAX's kernel does, and zero
+    gradients.  Differentiable: the backward is the row-8 kernel on CUDA
+    tensors, its plain version on CPU tensors."""
+    return flash_attention_with_lse(q, k, v, scale=scale, causal=causal,
+                                    kv_mask=kv_mask)[0]
 
 
 # --- the E layout: qkv (b, s, h, 3d) -> (b, s, h*d) --------------------
@@ -467,12 +584,16 @@ def _seed31(seed) -> int:
     return seed & 0x7FFFFFFF
 
 
+def _f32(x: float) -> float:
+    """x rounded to float32."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
 def _threshold(rate: float) -> int:
     """ceil(float32(rate) * 2^24): JAX keeps a pair iff its hash's top 24
     bits times 2^-24 are >= float32(rate), that is iff the bits are >=
     this (an exact integer compare)."""
-    r32 = struct.unpack("f", struct.pack("f", rate))[0]
-    return math.ceil(r32 * (1 << 24))
+    return math.ceil(_f32(rate) * (1 << 24))
 
 
 def dropout_seed(generator: torch.Generator) -> int:
@@ -523,17 +644,43 @@ def _hash24(bi: int, h: int, sq: int, sk: int, seed31: int, width: int,
     # card to drain
     heads = ((torch.arange(h, device=device) * 0x27D4EB2F) & _M32) ^ \
         ((seed31 * 0x85EBCA6B ^ bi * 0xC2B2AE35) & _M32)
-    x = (x + (tile[None] ^ heads[:, None, None])) & _M32
+    return _fmix_top24((x + (tile[None] ^ heads[:, None, None])) & _M32)
+
+
+def _fmix_top24(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's fmix32 of uint32 counters held in int64, its top 24
+    bits."""
     x = _mul32(x ^ (x >> 16), 0x85EBCA6B)
     x = _mul32(x ^ (x >> 13), 0xC2B2AE35)
     return (x ^ (x >> 16)) >> 8
 
 
-def _keep_of(drop: _Drop, b: int, h: int, sq: int, sk: int, device):
+def _coord_hash24(bi: int, h: int, sq: int, sk: int, drop: _Drop,
+                  device) -> torch.Tensor:
+    """The top 24 bits of JAX's coordinate hash (``_rand_keep_coords``)
+    for every (head, query, key) pair of batch row ``bi`` (global):
+    int64 (h, sq, sk)."""
+    r = torch.arange(sq, device=device) + drop.q0
+    c = torch.arange(sk, device=device) + drop.k0
+    heads = _mul32((torch.arange(h, device=device) + drop.h0) & _M32,
+                   0x27D4EB2F) ^ ((drop.seed * 0x85EBCA6B
+                                   ^ bi * 0xC2B2AE35) & _M32)
+    x = (_mul32(r & _M32, 0x01000193)[:, None] + c[None, :]) & _M32
+    return _fmix_top24((x[None] + heads[:, None, None]) & _M32)
+
+
+def _keep_of(drop: _Drop, b: int, h: int, sq: int, sk: int, device,
+             batch_offset: int = 0):
     keep = torch.empty((b, h, sq, sk), dtype=torch.bool, device=device)
     for bi in range(b):   # one batch row's int64 temporaries at a time
-        keep[bi] = _hash24(bi, h, sq, sk, drop.seed, drop.width,
-                           device) >= drop.threshold
+        if drop.mode != _COORD_HASH:
+            keep[bi] = _hash24(bi, h, sq, sk, drop.seed, drop.width,
+                               device) >= drop.threshold
+            continue
+        for hi in range(h):   # and, at ring lengths, one head's
+            keep[bi, hi] = _coord_hash24(
+                batch_offset + bi, 1, sq, sk, drop._replace(h0=drop.h0 + hi),
+                device)[0] >= drop.threshold
     return keep
 
 
@@ -552,12 +699,12 @@ def rand_keep(b: int, h: int, sq: int, sk: int, seed, rate: float,
     return _keep_of(drop, b, h, sq, sk, device)
 
 
-def _ref_drop(drop: Optional[_Drop], b, h, s, device) -> dict:
+def _ref_drop(drop: Optional[_Drop], b, h, sq, sk, device) -> dict:
     """The plain versions' dropout arguments for ``drop``."""
     if drop is None:
         return {}
     return dict(dropout_rate=drop.rate,
-                dropout_keep=_keep_of(drop, b, h, s, s, device))
+                dropout_keep=_keep_of(drop, b, h, sq, sk, device))
 
 
 def _e_counter(s: int, kv_mask, bwd: bool = False,
@@ -593,7 +740,7 @@ def flash_attention_e_reference(qkv, scale: Optional[float] = None,
     drop = _drop_args(dropout_rate, dropout_seed, s, h, td // 3)
     q, k, v = _split_e(qkv)
     o = mha_reference(q, k, v, scale=scale, causal=causal, kv_mask=kv_mask,
-                      **_ref_drop(drop, b, h, s, qkv.device))
+                      **_ref_drop(drop, b, h, s, s, qkv.device))
     return o.transpose(1, 2).reshape(b, s, h * (td // 3))
 
 
@@ -602,7 +749,7 @@ def _backward_e_reference(qkv, o, lse, do, scale, causal, kv_mask, drop):
     grads = flash_attention_backward_reference(
         *_split_e(qkv), o.transpose(1, 2), lse, do.transpose(1, 2),
         scale=scale, causal=causal, kv_mask=kv_mask,
-        **_ref_drop(drop, b, h, s, qkv.device))
+        **_ref_drop(drop, b, h, s, s, qkv.device))
     return torch.cat([t.transpose(1, 2) for t in grads], dim=-1)
 
 
@@ -628,9 +775,7 @@ def _backward_e(qkv, o, lse, do, scale, causal, kv_mask, drop):
     if qkv.device.type == "cpu":
         return _backward_e_reference(qkv, o, lse, do, scale, causal,
                                      kv_mask, drop)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"flash_attention_e runs on cuda or cpu, not "
-                         f"{qkv.device}")
+    _on_cuda(qkv, "flash_attention_e")
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
     _launch_backward(*_split_e(qkv), o.transpose(1, 2), lse,
                      do.transpose(1, 2), *_split_e(dqkv), scale, causal,
@@ -669,7 +814,7 @@ def _forward_e(qkv, scale, causal, kv_mask=None, drop=None):
         b, s, h, _ = qkv.shape
         o, lse = mha_reference(q, k, v, scale=scale, causal=causal,
                                return_lse=True, kv_mask=kv_mask,
-                               **_ref_drop(drop, b, h, s, qkv.device))
+                               **_ref_drop(drop, b, h, s, s, qkv.device))
     elif qkv.device.type == "cuda":
         o, lse = _launch(q, k, v, scale, causal,
                          counter=_e_counter(qkv.shape[1], kv_mask,
@@ -745,3 +890,236 @@ def flash_attention_e(qkv: torch.Tensor, scale: Optional[float] = None,
     return FlashAttentionEFunction.apply(
         qkv, kv_mask, float(scale), bool(causal),
         _drop_args(dropout_rate, dropout_seed, s, h, td // 3))
+
+
+# --- the partial (o, lse) entry: ring attention's building block -------
+
+def _u31(x, what: str) -> int:
+    """A non-negative int32 (a dropout offset or head offset): JAX folds
+    it through ``_u32of``, which a negative value would wrap."""
+    x = int(x)
+    if not 0 <= x < 2 ** 31:
+        raise ValueError(f"{what} must be a non-negative int32, got {x}")
+    return x
+
+
+def _partial_drop(rate, seed, q_offset, k_offset, head_offset
+                  ) -> Optional[_Drop]:
+    """The coordinate-hash dropout of a partial call, or None at rate 0;
+    its offsets are the call's own (JAX's dsalt), causal or not."""
+    rate = float(rate)
+    if rate == 0.0:
+        return None
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    return _Drop(rate, _seed31(seed), 0, _threshold(rate), 1.0 / (1.0 - rate),
+                 _COORD_HASH, _u31(q_offset, "q_offset"),
+                 _u31(k_offset, "k_offset"), _u31(head_offset, "head_offset"))
+
+
+def rand_keep_global(shape, seed, rate: float, batch_offset: int = 0,
+                     head_offset: int = 0, q_offset: int = 0,
+                     k_offset: int = 0, device=None) -> torch.Tensor:
+    """Plain version of the partial kernels' dropout mask (JAX's
+    ``rand_keep_global``): the (b, h, sq, sk) bool of kept pairs, the
+    coordinate hash of (seed, ``batch_offset`` + b, ``head_offset`` + h,
+    ``q_offset`` + row, ``k_offset`` + col) bit for bit.  Built a batch
+    row at a time."""
+    b, h, sq, sk = shape
+    drop = _partial_drop(rate, seed, q_offset, k_offset, head_offset)
+    if drop is None:
+        return torch.ones((b, h, sq, sk), dtype=torch.bool, device=device)
+    return _keep_of(drop, b, h, sq, sk, device,
+                    batch_offset=_u31(batch_offset, "batch_offset"))
+
+
+def _dead_lse(scale: float) -> float:
+    """JAX's lse of a row that sees no key: the fp32 -1e30 times the fp32
+    scale, rounded to fp32 as the kernels' ``m * scale`` is (the double
+    product of two fp32 values is exact)."""
+    return _f32(_f32(_NEG) * _f32(scale))
+
+
+def _partial_forward_reference(q, k, v, scale, causal, diag, drop):
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    o, lse = mha_reference(q, k, v, scale=scale, causal=causal,
+                           return_lse=True, q_offset=diag,
+                           **_ref_drop(drop, b, h, sq, sk, q.device))
+    return o, torch.where(lse == -math.inf, _dead_lse(scale), lse)
+
+
+def flash_attention_partial_reference(q, k, v, scale: Optional[float] = None,
+                                      causal: bool = False, q_offset=0,
+                                      k_offset=0, dropout_rate: float = 0.0,
+                                      dropout_seed=None, head_offset=0):
+    """Plain version of :func:`flash_attention_partial`:
+    :func:`mha_reference` with the offsets and :func:`rand_keep_global`'s
+    mask, a dead row's lse JAX's -1e30 * scale; differentiable by
+    autograd in o and lse."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    sq, sk = q.shape[2], k.shape[2]
+    return _partial_forward_reference(
+        q, k, v, scale, causal, _diag(causal, q_offset, k_offset, sq, sk),
+        _partial_drop(dropout_rate, dropout_seed, q_offset, k_offset,
+                      head_offset))
+
+
+def _partial_counter(drop, bwd: bool = False) -> str:
+    return "flash_attention_partial" + ("_bwd" if bwd else "") + \
+        ("" if drop is None else "_dropout")
+
+
+class FlashAttentionPartialFunction(torch.autograd.Function):
+    """:func:`flash_attention_partial` under autograd (the JAX package's
+    ``_flash_partial``, ``_flash_partial_nooff`` and
+    ``_flash_partial_drop`` custom VJPs): the forward saves q, k, v, o
+    and the fp32 lse and keeps the causal ``diag`` and the dropout's
+    arguments (host ints); the backward takes both cotangents, the lse's
+    folded into the delta pass, and regenerates the keep mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, diag, drop):
+        if q.device.type == "cpu":
+            o, lse = _partial_forward_reference(q, k, v, scale, causal, diag,
+                                                drop)
+        else:
+            _on_cuda(q, "flash_attention_partial")
+            o, lse = _launch(q, k, v, scale, causal,
+                             counter=_partial_counter(drop), drop=drop,
+                             diag=diag)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal, ctx.diag, ctx.drop = scale, causal, diag, drop
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if dout is None else dout.to(o.dtype)
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        b, h, sq, _ = q.shape
+        sk = k.shape[2]
+        if q.device.type == "cpu":
+            grads = flash_attention_backward_reference(
+                q, k, v, o, lse, do, scale=ctx.scale, causal=ctx.causal,
+                q_offset=ctx.diag, dlse=dlse,
+                **_ref_drop(ctx.drop, b, h, sq, sk, q.device))
+            return (*grads, None, None, None, None)
+        dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                      for t in (q, k, v))
+        _launch_backward(q, k, v, o, lse, do, dq, dk, dv, ctx.scale,
+                         ctx.causal, _partial_counter(ctx.drop, bwd=True),
+                         drop=ctx.drop, diag=ctx.diag, dlse=dlse)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: Optional[float] = None,
+                            causal: bool = False, q_offset: int = 0,
+                            k_offset: int = 0, dropout_rate: float = 0.0,
+                            dropout_seed=None, head_offset: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise attention's partial: ``(o, lse)`` of q (b, h, sq, d)
+    against this block of keys k, v (b, h, sk, d), for the flash merge
+    ``lse = logaddexp(lse1, lse2); o = o1 exp(lse1 - lse) + o2 exp(lse2 -
+    lse)`` (ring attention's substep).
+
+    Under ``causal`` query i sits at global position ``q_offset + i`` and
+    key j at ``k_offset + j`` (host ints); without it the offsets place
+    only the dropout.  A row that sees no key gives o = 0 and lse = JAX's
+    -1e30 * scale (fp32), which the merge annihilates.  ``dropout_rate``
+    > 0 drops pairs inside the kernels by the coordinate hash of
+    ``dropout_seed`` (a non-negative int32, a Python int) at the global
+    (batch, ``head_offset`` + head, row, col): bit-equal to
+    :func:`rand_keep_global` at those offsets; l and lse stay undropped.
+    Differentiable in o and lse (the lse cotangent folds into the
+    backward's delta, as JAX's ``_flash_bwd`` does); the kernels on CUDA
+    tensors, their plain versions on CPU tensors."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    sq, sk = q.shape[2], k.shape[2]
+    return FlashAttentionPartialFunction.apply(
+        q, k, v, float(scale), bool(causal),
+        _diag(causal, q_offset, k_offset, sq, sk),
+        _partial_drop(dropout_rate, dropout_seed, q_offset, k_offset,
+                      head_offset))
+
+
+# --- the packed-qkv entry: (3, b, h, s, d) -> (b, h, s, d) --------------
+
+def _check_packed(qkv):
+    if qkv.dim() != 5 or qkv.shape[0] != 3:
+        raise ValueError(f"qkv must be (3, b, h, s, d), got "
+                         f"{tuple(qkv.shape)}")
+
+
+def flash_attention_qkv_reference(qkv, scale: Optional[float] = None,
+                                  causal: bool = False,
+                                  kv_mask: Optional[torch.Tensor] = None):
+    """Plain version of :func:`flash_attention_qkv`:
+    :func:`mha_reference` on ``qkv[0]``, ``qkv[1]``, ``qkv[2]``,
+    differentiable by autograd."""
+    _check_packed(qkv)
+    return mha_reference(*qkv.unbind(0), scale=scale, causal=causal,
+                         kv_mask=kv_mask)
+
+
+class FlashAttentionQKVFunction(torch.autograd.Function):
+    """:func:`flash_attention_qkv` under autograd (the JAX package's
+    ``_flash_qkv_fused`` and ``_flash_qkv_masked`` custom VJPs): the
+    row-6 kernel on the three views of qkv (row 7), saving qkv, o, the
+    fp32 lse and the kv_mask; the backward (row 9) writes dq, dk and dv
+    straight into the three views of one dqkv buffer."""
+
+    @staticmethod
+    def forward(ctx, qkv, kv_mask, scale, causal):
+        q, k, v = qkv.unbind(0)
+        kv_mask = _kv_mask_arg(kv_mask, q.shape[0], k.shape[2], q.device)
+        if qkv.device.type == "cpu":
+            o, lse = mha_reference(q, k, v, scale=scale, causal=causal,
+                                   return_lse=True, kv_mask=kv_mask)
+        else:
+            _on_cuda(qkv, "flash_attention_qkv")
+            o, lse = _launch(q, k, v, scale, causal,
+                             counter="flash_attention_qkv", kv_mask=kv_mask)
+        ctx.save_for_backward(qkv, o, lse, kv_mask)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, o, lse, kv_mask = ctx.saved_tensors
+        do = dout if dout.stride(-1) == 1 else dout.contiguous()
+        if qkv.device.type == "cpu":
+            dqkv = torch.stack(flash_attention_backward_reference(
+                *qkv.unbind(0), o, lse, do, scale=ctx.scale,
+                causal=ctx.causal, kv_mask=kv_mask))
+        else:
+            dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+            _launch_backward(*qkv.unbind(0), o, lse, do, *dqkv.unbind(0),
+                             ctx.scale, ctx.causal, "flash_attention_qkv_bwd",
+                             kv_mask=kv_mask)
+        return dqkv, None, None, None
+
+
+def flash_attention_qkv(qkv: torch.Tensor, scale: Optional[float] = None,
+                        causal: bool = False,
+                        kv_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Self-attention over packed projections: ``qkv`` (3, b, h, s, d) to
+    the context (b, h, s, d), the same as ``flash_attention(qkv[0],
+    qkv[1], qkv[2], scale, causal, kv_mask)`` and bit-equal to it (the
+    same kernels, launched on the three views).  ``kv_mask`` (b, s)
+    keeps the keys where it is > 0.  Differentiable into one dqkv in
+    qkv's layout; the kernels on CUDA tensors, their plain versions on
+    CPU tensors."""
+    _check_packed(qkv)
+    if scale is None:
+        scale = qkv.shape[-1] ** -0.5
+    return FlashAttentionQKVFunction.apply(qkv, kv_mask, float(scale),
+                                           bool(causal))

@@ -246,6 +246,38 @@ Phases, in order; any failure exits non-zero without the result line:
                    elements) with every leaf packed: 8 steps each, 2
                    launches a step (two 2^24-element chunks) held exactly;
                    parameters and state bitwise equal to ``kernels=False``.
+6j. ring_flash   — bench.py's bench_ring_flash substep: at (b, h, s_local,
+                   d) = (1, 16, 8192, 64) bf16, ``flash_attention_partial``
+                   at q_offset 8192, k_offset 0 (every key visible), the
+                   logaddexp merge onto o = 0, lse = -1e30, loss sum(o2**2)
+                   (the lse reached through the merge), dq, dk, dv by
+                   autograd; then the same substep at attention dropout 0.1
+                   with head_offset 16.  Launch counts reset just before
+                   and held exactly (the partial's four kernels once each);
+                   o, lse and the gradients held against the plain versions
+                   under the merge's cotangents; times beside SDPA and the
+                   substep's TFLOP/s at 14 b h s^2 d.  At s = 1024: the
+                   diagonal block, a wholly future block (o = 0, lse JAX's
+                   -1e30 * scale bitwise, zero gradients, its merge leaving
+                   the live partial bitwise) and the diagonal at dropout,
+                   under sum(o**2) + sum(sin(lse)); the dropout kernels'
+                   keep masks read back bit-equal to ``rand_keep_global``.
+6k. flash_qkv    — ``flash_attention_qkv`` (rows 7 and 9) at GPT-345M's
+                   (8, 16, 1024, 64) causal and BERT-large's (16, 16, 512,
+                   64) with its padding mask and an all-pad row: counts
+                   held exactly, o and dqkv bitwise equal to
+                   ``flash_attention`` on qkv's views, held against the
+                   plain versions, timed beside SDPA.
+6l. multihead_attn — ``contrib.multihead_attn`` at embed 1024, 16 heads,
+                   bf16, forward and backward: ``SelfMultiheadAttn`` at
+                   (16, 512) with BERT's padding mask (rows 10/12's kv_mask
+                   lanes) and the causal time mask, ``EncdecMultiheadAttn``
+                   at (16, 256, 512) with a padding mask (rows 6/8's kv_mask
+                   lane) and include_norm_add; counts held exactly; each
+                   step's output and gradients against an fp32 run of the
+                   plain versions, no worse than the bf16 plain run's
+                   (``MHA_ERR_RATIO``, ``MHA_ERR_FLOOR``); the (b, h, s, d)
+                   kv_mask lane alone at the encdec shape, held and timed.
 7. profiles      — the O5 serve, the O5 speculative serve (self draft), the
                    Q8 serve over an int8 cache, the MoE serve at cf 8.0
                    and 1.25, one O5 and one O2 train
@@ -567,6 +599,38 @@ ZERO_LR = 1e-3
 OPTIM_SHAPES = ((64, 1024),) * 396 + ((46, 1024), (1, 1024))
 OPTIM_STEPS = 8
 OPTIM_GROUPS = 2
+# the ring slice: bench.py's bench_ring_flash substep (b, h, s_local, d),
+# bf16, the partial at q_offset = s_local, k_offset = 0; its dropout
+# substep at rate 0.1 as the rank holding heads 16..31 of a head-split
+# ring; the diagonal, wholly future and dropout cases at s = 1024; the
+# keep-mask readback's shape, and a seed whose hash puts 3 of its
+# 33,554,432 pairs exactly on the threshold (a compare written > for >=
+# must then fail)
+RING_SHAPE = (1, 16, 8192, 64)
+RING_DROPOUT = 0.1
+RING_SEED = 1201
+RING_HEAD_OFFSET = 16
+RING_CASES_S = 1024
+RING_READBACK = (2, 16, 1024, 64)
+RING_READBACK_SEED = 3001
+# flash_attention_qkv at GPT-345M's attention (causal) and BERT-large's
+# (its padding mask): (b, h, s, d, causal, kv_mask)
+QKV_CASES = ((8, 16, 1024, 64, True, False), (16, 16, 512, 64, False, True))
+# contrib.multihead_attn at GPT-345M width; the self module at (b, s), the
+# encdec module at (b, tq, tk).  The bf16 module on the kernels and its
+# bf16 twin on the plain versions are both held against an fp32 run of the
+# plain versions: for the output and every gradient, the kernels' ||err||
+# / ||ref|| may be at most MHA_ERR_RATIO times the plain twin's plus
+# MHA_ERR_FLOOR.  The key projection's bias takes no part: its gradient is
+# 0 analytically (a bias on every key shifts a row's scores by one
+# constant), so each side holds only rounding noise, and the flash
+# backward's delta = rowsum(dO o) from the stored bf16 o (as JAX's kernels
+# form it) leaves more of it than autograd's exact softmax; it is printed.
+MHA_EMBED, MHA_HEADS = 1024, 16
+MHA_SELF = (16, 512)
+MHA_ENCDEC = (16, 256, 512)
+MHA_ERR_RATIO = 2.0
+MHA_ERR_FLOOR = 1e-3
 
 # --- the card (NVIDIA H100 SXM data sheet, dense) ----------------------
 HBM_BYTES_S = 3.35e12
@@ -611,6 +675,15 @@ REPLACES = {
     "adagrad_update": "apex_tpu/ops/fused_optim.py:253",
     "novograd_update": "apex_tpu/ops/fused_optim.py:323",
     "sgd_update": "apex_tpu/ops/fused_optim.py:356",
+    "flash_attention_partial": "apex_tpu/ops/flash_attention.py:556",
+    "flash_attention_partial_bwd": "apex_tpu/ops/flash_attention.py:1027",
+    "flash_attention_partial_dropout": "apex_tpu/ops/flash_attention.py:258",
+    "flash_attention_partial_bwd_dropout":
+        "apex_tpu/ops/flash_attention.py:258",
+    "flash_attention_kvmask": "apex_tpu/ops/flash_attention.py:1409",
+    "flash_attention_bwd_kvmask": "apex_tpu/ops/flash_attention.py:1426",
+    "flash_attention_qkv": "apex_tpu/ops/flash_attention.py:671",
+    "flash_attention_qkv_bwd": "apex_tpu/ops/flash_attention.py:1205",
 }
 SOURCES = {
     "layer_norm": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -652,6 +725,19 @@ SOURCES = {
     "adagrad_update": "apex_tpu_torch/csrc/fused_optim_update.cu",
     "novograd_update": "apex_tpu_torch/csrc/fused_optim_update.cu",
     "sgd_update": "apex_tpu_torch/csrc/fused_optim_update.cu",
+    "flash_attention_partial":
+        "apex_tpu_torch/csrc/flash_attention_partial.cu",
+    "flash_attention_partial_bwd":
+        "apex_tpu_torch/csrc/flash_attention_partial.cu",
+    "flash_attention_partial_dropout":
+        "apex_tpu_torch/csrc/flash_attention_partial.cu",
+    "flash_attention_partial_bwd_dropout":
+        "apex_tpu_torch/csrc/flash_attention_partial.cu",
+    "flash_attention_kvmask": "apex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_kvmask":
+        "apex_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_qkv": "apex_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_qkv_bwd": "apex_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 # the path each kernel's launches are counted on
 SERVE_KERNELS = ("layer_norm", "flash_attention", "flash_decode")
@@ -689,6 +775,14 @@ TRAIN_DROPOUT_LONG_KERNELS = ("layer_norm", "layer_norm_bwd",
                               "flash_attention_e_bwd_blocked_dropout",
                               "fused_adam_pipeline")
 ZERO_ADAM_KERNELS = ("adam_update",)
+RING_FLASH_KERNELS = ("flash_attention_partial", "flash_attention_partial_bwd",
+                      "flash_attention_partial_dropout",
+                      "flash_attention_partial_bwd_dropout")
+FLASH_QKV_KERNELS = ("flash_attention_qkv", "flash_attention_qkv_bwd")
+MHA_KERNELS = ("flash_attention_e_kvmask", "flash_attention_e_bwd_kvmask",
+               "flash_attention_e", "flash_attention_e_bwd",
+               "flash_attention_kvmask", "flash_attention_bwd_kvmask",
+               "layer_norm", "layer_norm_bwd")
 OPTIM_UPDATE_KERNELS = ("adam_update", "adagrad_update", "novograd_update",
                         "sgd_update")
 # the kernel checks that draw from a generator of their own (the Q8
@@ -4675,6 +4769,679 @@ def optim_update(dev) -> dict:
     return total
 
 
+# --- the ring slice: flash_attention_partial, flash_attention_qkv and --
+# --- contrib/multihead_attn --------------------------------------------
+
+def _flash_bound(b, h, sq, sk, d, pairs, bwd, extra_bytes=0.0):
+    """The card's bound on a (b, h, s, d) flash call: bf16 operands read
+    once and outputs written once (forward q, k, v, o; backward also do,
+    dq, dk, dv), the fp32 lse, ``extra_bytes`` (a mask, the lse
+    cotangent), 4 d (forward) or 10 d (backward) operations an attended
+    pair (``pairs`` in all)."""
+    rows = b * h * d * 2
+    nbytes = (2 * rows * (sq + sk) if bwd else rows * (2 * sq + 2 * sk)) \
+        + b * h * sq * 4 + extra_bytes
+    return bound_ms(nbytes, (10.0 if bwd else 4.0) * d * pairs, BF16_FLOPS)
+
+
+def _ring_merge(o, lse, bo, blse):
+    """bench_ring_flash's merge of a partial (bo, blse) onto the carry
+    (o, lse): logaddexp of the lse, the outputs reweighted, in fp32."""
+    lse_new = torch.logaddexp(lse, blse)
+    return (o * torch.exp(lse - lse_new)[..., None]
+            + bo.float() * torch.exp(blse - lse_new)[..., None]), lse_new
+
+
+def _ring_loss(o0, lse0, bo, blse):
+    """The substep's loss, bench.py's: sum(o2**2) + 0 * sum(lse2)."""
+    o2, lse2 = _ring_merge(o0, lse0, bo, blse)
+    return (o2 ** 2).sum() + 0.0 * lse2.sum()
+
+
+def _ring_grads(q, k, v, o0, lse0, kw):
+    """One substep under autograd: the partial, the merge, the loss's
+    backward; returns (dq, dk, dv)."""
+    from apex_tpu_torch.ops import flash_attention_partial
+
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    _ring_loss(o0, lse0, *flash_attention_partial(*ts, **kw)).backward()
+    return [t.grad for t in ts]
+
+
+def _partial_holds(label, q, k, v, grads, kw, cotangents):
+    """The partial's (o, lse) against its plain version on the same
+    inputs, and the gradients ``grads`` the kernels gave under the
+    cotangents ``cotangents(o, lse)`` returns against the plain backward
+    given those cotangents; returns (o, lse, do, dlse, forward err,
+    backward err)."""
+    from apex_tpu_torch.ops import (flash_attention_backward_reference,
+                                    flash_attention_partial,
+                                    flash_attention_partial_reference,
+                                    rand_keep_global)
+
+    o, lse = flash_attention_partial(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_r, lse_r = flash_attention_partial_reference(q, k, v, **kw)
+    err, lerr = _hold_forward(f"kernel {label}", o, o_r, lse, lse_r)
+    del o_r, lse_r
+    do, dlse = cotangents(o, lse)
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    drop = {}
+    if kw.get("dropout_rate"):
+        drop = dict(dropout_rate=kw["dropout_rate"], dropout_keep=
+                    rand_keep_global((b, h, sq, sk), kw["dropout_seed"],
+                                     kw["dropout_rate"],
+                                     head_offset=kw["head_offset"],
+                                     q_offset=kw["q_offset"],
+                                     k_offset=kw["k_offset"], device=q.device))
+    want = flash_attention_backward_reference(
+        q, k, v, o, lse, do, causal=kw["causal"],
+        q_offset=kw["q_offset"], k_offset=kw["k_offset"], dlse=dlse, **drop)
+    berr = _hold_backward(f"{label}_bwd", grads, want)
+    del want, drop
+    free_memory()
+    return o, lse, do, dlse, max(err, lerr), berr
+
+
+def _merge_cotangents(o0, lse0):
+    """The cotangents the substep's merge hands the partial."""
+    def cotangents(o, lse):
+        bo, blse = (t.detach().requires_grad_(True) for t in (o, lse))
+        do, dlse = torch.autograd.grad(_ring_loss(o0, lse0, bo, blse),
+                                       (bo, blse))
+        return do.to(o.dtype), dlse
+    return cotangents
+
+
+def _sin_cotangents(o, lse):
+    """The cotangents of JAX's partial test loss sum(o**2) +
+    sum(sin(lse)): the lse cotangent cos(lse) is far from 0."""
+    return (2 * o.float()).to(o.dtype), torch.cos(lse)
+
+
+def _sin_grads(q, k, v, kw):
+    from apex_tpu_torch.ops import flash_attention_partial
+
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = flash_attention_partial(*ts, **kw)
+    ((o.float() ** 2).sum() + torch.sin(lse).sum()).backward()
+    return [t.grad for t in ts]
+
+
+def _readback_keep_partial(dev, b, h, s, d, kw):
+    """The keep mask each partial dropout kernel drew at (b, h, s, d),
+    read back bit for bit as :func:`_readback_keep` does for the E
+    kernels, on full attention (the coordinate hash does not depend on
+    the causal mask): q = 0, so each row's p is 1/s over all s keys;
+    per window of d keys k and v one-hot on it for the forward and dQ
+    passes (do all ones), per window of d rows q = k = v = 0 and do
+    one-hot on it for the dK/dV pass.  Returns the three (b, h, s, s)
+    bool masks."""
+    from apex_tpu_torch.ops import flash_attention_partial
+
+    fwd, dq, dkv = (torch.empty((b, h, s, s), dtype=torch.bool, device=dev)
+                    for _ in range(3))
+    eye = torch.eye(d, device=dev, dtype=torch.bfloat16)
+    zeros = torch.zeros(b, h, s, d, device=dev, dtype=torch.bfloat16)
+    ones = torch.ones_like(zeros)
+    kw = dict(kw, causal=False)
+
+    def run(k, v, do):
+        ts = [t.clone().requires_grad_(True) for t in (zeros, k, v)]
+        o, _ = flash_attention_partial(*ts, **kw)
+        return (o.detach(),) + torch.autograd.grad(o, ts, do)
+
+    for c0 in range(0, s, d):
+        kv = zeros.clone()
+        kv[:, :, c0:c0 + d] = eye
+        o, g_q, _, _ = run(kv, kv, ones)
+        fwd[..., c0:c0 + d] = o != 0
+        dq[..., c0:c0 + d] = g_q > 0
+    for r0 in range(0, s, d):
+        do = zeros.clone()
+        do[:, :, r0:r0 + d] = eye
+        _, _, _, g_v = run(zeros, zeros, do)
+        dkv[:, :, r0:r0 + d] = (g_v != 0).transpose(-1, -2)
+    torch.cuda.synchronize()
+    return fwd, dq, dkv
+
+
+def _ring_time(label, q, k, v, kw, o0, lse0):
+    """The partial's forward, its backward under the merge's cotangents
+    (the autograd call a substep makes), the plain versions and SDPA's,
+    at the ring shape; returns the forward and backward entries."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import (flash_attention_backward_reference,
+                                    flash_attention_partial,
+                                    flash_attention_partial_reference,
+                                    rand_keep_global)
+
+    b, h, s, d = q.shape
+    rate = kw.get("dropout_rate", 0.0)
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    bo, blse = flash_attention_partial(*ts, **kw)
+    do, dlse = _merge_cotangents(o0, lse0)(bo, blse)
+    fms, fms_w = time_ms(lambda: flash_attention_partial(q, k, v, **kw),
+                         iters=5, warmup=1)
+    bms, bms_w = time_ms(lambda: torch.autograd.grad(
+        (bo, blse), ts, (do, dlse), retain_graph=True), iters=5, warmup=1)
+    sub, sub_w = time_ms(lambda: _ring_grads(q, k, v, o0, lse0, kw),
+                         iters=5, warmup=1)
+    pf, _ = time_ms(lambda: flash_attention_partial_reference(q, k, v, **kw),
+                    iters=3, warmup=1)
+    drop = {}
+    if rate:
+        drop = dict(dropout_rate=rate, dropout_keep=rand_keep_global(
+            (b, h, s, s), kw["dropout_seed"], rate,
+            head_offset=kw["head_offset"], q_offset=kw["q_offset"],
+            k_offset=kw["k_offset"], device=q.device))
+    pb, _ = time_ms(lambda: flash_attention_backward_reference(
+        q, k, v, bo.detach(), blse.detach(), do, causal=True,
+        q_offset=kw["q_offset"], k_offset=kw["k_offset"], dlse=dlse, **drop),
+        iters=3, warmup=1)
+    del drop
+    free_memory()
+    # every pair is visible at these offsets: SDPA without a mask
+    lf, _ = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, dropout_p=rate), iters=5, warmup=1)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out_s = F.scaled_dot_product_attention(qs, ks, vs, dropout_p=rate)
+    lb, _ = time_ms(lambda: torch.autograd.grad(
+        out_s, (qs, ks, vs), do, retain_graph=True), iters=5, warmup=1)
+    del out_s, qs, ks, vs
+    pairs = float(b * h * s * s)    # every pair visible at the ring's offsets
+    fb, fby = _flash_bound(b, h, s, s, d, pairs, False)
+    bb, bby = _flash_bound(b, h, s, s, d, pairs, True, b * h * s * 4)
+    flops = 14.0 * b * h * s * s * d
+    tf = flops / ((fms + bms) / 1e3) / 1e12
+    shape = (f"b={b} h={h} s_local={s} d={d} causal q_offset={kw['q_offset']} "
+             f"k_offset={kw['k_offset']} bf16"
+             + (f", dropout {rate} head_offset {kw['head_offset']}"
+                if rate else ""))
+    log(f"  {label} time {shape}, device ms (wall ms per call): forward "
+        f"kernel {fms:.5f} ({fms_w:.5f}), plain {pf:.5f}, SDPA "
+        f"{'dropout_p ' + str(rate) + ' ' if rate else ''}{lf:.5f}, bound "
+        f"{fb:.5f} ({fby}); backward kernel {bms:.5f} ({bms_w:.5f}), plain "
+        f"{pb:.5f}, SDPA backward {lb:.5f}, bound {bb:.5f} ({bby}); the "
+        f"partial's forward and backward {fms + bms:.5f} ms, "
+        f"{tf:.3f} model TFLOP/s at 14 b h s^2 d ({flops:.4g} FLOP; "
+        f"{100 * tf / (BF16_FLOPS / 1e12):.2f}% of 989); the whole substep "
+        f"(partial, merge, loss, backward under autograd) {sub:.5f} "
+        f"({sub_w:.5f}), {flops / (sub / 1e3) / 1e12:.3f} TFLOP/s, bound at "
+        f"989 TFLOP/s {flops / BF16_FLOPS * 1e3:.5f}")
+    del bo, blse, ts, do, dlse
+    free_memory()
+    name = "flash_attention_partial" + ("_dropout" if rate else "")
+    bname = "flash_attention_partial_bwd" + ("_dropout" if rate else "")
+    fwd = dict(name=name, shape=shape, ms=fms, ms_wall=fms_w, plain_ms=pf,
+               bound_ms=fb, bound_by=fby, library_ms=lf)
+    bwd = dict(name=bname, shape=shape, ms=bms, ms_wall=bms_w, plain_ms=pb,
+               bound_ms=bb, bound_by=bby, library_ms=lb)
+    return fwd, bwd
+
+
+def ring_flash(dev):
+    """bench.py's bench_ring_flash substep on the port: q, k, v drawn
+    bf16 (randn * 0.5) at (b, h, s_local, d) = ``RING_SHAPE``, one
+    ``flash_attention_partial`` call at q_offset = s_local, k_offset = 0
+    (every key visible), the logaddexp merge onto o = 0, lse = -1e30
+    (fp32), loss sum(o2**2) + 0 * sum(lse2) (the lse reached through the
+    merge), dq, dk, dv by autograd; then the same substep at attention
+    dropout ``RING_DROPOUT`` with head_offset ``RING_HEAD_OFFSET`` (a
+    rank's shard of a head-split ring).  Launch counts reset just before
+    the two substeps and held exactly.  Outside the count: each
+    substep's o, lse and gradients against the plain versions on the same
+    inputs (the merge's cotangents), timed with SDPA as the library
+    column and the substep's TFLOP/s at 14 b h s^2 d; at s =
+    ``RING_CASES_S``: the diagonal block (the mask cuts), a wholly future
+    block (o = 0, JAX's lse -1e30 * scale bitwise, zero gradients, the
+    merge returning the live partial unchanged) and the diagonal block at
+    dropout with a head offset, under the loss sum(o**2) + sum(sin(lse))
+    (a large lse cotangent); the dropout kernels' keep masks read back
+    bit-equal to ``rand_keep_global``.  Returns (counts, entries)."""
+    from apex_tpu_torch.ops import (flash_attention_partial, launch_counts,
+                                    rand_keep_global, reset_launch_counts)
+    from apex_tpu_torch.ops.flash_attention import (_coord_hash24,
+                                                    _dead_lse, _partial_drop)
+
+    b, h, s, d = RING_SHAPE
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    q, k, v = ((0.5 * torch.randn(b, h, s, d, generator=g, device=dev))
+               .bfloat16() for _ in range(3))
+    o0 = torch.zeros(b, h, s, d, device=dev)
+    lse0 = torch.full((b, h, s), -1e30, device=dev)
+    plain_kw = dict(causal=True, q_offset=s, k_offset=0)
+    drop_kw = dict(plain_kw, dropout_rate=RING_DROPOUT,
+                   dropout_seed=RING_SEED, head_offset=RING_HEAD_OFFSET)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    grads = [_ring_grads(q, k, v, o0, lse0, kw) for kw in (plain_kw,
+                                                           drop_kw)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {name: 0 for name in counts}
+    want.update({name: 1 for name in RING_FLASH_KERNELS})
+    log(f"ring_flash: 2 substeps (b={b} h={h} s_local={s} d={d} bf16, the "
+        f"partial at q_offset {s} k_offset 0, merge, loss, backward; the "
+        f"second at dropout {RING_DROPOUT} head_offset {RING_HEAD_OFFSET}) "
+        f"in {wall:.2f} s; launch counts "
+        f"{ {n: c for n, c in counts.items() if c} } (expected "
+        f"{ {n: c for n, c in want.items() if c} })")
+    if counts != want:
+        raise AssertionError(f"ring_flash launch counts {counts} != {want}")
+    entries = {}
+    for label, kw, gr in (("flash_attention_partial", plain_kw, grads[0]),
+                          ("flash_attention_partial_dropout", drop_kw,
+                           grads[1])):
+        *_, ferr, berr = _partial_holds(
+            f"ring_flash {label} b={b} h={h} s_local={s} d={d}", q, k, v, gr,
+            kw, _merge_cotangents(o0, lse0))
+        fwd, bwd = _ring_time(label, q, k, v, kw, o0, lse0)
+        fwd["max_abs_err"], bwd["max_abs_err"] = ferr, berr
+        entries[fwd["name"]], entries[bwd["name"]] = fwd, bwd
+    del grads
+    free_memory()
+
+    # the smaller cases, under the loss with a large lse cotangent
+    sc = RING_CASES_S
+    q, k, v = ((0.5 * torch.randn(b, h, sc, d, generator=g, device=dev))
+               .bfloat16() for _ in range(3))
+    diag_kw = dict(causal=True, q_offset=sc, k_offset=sc)
+    o_live, lse_live, *_, ferr, berr = _partial_holds(
+        f"ring_flash diagonal block (the mask cuts) b={b} h={h} s={sc}",
+        q, k, v, _sin_grads(q, k, v, diag_kw), diag_kw, _sin_cotangents)
+    entries["flash_attention_partial"]["diagonal"] = dict(
+        shape=f"b={b} h={h} s={sc} d={d} q_offset=k_offset={sc}",
+        max_abs_err=max(ferr, berr))
+    fut_kw = dict(causal=True, q_offset=0, k_offset=sc)
+    o_f, lse_f = flash_attention_partial(q, k, v, **fut_kw)
+    gf = _sin_grads(q, k, v, fut_kw)
+    dead = _dead_lse(d ** -0.5)
+    o_m, lse_m = _ring_merge(o_live.float(), lse_live, o_f, lse_f)
+    ok = bool((o_f == 0).all()) and bool((lse_f == dead).all()) and \
+        all(bool((t == 0).all()) for t in gf) and \
+        torch.equal(o_m, o_live.float()) and torch.equal(lse_m, lse_live)
+    log(f"kernel ring_flash wholly future block (q_offset 0, k_offset {sc}): "
+        f"o exactly 0, lse exactly JAX's {dead!r} (-1e30 * scale in fp32), "
+        f"gradients exactly 0 under a nonzero lse cotangent, and its merge "
+        f"onto the live diagonal partial returns that partial bitwise: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a wholly future partial is not dead as JAX's")
+    ddrop_kw = dict(diag_kw, dropout_rate=RING_DROPOUT, dropout_seed=RING_SEED,
+                    head_offset=RING_HEAD_OFFSET)
+    *_, ferr, berr = _partial_holds(
+        f"ring_flash diagonal block at dropout {RING_DROPOUT} head_offset "
+        f"{RING_HEAD_OFFSET} b={b} h={h} s={sc}", q, k, v,
+        _sin_grads(q, k, v, ddrop_kw), ddrop_kw, _sin_cotangents)
+    del o_live, lse_live, o_f, lse_f, gf, o_m, lse_m, q, k, v
+    free_memory()
+
+    rb, rh, rs, rd = RING_READBACK
+    rkw = dict(q_offset=rs, k_offset=rs, dropout_rate=RING_DROPOUT,
+               dropout_seed=RING_READBACK_SEED, head_offset=RING_HEAD_OFFSET)
+    want = rand_keep_global((rb, rh, rs, rs), RING_READBACK_SEED,
+                            RING_DROPOUT, head_offset=RING_HEAD_OFFSET,
+                            q_offset=rs, k_offset=rs, device=dev)
+    drop = _partial_drop(RING_DROPOUT, RING_READBACK_SEED, rs, rs,
+                         RING_HEAD_OFFSET)
+    ties = sum(int((_coord_hash24(bi, rh, rs, rs, drop, dev)
+                    == drop.threshold).sum()) for bi in range(rb))
+    got = _readback_keep_partial(dev, rb, rh, rs, rd, rkw)
+    wrong = [int((m != want).sum()) for m in got]
+    ok = not any(wrong) and ties > 0
+    log(f"kernel partial dropout keep masks read back at b={rb} h={rh} s={rs} "
+        f"d={rd} (q_offset=k_offset={rs}, head_offset {RING_HEAD_OFFSET}, seed "
+        f"{RING_READBACK_SEED}, rate {RING_DROPOUT}): forward, dQ and dK/dV "
+        f"passes against rand_keep_global, pairs that differ {wrong} of "
+        f"{want.numel()} ({float(want.float().mean()):.5f} kept; {ties} pairs "
+        f"on the threshold) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the partial kernels' keep masks differ from "
+                             "rand_keep_global (or no pair tests the "
+                             "threshold)")
+    entries["flash_attention_partial_dropout"]["diagonal"] = dict(
+        shape=f"b={b} h={h} s={sc} d={d} q_offset=k_offset={sc}",
+        max_abs_err=max(ferr, berr))
+    del got, want
+    free_memory()
+    return counts, entries
+
+
+def flash_qkv(dev):
+    """``flash_attention_qkv`` (rows 7 and 9) at GPT-345M's attention (b=8
+    h=16 s=1024 d=64 causal) and BERT-large's (b=16 h=16 s=512 d=64, its
+    padding mask with one all-pad row), bf16: forward and backward under
+    autograd with launch counts reset just before and held exactly; then
+    o and dqkv bitwise equal to ``flash_attention`` and its backward on
+    ``qkv[0]``, ``qkv[1]``, ``qkv[2]`` (the same kernels), held against
+    the plain versions, and timed with SDPA as the library column.
+    Returns (counts, entries)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import (flash_attention_backward,
+                                    flash_attention_backward_reference,
+                                    flash_attention_qkv,
+                                    flash_attention_qkv_reference,
+                                    flash_attention_with_lse, launch_counts,
+                                    mha_reference, reset_launch_counts)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    cases = []
+    for b, h, s, d, causal, masked in QKV_CASES:
+        qkv = torch.randn(3, b, h, s, d, generator=g, device=dev).bfloat16()
+        do = torch.randn(b, h, s, d, generator=g, device=dev).bfloat16()
+        kv = bert_mask(dev, g, dead_row=True).float() if masked else None
+        cases.append((qkv, do, kv, causal))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    runs = []
+    for qkv, do, kv, causal in cases:
+        t = qkv.clone().requires_grad_(True)
+        o = flash_attention_qkv(t, causal=causal, kv_mask=kv)
+        o.backward(do)
+        runs.append((o.detach(), t.grad))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {name: 0 for name in counts}
+    want.update(flash_attention_qkv=len(cases),
+                flash_attention_qkv_bwd=len(cases))
+    log(f"flash_qkv: {len(cases)} calls forward and backward; launch counts "
+        f"{ {n: c for n, c in counts.items() if c} } (expected "
+        f"{ {n: c for n, c in want.items() if c} })")
+    if counts != want:
+        raise AssertionError(f"flash_qkv launch counts {counts} != {want}")
+    out = []
+    for (qkv, do, kv, causal), (o, dqkv), (b, h, s, d, _, _) in zip(
+            cases, runs, QKV_CASES):
+        shape = (f"b={b} h={h} s={s} d={d} "
+                 f"{'causal' if causal else 'kv_mask, one all-pad row'} bf16")
+        views = qkv.unbind(0)
+        o_s, lse = flash_attention_with_lse(*views, causal=causal, kv_mask=kv)
+        grads_s = flash_attention_backward(*views, o_s, lse, do,
+                                           causal=causal, kv_mask=kv)
+        same = torch.equal(o, o_s) and all(
+            torch.equal(a, b_) for a, b_ in zip(dqkv.unbind(0), grads_s))
+        log(f"kernel flash_attention_qkv {shape}: o and dqkv bitwise equal "
+            f"to flash_attention on the views: {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("flash_attention_qkv differs from "
+                                 "flash_attention on qkv's views")
+        del o_s, grads_s
+        o_r, lse_r = mha_reference(*views, causal=causal, return_lse=True,
+                                   kv_mask=kv)
+        err, lerr = _hold_forward(f"kernel flash_attention_qkv {shape}", o,
+                                  o_r, lse, lse_r)
+        del o_r, lse_r
+        want = flash_attention_backward_reference(*views, o, lse, do,
+                                                  causal=causal, kv_mask=kv)
+        berr = _hold_backward(f"flash_attention_qkv_bwd {shape}",
+                              dqkv.unbind(0), want)
+        del want
+        t = qkv.clone().requires_grad_(True)
+        o_t = flash_attention_qkv(t, causal=causal, kv_mask=kv)
+        fms, fms_w = time_ms(lambda: flash_attention_qkv(
+            qkv, causal=causal, kv_mask=kv))
+        bms, bms_w = time_ms(lambda: torch.autograd.grad(
+            o_t, t, do, retain_graph=True))
+        pf, _ = time_ms(lambda: flash_attention_qkv_reference(
+            qkv, causal=causal, kv_mask=kv), iters=5)
+        pb, _ = time_ms(lambda: flash_attention_backward_reference(
+            *views, o, lse, do, causal=causal, kv_mask=kv), iters=5)
+        am = None if kv is None else (kv > 0)[:, None, None, :]
+        qc, kc, vc = (x.contiguous() for x in views)
+        lf, _ = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=am, is_causal=causal))
+        qs, ks, vs = (x.clone().requires_grad_(True) for x in (qc, kc, vc))
+        out_s = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
+                                               is_causal=causal)
+        lb, _ = time_ms(lambda: torch.autograd.grad(
+            out_s, (qs, ks, vs), do, retain_graph=True))
+        del out_s, qs, ks, vs, o_t, t
+        fb, fby = _attn_bound(b, h, s, d, causal, False, kv)
+        bb, bby = _attn_bound(b, h, s, d, causal, True, kv)
+        log(f"  time {shape}, device ms (wall ms per call): forward kernel "
+            f"{fms:.5f} ({fms_w:.5f}), plain {pf:.5f}, SDPA {lf:.5f}, bound "
+            f"{fb:.5f} ({fby}); backward kernel {bms:.5f} ({bms_w:.5f}), "
+            f"plain {pb:.5f}, SDPA backward {lb:.5f}, bound {bb:.5f} ({bby})")
+        out.append((dict(name="flash_attention_qkv", shape=shape,
+                         max_abs_err=max(err, lerr), ms=fms, ms_wall=fms_w,
+                         plain_ms=pf, bound_ms=fb, bound_by=fby,
+                         library_ms=lf),
+                    dict(name="flash_attention_qkv_bwd", shape=shape,
+                         max_abs_err=berr, ms=bms, ms_wall=bms_w,
+                         plain_ms=pb, bound_ms=bb, bound_by=bby,
+                         library_ms=lb)))
+        free_memory()
+    (fwd, bwd), (fwd_m, bwd_m) = out
+    fwd["kvmask"], bwd["kvmask"] = fwd_m, bwd_m
+    return counts, {"flash_attention_qkv": fwd, "flash_attention_qkv_bwd": bwd}
+
+
+def _mha_modules(dev):
+    """The two modules at ``MHA_EMBED`` and ``MHA_HEADS``, bf16, each with
+    a bf16 and an fp32 twin on the plain versions (``kernels=False``)
+    holding the same seeded weights (biases and LayerNorm perturbed off
+    their zero and one init, so a wrong route shows)."""
+    from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                       SelfMultiheadAttn)
+
+    torch.manual_seed(14)
+    mods = []
+    for cls, kw in ((SelfMultiheadAttn, dict(bias=True)),
+                    (EncdecMultiheadAttn, dict(bias=True,
+                                               include_norm_add=True))):
+        m = cls(MHA_EMBED, MHA_HEADS, dtype=torch.bfloat16, device=dev, **kw)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.add_(0.1 * torch.randn_like(p))
+        twins = []
+        for dtype in (torch.bfloat16, torch.float32):
+            t = cls(MHA_EMBED, MHA_HEADS, dtype=dtype, device=dev,
+                    kernels=False, **kw)
+            t.load_state_dict(m.state_dict())
+            twins.append(t)
+        mods.append((m, *twins))
+    return mods
+
+
+def _key_bias_apart(grads, heads):
+    """``grads`` (name -> gradient) with the key projection's bias
+    gradient taken out of ``din_proj_bias`` ([head][q|k|v] lanes) and
+    ``din_proj_bias_kv`` ([head][k|v]) into ``dkey_bias``."""
+    out = dict(grads)
+    keys = []
+    for name, parts, k in (("din_proj_bias", 3, 1), ("din_proj_bias_kv", 2, 0)):
+        if name in out:
+            g = out[name].reshape(heads, parts, -1)
+            keys.append(g[:, k].flatten())
+            out[name] = torch.cat([g[:, i] for i in range(parts) if i != k],
+                                  1).flatten()
+    if keys:
+        out["dkey_bias"] = torch.cat(keys)
+    return out
+
+
+def _mha_step(mod, xs, kw, ct):
+    """One forward and backward of ``mod``: (out, input grads, parameter
+    grads by name)."""
+    mod.zero_grad(set_to_none=True)
+    ts = [x.clone().requires_grad_(True) for x in xs]
+    out, _ = mod(*ts, is_training=False, **kw)
+    (out.float() * ct).sum().backward()
+    return out.detach(), [t.grad for t in ts], \
+        {n: p.grad for n, p in mod.named_parameters()}
+
+
+def multihead_attn(dev):
+    """``contrib.multihead_attn`` at GPT-345M width (embed 1024, 16 heads,
+    bf16), forward and backward (loss sum(out * ct)):
+    ``SelfMultiheadAttn`` (bias) at b=16 s=512 with BERT's padding mask
+    and one all-pad row as key_padding_mask (the E kernels' kv_mask lanes,
+    rows 10/12) and with the causal time mask (rows 10/12), and
+    ``EncdecMultiheadAttn`` (bias, include_norm_add) at b=16 tq=256
+    tk=512 with a padding mask (the (b, h, s, d) kv_mask lane, rows 6/8,
+    and LayerNorm, rows 1/2); launch counts reset just before the three
+    steps and held exactly.  Each step's output, input gradients and
+    parameter gradients held, with the same module's bf16 run on the
+    plain versions, against its fp32 run on them (``MHA_ERR_RATIO``,
+    ``MHA_ERR_FLOOR``), and timed beside the bf16 plain run; then the
+    kv_mask lane of rows 6/8 alone at the encdec shape, held element by
+    element and timed with SDPA under the boolean mask.  Returns (counts,
+    entries)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import (flash_attention_backward,
+                                    flash_attention_backward_reference,
+                                    flash_attention_with_lse, launch_counts,
+                                    mha_reference, reset_launch_counts)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    (self_m, self_p, self_f), (enc_m, enc_p, enc_f) = _mha_modules(dev)
+    e = MHA_EMBED
+    b, s = MHA_SELF
+    bq, tq, tk = MHA_ENCDEC
+    x = torch.randn(s, b, e, generator=g, device=dev).bfloat16()
+    kpm = bert_mask(dev, g, dead_row=True) == 0          # 1 = padding
+    causal = ~torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    xq = torch.randn(tq, bq, e, generator=g, device=dev).bfloat16()
+    mem = torch.randn(tk, bq, e, generator=g, device=dev).bfloat16()
+    kpm_e = bert_mask(dev, g) == 0
+    ct = torch.randn(s, b, e, generator=g, device=dev)
+    ct_e = torch.randn(tq, bq, e, generator=g, device=dev)
+    steps = (("SelfMultiheadAttn key_padding_mask", (self_m, self_p, self_f),
+              (x,), dict(key_padding_mask=kpm), ct),
+             ("SelfMultiheadAttn causal attn_mask", (self_m, self_p, self_f),
+              (x,), dict(attn_mask=causal), ct),
+             ("EncdecMultiheadAttn key_padding_mask include_norm_add",
+              (enc_m, enc_p, enc_f), (xq, mem), dict(key_padding_mask=kpm_e),
+              ct_e))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = [_mha_step(ms[0], xs, kw, c) for _, ms, xs, kw, c in steps]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {name: 0 for name in counts}
+    want.update({name: 1 for name in MHA_KERNELS})
+    log(f"multihead_attn: 3 module steps forward and backward; launch "
+        f"counts { {n: c for n, c in counts.items() if c} } (expected "
+        f"{ {n: c for n, c in want.items() if c} })")
+    if counts != want:
+        raise AssertionError(f"multihead_attn launch counts {counts} != "
+                             f"{want}")
+    def flat(run):
+        out, gx, gp = run
+        return _key_bias_apart(dict(
+            [("out", out)] + [(f"d{n}", a) for n, a in zip(("query", "key"),
+                                                          gx)]
+            + [(f"d{n}", a) for n, a in gp.items()]), MHA_HEADS)
+
+    for (label, (m, p, f), xs, kw, c), run in zip(steps, got):
+        kern, plain = flat(run), flat(_mha_step(p, xs, kw, c))
+        ref = flat(_mha_step(f, [t.float() for t in xs], kw, c))
+
+        def err(a, n):
+            r = ref[n].float()
+            return float((a.float() - r).norm() / r.norm().clamp_min(1e-30))
+
+        kb = [float(t["dkey_bias"].float().norm()) for t in (kern, plain, ref)]
+        errs = {n: (err(kern[n], n), err(plain[n], n)) for n in ref
+                if n != "dkey_bias"}
+        bad = [n for n, (ek, ep) in errs.items()
+               if not ek <= MHA_ERR_RATIO * ep + MHA_ERR_FLOOR]
+        finite = all(bool(torch.isfinite(a).all()) for a in kern.values())
+        worst = max(errs, key=lambda n: errs[n][0] / (errs[n][1]
+                                                      + MHA_ERR_FLOOR))
+        vs_plain = max(float((kern[n].float() - plain[n].float()).norm()
+                             / ref[n].float().norm().clamp_min(1e-30))
+                       for n in errs)
+        ok = finite and not bad
+        km, _ = time_ms(lambda: _mha_step(m, xs, kw, c), iters=10)
+        pm, _ = time_ms(lambda: _mha_step(p, xs, kw, c), iters=5)
+        log(f"multihead_attn {label} (embed {e}, {MHA_HEADS} heads, bf16): "
+            f"the output and {len(errs) - 1} gradients against an fp32 run of "
+            f"the plain versions, ||err|| / ||ref|| of the kernels at most "
+            f"{MHA_ERR_RATIO} x the bf16 plain twin's + {MHA_ERR_FLOOR}: "
+            f"worst {worst} {errs[worst][0]:.3e} (plain {errs[worst][1]:.3e})"
+            f"{', failing ' + str(bad) if bad else ''}; kernels vs plain twin "
+            f"at most {vs_plain:.3e}; the key bias's gradient (0 "
+            f"analytically), ||.|| kernels {kb[0]:.3e}, plain {kb[1]:.3e}, "
+            f"fp32 {kb[2]:.3e}; finite {finite}; forward and backward "
+            f"device ms: kernels {km:.5f}, plain {pm:.5f} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"multihead_attn {label} disagrees with its "
+                                 f"plain version")
+    del got, steps
+    free_memory()
+
+    # the (b, h, s, d) kv_mask lane alone at the encdec shape
+    h, d = MHA_HEADS, e // MHA_HEADS
+    kvm = (~kpm_e).float()
+    q = torch.randn(bq, h, tq, d, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(bq, h, tk, d, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    do = torch.randn(bq, h, tq, d, generator=g, device=dev).bfloat16()
+    shape = (f"b={bq} h={h} sq={tq} sk={tk} d={d} kv_mask "
+             f"({int(kvm.sum())} of {bq * tk} keys live) bf16")
+    o, lse = flash_attention_with_lse(q, k, v, kv_mask=kvm)
+    torch.cuda.synchronize()
+    o_r, lse_r = mha_reference(q, k, v, return_lse=True, kv_mask=kvm)
+    err, lerr = _hold_forward(f"kernel flash_attention_kvmask {shape}", o,
+                              o_r, lse, lse_r)
+    grads = flash_attention_backward(q, k, v, o, lse, do, kv_mask=kvm)
+    torch.cuda.synchronize()
+    berr = _hold_backward(f"flash_attention_bwd_kvmask {shape}", grads,
+                          flash_attention_backward_reference(
+                              q, k, v, o, lse, do, kv_mask=kvm))
+    masked_zero = bool((grads[1][~(kvm > 0)[:, None, :, None]
+                               .expand_as(grads[1])] == 0).all())
+    if not masked_zero:
+        raise AssertionError("flash_attention_bwd_kvmask: a masked key took "
+                             "a gradient")
+    fms, fms_w = time_ms(lambda: flash_attention_with_lse(q, k, v,
+                                                          kv_mask=kvm))
+    bms, bms_w = time_ms(lambda: flash_attention_backward(
+        q, k, v, o, lse, do, kv_mask=kvm))
+    pf, _ = time_ms(lambda: mha_reference(q, k, v, return_lse=True,
+                                          kv_mask=kvm), iters=10)
+    pb, _ = time_ms(lambda: flash_attention_backward_reference(
+        q, k, v, o, lse, do, kv_mask=kvm), iters=10)
+    am = (kvm > 0)[:, None, None, :]
+    lf, _ = time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=am))
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out_s = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am)
+    lb, _ = time_ms(lambda: torch.autograd.grad(
+        out_s, (qs, ks, vs), do, retain_graph=True))
+    pairs = float(h * tq * kvm.sum())
+    fb, fby = _flash_bound(bq, h, tq, tk, d, pairs, False, bq * tk * 4)
+    bb, bby = _flash_bound(bq, h, tq, tk, d, pairs, True, bq * tk * 4)
+    log(f"  time {shape}, device ms (wall ms per call): forward kernel "
+        f"{fms:.5f} ({fms_w:.5f}), plain {pf:.5f}, SDPA with the boolean "
+        f"(b, 1, 1, sk) mask {lf:.5f}, bound {fb:.5f} ({fby}); backward "
+        f"kernel {bms:.5f} ({bms_w:.5f}), plain {pb:.5f}, SDPA backward "
+        f"{lb:.5f}, bound {bb:.5f} ({bby})")
+    del out_s, qs, ks, vs
+    free_memory()
+    return counts, {
+        "flash_attention_kvmask": dict(
+            name="flash_attention_kvmask", shape=shape,
+            max_abs_err=max(err, lerr), ms=fms, ms_wall=fms_w, plain_ms=pf,
+            bound_ms=fb, bound_by=fby, library_ms=lf),
+        "flash_attention_bwd_kvmask": dict(
+            name="flash_attention_bwd_kvmask", shape=shape, max_abs_err=berr,
+            ms=bms, ms_wall=bms_w, plain_ms=pb, bound_ms=bb, bound_by=bby,
+            library_ms=lb)}
+
+
 def profile_zero_adam(dev) -> None:
     """One step of each side of bench_zero_adam's pair under
     ``torch.profiler`` (parameters, state and two steps outside the
@@ -4894,7 +5661,8 @@ def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
 PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "serve_moe", "train",
           "train_o2", "train_bert", "train_bert_o2", "long_context",
           "train_long", "train_dropout", "train_resnet", "resnet_faults",
-          "zero_adam", "optim_update", "profile", "dropout_faults")
+          "zero_adam", "optim_update", "ring_flash", "flash_qkv",
+          "multihead_attn", "profile", "dropout_faults")
 # every phase but the planted dropout faults (two rebuilds of the flash
 # sources), which runs only when named
 DEFAULT_PHASES = tuple(p for p in PHASES if p != "dropout_faults")
@@ -5153,6 +5921,15 @@ def main(argv=None) -> int:
             ok, out = run("optim_update", lambda: optim_update(dev))
             if ok:
                 counts["optim_update"] = out
+        for phase, fn in (("ring_flash", ring_flash),
+                          ("flash_qkv", flash_qkv),
+                          ("multihead_attn", multihead_attn)):
+            if phase in phases:
+                ok, out = run(phase, lambda: fn(dev))
+                if ok:
+                    counts[phase], new = out
+                    entries.update(new)
+                free_memory()
         if "dropout_faults" in phases:
             run("dropout_faults", lambda: dropout_faults(dev))
         if "profile" in phases:
@@ -5214,7 +5991,10 @@ def main(argv=None) -> int:
                     ("train_dropout", TRAIN_DROPOUT_KERNELS),
                     ("train_dropout_long", TRAIN_DROPOUT_LONG_KERNELS),
                     ("zero_adam", ZERO_ADAM_KERNELS),
-                    ("optim_update", OPTIM_UPDATE_KERNELS))
+                    ("optim_update", OPTIM_UPDATE_KERNELS),
+                    ("ring_flash", RING_FLASH_KERNELS),
+                    ("flash_qkv", FLASH_QKV_KERNELS),
+                    ("multihead_attn", MHA_KERNELS))
                    if name in ks}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -5225,7 +6005,8 @@ def main(argv=None) -> int:
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             shape=e["shape"],
             **{k: e[k] for k in ("train", "fp16", "chunk", "shapes", "d128",
-                                 "sweep", "kvmask", "fallback") if k in e}))
+                                 "sweep", "kvmask", "fallback", "diagonal")
+               if k in e}))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):
