@@ -27,8 +27,8 @@
 //
 // Math, per (b, h): p = exp(scale * q k^T - lse) recomputed from the
 // forward's natural-log lse (so no (sq, sk) matrix is ever stored),
-// delta_i = sum_d do_i * o_i, ds = p * (do v^T - delta), and
-// dq = scale * ds k, dk = scale * ds^T q, dv = p^T do, all in fp32, cast
+// delta_i = sum_d do_i * o_i, ds = p * (do v^T - delta) * scale, and
+// dq = ds k, dk = ds^T q, dv = p^T do, each accumulated in fp32 and cast
 // once to the operands' dtype.  `scale` is used as given, in fp32: the
 // JAX backward folds it into v after rounding it to v's dtype, which at
 // d = 128 in bf16 (1/sqrt(128) -> 0.08837890625) moves dq and dk by
@@ -41,49 +41,78 @@
 // = scale * p_ij: the delta pass folds it in as delta_i - dlse_i, as
 // JAX's `_flash_bwd` does (:1040-1044), and nothing else changes.
 //
-// What bounds it on the H100: operations.  It does 10 * d operations per
-// (q, k) pair (recomputed scores, do v^T, and the three products) against
-// about 16 * d bytes per row moved in bf16 (q, k, v, o, do read, dq, dk,
-// dv written): at s = 1024 causal that is ~43 GFLOP against ~134 MB for
-// b = 8, h = 16, d = 64, so the bf16 tensor cores would be the limit
-// (~44 us); at s = 16384 it is 2.7 TFLOP for h = 16, d = 128.
+// Rounding points.  JAX's kernels round the dropped p to the operand
+// dtype before p^T do (`apex_tpu/ops/flash_attention.py:924`, `:1022`,
+// `:2196`, `:2381`) and ds before ds k and ds^T q (`:844`, `:925`,
+// `:1023-1024`, `:2203-2204`, `:2342`, `:2389`).  This kernel does not
+// round there: it feeds p and ds to the tensor cores as two bf16 (fp16)
+// terms, hi = round(x) and lo = round(x - hi), each product taken twice
+// from the same B fragments, so they enter at 2^-16 (2^-22) of their
+// fp32 value, and the plain version keeps fp32 p and ds.  Two versions
+// that both round at JAX's points differ wherever fp32 noise before the
+// rounding (the order of the score sums, exp2 against exp, delta's
+// order) carries a value across a rounding boundary: one flipped p or ds
+// moves a gradient element by an operand ulp times its partner, past
+// the card's element hold (one bf16 ulp of the output plus 1e-5) where
+// the element's sum cancels.  `tests/test_torch_flash_bwd_rounding.py`
+// measures it: two such versions, differing only in the order of their
+// fp32 sums, miss that hold at (1, 4, 1024, 64) causal, while the split
+// holds within it.
 //
-// What the simple design does about it (correct first, not fast): three
-// passes, every one deterministic (no atomics, every output element
-// written by exactly one thread).
+// What bounds it on the H100: operations.  The algorithm does 10 * d
+// operations per (q, k) pair (recomputed scores, do v^T, and the three
+// products) against about 16 * d bytes per row moved in bf16 (q, k, v,
+// o, do read, dq, dk, dv written): at s = 1024 causal that is ~43 GFLOP
+// against ~134 MB for b = 8, h = 16, d = 64, so the bf16 tensor cores
+// are the limit (~44 us); at s = 16384 it is 2.7 TFLOP for h = 16,
+// d = 128 (2.78 ms at 989 TFLOP/s).  The split makes the kernel's own
+// tensor work 16 * d a pair (the three accumulating products twice).
+//
+// The design: three passes, every one deterministic (no atomics, every
+// output element written by exactly one thread).
 //  1. delta: one warp per (b, h, query row) reduces do . o (less the lse
 //     cotangent, on the partial entry); the same pass converts lse to
 //     base-2 units.
-//  2. dK/dV: one block per (b * h, 64-key tile), kTPR threads per key
-//     (4 at d = 64, 8 at d = 128), each owning 16 of the key's dims of
-//     k, v, dk and dv in registers (64 floats at either head dim).  The
-//     block walks the sq query rows in 32-row tiles staged through shared
-//     memory as fp32, starting at the tile's first key under causal
-//     masking (the rows above see none of its keys); each (q, k) dot
-//     product is kTPR partial sums joined by warp shuffles.
-//  3. dQ: one block per (b * h, 64-query tile), the same thread layout
-//     over q, do and dq, walking the sk key rows in 32-row tiles and
-//     stopping at the tile's last query under causal masking.
-// A thread's 16 dims are four float4 chunks interleaved with its
-// neighbours' (dims 4 * kTPR * c + 4 * t .. + 3), so the threads of a row
-// read different shared-memory banks.  With a kv_mask, a dK/dV block
-// whose 64 keys are all masked writes zeros without walking the rows,
-// and the dQ pass skips every staged key tile that is wholly masked
-// (BERT's padded tails cost no products).  The products run on the fp32
-// pipes, not the tensor cores: mma/wgmma tiles are later work.  The
-// kernels are in `flash_bwd.cuh`; this file instantiates the lanes above.
+//  2. dK/dV: one block of 4 warps per (b * h, 64-key tile), 16 keys a
+//     warp.  K and V stay in shared memory as bf16/fp16; the query rows
+//     and their lse2 and delta come in through cp.async in tiles of 64
+//     rows at d = 64 (32 at d = 128, so the dK and dV accumulators, 128
+//     fp32 registers a thread, and the score tiles fit), two stages, the
+//     next tile landing while this one computes.  Per tile a warp forms
+//     S^T = K Q^T and dP^T = V dO^T with `mma.sync.m16n8k16` (keys are
+//     the fragment's rows, operands by `ldmatrix`), applies every lane's
+//     predicate per fragment element, and adds P^T dO and dS^T Q with
+//     P^T and dS^T packed from the accumulators straight into A
+//     fragments.  Under causal masking the walk starts at the tile's
+//     first key's first row; a block whose 64 keys the kv_mask all drops
+//     writes zeros without walking.
+//  3. dQ: one block of 4 warps per (b * h, 64-query tile), last tiles
+//     first (they walk the most keys), Q and dO in shared memory, the
+//     keys walked in 64-row cp.async stages, stopping at the tile's last
+//     query under causal masking; with a kv_mask, a key tile whose keys
+//     are all masked is neither loaded nor multiplied (BERT's padded
+//     tails cost no products).
+// Shared rows are padded by 16 bytes, so the eight rows an `ldmatrix`
+// reads fall in eight bank groups.  fp32 operands run the fp32-pipe
+// passes of the same three-pass shape (a thread owns 16 dims of a key or
+// query, 32-row fp32 tiles, warp-shuffle dot products): the tensor cores
+// take fp32 only as TF32, which would cut fp32's gradients to ~3 digits.
+// Registers, spills and blocks an SM of each instantiation: `chip_smoke.py`
+// prints them from `ptxas -v` beside `cuobjdump -sass`'s HMMA counts, and
+// PERF.md records them.  The kernels are in `flash_bwd.cuh`; this file
+// instantiates the lanes above.
 #include "flash_bwd.cuh"
 #include "flash_common.cuh"
 #include "flash_dropout.cuh"
 
 namespace {
 
-// Two kernels, so each keeps its own launch bounds: the unmasked one as
-// it always was (ptxas gives it 128 registers at d = 64), the masked one
-// held to the registers that let a second 256-thread block in at d = 64
-// (128 a thread; unbounded, the mask took it to 130 and one block, 20 %
-// slower).  At d = 128 a block is 512 threads, which itself caps a thread
-// at 128 registers, one block an SM.
+// The fp32 passes.  Two dK/dV kernels, so each keeps its own launch
+// bounds: the unmasked one as it always was (ptxas gives it 128 registers
+// at d = 64), the masked one held to the registers that let a second
+// 256-thread block in at d = 64 (128 a thread; unbounded, the mask took it
+// to 130 and one block, 20 % slower).  At d = 128 a block is 512 threads,
+// which itself caps a thread at 128 registers, one block an SM.
 template <typename T, int D>
 __global__ void __launch_bounds__(kTile * tpr<D>()) bwd_dkv_kernel(DKV_PARAMS) {
   bwd_dkv_body<T, D, false, kNoDrop, false>(DKV_ARGS);
@@ -104,7 +133,8 @@ __global__ void __launch_bounds__(kTile * tpr<D>(), 512 / (kTile * tpr<D>()))
   bwd_dkv_body<T, D, kMask, kTileHash, false>(DKV_ARGS);
 }
 
-// the lanes of this file's entries: kv_mask and the tile-hash dropout
+// the lanes of this file's entries: kv_mask and the tile-hash dropout;
+// dkv and dq pick the fp32 kernels, mma launches the tensor-core passes
 template <typename T, int D>
 struct Lanes {
   static auto dkv(const BwdArgs& a) {
@@ -118,6 +148,13 @@ struct Lanes {
                       : bwd_dq_kernel<T, D, true, kNoDrop, false>;
     return a.dr.thr ? bwd_dq_kernel<T, D, false, kTileHash, false>
                     : bwd_dq_kernel<T, D, false, kNoDrop, false>;
+  }
+  static cudaError_t mma(const BwdArgs& a, float alpha) {
+    if (a.dr.thr)
+      return a.kvm ? launch_mma<T, D, true, kTileHash, false>(a, alpha)
+                   : launch_mma<T, D, false, kTileHash, false>(a, alpha);
+    return a.kvm ? launch_mma<T, D, true, kNoDrop, false>(a, alpha)
+                 : launch_mma<T, D, false, kNoDrop, false>(a, alpha);
   }
 };
 
@@ -155,6 +192,9 @@ int apex_flash_attention_bwd(
   Drop dr;
   if (!make_drop(kTileHash, drop_seed, drop_w, drop_thr, drop_inv, 0, 0, 0, sq, sk,
                  &dr))
+    return cudaErrorInvalidValue;
+  // the tensor-core passes walk 64-row tiles: one must lie in one W tile
+  if (dtype != 0 && drop_thr && drop_w % 64 != 0 && (drop_w < sq || drop_w < sk))
     return cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, o, dout, lse, nullptr, dq, dk, dv, delta, lse2,
                   static_cast<const float*>(kvm), b, h, sq, sk, d,

@@ -29,8 +29,9 @@
 // What bounds it on the H100: operations, as rows 6 and 8.  bench.py's
 // bench_ring_flash substep (b = 1, h = 16, s = 8192, d = 64, every key
 // visible) does 4 d and 10 d operations a pair, 0.28 and 0.69 ms at the
-// bf16 tensor cores' 989 TFLOP/s; these fp32-pipe kernels are far from it
-// (mma/wgmma tiles are later work).
+// bf16 tensor cores' 989 TFLOP/s.  The backward's bf16/fp16 lanes run the
+// tensor-core passes of `flash_bwd.cuh`; the forward is still the
+// fp32-pipe kernel of `flash_fwd.cuh`.
 #include "flash_bwd.cuh"
 #include "flash_common.cuh"
 #include "flash_dropout.cuh"
@@ -38,8 +39,8 @@
 
 namespace {
 
-// The partial's dK/dV lanes, held to the masked kernel's registers (two
-// 256-thread blocks an SM at d = 64).
+// The partial's fp32 dK/dV lanes, held to the masked kernel's registers
+// (two 256-thread blocks an SM at d = 64).
 template <typename T, int D, int kMode>
 __global__ void __launch_bounds__(kTile * tpr<D>(), 512 / (kTile * tpr<D>()))
     bwd_dkv_partial_kernel(DKV_PARAMS) {
@@ -64,6 +65,10 @@ struct BwdLanes {
   static auto dq(const BwdArgs& a) {
     return a.dr.thr ? bwd_dq_kernel<T, D, false, kCoordHash, true>
                     : bwd_dq_kernel<T, D, false, kNoDrop, true>;
+  }
+  static cudaError_t mma(const BwdArgs& a, float alpha) {
+    return a.dr.thr ? launch_mma<T, D, false, kCoordHash, true>(a, alpha)
+                    : launch_mma<T, D, false, kNoDrop, true>(a, alpha);
   }
 };
 

@@ -1,9 +1,14 @@
 // The flash-attention backward kernels for Hopper (sm_90a), shared by the
 // launchers of `flash_attention_bwd.cu` (the (b, h, s, d), packed-qkv and E
 // entries) and `flash_attention_partial.cu` (the partial entry): each
-// instantiates the lanes its entries take.  The math, the three passes and
-// what bounds them are described in `flash_attention_bwd.cu`.
+// instantiates the lanes its entries take.  bf16 and fp16 operands run the
+// tensor-core passes (`mma_dkv_kernel`, `mma_dq_kernel`); fp32 operands
+// the fp32-pipe passes (`bwd_dkv_body`, `bwd_dq_kernel`), since the tensor
+// cores take fp32 only as TF32.  The math, the three passes, the rounding
+// points and what bounds them are described in `flash_attention_bwd.cu`.
 #pragma once
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "flash_dropout.cuh"
@@ -119,7 +124,7 @@ __device__ __forceinline__ void stage(float (*a_t)[D], float (*b_t)[D],
   }
 }
 
-// The dK/dV pass over sk keys, walking sq query rows.  kMask: the kv_mask
+// The fp32 dK/dV pass over sk keys, walking sq query rows.  kMask: the kv_mask
 // lane, kDrop: the dropout lane (a DropMode), kOff: the partial entry's
 // causal offsets (diag); an instantiation without one has none of its code
 // (without kOff it compiles as if diag were 0).
@@ -219,8 +224,8 @@ bwd_dkv_body(const T* __restrict__ q, const T* __restrict__ k,
       scale, a, causal, diag, dr
 
 
-// The dQ pass over sq queries, walking sk key rows; the lanes as the dK/dV
-// pass's.
+// The fp32 dQ pass over sq queries, walking sk key rows; the lanes as the
+// dK/dV pass's.
 template <typename T, int D, bool kMask, int kDrop, bool kOff>
 __global__ void __launch_bounds__(kTile * tpr<D>())
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -296,6 +301,469 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (live) store_own<T, kTPR>(dq + bi * dqs.b + hi * dqs.h + i * dqs.s, t, dqr);
 }
 
+// --- the tensor-core passes (bf16 / fp16 operands) ----------------------
+//
+// A block is 4 warps over 64 rows of its own (keys in dK/dV, queries in
+// dQ), 16 a warp, kept in shared memory as they came (bf16 or fp16) and
+// read as `mma.sync.m16n8k16` A fragments by `ldmatrix`.  The walked
+// operands come in by `cp.async`, 16 bytes a thread, into two stages, so
+// that tile t + 1 loads while tile t computes.  Every shared row is padded
+// by 8 elements (16 bytes), so the 8 rows one `ldmatrix` reads start in 8
+// different bank groups.  A score accumulator's element e of n-tile nt
+// sits at row g + 8 (e >> 1) and column 8 nt + 2 t4 + (e & 1) of the
+// warp's 16-row slice (g = lane / 4, t4 = lane % 4): `frag_col` names it,
+// every lane's predicate is taken there, and two n-tiles of it pack (as a
+// hi + lo pair, `split2`) into the A operands of the next product with no
+// trip through shared memory.
+
+constexpr int kMmaThreads = 128;  // 4 warps of 16 rows: the block's kTile
+static_assert(kMmaThreads / 32 * 16 == kTile, "a warp owns 16 of the block's rows");
+
+// shared row pitch, in elements: D plus 16 bytes
+template <int D> __host__ __device__ constexpr int pitch() { return D + 8; }
+// walked rows a stage: the dK/dV pass's at d = 128 keep its dK and dV
+// accumulators (128 registers) and the score tiles within 255 registers
+template <int D> __host__ __device__ constexpr int dkv_walk() { return D == 128 ? 32 : 64; }
+constexpr int kDqWalk = 64;
+
+// column of a score fragment's element e in n-tile nt (t4 = lane % 4)
+__device__ __forceinline__ int frag_col(int nt, int t4, int e) {
+  return 8 * nt + 2 * t4 + (e & 1);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices; .trans delivers each transposed
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// cp.async of 16 (or 4) bytes; a src_bytes of 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c += a b: m16n8k16, T operands, fp32 accumulators
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// two fp32 values rounded (to nearest even) to T, lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
+// fp32 a and b as two T pairs, hi the rounded values and lo the rounded
+// remainders: hi + lo is a and b to 2^-16 relative in bf16 (a - hi is
+// exact in fp32), so a product fed both reads P or dS as fp32 would
+template <typename T>
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = pack2<T>(a, b);
+  float ha, hb;  // hi's two values, unpacked in registers
+  if constexpr (std::is_same<T, __half>::value) {
+    ha = __half2float(__ushort_as_half((unsigned short)(hi & 0xffffu)));
+    hb = __half2float(__ushort_as_half((unsigned short)(hi >> 16)));
+  } else {
+    ha = __uint_as_float(hi << 16);
+    hb = __uint_as_float(hi & 0xffff0000u);
+  }
+  lo = pack2<T>(a - ha, b - hb);
+}
+
+// the hi and lo A fragments of k-step kq from score n-tiles 2 kq, 2 kq + 1
+template <typename T, int N>
+__device__ __forceinline__ void a_frags(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const float (&c)[N][4], int kq) {
+  split2<T>(c[2 * kq][0], c[2 * kq][1], hi[0], lo[0]);
+  split2<T>(c[2 * kq][2], c[2 * kq][3], hi[1], lo[1]);
+  split2<T>(c[2 * kq + 1][0], c[2 * kq + 1][1], hi[2], lo[2]);
+  split2<T>(c[2 * kq + 1][2], c[2 * kq + 1][3], hi[3], lo[3]);
+}
+
+// rows [r0, r0 + kRows) of a strided (s, D) operand into a [kRows][pitch]
+// shared tile by cp.async; rows past s are zeros
+template <typename T, int D, int kRows>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride, int r0,
+                                          int s) {
+  constexpr int kChunks = D * (int)sizeof(T) / 16;  // 16-byte chunks a row
+  constexpr int kPer = 16 / (int)sizeof(T);
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kMmaThreads) {
+    const int rr = idx / kChunks;
+    const int c = idx - rr * kChunks;
+    const int r = r0 + rr;
+    const bool ok = r < s;
+    cp_async16(dst + rr * pitch<D>() + c * kPer, src + (ok ? r : 0) * stride + c * kPer,
+               ok ? 16 : 0);
+  }
+}
+
+// S (16 x kN, fp32) = A B^T and dP = A2 B2^T for the warp's 16 rows:
+// A, A2 the block's own [64][pitch] tiles (the warp's rows from `row0`),
+// B, B2 a walked [kN][pitch] stage; the reduction runs over D
+template <typename T, int D, int kN>
+__device__ __forceinline__ void scores(float (&s)[kN / 8][4], float (&dp)[kN / 8][4],
+                                       const T* a, const T* a2, const T* b, const T* b2,
+                                       int row0, int lane) {
+  constexpr int P = pitch<D>();
+#pragma unroll
+  for (int nt = 0; nt < kN / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4], a2f[4];
+    const int ao = (row0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8;
+    ldsm_x4(af, a + ao);
+    ldsm_x4(a2f, a2 + ao);
+#pragma unroll
+    for (int nb = 0; nb < kN / 16; ++nb) {
+      uint32_t bf[4], b2f[4];
+      const int bo = (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
+                     ((lane >> 3) & 1) * 8;
+      ldsm_x4(bf, b + bo);
+      ldsm_x4(b2f, b2 + bo);
+      mma16816<T>(s[2 * nb], af, bf[0], bf[1]);
+      mma16816<T>(s[2 * nb + 1], af, bf[2], bf[3]);
+      mma16816<T>(dp[2 * nb], a2f, b2f[0], b2f[1]);
+      mma16816<T>(dp[2 * nb + 1], a2f, b2f[2], b2f[3]);
+    }
+  }
+}
+
+// acc (16 x D, fp32) += (hi + lo) B for k-step kq of a split A operand:
+// B the walked [kN][pitch] stage, whose rows are the reduction dim; each
+// B fragment feeds both terms
+template <typename T, int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const uint32_t (&hi)[4],
+                                           const uint32_t (&lo)[4], const T* b, int kq,
+                                           int lane) {
+  constexpr int P = pitch<D>();
+#pragma unroll
+  for (int nd = 0; nd < D / 16; ++nd) {
+    uint32_t bf[4];
+    ldsm_x4_t(bf, b + (kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + nd * 16 +
+                      (lane >> 4) * 8);
+    mma16816<T>(acc[2 * nd], hi, bf[0], bf[1]);
+    mma16816<T>(acc[2 * nd], lo, bf[0], bf[1]);
+    mma16816<T>(acc[2 * nd + 1], hi, bf[2], bf[3]);
+    mma16816<T>(acc[2 * nd + 1], lo, bf[2], bf[3]);
+  }
+}
+
+// a warp's 16 x D accumulator, rounded once to T, to rows `rows` (the
+// thread's two) of a strided (s, D) output; rows past s are not written
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* base, long long stride, const float (&acc)[D / 8][4],
+                                           const int (&rows)[2], int s, int t4) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (rows[hh] >= s) continue;
+    T* row = base + rows[hh] * stride;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(row + 8 * nt + 2 * t4) =
+          pack2<T>(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
+  }
+}
+
+// The dK/dV pass on the tensor cores: one block a (b * h, 64-key tile),
+// walking the query rows in dkv_walk<D>() tiles.  Per tile, a warp forms
+// S^T = K Q^T and dP^T = V dO^T for its 16 keys (keys are the fragment's
+// rows), turns them in place into P^T (after the dropout scale) and
+// dS^T = P^T (dP^T - delta) scale, and adds P^T dO to dV and dS^T Q to
+// dK, each left operand a hi + lo pair.  The lanes as `bwd_dkv_body`'s.
+template <typename T, int D, bool kMask, int kDrop, bool kOff>
+__global__ void __launch_bounds__(kMmaThreads, 2) mma_dkv_kernel(DKV_PARAMS) {
+  constexpr int P = pitch<D>();
+  constexpr int kN = dkv_walk<D>();
+  constexpr int NB = kN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // [kTile][P]
+  T* v_s = k_s + kTile * P;                 // [kTile][P]
+  T* q_s = v_s + kTile * P;                 // [2][kN][P]
+  T* do_s = q_s + 2 * kN * P;               // [2][kN][P]
+  float* l_s = reinterpret_cast<float*>(do_s + 2 * kN * P);  // [2][kN]
+  float* dl_s = l_s + 2 * kN;                                // [2][kN]
+
+  const int bh = blockIdx.y;
+  const int bi = bh / h;
+  const int hi = bh - bi * h;
+  const int j0 = blockIdx.x * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  const int row0 = warp * 16;  // the warp's first key in the block
+  const int keys[2] = {j0 + row0 + (lane >> 2), j0 + row0 + (lane >> 2) + 8};
+  bool kept[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    kept[hh] = keys[hh] < sk && (!kMask || kvm[(size_t)bi * sk + keys[hh]] > 0.f);
+  // a block of masked keys has nothing to accumulate: zeros out
+  const bool any = kMask ? __syncthreads_or(kept[0] || kept[1]) : true;
+  int first[2];  // causal: the first row seeing each key
+  DropRow dkey[2];  // each key's part of its pairs' hash
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    first[hh] = kOff ? keys[hh] - diag : keys[hh];
+    if constexpr (kDrop != kNoDrop) dkey[hh] = drop_key<kDrop>(dr, bi, hi, keys[hh]);
+  }
+  const T* qb = q + bi * qs.b + hi * qs.h;
+  const T* db = dout + bi * dos.b + hi * dos.h;
+  const float* lb = lse2 + (size_t)bh * sq;
+  const float* deb = delta + (size_t)bh * sq;
+  // the walked rows [i0, i0 + kN) and their lse2 and delta into stage st
+  auto load_walk = [&](int i0, int st) {
+    load_rows<T, D, kN>(q_s + st * kN * P, qb, qs.s, i0, sq);
+    load_rows<T, D, kN>(do_s + st * kN * P, db, dos.s, i0, sq);
+    for (int r = threadIdx.x; r < kN; r += kMmaThreads) {
+      const int i = i0 + r;
+      const int ok = i < sq ? 4 : 0;
+      cp_async4(l_s + st * kN + r, lb + (ok ? i : 0), ok);
+      cp_async4(dl_s + st * kN + r, deb + (ok ? i : 0), ok);
+    }
+  };
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+
+  // causal: rows above the tile's first key's first row see none of its
+  // keys (with offsets, the start rounded down to a walked tile)
+  const int i_start = causal ? (kOff ? max(0, j0 - diag) & ~(kN - 1) : j0) : 0;
+  const bool walk = any && i_start < sq;
+  if (walk) {
+    load_rows<T, D, kTile>(k_s, k + bi * ks.b + hi * ks.h, ks.s, j0, sk);
+    load_rows<T, D, kTile>(v_s, v + bi * vs.b + hi * vs.h, vs.s, j0, sk);
+    load_walk(i_start, 0);
+  }
+  cp_async_commit();
+  int st = 0;
+  for (int i0 = i_start; walk && i0 < sq; i0 += kN, st ^= 1) {
+    if (i0 + kN < sq) load_walk(i0 + kN, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // stage st has landed
+    __syncthreads();
+    const T* qt = q_s + st * kN * P;
+    const T* dt = do_s + st * kN * P;
+    const float* lt = l_s + st * kN;
+    const float* dlt = dl_s + st * kN;
+    float sc[NB][4], dp[NB][4];
+    scores<T, D, kN>(sc, dp, k_s, v_s, qt, dt, row0, lane);
+    uint32_t x0[2] = {0, 0};  // the hash counter of each key's pair with row i0
+    if constexpr (kDrop != kNoDrop) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) x0[hh] = drop_counter_rows<kDrop>(dr, dkey[hh], i0);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = frag_col(nt, t4, e);
+        const int hh = e >> 1;
+        const int i = i0 + c;
+        const bool ok = kept[hh] && i < sq && (!causal || i >= first[hh]);
+        const float p = ok ? exp2f(fmaf(sc[nt][e], a, -lt[c])) : 0.f;
+        float pv = p, dpv = dp[nt][e];  // the probability dv reads, dp
+        if constexpr (kDrop != kNoDrop) {
+          const bool keep =
+              drop_keep(x0[hh] + (uint32_t)c * drop_row_stride<kDrop>(dr), dr.thr);
+          pv = keep ? p * dr.inv : 0.f;
+          dpv = keep ? dpv * dr.inv : 0.f;
+        }
+        sc[nt][e] = pv;
+        dp[nt][e] = p * (dpv - dlt[c]) * scale;
+      }
+#pragma unroll
+    for (int kq = 0; kq < kN / 16; ++kq) {
+      uint32_t hi[4], lo[4];
+      a_frags<T>(hi, lo, sc, kq);
+      accumulate<T, D>(dv_acc, hi, lo, dt, kq, lane);
+      a_frags<T>(hi, lo, dp, kq);
+      accumulate<T, D>(dk_acc, hi, lo, qt, kq, lane);
+    }
+    __syncthreads();  // stage st is read; the next prefetch may take it
+  }
+  cp_async_wait<0>();
+  store_rows<T, D>(dk + bi * dks.b + hi * dks.h, dks.s, dk_acc, keys, sk, t4);
+  store_rows<T, D>(dv + bi * dvs.b + hi * dvs.h, dvs.s, dv_acc, keys, sk, t4);
+}
+
+// The dQ pass on the tensor cores: one block a (b * h, 64-query tile),
+// walking the keys in 64-key tiles.  Per tile, a warp forms S = Q K^T and
+// dP = dO V^T for its 16 queries, dS = P (dP - delta) scale, and adds
+// dS K to dQ, dS a hi + lo pair.  The lanes as `bwd_dq_kernel`'s; with the
+// kv_mask, a walked tile whose keys are all masked is neither loaded nor
+// multiplied.  Blocks run the last query tiles first: under causal
+// masking they walk the most keys.
+template <typename T, int D, bool kMask, int kDrop, bool kOff>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+mma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dout, const float* __restrict__ lse2,
+              const float* __restrict__ delta, const float* __restrict__ kvm,
+              T* __restrict__ dq, int h, int sq, int sk, Strides qs, Strides ks,
+              Strides vs, Strides dos, Strides dqs, float scale, float a, int causal,
+              int diag, Drop dr) {
+  constexpr int P = pitch<D>();
+  constexpr int kN = kDqWalk;
+  constexpr int NB = kN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [kTile][P]
+  T* do_s = q_s + kTile * P;                // [kTile][P]
+  T* k_s = do_s + kTile * P;                // [2][kN][P]
+  T* v_s = k_s + 2 * kN * P;                // [2][kN][P]
+  __shared__ bool km_s[kMask ? 2 * kN : 1];
+
+  const int bh = blockIdx.y;
+  const int bi = bh / h;
+  const int hi = bh - bi * h;
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  const int row0 = warp * 16;  // the warp's first query in the block
+  const int rows[2] = {i0 + row0 + (lane >> 2), i0 + row0 + (lane >> 2) + 8};
+  bool live[2];
+  float l[2], dl[2];
+  int last[2];  // causal: each row's last visible key
+  DropRow drow[2];  // each row's part of its pairs' hash
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    live[hh] = rows[hh] < sq;
+    l[hh] = live[hh] ? lse2[(size_t)bh * sq + rows[hh]] : 0.f;
+    dl[hh] = live[hh] ? delta[(size_t)bh * sq + rows[hh]] : 0.f;
+    last[hh] = kOff ? rows[hh] + diag : rows[hh];
+    if constexpr (kDrop != kNoDrop) drow[hh] = drop_row<kDrop>(dr, bi, hi, rows[hh]);
+  }
+  const T* kb = k + bi * ks.b + hi * ks.h;
+  const T* vb = v + bi * vs.b + hi * vs.h;
+  const float* mb = kMask ? kvm + (size_t)bi * sk : nullptr;
+
+  // causal: keys past the tile's last query's are in every row's future
+  const int k_end =
+      causal ? (kOff ? max(0, min(sk, i0 + kTile + diag)) : min(sk, i0 + kTile)) : sk;
+  // the first walked tile from j on that holds a kept key (its mask
+  // staged into km_s[st]), or k_end; block-uniform
+  auto next_tile = [&](int j, int st) {
+    if constexpr (kMask) {
+      for (; j < k_end; j += kN) {
+        bool mine = false;
+        if (threadIdx.x < kN) {
+          mine = j + (int)threadIdx.x < sk && mb[j + threadIdx.x] > 0.f;
+          km_s[st * kN + threadIdx.x] = mine;
+        }
+        if (__syncthreads_or(mine)) return j;
+      }
+      return k_end;
+    }
+    return j;
+  };
+  auto load_walk = [&](int j, int st) {
+    load_rows<T, D, kN>(k_s + st * kN * P, kb, ks.s, j, sk);
+    load_rows<T, D, kN>(v_s + st * kN * P, vb, vs.s, j, sk);
+  };
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[nt][e] = 0.f;
+
+  int j0 = next_tile(0, 0);
+  if (j0 < k_end) {
+    load_rows<T, D, kTile>(q_s, q + bi * qs.b + hi * qs.h, qs.s, i0, sq);
+    load_rows<T, D, kTile>(do_s, dout + bi * dos.b + hi * dos.h, dos.s, i0, sq);
+    load_walk(j0, 0);
+  }
+  cp_async_commit();
+  int st = 0;
+  while (j0 < k_end) {
+    const int jn = next_tile(j0 + kN, st ^ 1);
+    if (jn < k_end) load_walk(jn, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // stage st has landed
+    __syncthreads();
+    const T* kt = k_s + st * kN * P;
+    const T* vt = v_s + st * kN * P;
+    float sc[NB][4], dp[NB][4];
+    scores<T, D, kN>(sc, dp, q_s, do_s, kt, vt, row0, lane);
+    uint32_t x0[2] = {0, 0};  // the hash counter of each row's pair with key j0
+    if constexpr (kDrop != kNoDrop) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) x0[hh] = drop_counter<kDrop>(dr, drow[hh], j0);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = frag_col(nt, t4, e);
+        const int hh = e >> 1;
+        const int j = j0 + c;
+        const bool ok = live[hh] && j < sk && (!causal || j <= last[hh]) &&
+                        (!kMask || km_s[st * kN + c]);
+        const float p = ok ? exp2f(fmaf(sc[nt][e], a, -l[hh])) : 0.f;
+        float dpv = dp[nt][e];
+        if constexpr (kDrop != kNoDrop)
+          dpv = drop_keep(x0[hh] + (uint32_t)c, dr.thr) ? dpv * dr.inv : 0.f;
+        dp[nt][e] = p * (dpv - dl[hh]) * scale;
+      }
+#pragma unroll
+    for (int kq = 0; kq < kN / 16; ++kq) {
+      uint32_t hi[4], lo[4];
+      a_frags<T>(hi, lo, dp, kq);
+      accumulate<T, D>(dq_acc, hi, lo, kt, kq, lane);
+    }
+    __syncthreads();  // stage st is read; the next prefetch may take it
+    j0 = jn;
+    st ^= 1;
+  }
+  cp_async_wait<0>();
+  store_rows<T, D>(dq + bi * dqs.b + hi * dqs.h, dqs.s, dq_acc, rows, sq, t4);
+}
+
 // The arguments of one backward launch.
 struct BwdArgs {
   const void *q, *k, *v, *o, *dout, *lse;
@@ -310,11 +778,73 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-// The delta pass, then the dK/dV and dQ kernels Lanes<T, D>::dkv(a) and
-// ::dq(a) choose.
+// The tensor-core passes' dynamic shared memory, in bytes: the own
+// [kTile][pitch] tiles, two stages of the walked ones, and the dK/dV
+// pass's two stages of lse2 and delta
+template <typename T, int D>
+constexpr int dkv_smem() {
+  return (2 * kTile + 4 * dkv_walk<D>()) * pitch<D>() * (int)sizeof(T) +
+         4 * dkv_walk<D>() * (int)sizeof(float);
+}
+template <typename T, int D>
+constexpr int dq_smem() {
+  return (2 * kTile + 4 * kDqWalk) * pitch<D>() * (int)sizeof(T);
+}
+
+// Whether a's views suit the tensor-core passes: q, k, v and do in rows
+// of 16-byte aligned chunks (cp.async), dq, dk and dv in 4-byte aligned
+// pairs (the fragments' stores).
+template <typename T>
+bool mma_aligned(const BwdArgs& a) {
+  auto ok = [](const void* p, Strides s, long long n) {
+    const long long e = n / (long long)sizeof(T);
+    return reinterpret_cast<uintptr_t>(p) % n == 0 && s.b % e == 0 && s.h % e == 0 &&
+           s.s % e == 0;
+  };
+  return ok(a.q, a.qs, 16) && ok(a.k, a.ks, 16) && ok(a.v, a.vs, 16) &&
+         ok(a.dout, a.dos, 16) && ok(a.dq, a.dqs, 4) && ok(a.dk, a.dks, 4) &&
+         ok(a.dv, a.dvs, 4);
+}
+
+// The tensor-core dK/dV and dQ passes of one lane.
+template <typename T, int D, bool kMask, int kDrop, bool kOff>
+cudaError_t launch_mma(const BwdArgs& a, float alpha) {
+  const auto dkv = mma_dkv_kernel<T, D, kMask, kDrop, kOff>;
+  const auto dq = mma_dq_kernel<T, D, kMask, kDrop, kOff>;
+  constexpr int kv_bytes = dkv_smem<T, D>(), q_bytes = dq_smem<T, D>();
+  cudaError_t e =
+      cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, q_bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid_kv((a.sk + kTile - 1) / kTile, a.b * a.h);
+  dkv<<<grid_kv, kMmaThreads, kv_bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse2), static_cast<const float*>(a.delta), a.kvm,
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.sq, a.sk, a.qs, a.ks,
+      a.vs, a.dos, a.dks, a.dvs, a.scale, alpha, a.causal, a.diag, a.dr);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid_q((a.sq + kTile - 1) / kTile, a.b * a.h);
+  dq<<<grid_q, kMmaThreads, q_bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse2), static_cast<const float*>(a.delta), a.kvm,
+      static_cast<T*>(a.dq), a.h, a.sq, a.sk, a.qs, a.ks, a.vs, a.dos, a.dqs,
+      a.scale, alpha, a.causal, a.diag, a.dr);
+  return cudaGetLastError();
+}
+
+// The delta pass, then the dK/dV and dQ passes: for fp32 operands the
+// kernels Lanes<T, D>::dkv(a) and ::dq(a) choose, for bf16 and fp16 the
+// tensor-core lane Lanes<T, D>::mma(a, alpha) launches.
 template <template <typename, int> class Lanes, typename T, int D>
 cudaError_t launch_bwd_d(const BwdArgs& a) {
-  constexpr int kThreads = kTile * tpr<D>();
+  constexpr bool kMma = !std::is_same<T, float>::value;
+  if constexpr (kMma) {
+    if (!mma_aligned<T>(a)) return cudaErrorMisalignedAddress;
+  }
   const float alpha = a.scale * kLog2e;
   const long long rows = (long long)a.b * a.h * a.sq;
   const int warps = 8;
@@ -325,25 +855,30 @@ cudaError_t launch_bwd_d(const BwdArgs& a) {
       static_cast<float*>(a.lse2), a.h, a.sq, a.os, a.dos, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const auto dkv = Lanes<T, D>::dkv(a);
-  const dim3 grid_kv((a.sk + kTile - 1) / kTile, a.b * a.h);
-  dkv<<<grid_kv, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse2), static_cast<const float*>(a.delta), a.kvm,
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.sq, a.sk, a.qs, a.ks,
-      a.vs, a.dos, a.dks, a.dvs, a.scale, alpha, a.causal, a.diag, a.dr);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const auto dq_pass = Lanes<T, D>::dq(a);
-  const dim3 grid_q((a.sq + kTile - 1) / kTile, a.b * a.h);
-  dq_pass<<<grid_q, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse2), static_cast<const float*>(a.delta), a.kvm,
-      static_cast<T*>(a.dq), a.h, a.sq, a.sk, a.qs, a.ks, a.vs, a.dos, a.dqs,
-      a.scale, alpha, a.causal, a.diag, a.dr);
-  return cudaGetLastError();
+  if constexpr (kMma) {
+    return Lanes<T, D>::mma(a, alpha);
+  } else {
+    constexpr int kThreads = kTile * tpr<D>();
+    const auto dkv = Lanes<T, D>::dkv(a);
+    const dim3 grid_kv((a.sk + kTile - 1) / kTile, a.b * a.h);
+    dkv<<<grid_kv, kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse2), static_cast<const float*>(a.delta), a.kvm,
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.h, a.sq, a.sk, a.qs, a.ks,
+        a.vs, a.dos, a.dks, a.dvs, a.scale, alpha, a.causal, a.diag, a.dr);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const auto dq_pass = Lanes<T, D>::dq(a);
+    const dim3 grid_q((a.sq + kTile - 1) / kTile, a.b * a.h);
+    dq_pass<<<grid_q, kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse2), static_cast<const float*>(a.delta), a.kvm,
+        static_cast<T*>(a.dq), a.h, a.sq, a.sk, a.qs, a.ks, a.vs, a.dos, a.dqs,
+        a.scale, alpha, a.causal, a.diag, a.dr);
+    return cudaGetLastError();
+  }
 }
 
 // The backward at a's head dim (64 or 128) and dtype code (0 float32,

@@ -354,13 +354,25 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _rows16(t) -> bool:
+    """Whether every (b, h, s) row of a view starts 16 bytes aligned."""
+    e = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(x % e == 0 for x in t.stride()[:3])
+
+
 def _launch_backward(q, k, v, o, lse, do, dq, dk, dv, scale, causal,
                      counter, kv_mask=None, drop=None, diag=None, dlse=None):
     """One launch of the backward kernel on (b, h, s, d) views: q, o,
     do, dq over sq rows, k, v, dk, dv over sk rows (outputs written in
     place).  ``diag`` not None launches the partial entry's lanes, with
-    ``dlse`` None or the lse cotangent (b, h, sq)."""
+    ``dlse`` None or the lse cotangent (b, h, sq).  The bf16/fp16 passes
+    read q, k, v and do in 16-byte chunks: a view whose rows are not so
+    aligned is copied first (the model's views all are)."""
     _check_qkv(q, k, v, counter)
+    if q.dtype != torch.float32:
+        q, k, v, do = (t if _rows16(t) else
+                       t.clone(memory_format=torch.contiguous_format)
+                       for t in (q, k, v, do))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     kvm = _kv_mask_arg(kv_mask, b, sk, q.device)

@@ -6,7 +6,11 @@ Phases, in order; any failure exits non-zero without the result line:
 
 1. build         — compile every kernel under ``apex_tpu_torch/csrc``
                    (one ``nvcc`` per source, all at once) and print the
-                   card's ``nvidia-smi`` name and power limit.
+                   card's ``nvidia-smi`` name and power limit; then
+                   ``cuobjdump -sass`` of the flash backward's two
+                   libraries must show HMMA in every bf16/fp16 dK/dV and
+                   dQ instantiation (each one's registers, spills and
+                   shared memory printed).
 2. kernels       — hold each kernel against its plain PyTorch version on
                    the card, with the stated tolerances, and time kernel,
                    plain version, one library call and the card's bound:
@@ -37,7 +41,8 @@ Phases, in order; any failure exits non-zero without the result line:
                    are the row-2 and row-8 kernels); the long-context
                    slice's: the (b, h, s, d) backward (row 8) at (1, 16,
                    1024, 64) causal, at sq != sk full and causal and at
-                   d = 128, row 6's forward at d = 128, the E kernels at
+                   d = 128 (sq = sk and sq != sk), its fp16
+                   instantiations, row 6's forward at d = 128, the E kernels at
                    d = 128 and past a padded length of 1024 (rows 11 and
                    13, counted under their own names) at the long train
                    step's (4, 2048, 16, 64), and the E kernels' time per
@@ -314,6 +319,7 @@ import functools
 import gc
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -459,7 +465,11 @@ LONG_CONTEXT_PLAIN_ELEMS = 1 << 28
 # timed (d = 64: the entry; d = 128: sub-entries of rows 8 and 6)
 BWD_CASES = ((1, 16, 1024, 1024, 64, True), (1, 16, 384, 1000, 64, False),
              (1, 16, 384, 1000, 64, True), (1, 16, 1000, 384, 64, True),
-             (1, 16, 1024, 1024, 128, True))
+             (1, 16, 1024, 1024, 128, True), (1, 16, 384, 1000, 128, True))
+# row 8's fp16 instantiations, held the same way (those with sq == sk
+# timed)
+BWD_FP16_CASES = ((1, 16, 1024, 1024, 64, True), (1, 16, 1024, 1024, 128, True),
+                  (1, 16, 1000, 384, 128, True))
 # the E kernels' long-slice checks, (b, s, h, d), causal: d = 128 on the
 # single route (timed: sub-entries of rows 10/12), the long train step's
 # shape on the blocked route (timed: rows 11/13), d = 128 blocked
@@ -913,6 +923,96 @@ def phase_build():
             if "entry function" in line or "registers" in line or \
                     "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    check_tensor_cores(_build)
+
+
+# the tensor-core backward passes (`csrc/flash_bwd.cuh`) each library
+# instantiates: name, template arguments (T, D, kMask, kDrop, kOff) as
+# they appear in the mangled symbol
+_MMA_KERNEL = re.compile(r"(mma_dkv_kernel|mma_dq_kernel)I(13__nv_bfloat16|6__half)"
+                         r"Li(\d+)ELb([01])ELi(\d)ELb([01])E")
+# lanes (kMask, kDrop, kOff) a library instantiates, each for bf16 and
+# fp16 at d = 64 and 128, dK/dV and dQ
+MMA_LANES = {"flash_attention_bwd": ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0)),
+             "flash_attention_partial": ((0, 0, 1), (0, 2, 1))}
+
+
+def _bwd_smem(kernel: str, d: int) -> int:
+    """The dynamic shared memory of a tensor-core pass (``dkv_smem`` /
+    ``dq_smem`` in ``flash_bwd.cuh``): the own 64-row tiles and two stages
+    of the walked ones, rows of d + 8 two-byte elements, and the dK/dV
+    pass's two stages of fp32 lse2 and delta."""
+    walk = 64 if kernel == "mma_dq_kernel" or d == 64 else 32
+    if kernel == "mma_dq_kernel":
+        return (2 * 64 + 4 * walk) * (d + 8) * 2
+    return (2 * 64 + 4 * walk) * (d + 8) * 2 + 4 * walk * 4
+
+
+def _ptxas_usage(text: str) -> dict:
+    """``ptxas -v``'s registers and spill bytes for each function of one
+    build log: mangled name -> (registers, spill stores, spill loads)."""
+    out, cur, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            out[cur] = (int(m.group(1)), *spills)
+            cur, spills = None, (0, 0)
+    return out
+
+
+def check_tensor_cores(_build) -> None:
+    """Every bf16 and fp16 instantiation of the backward's dK/dV and dQ
+    passes must run on the tensor cores: ``cuobjdump -sass`` of the two
+    libraries that hold them shows ``HMMA`` in each, and each expected
+    instantiation is there.  Prints each one's HMMA count, registers and
+    spills (from this build's ``ptxas -v``) and dynamic shared memory."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc_path()).parent / "cuobjdump")
+    for lib, lanes in MMA_LANES.items():
+        sass = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
+                              capture_output=True, text=True, check=True).stdout
+        usage = _ptxas_usage(_build.LOGS.get(lib, ""))
+        found = {}
+        for block in re.split(r"\n\s*Function : ", sass)[1:]:
+            name = block.split(None, 1)[0]
+            m = _MMA_KERNEL.search(name)
+            if m:
+                found[m.groups()] = (name, block.count("HMMA"))
+        want = {(k, t, str(d), str(lm), str(ld), str(lo))
+                for k in ("mma_dkv_kernel", "mma_dq_kernel")
+                for t in ("13__nv_bfloat16", "6__half") for d in (64, 128)
+                for lm, ld, lo in lanes}
+        bad = sorted(k for k in want if found.get(k, ("", 0))[1] == 0)
+        for key in sorted(found):
+            kernel, t, d, lm, ld, lo = key
+            name, hmma = found[key]
+            regs = usage.get(name)
+            use = ("not in this build's log" if regs is None else
+                   f"{regs[0]} registers, {regs[1]} B spill stores, "
+                   f"{regs[2]} B spill loads")
+            log(f"  tensor cores {lib}: {kernel} "
+                f"{'bf16' if 'bfloat' in t else 'fp16'} d={d} kv_mask={lm} "
+                f"drop={ld} offsets={lo}: {hmma} HMMA, {use}, "
+                f"{_bwd_smem(kernel, int(d))} B dynamic shared memory")
+        if bad or set(found) != want:
+            raise AssertionError(
+                f"{lib}: tensor-core passes without HMMA or missing: {bad}; "
+                f"unexpected: {sorted(set(found) - want)}")
+    log(f"tensor cores: every bf16/fp16 dK/dV and dQ pass of "
+        f"{', '.join(MMA_LANES)} holds HMMA")
 
 
 # --- phase 2 ------------------------------------------------------------
@@ -2147,8 +2247,9 @@ def check_flash_attention_bwd(dev, g):
     same (q, k, v, o, lse, do): at (1, 16, 1024, 64) causal (also against
     autograd of the plain forward, and timed: the entry), at sq != sk
     (1, 16, 384, 1000) full and causal and (1, 16, 1000, 384) causal, and
-    at d = 128, (1, 16, 1024, 128) causal (timed: a sub-entry); row 6's
-    forward at d = 128 (timed: a sub-entry of row 6's)."""
+    at d = 128, (1, 16, 1024, 128) causal (timed: a sub-entry) and (1,
+    16, 384, 1000) causal; row 6's forward at d = 128 (timed: a sub-entry
+    of row 6's); then the fp16 instantiations (``BWD_FP16_CASES``)."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import (flash_attention_backward,
@@ -2228,8 +2329,43 @@ def check_flash_attention_bwd(dev, g):
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib)
         free_memory()
+    fp16 = {}
+    for b, h, sq, sk, d, causal in BWD_FP16_CASES:
+        shape = (f"b={b} h={h} sq={sq} sk={sk} d={d} "
+                 f"{'causal' if causal else 'full'} fp16")
+        q, do = (torch.randn(b, h, sq, d, generator=g, device=dev).half()
+                 for _ in range(2))
+        k, v = (torch.randn(b, h, sk, d, generator=g, device=dev).half()
+                for _ in range(2))
+        o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+        grads = flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        berr = _hold_backward(f"flash_attention_bwd {shape}", grads,
+                              flash_attention_backward_reference(
+                                  q, k, v, o, lse, do, causal=causal))
+        if sq == sk:
+            # timed beside the bf16 case of the same shape
+            ms, ms_w = time_ms(lambda: flash_attention_backward(
+                q, k, v, o, lse, do, causal=causal))
+            plain, _ = time_ms(lambda: flash_attention_backward_reference(
+                q, k, v, o, lse, do, causal=causal), iters=10)
+            qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+            out_s = F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=causal)
+            lib, _ = time_ms(lambda: torch.autograd.grad(
+                out_s, (qs, ks, vs), do, retain_graph=True))
+            del out_s
+            b_ms, b_by = _attn_bound(b, h, sq, d, causal, bwd=True)
+            log(f"  backward time {shape}, device ms (wall ms per call): "
+                f"kernel {ms:.5f} ({ms_w:.5f}), plain {plain:.5f}, SDPA "
+                f"backward {lib:.5f}, bound {b_ms:.5f} ({b_by})")
+            fp16[d] = dict(shape=shape, max_abs_err=berr, ms=ms,
+                           ms_wall=ms_w, plain_ms=plain, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib)
+        free_memory()
     entry = out["bwd64"]
     entry["d128"] = out["bwd128"]
+    entry["fp16"] = dict(fp16[64], d128=fp16[128])
     return entry, dict(out["fwd128"], of=("flash_attention", "d128"))
 
 
