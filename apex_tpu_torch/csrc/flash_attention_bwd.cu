@@ -193,9 +193,6 @@ int apex_flash_attention_bwd(
   if (!make_drop(kTileHash, drop_seed, drop_w, drop_thr, drop_inv, 0, 0, 0, sq, sk,
                  &dr))
     return cudaErrorInvalidValue;
-  // the tensor-core passes walk 64-row tiles: one must lie in one W tile
-  if (dtype != 0 && drop_thr && drop_w % 64 != 0 && (drop_w < sq || drop_w < sk))
-    return cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, o, dout, lse, nullptr, dq, dk, dv, delta, lse2,
                   static_cast<const float*>(kvm), b, h, sq, sk, d,
                   Strides{q_sb, q_sh, q_ss}, Strides{k_sb, k_sh, k_ss},

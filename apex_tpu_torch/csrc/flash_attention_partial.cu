@@ -29,9 +29,11 @@
 // What bounds it on the H100: operations, as rows 6 and 8.  bench.py's
 // bench_ring_flash substep (b = 1, h = 16, s = 8192, d = 64, every key
 // visible) does 4 d and 10 d operations a pair, 0.28 and 0.69 ms at the
-// bf16 tensor cores' 989 TFLOP/s.  The backward's bf16/fp16 lanes run the
-// tensor-core passes of `flash_bwd.cuh`; the forward is still the
-// fp32-pipe kernel of `flash_fwd.cuh`.
+// bf16 tensor cores' 989 TFLOP/s.  The bf16/fp16 lanes run the
+// tensor-core kernels, `mma_fwd_kernel` (`flash_fwd.cuh`) and the
+// passes of `flash_bwd.cuh`, which walk 64-key (64-row) tiles and take
+// the coordinate hash per pair at any offset; fp32 runs the fp32-pipe
+// kernels.
 #include "flash_bwd.cuh"
 #include "flash_common.cuh"
 #include "flash_dropout.cuh"
@@ -53,6 +55,10 @@ struct FwdLanes {
   static auto pick(const FwdArgs& a) {
     return a.dr.thr ? flash_fwd_kernel<T, D, kTPR, false, kCoordHash, true>
                     : flash_fwd_kernel<T, D, kTPR, false, kNoDrop, true>;
+  }
+  static auto mma(const FwdArgs& a) {
+    return a.dr.thr ? mma_fwd_kernel<T, D, false, kCoordHash, true>
+                    : mma_fwd_kernel<T, D, false, kNoDrop, true>;
   }
 };
 

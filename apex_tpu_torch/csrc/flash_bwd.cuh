@@ -12,6 +12,7 @@
 
 #include "flash_common.cuh"
 #include "flash_dropout.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -303,212 +304,14 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // --- the tensor-core passes (bf16 / fp16 operands) ----------------------
 //
-// A block is 4 warps over 64 rows of its own (keys in dK/dV, queries in
-// dQ), 16 a warp, kept in shared memory as they came (bf16 or fp16) and
-// read as `mma.sync.m16n8k16` A fragments by `ldmatrix`.  The walked
-// operands come in by `cp.async`, 16 bytes a thread, into two stages, so
-// that tile t + 1 loads while tile t computes.  Every shared row is padded
-// by 8 elements (16 bytes), so the 8 rows one `ldmatrix` reads start in 8
-// different bank groups.  A score accumulator's element e of n-tile nt
-// sits at row g + 8 (e >> 1) and column 8 nt + 2 t4 + (e & 1) of the
-// warp's 16-row slice (g = lane / 4, t4 = lane % 4): `frag_col` names it,
-// every lane's predicate is taken there, and two n-tiles of it pack (as a
-// hi + lo pair, `split2`) into the A operands of the next product with no
-// trip through shared memory.
+// Built from `flash_mma.cuh`'s tiles, fragments and staging.
 
-constexpr int kMmaThreads = 128;  // 4 warps of 16 rows: the block's kTile
-static_assert(kMmaThreads / 32 * 16 == kTile, "a warp owns 16 of the block's rows");
+static_assert(kMmaRows == kTile, "a warp owns 16 of the block's rows");
 
-// shared row pitch, in elements: D plus 16 bytes
-template <int D> __host__ __device__ constexpr int pitch() { return D + 8; }
 // walked rows a stage: the dK/dV pass's at d = 128 keep its dK and dV
 // accumulators (128 registers) and the score tiles within 255 registers
 template <int D> __host__ __device__ constexpr int dkv_walk() { return D == 128 ? 32 : 64; }
 constexpr int kDqWalk = 64;
-
-// column of a score fragment's element e in n-tile nt (t4 = lane % 4)
-__device__ __forceinline__ int frag_col(int nt, int t4, int e) {
-  return 8 * nt + 2 * t4 + (e & 1);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; .trans delivers each transposed
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// cp.async of 16 (or 4) bytes; a src_bytes of 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// c += a b: m16n8k16, T operands, fp32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// two fp32 values rounded (to nearest even) to T, lo in the low half
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __half>::value) {
-    const __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  } else {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  }
-}
-
-// fp32 a and b as two T pairs, hi the rounded values and lo the rounded
-// remainders: hi + lo is a and b to 2^-16 relative in bf16 (a - hi is
-// exact in fp32), so a product fed both reads P or dS as fp32 would
-template <typename T>
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  hi = pack2<T>(a, b);
-  float ha, hb;  // hi's two values, unpacked in registers
-  if constexpr (std::is_same<T, __half>::value) {
-    ha = __half2float(__ushort_as_half((unsigned short)(hi & 0xffffu)));
-    hb = __half2float(__ushort_as_half((unsigned short)(hi >> 16)));
-  } else {
-    ha = __uint_as_float(hi << 16);
-    hb = __uint_as_float(hi & 0xffff0000u);
-  }
-  lo = pack2<T>(a - ha, b - hb);
-}
-
-// the hi and lo A fragments of k-step kq from score n-tiles 2 kq, 2 kq + 1
-template <typename T, int N>
-__device__ __forceinline__ void a_frags(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                        const float (&c)[N][4], int kq) {
-  split2<T>(c[2 * kq][0], c[2 * kq][1], hi[0], lo[0]);
-  split2<T>(c[2 * kq][2], c[2 * kq][3], hi[1], lo[1]);
-  split2<T>(c[2 * kq + 1][0], c[2 * kq + 1][1], hi[2], lo[2]);
-  split2<T>(c[2 * kq + 1][2], c[2 * kq + 1][3], hi[3], lo[3]);
-}
-
-// rows [r0, r0 + kRows) of a strided (s, D) operand into a [kRows][pitch]
-// shared tile by cp.async; rows past s are zeros
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, long long stride, int r0,
-                                          int s) {
-  constexpr int kChunks = D * (int)sizeof(T) / 16;  // 16-byte chunks a row
-  constexpr int kPer = 16 / (int)sizeof(T);
-  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kMmaThreads) {
-    const int rr = idx / kChunks;
-    const int c = idx - rr * kChunks;
-    const int r = r0 + rr;
-    const bool ok = r < s;
-    cp_async16(dst + rr * pitch<D>() + c * kPer, src + (ok ? r : 0) * stride + c * kPer,
-               ok ? 16 : 0);
-  }
-}
-
-// S (16 x kN, fp32) = A B^T and dP = A2 B2^T for the warp's 16 rows:
-// A, A2 the block's own [64][pitch] tiles (the warp's rows from `row0`),
-// B, B2 a walked [kN][pitch] stage; the reduction runs over D
-template <typename T, int D, int kN>
-__device__ __forceinline__ void scores(float (&s)[kN / 8][4], float (&dp)[kN / 8][4],
-                                       const T* a, const T* a2, const T* b, const T* b2,
-                                       int row0, int lane) {
-  constexpr int P = pitch<D>();
-#pragma unroll
-  for (int nt = 0; nt < kN / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4], a2f[4];
-    const int ao = (row0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8;
-    ldsm_x4(af, a + ao);
-    ldsm_x4(a2f, a2 + ao);
-#pragma unroll
-    for (int nb = 0; nb < kN / 16; ++nb) {
-      uint32_t bf[4], b2f[4];
-      const int bo = (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
-                     ((lane >> 3) & 1) * 8;
-      ldsm_x4(bf, b + bo);
-      ldsm_x4(b2f, b2 + bo);
-      mma16816<T>(s[2 * nb], af, bf[0], bf[1]);
-      mma16816<T>(s[2 * nb + 1], af, bf[2], bf[3]);
-      mma16816<T>(dp[2 * nb], a2f, b2f[0], b2f[1]);
-      mma16816<T>(dp[2 * nb + 1], a2f, b2f[2], b2f[3]);
-    }
-  }
-}
-
-// acc (16 x D, fp32) += (hi + lo) B for k-step kq of a split A operand:
-// B the walked [kN][pitch] stage, whose rows are the reduction dim; each
-// B fragment feeds both terms
-template <typename T, int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const uint32_t (&hi)[4],
-                                           const uint32_t (&lo)[4], const T* b, int kq,
-                                           int lane) {
-  constexpr int P = pitch<D>();
-#pragma unroll
-  for (int nd = 0; nd < D / 16; ++nd) {
-    uint32_t bf[4];
-    ldsm_x4_t(bf, b + (kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + nd * 16 +
-                      (lane >> 4) * 8);
-    mma16816<T>(acc[2 * nd], hi, bf[0], bf[1]);
-    mma16816<T>(acc[2 * nd], lo, bf[0], bf[1]);
-    mma16816<T>(acc[2 * nd + 1], hi, bf[2], bf[3]);
-    mma16816<T>(acc[2 * nd + 1], lo, bf[2], bf[3]);
-  }
-}
-
-// a warp's 16 x D accumulator, rounded once to T, to rows `rows` (the
-// thread's two) of a strided (s, D) output; rows past s are not written
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* base, long long stride, const float (&acc)[D / 8][4],
-                                           const int (&rows)[2], int s, int t4) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    if (rows[hh] >= s) continue;
-    T* row = base + rows[hh] * stride;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(row + 8 * nt + 2 * t4) =
-          pack2<T>(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
-  }
-}
 
 // The dK/dV pass on the tensor cores: one block a (b * h, 64-key tile),
 // walking the query rows in dkv_walk<D>() tiles.  Per tile, a warp forms
@@ -620,11 +423,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2) mma_dkv_kernel(DKV_PARAMS) {
       }
 #pragma unroll
     for (int kq = 0; kq < kN / 16; ++kq) {
-      uint32_t hi[4], lo[4];
-      a_frags<T>(hi, lo, sc, kq);
-      accumulate<T, D>(dv_acc, hi, lo, dt, kq, lane);
-      a_frags<T>(hi, lo, dp, kq);
-      accumulate<T, D>(dk_acc, hi, lo, qt, kq, lane);
+      uint32_t f[2][4];
+      a_frags_n<T, 2>(f, sc, kq);
+      accumulate<T, D>(dv_acc, f[0], f[1], dt, kq, lane);
+      a_frags_n<T, 2>(f, dp, kq);
+      accumulate<T, D>(dk_acc, f[0], f[1], qt, kq, lane);
     }
     __syncthreads();  // stage st is read; the next prefetch may take it
   }
@@ -752,9 +555,9 @@ mma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       }
 #pragma unroll
     for (int kq = 0; kq < kN / 16; ++kq) {
-      uint32_t hi[4], lo[4];
-      a_frags<T>(hi, lo, dp, kq);
-      accumulate<T, D>(dq_acc, hi, lo, kt, kq, lane);
+      uint32_t f[2][4];
+      a_frags_n<T, 2>(f, dp, kq);
+      accumulate<T, D>(dq_acc, f[0], f[1], kt, kq, lane);
     }
     __syncthreads();  // stage st is read; the next prefetch may take it
     j0 = jn;
@@ -796,14 +599,10 @@ constexpr int dq_smem() {
 // pairs (the fragments' stores).
 template <typename T>
 bool mma_aligned(const BwdArgs& a) {
-  auto ok = [](const void* p, Strides s, long long n) {
-    const long long e = n / (long long)sizeof(T);
-    return reinterpret_cast<uintptr_t>(p) % n == 0 && s.b % e == 0 && s.h % e == 0 &&
-           s.s % e == 0;
-  };
-  return ok(a.q, a.qs, 16) && ok(a.k, a.ks, 16) && ok(a.v, a.vs, 16) &&
-         ok(a.dout, a.dos, 16) && ok(a.dq, a.dqs, 4) && ok(a.dk, a.dks, 4) &&
-         ok(a.dv, a.dvs, 4);
+  return rows_aligned<T>(a.q, a.qs, 16) && rows_aligned<T>(a.k, a.ks, 16) &&
+         rows_aligned<T>(a.v, a.vs, 16) && rows_aligned<T>(a.dout, a.dos, 16) &&
+         rows_aligned<T>(a.dq, a.dqs, 4) && rows_aligned<T>(a.dk, a.dks, 4) &&
+         rows_aligned<T>(a.dv, a.dvs, 4);
 }
 
 // The tensor-core dK/dV and dQ passes of one lane.

@@ -32,13 +32,16 @@
 // offsets (JAX's dsalt[2:4], which the entry sets to the causal offsets)
 // and h0 the global index of head 0 (JAX's head_offset).
 //
-// These kernels walk 32-row and 32-key tiles of their own, so either hash
-// is taken per pair from its global coordinates: a thread splits its own
-// row's (or key's) part off once (`drop_row`, `drop_key`), each staged
-// tile adds its part (`drop_counter`, `drop_counter_rows`), and a pair
-// costs one add and fmix32's six operations and a compare.  Under the tile
-// hash a 32-wide tile never straddles two W tiles: W is a multiple of 32,
-// or no smaller than the sequence.
+// These kernels walk tiles of their own (32 rows or keys on the fp32
+// pipes; 64, or 32 rows in the d = 128 dK/dV pass, on the tensor cores),
+// so either hash is taken per pair from its global coordinates: a thread
+// splits its own row's (or key's) part off once (`drop_row`, `drop_key`),
+// each staged tile adds its part (`drop_counter`, `drop_counter_rows`),
+// and a pair costs one add and fmix32's six operations and a compare.
+// Under the tile hash a walked tile never straddles two W tiles: W is a
+// multiple of 64 (every tile's width divides it, and tiles start at
+// multiples of their width), or no smaller than either sequence (one W
+// tile).  `make_drop` refuses any other W.
 #pragma once
 
 #include <stdint.h>
@@ -82,7 +85,7 @@ inline bool make_drop(int mode, int seed, int w, int thr, float inv, int q0, int
   if (thr == 0) return true;
   if (seed < 0 || thr < 0 || thr > (1 << 24)) return false;
   if (mode == kCoordHash) return q0 >= 0 && k0 >= 0 && h0 >= 0;
-  return mode == kTileHash && w > 0 && (w % 32 == 0 || (w >= sq && w >= sk));
+  return mode == kTileHash && w > 0 && (w % 64 == 0 || (w >= sq && w >= sk));
 }
 
 // the (b, hd) salt; the coordinate hash's head is global, h0 + hi
@@ -120,7 +123,7 @@ __device__ __forceinline__ DropRow drop_key(const Drop& dr, int bi, int hi, int 
 }
 
 // the counter of the pair (row, key c0) for a staged tile of keys from c0
-// (a multiple of 32); key c0 + jj's is this + jj
+// (a multiple of the tile's width); key c0 + jj's is this + jj
 template <int kMode>
 __device__ __forceinline__ uint32_t drop_counter(const Drop& dr, DropRow row, int c0) {
   if constexpr (kMode == kCoordHash) {
@@ -132,7 +135,8 @@ __device__ __forceinline__ uint32_t drop_counter(const Drop& dr, DropRow row, in
 }
 
 // the counter of the pair (row r0, key) for a staged tile of query rows
-// from r0 (a multiple of 32); row r0 + ii's is this + ii * drop_row_stride
+// from r0 (a multiple of the tile's width); row r0 + ii's is this + ii *
+// drop_row_stride
 template <int kMode>
 __device__ __forceinline__ uint32_t drop_counter_rows(const Drop& dr, DropRow key,
                                                       int r0) {

@@ -278,8 +278,11 @@ def _launch(q, k, v, scale, causal, counter="flash_attention",
             kv_mask=None, drop=None, diag=None):
     """One forward launch; ``diag`` not None launches the partial entry's
     lanes (``csrc/flash_attention_partial.cu``: causal offsets q_off -
-    k_off = ``diag``, JAX's dead-row lse, the coordinate-hash ``drop``)."""
+    k_off = ``diag``, JAX's dead-row lse, the coordinate-hash ``drop``).
+    The bf16/fp16 kernel reads q, k and v in 16-byte chunks
+    (:func:`_aligned_rows`)."""
     _check_qkv(q, k, v, counter)
+    q, k, v = _aligned_rows(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     kvm = _kv_mask_arg(kv_mask, b, sk, q.device)
@@ -360,19 +363,25 @@ def _rows16(t) -> bool:
     return t.data_ptr() % 16 == 0 and all(x % e == 0 for x in t.stride()[:3])
 
 
+def _aligned_rows(*ts):
+    """The views as the bf16/fp16 kernels read them, in rows of 16-byte
+    chunks: each view whose rows are not so aligned is copied (the
+    model's views all are); fp32 views as they are."""
+    if ts[0].dtype == torch.float32:
+        return ts
+    return tuple(t if _rows16(t) else
+                 t.clone(memory_format=torch.contiguous_format) for t in ts)
+
+
 def _launch_backward(q, k, v, o, lse, do, dq, dk, dv, scale, causal,
                      counter, kv_mask=None, drop=None, diag=None, dlse=None):
     """One launch of the backward kernel on (b, h, s, d) views: q, o,
     do, dq over sq rows, k, v, dk, dv over sk rows (outputs written in
     place).  ``diag`` not None launches the partial entry's lanes, with
     ``dlse`` None or the lse cotangent (b, h, sq).  The bf16/fp16 passes
-    read q, k, v and do in 16-byte chunks: a view whose rows are not so
-    aligned is copied first (the model's views all are)."""
+    read q, k, v and do in 16-byte chunks (:func:`_aligned_rows`)."""
     _check_qkv(q, k, v, counter)
-    if q.dtype != torch.float32:
-        q, k, v, do = (t if _rows16(t) else
-                       t.clone(memory_format=torch.contiguous_format)
-                       for t in (q, k, v, do))
+    q, k, v, do = _aligned_rows(q, k, v, do)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     kvm = _kv_mask_arg(kv_mask, b, sk, q.device)

@@ -7,10 +7,10 @@ Phases, in order; any failure exits non-zero without the result line:
 1. build         — compile every kernel under ``apex_tpu_torch/csrc``
                    (one ``nvcc`` per source, all at once) and print the
                    card's ``nvidia-smi`` name and power limit; then
-                   ``cuobjdump -sass`` of the flash backward's two
-                   libraries must show HMMA in every bf16/fp16 dK/dV and
-                   dQ instantiation (each one's registers, spills and
-                   shared memory printed).
+                   ``cuobjdump -sass`` of the three flash libraries must
+                   show HMMA in every bf16/fp16 forward, dK/dV and dQ
+                   instantiation, and no forward may spill (each one's
+                   registers, spills and shared memory printed).
 2. kernels       — hold each kernel against its plain PyTorch version on
                    the card, with the stated tolerances, and time kernel,
                    plain version, one library call and the card's bound:
@@ -139,7 +139,9 @@ Phases, in order; any failure exits non-zero without the result line:
 5. train plain   — the first 3 steps again from the same weights and
                    batch through every kernel's plain version (no kernel
                    may launch); each loss within ``TRAIN_LOSS_TOL`` of
-                   the kernel run's.
+                   the kernel run's, on the median over ``TRAIN_SEEDS``
+                   of each step's gap (3 kernel and 3 plain steps more
+                   from each further seed).
 6. train O2      — the same width and batch in the O2 recipe
                    (``use_flash=False``: fp32 scores, the fused causal
                    softmax; fp16 parameters and compute, fp32 masters,
@@ -190,7 +192,8 @@ Phases, in order; any failure exits non-zero without the result line:
                    kernels under the blocked names, rows 11 and 13, 24 a
                    step each; the unblocked E counts 0); losses finite
                    and falling; 3 plain steps within
-                   ``TRAIN_LONG_LOSS_TOL`` (one limit a step).
+                   ``TRAIN_LONG_LOSS_TOL`` (one limit a step), on the
+                   median over ``TRAIN_SEEDS`` as ``train plain``.
 6e'. train_dropout — bench.py's gpt2_345m_dropout (bench_gpt345m(dropout=
                    0.1)): GPT-345M at seq 1024, batch 8, O5, attention
                    dropout 0.1 inside the E kernels (a fresh host-drawn
@@ -199,7 +202,8 @@ Phases, in order; any failure exits non-zero without the result line:
                    exactly (the E kernels only under the dropout names,
                    24 a step each), losses finite and falling, the step's
                    ratio to the dropout-free train step; 3 plain steps
-                   (the same seeds) within ``TRAIN_DROPOUT_LOSS_TOL``.
+                   (the same seeds) within ``TRAIN_DROPOUT_LOSS_TOL``, on
+                   the median over ``TRAIN_SEEDS`` as ``train plain``.
                    Then the same recipe at seq 2048, batch 4, 8 steps:
                    the blocked dropout names, exact counts.
 6f. train_resnet — bench.py's bench_resnet50 through the port's imagenet
@@ -304,6 +308,13 @@ Phases, in order; any failure exits non-zero without the result line:
                    readback and 3 kernel and 3 plain train_dropout steps
                    run in that copy: each fault must be caught, and what
                    caught it is printed.
+9. numerics      — only when named: the flash forward's o and lse
+                   against a float64 evaluation beside the plain
+                   version's (signed and absolute error, bf16 flips), and
+                   the O5 train steps' loss gaps to the plain version
+                   seed by seed over ``TRAIN_SEEDS``, with the kernel
+                   forward and with its o or its lse taken from the plain
+                   version.
 
 ``--phases`` runs a subset (``build`` always runs), for iterating.
 When every default phase ran and passed, the last four lines are the whole
@@ -317,6 +328,7 @@ import argparse
 import dataclasses
 import functools
 import gc
+import importlib
 import json
 import math
 import re
@@ -393,13 +405,23 @@ DQKV_FROB_RTOL = 5e-3
 # ulp of the O(1) operands); the bf16 copy within one bf16 ulp
 ADAM_TOL = 1e-6
 # train: the plain versions round bf16 activations at other places over
-# 24 layers.  Sound kernels put the first 3 mean losses 9.35e-5,
-# 5.72e-6 and 8.58e-5 from the plain run's, the same in every run (no
-# kernel uses atomics); a dQ pass that skips 32 keys of each diagonal
-# tile moves losses 2-3 by 3.35e-4 and 4.44e-4 (PERF.md, Findings)
+# 24 layers, and Adam's first steps (~lr sign(g)) spread any difference,
+# so one seed's gaps scatter over 2-3x between sound forwards, the same
+# in every run (no kernel uses atomics).  The O5 GPT families
+# (SEEDED_FAMILIES) therefore hold each step's median gap over
+# TRAIN_SEEDS.  Over those seeds, five sound forwards (the fp32-pipe one,
+# and four tensor-core ones that differ in the order and width of their
+# fp32 sums) put the medians at most 1.06e-4, 1.14e-4 and 1.91e-4; a dQ
+# pass that skips the last 32 keys of each diagonal tile 5.05e-5,
+# 1.72e-4 and 1.98e-4, inside that spread here (train_long and the
+# kernel phase's element holds catch it) (PERF.md, Findings)
 TRAIN_LOSS_TOL = 2e-4
 TRAIN_STEPS = 8
 PLAIN_STEPS = 3
+# the seeds whose median gap the O5 GPT families hold (the first is the
+# train run's own), and those families
+TRAIN_SEEDS = (0, 1, 2, 3, 4)
+SEEDED_FAMILIES = ("gpt", "gpt_long", "gpt_dropout")
 # fp16 builds of LayerNorm, forward and backward: each element within one
 # fp16 ulp of its own reference value, 2^(floor(log2 |ref|) - 10) (both
 # sides round one fp32 value once); below FP16_ULP_FLOOR of the largest
@@ -445,14 +467,15 @@ BERT_BATCH = (16, 512)
 TRAIN_BERT_LOSS_TOL = (5e-3, 5e-3, 2e-3)
 TRAIN_BERT_O2_LOSS_TOL = (5e-5, 2e-3, 2e-3)
 # GPT-345M at seq 2048 (O5), plain vs kernel losses over the first 3
-# steps, one limit a step.  Sound kernels put them 7.72e-5, 2.86e-5 and
-# 4.67e-5 from the plain run's, the same in every run; a forward that
-# drops each row's diagonal key moves step 1 by 1.11e-3 (and makes the
-# later losses NaN); a dQ pass that skips the last 32 keys of each
-# diagonal tile reads 7.72e-5 (step 1 is the forward alone), 4.77e-6
-# and 2.25e-4; a dK/dV pass that skips the second 32-query sub-tile of
-# each causal block 7.72e-5, 1.06e-2 and 1.40e-2 (PERF.md, Findings)
-TRAIN_LONG_LOSS_TOL = (2e-4, 1e-4, 1e-4)
+# steps, one limit a step, on the median over TRAIN_SEEDS (as the
+# train's).  The five sound forwards put the medians at most 9.2e-5,
+# 1.48e-4 and 1.34e-4; a dQ pass that skips the last 32 keys of each
+# diagonal tile 5.91e-5 (step 1 is the forward alone), 1.81e-5 and
+# 2.17e-4.  Seed 0 alone: a forward that drops each row's diagonal key
+# moves step 1 by 1.11e-3 (and makes the later losses NaN); a dK/dV pass
+# that skips the second 32-query sub-tile of each causal block 7.72e-5,
+# 1.06e-2 and 1.40e-2 (PERF.md, Findings)
+TRAIN_LONG_LOSS_TOL = (2e-4, 1.6e-4, 1.6e-4)
 # bench.py's bench_long_context shapes (b, h, s, d), causal, bf16
 LONG_CONTEXT_SHAPES = ((1, 16, 8192, 64), (1, 16, 16384, 64),
                        (1, 32, 4096, 128), (1, 16, 8192, 128),
@@ -466,8 +489,8 @@ LONG_CONTEXT_PLAIN_ELEMS = 1 << 28
 BWD_CASES = ((1, 16, 1024, 1024, 64, True), (1, 16, 384, 1000, 64, False),
              (1, 16, 384, 1000, 64, True), (1, 16, 1000, 384, 64, True),
              (1, 16, 1024, 1024, 128, True), (1, 16, 384, 1000, 128, True))
-# row 8's fp16 instantiations, held the same way (those with sq == sk
-# timed)
+# row 8's and row 6's fp16 instantiations, held the same way (those with
+# sq == sk timed)
 BWD_FP16_CASES = ((1, 16, 1024, 1024, 64, True), (1, 16, 1024, 1024, 128, True),
                   (1, 16, 1000, 384, 128, True))
 # the E kernels' long-slice checks, (b, s, h, d), causal: d = 128 on the
@@ -494,15 +517,16 @@ DROPOUT_READBACK = ((2, 1024, 16, 64), (2, 2048, 16, 64))
 DROPOUT_READBACK_SEED = 1001
 # train_dropout (bench.py's gpt2_345m_dropout: attention dropout 0.1, no
 # hidden dropout), plain vs kernel losses over the first 3 steps, one
-# limit a step.  Sound kernels put them 2.19e-5, 4.10e-5 and 1.97e-4 from
-# the plain run's (the same in every run); a backward that hashes each
-# pair with the next head's salt reads 2.19e-5 (step 1 is the forward
-# alone), 5.49e-4 and 8.96e-4.  A keep compare written > for >= flips
-# only the pairs hashing exactly onto the threshold (~100 of a step's
-# 1.6e9): 3.53e-5, 9.92e-5, 1.54e-4, inside the sound spread, so the keep
-# readback (DROPOUT_READBACK, 13 such pairs) is what catches it (PERF.md,
+# limit a step, on the median over TRAIN_SEEDS (as the train's).  The
+# five sound forwards put the medians at most 1.17e-4, 1.21e-4 and
+# 1.82e-4; a backward that hashes each pair with the next head's salt
+# 6.01e-5 (step 1 is the forward alone), 4.63e-4 and 9.20e-4.  A keep
+# compare written > for >= flips only the pairs hashing exactly onto the
+# threshold (~100 of a step's 1.6e9): at seed 0 3.53e-5, 9.92e-5,
+# 1.54e-4, inside the sound spread, so the keep readback
+# (DROPOUT_READBACK, 13 such pairs) is what catches it (PERF.md,
 # Findings)
-TRAIN_DROPOUT_LOSS_TOL = (1e-4, 2e-4, 4e-4)
+TRAIN_DROPOUT_LOSS_TOL = (1.3e-4, 2e-4, 4e-4)
 # the faults ``--phases dropout_faults`` plants in a copy of the port:
 # (source, sound text, faulty text, ...); a head salt off by one in the
 # backward's two passes only, and the keep compare >= written >
@@ -926,22 +950,34 @@ def phase_build():
     check_tensor_cores(_build)
 
 
-# the tensor-core backward passes (`csrc/flash_bwd.cuh`) each library
-# instantiates: name, template arguments (T, D, kMask, kDrop, kOff) as
-# they appear in the mangled symbol
-_MMA_KERNEL = re.compile(r"(mma_dkv_kernel|mma_dq_kernel)I(13__nv_bfloat16|6__half)"
+# the tensor-core flash kernels (`csrc/flash_fwd.cuh`'s forward,
+# `csrc/flash_bwd.cuh`'s dK/dV and dQ passes): name, template arguments
+# (T, D, kMask, kDrop, kOff) as they appear in the mangled symbol
+_MMA_KERNEL = re.compile(r"(mma_fwd_kernel|mma_dkv_kernel|mma_dq_kernel)"
+                         r"I(13__nv_bfloat16|6__half)"
                          r"Li(\d+)ELb([01])ELi(\d)ELb([01])E")
-# lanes (kMask, kDrop, kOff) a library instantiates, each for bf16 and
-# fp16 at d = 64 and 128, dK/dV and dQ
-MMA_LANES = {"flash_attention_bwd": ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0)),
-             "flash_attention_partial": ((0, 0, 1), (0, 2, 1))}
+# the (b, h, s, d) / qkv / E entries' lanes (kv_mask x tile hash) and the
+# partial entry's (offsets, with or without the coordinate hash)
+_ENTRY_LANES = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0))
+_PARTIAL_LANES = ((0, 0, 1), (0, 2, 1))
+# each library's tensor-core kernels and the lanes (kMask, kDrop, kOff) it
+# instantiates for each, in bf16 and fp16 at d = 64 and 128
+MMA_LANES = {
+    "flash_attention": {"mma_fwd_kernel": _ENTRY_LANES},
+    "flash_attention_bwd": {"mma_dkv_kernel": _ENTRY_LANES,
+                            "mma_dq_kernel": _ENTRY_LANES},
+    "flash_attention_partial": {"mma_fwd_kernel": _PARTIAL_LANES,
+                                "mma_dkv_kernel": _PARTIAL_LANES,
+                                "mma_dq_kernel": _PARTIAL_LANES}}
 
 
-def _bwd_smem(kernel: str, d: int) -> int:
-    """The dynamic shared memory of a tensor-core pass (``dkv_smem`` /
-    ``dq_smem`` in ``flash_bwd.cuh``): the own 64-row tiles and two stages
-    of the walked ones, rows of d + 8 two-byte elements, and the dK/dV
-    pass's two stages of fp32 lse2 and delta."""
+def _mma_smem(kernel: str, d: int) -> int:
+    """The dynamic shared memory of a tensor-core kernel (``fwd_smem``,
+    ``dkv_smem`` and ``dq_smem`` in ``csrc/``): the own 64-row tiles and
+    two stages of the walked ones, rows of d + 8 two-byte elements, and
+    the dK/dV pass's two stages of fp32 lse2 and delta."""
+    if kernel == "mma_fwd_kernel":
+        return (64 + 4 * 64) * (d + 8) * 2
     walk = 64 if kernel == "mma_dq_kernel" or d == 64 else 32
     if kernel == "mma_dq_kernel":
         return (2 * 64 + 4 * walk) * (d + 8) * 2
@@ -973,18 +1009,36 @@ def _ptxas_usage(text: str) -> dict:
     return out
 
 
+def _res_usage(tool: str, lib: Path) -> dict:
+    """``cuobjdump -res-usage`` of a built library: mangled name ->
+    (registers, stack bytes); the usage of a library this process did not
+    compile, whose ``ptxas -v`` log it never saw."""
+    text = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return {m.group(1): (int(m.group(2)), int(m.group(3)))
+            for m in re.finditer(r"Function (\S+?):?\s+REG:(\d+) STACK:(\d+)",
+                                 text)}
+
+
 def check_tensor_cores(_build) -> None:
-    """Every bf16 and fp16 instantiation of the backward's dK/dV and dQ
-    passes must run on the tensor cores: ``cuobjdump -sass`` of the two
-    libraries that hold them shows ``HMMA`` in each, and each expected
-    instantiation is there.  Prints each one's HMMA count, registers and
-    spills (from this build's ``ptxas -v``) and dynamic shared memory."""
+    """Every bf16 and fp16 instantiation of the flash forward and of the
+    backward's dK/dV and dQ passes must run on the tensor cores:
+    ``cuobjdump -sass`` of the three libraries that hold them shows
+    ``HMMA`` in each, each expected instantiation is there, and no
+    forward spills (the fp16 d = 128 dK/dV passes do, a few hundred
+    bytes).  Prints each one's HMMA count, registers and spills (from
+    this build's ``ptxas -v``, or for a library built earlier its
+    registers and stack frame from ``cuobjdump -res-usage``) and dynamic
+    shared memory."""
     tool = shutil.which("cuobjdump") or str(
         Path(_build.nvcc_path()).parent / "cuobjdump")
-    for lib, lanes in MMA_LANES.items():
-        sass = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
+    spilled = []
+    for lib, kernels in MMA_LANES.items():
+        path = _build.lib_path(lib)
+        sass = subprocess.run([tool, "-sass", str(path)],
                               capture_output=True, text=True, check=True).stdout
         usage = _ptxas_usage(_build.LOGS.get(lib, ""))
+        res = {} if usage else _res_usage(tool, path)
         found = {}
         for block in re.split(r"\n\s*Function : ", sass)[1:]:
             name = block.split(None, 1)[0]
@@ -992,27 +1046,39 @@ def check_tensor_cores(_build) -> None:
             if m:
                 found[m.groups()] = (name, block.count("HMMA"))
         want = {(k, t, str(d), str(lm), str(ld), str(lo))
-                for k in ("mma_dkv_kernel", "mma_dq_kernel")
+                for k, lanes in kernels.items()
                 for t in ("13__nv_bfloat16", "6__half") for d in (64, 128)
                 for lm, ld, lo in lanes}
         bad = sorted(k for k in want if found.get(k, ("", 0))[1] == 0)
         for key in sorted(found):
             kernel, t, d, lm, ld, lo = key
             name, hmma = found[key]
-            regs = usage.get(name)
-            use = ("not in this build's log" if regs is None else
-                   f"{regs[0]} registers, {regs[1]} B spill stores, "
-                   f"{regs[2]} B spill loads")
+            if name in usage:
+                regs, stores, loads = usage[name]
+                use = (f"{regs} registers, {stores} B spill stores, "
+                       f"{loads} B spill loads")
+                spills = stores or loads
+            elif name in res:
+                regs, stack = res[name]
+                use = (f"{regs} registers, {stack} B stack frame "
+                       f"(cuobjdump -res-usage: built earlier)")
+                spills = stack
+            else:
+                use, spills = "usage not read", 0
+            if kernel == "mma_fwd_kernel" and spills:
+                spilled.append(f"{lib}: {name}")
             log(f"  tensor cores {lib}: {kernel} "
                 f"{'bf16' if 'bfloat' in t else 'fp16'} d={d} kv_mask={lm} "
                 f"drop={ld} offsets={lo}: {hmma} HMMA, {use}, "
-                f"{_bwd_smem(kernel, int(d))} B dynamic shared memory")
+                f"{_mma_smem(kernel, int(d))} B dynamic shared memory")
         if bad or set(found) != want:
             raise AssertionError(
-                f"{lib}: tensor-core passes without HMMA or missing: {bad}; "
+                f"{lib}: tensor-core kernels without HMMA or missing: {bad}; "
                 f"unexpected: {sorted(set(found) - want)}")
-    log(f"tensor cores: every bf16/fp16 dK/dV and dQ pass of "
-        f"{', '.join(MMA_LANES)} holds HMMA")
+    if spilled:
+        raise AssertionError(f"forward kernels that spill: {spilled}")
+    log(f"tensor cores: every bf16/fp16 forward, dK/dV and dQ kernel of "
+        f"{', '.join(MMA_LANES)} holds HMMA; no forward spills")
 
 
 # --- phase 2 ------------------------------------------------------------
@@ -1073,15 +1139,9 @@ def check_flash_attention(dev, g):
         o, lse = flash_attention_with_lse(q, k, v, causal=True)
         torch.cuda.synchronize()
         o_r, lse_r = mha_reference(q, k, v, causal=True, return_lse=True)
-        err, lerr = max_err(o, o_r), max_err(lse, lse_r)
-        ok = err <= ATTN_TOL and lerr <= LSE_TOL
-        log(f"kernel flash_attention b={b} h={h} s={s} d={d} causal "
-            f"bf16: max_abs_err={err:.3e} (tol {ATTN_TOL}) "
-            f"max_rel_err={rel_err(o, o_r):.3e} "
-            f"lse_err={lerr:.3e} (tol {LSE_TOL}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"flash_attention kernel disagrees at "
-                                 f"s={s}")
+        err, lerr = _hold_forward(f"kernel flash_attention b={b} h={h} "
+                                  f"s={s} d={d} causal bf16", o, o_r, lse,
+                                  lse_r)
         ms, ms_w = time_ms(
             lambda: flash_attention_with_lse(q, k, v, causal=True))
         plain, plain_w = time_ms(
@@ -2249,7 +2309,9 @@ def check_flash_attention_bwd(dev, g):
     (1, 16, 384, 1000) full and causal and (1, 16, 1000, 384) causal, and
     at d = 128, (1, 16, 1024, 128) causal (timed: a sub-entry) and (1,
     16, 384, 1000) causal; row 6's forward at d = 128 (timed: a sub-entry
-    of row 6's); then the fp16 instantiations (``BWD_FP16_CASES``)."""
+    of row 6's); then the fp16 instantiations of both (``BWD_FP16_CASES``;
+    the forward held by :func:`_hold_forward` and, at sq == sk, timed: a
+    sub-entry of row 6's)."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import (flash_attention_backward,
@@ -2329,7 +2391,7 @@ def check_flash_attention_bwd(dev, g):
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib)
         free_memory()
-    fp16 = {}
+    fp16, fwd16 = {}, {}
     for b, h, sq, sk, d, causal in BWD_FP16_CASES:
         shape = (f"b={b} h={h} sq={sq} sk={sk} d={d} "
                  f"{'causal' if causal else 'full'} fp16")
@@ -2340,10 +2402,28 @@ def check_flash_attention_bwd(dev, g):
         o, lse = flash_attention_with_lse(q, k, v, causal=causal)
         grads = flash_attention_backward(q, k, v, o, lse, do, causal=causal)
         torch.cuda.synchronize()
+        o_r, lse_r = mha_reference(q, k, v, causal=causal, return_lse=True)
+        ferr, flerr = _hold_forward(f"kernel flash_attention {shape}", o, o_r,
+                                    lse, lse_r)
+        del o_r, lse_r
         berr = _hold_backward(f"flash_attention_bwd {shape}", grads,
                               flash_attention_backward_reference(
                                   q, k, v, o, lse, do, causal=causal))
         if sq == sk:
+            # the fp16 forward, timed beside the bf16 one of the same shape
+            ms, ms_w = time_ms(lambda: flash_attention_with_lse(
+                q, k, v, causal=causal))
+            plain, _ = time_ms(lambda: mha_reference(
+                q, k, v, causal=causal, return_lse=True), iters=10)
+            lib, _ = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal))
+            b_ms, b_by = _attn_bound(b, h, sq, d, causal, bwd=False)
+            log(f"  forward time {shape}, device ms (wall ms per call): "
+                f"kernel {ms:.5f} ({ms_w:.5f}), plain {plain:.5f}, SDPA "
+                f"{lib:.5f}, bound {b_ms:.5f} ({b_by})")
+            fwd16[d] = dict(shape=shape, max_abs_err=max(ferr, flerr), ms=ms,
+                            ms_wall=ms_w, plain_ms=plain, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib)
             # timed beside the bf16 case of the same shape
             ms, ms_w = time_ms(lambda: flash_attention_backward(
                 q, k, v, o, lse, do, causal=causal))
@@ -2366,7 +2446,8 @@ def check_flash_attention_bwd(dev, g):
     entry = out["bwd64"]
     entry["d128"] = out["bwd128"]
     entry["fp16"] = dict(fp16[64], d128=fp16[128])
-    return entry, dict(out["fwd128"], of=("flash_attention", "d128"))
+    return (entry, dict(out["fwd128"], of=("flash_attention", "d128")),
+            dict(fwd16[64], d128=fwd16[128], of=("flash_attention", "fp16")))
 
 
 def _e_case(dev, g, b, s, h, d, causal=True, kv_mask=None, drop=None):
@@ -4204,7 +4285,10 @@ def train_plain_and_compare(dev, kernel_losses, policy: str = "O5",
                             kernel_steps=None, family: str = "gpt"):
     """The first steps again through the plain versions (no kernel may
     launch), each loss held against the kernel run's; under a dynamic
-    scale the (finite, scale, skipped) sequence must equal it too."""
+    scale the (finite, scale, skipped) sequence must equal it too.  The
+    O5 GPT families (``SEEDED_FAMILIES``) hold the median over
+    ``TRAIN_SEEDS`` of each step's gap instead, the first seed's kernel
+    losses the train run's."""
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
 
     mod, model = _train_module(family)
@@ -4213,10 +4297,11 @@ def train_plain_and_compare(dev, kernel_losses, policy: str = "O5",
            ("bert", "O5"): TRAIN_BERT_LOSS_TOL,
            ("bert", "O2"): TRAIN_BERT_O2_LOSS_TOL,
            ("gpt_dropout", "O5"): TRAIN_DROPOUT_LOSS_TOL}[family, policy]
+    seeded = policy == "O5" and family in SEEDED_FAMILIES
     reset_launch_counts()
     t0 = time.perf_counter()
-    r = mod.train_smoke(PLAIN_STEPS, model=model, policy=policy, seed=0,
-                        kernels=False, device=dev,
+    r = mod.train_smoke(PLAIN_STEPS, model=model, policy=policy,
+                        seed=0, kernels=False, device=dev,
                         **TRAIN_KW.get(family, {}))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4225,8 +4310,8 @@ def train_plain_and_compare(dev, kernel_losses, policy: str = "O5",
     tols = tuple(tol) if isinstance(tol, tuple) else (tol,) * PLAIN_STEPS
     seq = [x[:3] for x in r.steps]
     want_seq = [x[:3] for x in kernel_steps] if kernel_steps else seq
-    log(f"{TRAIN_FAMILIES[family][0]} {policy} plain: "
-        f"{PLAIN_STEPS} steps through the plain "
+    label = f"{TRAIN_FAMILIES[family][0]} {policy} plain"
+    log(f"{label}: {PLAIN_STEPS} steps through the plain "
         f"versions ({wall:.1f} s, median step {r.median_ms:.3f} ms): "
         f"losses {[round(x, 6) for x in r.losses]}, |kernel - plain| "
         f"{[f'{x:.2e}' for x in diffs]} (tol {tol}); (finite, scale, "
@@ -4235,11 +4320,25 @@ def train_plain_and_compare(dev, kernel_losses, policy: str = "O5",
     free_memory()
     if any(counts.values()):
         raise AssertionError(f"the plain run launched kernels: {counts}")
-    if len(diffs) != PLAIN_STEPS or any(d > t for d, t in zip(diffs, tols)):
-        raise AssertionError(f"plain losses differ: {diffs} (tol {tol})")
     if seq != want_seq:
         raise AssertionError(f"plain skip sequence {seq} != the kernel "
                              f"run's {want_seq}")
+    if seeded:
+        gaps = [diffs]
+        for seed in TRAIN_SEEDS[1:]:
+            pair = [_spread_losses(dev, family, seed, forward)
+                    for forward in ("kernel", "plain")]
+            free_memory()
+            gaps.append([abs(a - b) for a, b in zip(*pair)])
+            log(f"{label}: seed {seed} |kernel - plain| "
+                f"{[f'{x:.2e}' for x in gaps[-1]]}")
+        diffs = [float(np.median([g[i] for g in gaps]))
+                 for i in range(PLAIN_STEPS)]
+        log(f"{label}: the median over seeds {list(TRAIN_SEEDS)} of each "
+            f"step's |kernel - plain| {[f'{x:.2e}' for x in diffs]} (tol "
+            f"{tol})")
+    if len(diffs) != PLAIN_STEPS or any(d > t for d, t in zip(diffs, tols)):
+        raise AssertionError(f"plain losses differ: {diffs} (tol {tol})")
     return diffs
 
 
@@ -4686,6 +4785,126 @@ def dropout_faults(dev) -> None:
                 f"{'ok' if by_loss or by_readback else 'FAIL'}")
             if not (by_loss or by_readback):
                 raise AssertionError(f"fault {name} was not caught")
+
+
+# --- the flash forward's numerics (run only when named) -------------------
+
+# (b, h, s, d, std) of the causal bf16 inputs the numerics probe reads:
+# unit-normal, and std 0.64, the O5 train step's q and k at initialization
+# (near-uniform rows whose o is a mean of many v rows)
+NUMERICS_CASES = ((8, 16, 1024, 64, 1.0), (8, 16, 1024, 64, 0.64),
+                  (1, 16, 2048, 128, 1.0))
+# the forwards the loss-gap spread runs besides the kernel's: its o with
+# the plain version's lse, and the plain version's o with its lse
+SPREAD_HYBRIDS = ("kernel o, plain lse", "plain o, kernel lse")
+
+
+def flash_numerics(dev) -> None:
+    """How the flash forward (``flash_attention_with_lse``) and its plain
+    version (``mha_reference``) round against a float64 evaluation, on
+    ``NUMERICS_CASES``: o's signed error relative to |o| (a bias of the
+    fp32 sums shows here; the bf16 rounding averages out), its mean
+    absolute error, lse's mean signed error, the elements where the two
+    bf16 o differ, and the kernel's device ms."""
+    from apex_tpu_torch.ops import flash_attention_with_lse, mha_reference
+
+    for b, h, s, d, std in NUMERICS_CASES:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, k, v = ((std * torch.randn(b, h, s, d, generator=gen, device=dev))
+                   .bfloat16() for _ in range(3))
+        o, lse = flash_attention_with_lse(q, k, v, causal=True)
+        o_p, lse_p = mha_reference(q, k, v, causal=True, return_lse=True)
+        sc = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) \
+            * d ** -0.5
+        keep = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        sc = sc.masked_fill(~keep, -math.inf)
+        lse_x = torch.logsumexp(sc, -1)
+        ref = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, -1),
+                           v.double())
+        del sc
+        row = {}
+        for name, x, lx in (("kernel", o, lse), ("plain", o_p, lse_p)):
+            err = x.double() - ref
+            row[name] = (float((err * ref.sign()).sum() / ref.abs().sum()),
+                         float(err.abs().sum() / ref.abs().sum()),
+                         float((lx.double() - lse_x).mean()))
+        ms = time_ms(lambda: flash_attention_with_lse(q, k, v, causal=True))[0]
+        log(f"numerics ({b}, {h}, {s}, {d}) std {std}: o signed error "
+            f"kernel {row['kernel'][0]:.4e} plain {row['plain'][0]:.4e}, "
+            f"mean |error| kernel {row['kernel'][1]:.6e} plain "
+            f"{row['plain'][1]:.6e} (of |o|); lse signed error kernel "
+            f"{row['kernel'][2]:.4e} plain {row['plain'][2]:.4e}; bf16 o "
+            f"differs on {int((o != o_p).sum())} of {o.numel()}; kernel "
+            f"{ms:.5f} ms")
+        del q, k, v, o, o_p, lse, lse_p, lse_x, ref
+        free_memory()
+
+
+def _spread_losses(dev, family: str, seed: int, forward: str):
+    """The first ``PLAIN_STEPS`` O5 losses of ``family`` from ``seed``,
+    with ``forward`` the E forward: "kernel", "plain" (every kernel's
+    plain version), or a ``SPREAD_HYBRIDS`` mix of the kernel's o and
+    lse with the plain version's (the kernel backward reads them)."""
+    from apex_tpu_torch.testing import standalone_gpt
+
+    # the module (the package exports its function of the same name)
+    fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
+    model = TRAIN_FAMILIES[family][1]
+    kw = TRAIN_KW.get(family, {})
+    if forward in ("kernel", "plain"):
+        return standalone_gpt.train_smoke(
+            PLAIN_STEPS, model=model, seed=seed, kernels=forward == "kernel",
+            device=dev, **kw).losses
+    kernel = fa._forward_e
+
+    def mixed(qkv, scale, causal, kv_mask=None, drop=None):
+        o, lse = kernel(qkv, scale, causal, kv_mask, drop)
+        q, k, v = fa._split_e(qkv)
+        b, s, h, _ = qkv.shape
+        o_p, lse_p = fa.mha_reference(
+            q, k, v, scale=scale, causal=causal, return_lse=True,
+            kv_mask=kv_mask, **fa._ref_drop(drop, b, h, s, s, qkv.device))
+        if forward == SPREAD_HYBRIDS[0]:
+            return o, lse_p
+        return o_p.transpose(1, 2).contiguous(), lse
+
+    fa._forward_e = mixed
+    try:
+        return standalone_gpt.train_smoke(PLAIN_STEPS, model=model,
+                                          seed=seed, device=dev, **kw).losses
+    finally:
+        fa._forward_e = kernel
+
+
+def train_spread(dev) -> None:
+    """The O5 train steps' |kernel - plain| loss gaps against their
+    limits over ``TRAIN_SEEDS``: for each of ``SEEDED_FAMILIES``, seed
+    and forward (the kernel's, and ``SPREAD_HYBRIDS``), the gaps of the
+    first ``PLAIN_STEPS`` steps and the largest gap over its limit: how
+    the single-seed gaps spread, and which of the forward's outputs moves
+    them."""
+    tols = {"gpt": (TRAIN_LOSS_TOL,) * PLAIN_STEPS,
+            "gpt_long": TRAIN_LONG_LOSS_TOL,
+            "gpt_dropout": TRAIN_DROPOUT_LOSS_TOL}
+    for family in SEEDED_FAMILIES:
+        worst = {}
+        for seed in TRAIN_SEEDS:
+            plain = _spread_losses(dev, family, seed, "plain")
+            free_memory()
+            for forward in ("kernel",) + tuple(SPREAD_HYBRIDS):
+                losses = _spread_losses(dev, family, seed, forward)
+                free_memory()
+                gaps = [abs(a - b) for a, b in zip(losses, plain)]
+                ratio = max(g / t for g, t in zip(gaps, tols[family]))
+                worst.setdefault(forward, []).append(ratio)
+                log(f"spread {family} seed {seed} {forward}: |kernel - "
+                    f"plain| {[f'{g:.2e}' for g in gaps]} (tol "
+                    f"{tols[family]}): {ratio:.3f} of the limit")
+        for forward, ratios in worst.items():
+            log(f"spread {family} {forward}: largest gap over its limit "
+                f"by seed {[round(r, 3) for r in ratios]}; "
+                f"{sum(r <= 1 for r in ratios)} of {len(ratios)} seeds "
+                f"within every limit")
 
 
 # --- the update slice's phases -------------------------------------------
@@ -5798,10 +6017,11 @@ PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "serve_moe", "train",
           "train_o2", "train_bert", "train_bert_o2", "long_context",
           "train_long", "train_dropout", "train_resnet", "resnet_faults",
           "zero_adam", "optim_update", "ring_flash", "flash_qkv",
-          "multihead_attn", "profile", "dropout_faults")
+          "multihead_attn", "profile", "dropout_faults", "numerics")
 # every phase but the planted dropout faults (two rebuilds of the flash
-# sources), which runs only when named
-DEFAULT_PHASES = tuple(p for p in PHASES if p != "dropout_faults")
+# sources) and the forward's numerics, which run only when named
+DEFAULT_PHASES = tuple(p for p in PHASES
+                       if p not in ("dropout_faults", "numerics"))
 
 
 def main(argv=None) -> int:
@@ -5810,8 +6030,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help=f"comma-separated subset of {PHASES} (build "
                          f"always runs; the default all but "
-                         f"dropout_faults); the result lines print only "
-                         f"when all of the default run")
+                         f"dropout_faults and numerics); the result lines "
+                         f"print only when all of the default run")
     phases = set(ap.parse_args(argv).phases.split(","))
     if not phases <= set(PHASES):
         ap.error(f"unknown phase in {sorted(phases)}")
@@ -6068,6 +6288,9 @@ def main(argv=None) -> int:
                 free_memory()
         if "dropout_faults" in phases:
             run("dropout_faults", lambda: dropout_faults(dev))
+        if "numerics" in phases:
+            run("numerics", lambda: flash_numerics(dev))
+            run("numerics spread", lambda: train_spread(dev))
         if "profile" in phases:
             if "serve" in phases:
                 run("serve profile", lambda: profile_serve(dev))

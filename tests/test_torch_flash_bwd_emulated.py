@@ -4,9 +4,9 @@ partial's: ``apex_tpu_torch/csrc/flash_attention_bwd.cu`` and
 held against their plain version, ``flash_attention_backward_reference``.
 
 There is no card here, so the sources are built with g++ against
-``tests/cuda_emu``: a CPU stand-in of the CUDA runtime (one host thread a
-CUDA thread, barriers for ``__syncthreads`` and the warp collectives) and
-of the warp-level primitives the tensor-core passes use (``ldmatrix``,
+``tests/cuda_emu`` (``emulate.py``): a CPU stand-in of the CUDA runtime
+(one host thread a CUDA thread, barriers for ``__syncthreads`` and the
+warp collectives) and of the warp-level primitives the tensor-core passes use (``ldmatrix``,
 ``cp.async``, ``mma.sync.m16n8k16`` with the PTX ISA's fragment
 layouts).  The kernels' own code runs: the tile walks, the fragment
 index math, every lane's predicate (causal, offsets, kv_mask, both
@@ -19,94 +19,30 @@ ulp of the reference plus ``DQKV_ATOL``.  Shapes are small (a block's
 128 threads are 128 host threads) and cross the tile edges: 64-row
 blocks, 64-row walked tiles (32 at d = 128 in dK/dV).
 """
-import contextlib
-import ctypes
 import importlib
-import re
-import shutil
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import pytest
 import torch
 
-from apex_tpu_torch import _build
+from cuda_emu import emulate
 
 fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
 
 DQKV_ULP_RTOL = 2.0 ** -7
 DQKV_ATOL = 1e-5
-ROOT = Path(__file__).resolve().parent.parent
-EMU = Path(__file__).resolve().parent / "cuda_emu"
 LIBS = ("flash_attention_bwd", "flash_attention_partial")
-# the definitions `cuda_emu/warp_prims.h` replaces
-PRIMS = ("smem_addr", "ldsm_x4", "ldsm_x4_t", "cp_async16", "cp_async4",
-         "cp_async_commit", "cp_async_wait", "mma16816")
-
-
-def _host_source(text: str) -> str:
-    """A CUDA source as g++ takes it over ``cuda_emu``: launches through
-    ``emu_launch``, dynamic shared memory the stand-in's buffer, static
-    shared arrays shared by the block's threads, the inline-PTX
-    primitives' definitions dropped."""
-    text = re.sub(r"([\w:]+(?:<[^<>;()]*>)?)<<<([^>]*)>>>\(",
-                  r"emu_launch(\2, \1, ", text)
-    text = text.replace(
-        "extern __shared__ __align__(16) unsigned char smem_raw[];",
-        "unsigned char* smem_raw = emu_smem;")
-    text = re.sub(r"\b__shared__\b", "static", text)
-    for name in PRIMS:
-        text = re.sub(r"(template <[^\n]*>\n)?__device__ __forceinline__ "
-                      r"[^\n]*\b%s\(.*?\n}\n" % name, "", text, flags=re.S)
-    return text
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the kernels for the CPU")
-    out = tmp_path_factory.mktemp("flash_bwd_emu")
-    for src in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
-        (out / src.name).write_text(_host_source(src.read_text()))
-
-    def compile_one(name):
-        cmd = [gxx, "-x", "c++", "-std=c++20", "-O2", "-shared", "-fPIC",
-               "-pthread", "-w", f"-I{EMU}", "-include",
-               str(EMU / "warp_prims.h"), str(out / f"{name}.cu"), "-o",
-               str(out / f"lib{name}.so")]
-        return subprocess.run(cmd, capture_output=True, text=True)
-
-    with ThreadPoolExecutor(len(LIBS)) as pool:
-        done = list(pool.map(compile_one, LIBS))
-    if any(r.returncode for r in done):
-        if any("barrier" in r.stderr and "No such file" in r.stderr
-               for r in done):
-            pytest.skip("g++ without C++20's <barrier>")
-        raise AssertionError("\n".join(r.stderr for r in done))
-    libs = {}
-    for name in LIBS:
-        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        for fn, argtypes in _build.SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        lib.apex_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.apex_cuda_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
-    return libs
+    return emulate.build(tmp_path_factory.mktemp("flash_bwd_emu"), LIBS)
 
 
 @pytest.fixture
 def launch(emulated, monkeypatch):
     """``flash_attention._launch_backward`` on CPU tensors, through the
     emulated libraries."""
-    monkeypatch.setattr(_build, "library", emulated.__getitem__)
-    monkeypatch.setattr(_build, "stream_ptr", lambda device: None)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(fa, "bump", lambda name: None)
+    emulate.route(monkeypatch, emulated, fa)
     return fa._launch_backward
 
 
