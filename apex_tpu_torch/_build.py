@@ -62,12 +62,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         + [_F, _I, _I, _I, _I, _F, _I, _P],
     },
     "flash_decode": {
+        # b, h, block_size, max_pages -> the number of position splits
+        "apex_flash_decode_splits": [_I] * 4,
         # q, k_cache, v_cache, k_scale, v_scale (null for a float
-        # cache), block_tables, seq_lens, out, b, h, d, block_size,
-        # max_pages, q stride b, q stride h, scale, q dtype, cache dtype,
-        # stream
-        "apex_flash_decode": [_P] * 8 + [_I] * 5 + [_L, _L, _F, _I, _I,
-                                                    _P],
+        # cache), block_tables, seq_lens, part_o, part_ml (fp32 scratch,
+        # null at one split), out, b, h, d, block_size, max_pages, q
+        # stride b, q stride h, scale, q dtype, cache dtype, stream
+        "apex_flash_decode": [_P] * 10 + [_I] * 5 + [_L, _L, _F, _I, _I,
+                                                     _P],
         # block_size, max_pages -> the number of position splits
         "apex_flash_decode_multi_splits": [_I, _I],
         # q (b, t, h, d), k_cache, v_cache, k_scale, v_scale,

@@ -35,18 +35,39 @@
 // conversion by permutes instead of I2F, and bf16 x on the tensor cores
 // (M padded to 16).
 //
-// Row 17, what bounds it: operations.  A 704-row prefill does 2 * 704
-// FLOPs per code.  bf16 / fp16 x runs on the tensor cores: the codes +-127
-// are exact in bf16 and fp16, so an mma.sync m16n8k16 product with fp32
-// accumulation forms the same exact products as JAX's fp32 dot_general.
-// Blocks own 64 x 64 output tiles (4 warps of 32 x 32), step K by 32 with
-// the x rows and the codes (converted to x's type, stored n-major so a k
-// pair is one 32-bit fragment word; rows padded to 80 bytes so fragment
-// reads hit distinct banks) in shared memory, and apply the scale at the
-// store.  fp32 x (the O0 check) takes the classic FMA tile: 64 x 64
-// outputs, 256 threads each a 4 x 4 register tile, 16-deep K steps.
-// Every edge is masked in both.  Later work: wgmma with TMA-fed,
-// multi-stage shared-memory rings.
+// Row 17, what bounds it: operations at a prefill's M (704 rows do 2 * 704
+// FLOPs a code), bytes at the verify's and the chunk's (M = 24 or 32: the
+// code stream, 3.1 MB for GPT-345M's qkv).  bf16 / fp16 x runs on the
+// tensor cores: the codes +-127 are exact in bf16 and fp16, so an
+// mma.sync m16n8k16 product with fp32 accumulation forms the same exact
+// products as JAX's fp32 dot_general.  On the TPU the grid walked K in
+// order with an fp32 VMEM accumulator.  Here the codes never pass through
+// an int-to-float conversion: a lane builds its B fragments in registers
+// from the raw bytes (`code_pair`: bf16 from the float 2^23 + c + 128, fp16
+// from the half 1024 + c + 128, each less its bias; exact), the pairs of
+// K rows a fragment needs read as one word a row, 4 columns wide, n8
+// tile i's column g standing for column 4g + i (8g + i in the small
+// kernel).  Above 32 rows (`quant_mma_kernel`): 64 x 128 output tiles of 4
+// warps (64 x 32 each) walk K through a ring of three `cp.async` stages
+// (64 K rows of x and of the raw codes, 16 bytes a thread; code rows
+// padded to 144 bytes so a fragment's word reads hit distinct banks), one
+// barrier a stage, x's fragments by `ldmatrix`.  At 9-32 rows
+// (`quant_small_kernel`) the code stream is the cost: a block owns a strip
+// of 64 columns and 32 rows, its 4 warps share its K range, and each lane
+// loads its fragments straight from device memory (8 bytes of codes a K
+// row, 8 bytes of x a row, 4 k-steps in flight), so nothing waits on
+// shared memory until the sums.  Where the tiles (or strips) are fewer
+// than twice the SMs, K is split over up to 4 blocks of a thread-block
+// cluster; the warps' partials meet in shared memory in warp order and the
+// ranks' through distributed shared memory in rank order, each rank summing
+// its share of the tile: no atomics, results repeat bitwise.  Of cluster
+// caps 1, 2, 4 and 8 on the H100, 4 gave the least time summed over the
+// Q8 serve's shapes (8 clusters ran the verify's qkv 1.6x slower).  The
+// column scale multiplies each sum once at the store.  fp32 x (the O0
+// check) takes the classic FMA tile: 64 x 64 outputs, 256 threads each a
+// 4 x 4 register tile, 16-deep K steps.  Every edge is masked; N or K off
+// the vector loads (or a misaligned pointer) loads by element.  Later
+// work: wgmma with TMA-fed rings, and larger tiles at large M.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -55,27 +76,13 @@
 #include <cooperative_groups.h>
 #include <type_traits>
 
+// to_f / from_f, and the tensor-core primitives (ldmatrix, cp.async,
+// mma.sync m16n8k16, pack2) the flash kernels share
+#include "flash_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half v) {
-  return __half2float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) {
-  return __float2half(v);
-}
 
 // --- row 16: the GEMV -------------------------------------------------
 
@@ -325,136 +332,415 @@ quant_tiled_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
 
 // --- row 17 for bf16 / fp16 x: the tensor cores ------------------------
 
-constexpr int kMmaM = 64;
-constexpr int kMmaN = 64;
-constexpr int kMmaK = 32;
-constexpr int kMmaThreads = 128;   // 2 x 2 warps, each a 32 x 32 tile
-constexpr int kMmaPad = 8;         // row pad: 80-byte rows, conflict-free
-
-union Codes16 {
-  int4 v;
-  int8_t b[16];
-};
-
-template <typename TX> struct Mma;
-template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// the card's SMs (132 on an H100 SXM), read once
+int sm_count() {
+  static int sms = 0;
+  if (sms <= 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        sms <= 0)
+      sms = 132;
   }
-};
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-__device__ __forceinline__ uint32_t pair_at(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+  return sms;
 }
 
-// 64 x 64 output tiles, 32-deep K steps: x rows and the codes (converted to
-// x's type, exact for +-127, stored n-major so a k pair is one 32-bit
-// word) in shared memory, m16n8k16 products accumulated in fp32 registers
-template <typename TX, typename TO, bool VEC>
-__global__ void __launch_bounds__(kMmaThreads)
-quant_mma_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
-                 const float* __restrict__ scale, TO* __restrict__ out, int m, int n,
-                 int k) {
-  __shared__ __align__(16) TX xs[kMmaM][kMmaK + kMmaPad];
-  __shared__ __align__(16) TX ws[kMmaN][kMmaK + kMmaPad];
+constexpr int kQMaxSplits = 4;  // blocks a cluster
 
+// Codes biased by 0x80 (u = c + 128, one byte each): byte i of a and byte
+// j of b as the exact TX pair (c_a in the low half), with no int-to-float
+// conversion: bf16 from the float 2^23 + u less 2^23 + 128 (an integer
+// below 128 in magnitude, so its top half is its bf16), fp16 from the half
+// 1024 + u less 1152
+template <typename TX>
+__device__ __forceinline__ uint32_t code_pair(uint32_t a, int i, uint32_t b, int j) {
+  if constexpr (std::is_same<TX, __half>::value) {
+    const uint32_t v = (__byte_perm(a, b, i | ((4 + j) << 8)) & 0x00ff00ffu) | 0x64006400u;
+    const uint32_t bias = 0x64806480u;  // (1152, 1152)
+    const __half2 h = __hsub2(*reinterpret_cast<const __half2*>(&v),
+                              *reinterpret_cast<const __half2*>(&bias));
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const float fa = __uint_as_float(__byte_perm(a, 0x4b000000u, 0x7540 | i)) - 8388736.f;
+    const float fb = __uint_as_float(__byte_perm(b, 0x4b000000u, 0x7540 | j)) - 8388736.f;
+    return __byte_perm(__float_as_uint(fa), __float_as_uint(fb), 0x7632);
+  }
+}
+
+
+// a cluster's K splits of a grid (x, y, splits) of per-block partial sums
+// [BM][BN] fp32 in each block's shared memory (`red`, written): each rank
+// sums its share of the tile over the ranks' partials (all its loads
+// issued, then added in rank order) through distributed shared memory and
+// stores it, the column scale multiplying each sum; one split stores its
+// own
+template <typename TO, int BM, int BN, int kThreads>
+__device__ __forceinline__ void store_sums(float* red, const float* __restrict__ scale,
+                                           TO* __restrict__ out, int m, int n, int m0,
+                                           int n0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = (int)cluster.num_blocks();
+  if (ranks > 1) cluster.sync();  // every rank's partials are in its shared memory
+  else __syncthreads();
+  constexpr int kVecs = BM * BN / 4;
+  const int per = (kVecs + ranks - 1) / ranks;
+  const int v0 = (int)cluster.block_rank() * per;
+  const int v1 = min(kVecs, v0 + per);
+  for (int v = v0 + (int)threadIdx.x; v < v1; v += kThreads) {
+    float4 part[kQMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kQMaxSplits; ++r)
+      if (r < ranks) part[r] = reinterpret_cast<const float4*>(cluster.map_shared_rank(red, r))[v];
+    float4 sum = part[0];
+#pragma unroll
+    for (int r = 1; r < kQMaxSplits; ++r)
+      if (r < ranks) {
+        sum.x += part[r].x;
+        sum.y += part[r].y;
+        sum.z += part[r].z;
+        sum.w += part[r].w;
+      }
+    const int gm = m0 + 4 * v / BN, gn = n0 + 4 * v % BN;
+    if (gm < m) {
+      const float e[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gn + j < n) out[(size_t)gm * n + gn + j] = from_f<TO>(e[j] * scale[gn + j]);
+    }
+  }
+  if (ranks > 1) cluster.sync();  // the other ranks' memory stays until it is read
+}
+
+// K splits for a grid of `tiles` blocks: toward two blocks an SM, at most a
+// cluster's kQMaxSplits, at least `min_k` K rows a split, a power of 2
+int k_splits(int tiles, int k, int min_k) {
+  int splits = 1;
+  while (splits * 2 <= kQMaxSplits && tiles * splits < 2 * sm_count() &&
+         k / (splits * 2) >= min_k)
+    splits *= 2;
+  return splits;
+}
+
+// --- row 17, 9-32 rows: codes straight into B fragments ----------------
+
+constexpr int kSmallRows = 32;     // M up to this takes the small kernel
+constexpr int kSmallCols = 64;     // columns a warp (and its block) owns
+constexpr int kSmallWarps = 4;     // the block's K range split over them
+constexpr int kSmallThreads = kSmallWarps * 32;
+constexpr int kSmallUnroll = 4;    // k-steps a warp loads before their use
+constexpr int kSmallSmem = kSmallWarps * kSmallRows * kSmallCols * 4;
+
+// 8 codes of K row r from column c; columns past n, rows at or past kend: 0
+template <bool VEC>
+__device__ __forceinline__ uint2 codes8(const int8_t* __restrict__ w, int r, int c, int n,
+                                        int kend) {
+  if (r >= kend) return make_uint2(0, 0);
+  const int8_t* p = w + (size_t)r * n + c;
+  if (VEC) return c < n ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0, 0);
+  uint32_t v[2] = {0, 0};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (c + j < n) v[j >> 2] |= (uint32_t)(uint8_t)p[j] << (8 * (j & 3));
+  return make_uint2(v[0], v[1]);
+}
+
+// 4 x values of row r from column kk; rows past m, columns at or past
+// kend: 0
+template <typename TX, bool VEC>
+__device__ __forceinline__ uint2 x4(const TX* __restrict__ x, int r, int kk, int m, int k,
+                                    int kend) {
+  if (r >= m) return make_uint2(0, 0);
+  const TX* p = x + (size_t)r * k + kk;
+  if (VEC) return kk < kend ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0, 0);
+  const unsigned short* e = reinterpret_cast<const unsigned short*>(p);
+  uint32_t v[2] = {0, 0};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (kk + j < kend) v[j >> 1] |= (uint32_t)e[j] << (16 * (j & 1));
+  return make_uint2(v[0], v[1]);
+}
+
+// Grid (64-column strips, 1, K splits), one cluster of the splits per
+// strip.  Warp w of a block takes k-steps w, w + 4, ... (16 K rows each) of
+// the block's range.  Lane (g, t) loads, per k-step at K row k0, the codes
+// of rows k0 + 4t .. k0 + 4t + 3 at columns 8g .. 8g + 7 (one 8-byte load
+// a row) and x's rows g, g + 8, g + 16, g + 24 at columns k0 + 4t .. + 3:
+// k-slots 2t, 2t + 1, 2t + 8, 2t + 9 of the m16n8k16 fragments stand for K
+// rows 4t .. 4t + 3 in both operands, and column g of n8 tile i for column
+// 8g + i, so each lane's loads are its fragments, converted in registers.
+// The warps' partials meet in shared memory in warp order, the splits
+// through the cluster in rank order.
+template <typename TX, typename TO, bool VEC>
+__global__ void __launch_bounds__(kSmallThreads)
+quant_small_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ scale, TO* __restrict__ out, int m, int n, int k,
+                   int k_split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* red = reinterpret_cast<float*>(smem_raw);  // [warp][32][64]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, tg = lane & 3;
-  const int m0 = blockIdx.y * kMmaM;
-  const int n0 = blockIdx.x * kMmaN;
-  const TX zero = from_f<TX>(0.f);
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n0 = blockIdx.x * kSmallCols;
+  const int kb = blockIdx.z * k_split;
+  const int kend = min(k, kb + k_split);
+  const int steps = kend > kb ? (kend - kb + 15) / 16 : 0;
 
-  float acc[2][4][4];
+  float acc[2][8][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int s0 = warp; s0 < steps; s0 += kSmallWarps * kSmallUnroll) {
+    uint2 cw[kSmallUnroll][4], xw[kSmallUnroll][4];
+#pragma unroll
+    for (int u = 0; u < kSmallUnroll; ++u) {
+      const int s = s0 + u * kSmallWarps;
+      const int k0 = kb + (s < steps ? s : steps) * 16 + 4 * t4;  // past the range: zeros
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cw[u][j] = codes8<VEC>(w, k0 + j, n0 + 8 * g, n, kend);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) xw[u][r] = x4<TX, VEC>(x, g + 8 * r, k0, m, k, kend);
+    }
+#pragma unroll
+    for (int u = 0; u < kSmallUnroll; ++u) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        a[mt][0] = xw[u][2 * mt].x;      // row g, K 4t, 4t + 1
+        a[mt][1] = xw[u][2 * mt + 1].x;  // row g + 8
+        a[mt][2] = xw[u][2 * mt].y;      // row g, K 4t + 2, 4t + 3
+        a[mt][3] = xw[u][2 * mt + 1].y;
+      }
+      uint32_t c[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[j][0] = cw[u][j].x ^ 0x80808080u;
+        c[j][1] = cw[u][j].y ^ 0x80808080u;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t b0 = code_pair<TX>(c[0][i >> 2], i & 3, c[1][i >> 2], i & 3);
+        const uint32_t b1 = code_pair<TX>(c[2][i >> 2], i & 3, c[3][i >> 2], i & 3);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma16816<TX>(acc[mt][i], a[mt], b0, b1);
+      }
+    }
+  }
+  // the warps' partials, then their sum in warp order into warp 0's
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(warp * kSmallRows + mt * 16 + g + 8 * (e >> 1)) * kSmallCols +
+            8 * (2 * t4 + (e & 1)) + i] = acc[mt][i][e];
+  __syncthreads();
+  constexpr int kTile = kSmallRows * kSmallCols;
+  for (int i = tid; i < kTile; i += kSmallThreads) {
+    float sum = red[i];
+#pragma unroll
+    for (int wp = 1; wp < kSmallWarps; ++wp) sum += red[wp * kTile + i];
+    red[i] = sum;
+  }
+  store_sums<TO, kSmallRows, kSmallCols, kSmallThreads>(red, scale, out, m, n, 0, n0);
+}
+
+// --- row 17, above 32 rows: staged tiles -------------------------------
+
+constexpr int kQK = 64;      // K rows a stage holds
+constexpr int kQStages = 3;  // stages in the ring
+constexpr int kQBM = 64;     // a block's rows
+constexpr int kQBN = 128;    // its columns
+constexpr int kQWarps = 4;   // each 64 x 32
+constexpr int kQThreads = 32 * kQWarps;
+constexpr int kQXP = kQK + 8;    // x row pitch, elements (16-byte pad)
+constexpr int kQRP = kQBN + 16;  // code row pitch, bytes: rows 2 apart 8 banks apart
+constexpr int kQXBytes = kQBM * kQXP * 2;
+constexpr int kQStageBytes = kQXBytes + kQK * kQRP;
+constexpr int kQSmem = kQStages * kQStageBytes;
+static_assert(kQBM * kQBN * 4 <= kQSmem, "the partials reuse the stages");
+
+// stage of x rows [m0, m0 + 64) and code rows [k0, k0 + 64) of columns
+// [n0, n0 + 128): by cp.async, 16 bytes a thread (VEC), else by element;
+// x's columns and the code rows at or past kend, rows past m and columns
+// past n read as 0
+template <typename TX, bool VEC>
+__device__ __forceinline__ void load_stage(unsigned char* st, const TX* __restrict__ x,
+                                           const int8_t* __restrict__ w, int m, int n,
+                                           int k, int m0, int n0, int k0, int kend) {
+  TX* xs = reinterpret_cast<TX*>(st);
+  int8_t* raw = reinterpret_cast<int8_t*>(st + kQXBytes);
+  if constexpr (VEC) {
+    constexpr int kXC = kQK / 8;   // 16-byte chunks of an x row
+    constexpr int kWC = kQBN / 16;  // of a code row
+    for (int i = threadIdx.x; i < kQBM * kXC; i += kQThreads) {
+      const int r = i / kXC, c = (i - r * kXC) * 8;
+      const bool ok = m0 + r < m && k0 + c < kend;
+      cp_async16(xs + r * kQXP + c, ok ? x + (size_t)(m0 + r) * k + k0 + c : x, ok ? 16 : 0);
+    }
+    for (int i = threadIdx.x; i < kQK * kWC; i += kQThreads) {
+      const int r = i / kWC, c = (i - r * kWC) * 16;
+      const bool ok = k0 + r < kend && n0 + c < n;
+      cp_async16(raw + r * kQRP + c, ok ? w + (size_t)(k0 + r) * n + n0 + c : w, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kQBM * kQK; i += kQThreads) {
+      const int r = i / kQK, c = i - r * kQK;
+      xs[r * kQXP + c] = m0 + r < m && k0 + c < kend ? x[(size_t)(m0 + r) * k + k0 + c]
+                                                     : from_f<TX>(0.f);
+    }
+    for (int i = threadIdx.x; i < kQK * kQBN; i += kQThreads) {
+      const int r = i / kQBN, c = i - r * kQBN;
+      raw[r * kQRP + c] = k0 + r < kend && n0 + c < n ? w[(size_t)(k0 + r) * n + n0 + c]
+                                                      : int8_t(0);
+    }
+  }
+}
+
+// acc += the stage's 64 x rows (A fragments by ldmatrix) times the warp's
+// 32 columns of raw codes (from wn0): lane (g, t) reads K rows 2t, 2t + 1,
+// 2t + 8, 2t + 9 of each k-step at columns 4g .. 4g + 3, one word a row,
+// and converts them in registers into the B fragments of 4 n8 tiles, tile
+// i's column g standing for column 4g + i
+template <typename TX>
+__device__ __forceinline__ void mma_stage(float (&acc)[4][4][4], const TX* xs,
+                                          const int8_t* raw, int wn0, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < kQK / 16; ++ks) {
+    uint32_t af[4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+      ldsm_x4(af[mt], xs + (mt * 16 + (lane & 15)) * kQXP + ks * 16 + (lane >> 4) * 8);
+    const int8_t* rp = raw + (ks * 16 + 2 * t4) * kQRP + wn0 + 4 * g;
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(rp) ^ 0x80808080u;
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(rp + kQRP) ^ 0x80808080u;
+    const uint32_t w2 = *reinterpret_cast<const uint32_t*>(rp + 8 * kQRP) ^ 0x80808080u;
+    const uint32_t w3 = *reinterpret_cast<const uint32_t*>(rp + 9 * kQRP) ^ 0x80808080u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t b0 = code_pair<TX>(w0, i, w1, i);
+      const uint32_t b1 = code_pair<TX>(w2, i, w3, i);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) mma16816<TX>(acc[mt][i], af[mt], b0, b1);
+    }
+  }
+}
+
+// Grid (128-column tiles, 64-row tiles, K splits), the splits one cluster.
+// Block (x, y, z) sums K rows [z * k_split, (z + 1) * k_split) of its tile
+// through the stage ring, one barrier a stage: stages t + 1 and t + 2 load
+// while stage t is multiplied.
+template <typename TX, typename TO, bool VEC>
+__global__ void __launch_bounds__(kQThreads)
+quant_mma_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
+                 const float* __restrict__ scale, TO* __restrict__ out, int m, int n, int k,
+                 int k_split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wn0 = warp * (kQBN / kQWarps);
+  const int m0 = blockIdx.y * kQBM;
+  const int n0 = blockIdx.x * kQBN;
+  const int kb = blockIdx.z * k_split;
+  const int kend = min(k, kb + k_split);
+  const int nk = kend > kb ? (kend - kb + kQK - 1) / kQK : 0;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  for (int k0 = 0; k0 < k; k0 += kMmaK) {
-    {  // x: row tid / 2, 16 consecutive k from (tid % 2) * 16
-      const int r = tid >> 1, kk = (tid & 1) * 16;
-      const int gm = m0 + r;
-      const TX* xp = x + (size_t)gm * k + k0 + kk;
-      if (VEC && gm < m && k0 + kk + 16 <= k) {
-        const uint4* src = reinterpret_cast<const uint4*>(xp);
-        uint4* dst = reinterpret_cast<uint4*>(&xs[r][kk]);
-        dst[0] = __ldg(src);
-        dst[1] = __ldg(src + 1);
-      } else {
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          xs[r][kk + j] = gm < m && k0 + kk + j < k ? xp[j] : zero;
-      }
-    }
-    {  // codes: k row tid / 4, 16 consecutive columns from (tid % 4) * 16
-      const int kk = tid >> 2, nn = (tid & 3) * 16;
-      const int gk = k0 + kk, gn = n0 + nn;
-      const int8_t* wp = w + (size_t)gk * n + gn;
-      Codes16 u;
-      if (VEC && gk < k && gn + 16 <= n) {
-        u.v = __ldg(reinterpret_cast<const int4*>(wp));
-      } else {
-#pragma unroll
-        for (int j = 0; j < 16; ++j) u.b[j] = gk < k && gn + j < n ? wp[j] : int8_t(0);
-      }
-#pragma unroll
-      for (int j = 0; j < 16; ++j) ws[nn + j][kk] = from_f<TX>(static_cast<float>(u.b[j]));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kMmaK; ks += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm * 32 + i * 16 + g;
-        a[i][0] = pair_at(&xs[r][ks + tg * 2]);
-        a[i][1] = pair_at(&xs[r + 8][ks + tg * 2]);
-        a[i][2] = pair_at(&xs[r][ks + tg * 2 + 8]);
-        a[i][3] = pair_at(&xs[r + 8][ks + tg * 2 + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cn = wn * 32 + j * 8 + g;
-        b[j][0] = pair_at(&ws[cn][ks + tg * 2]);
-        b[j][1] = pair_at(&ws[cn][ks + tg * 2 + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) Mma<TX>::run(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();  // the tiles are rewritten by the next K step
+  for (int st = 0; st < kQStages - 1; ++st) {
+    if (st < nk)
+      load_stage<TX, VEC>(smem_raw + st * kQStageBytes, x, w, m, n, k, m0, n0,
+                          kb + st * kQK, kend);
+    cp_async_commit();
   }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<kQStages - 2>();
+    __syncthreads();  // stage t is in; step t - 1 is done with its stage
+    const int nt = t + kQStages - 1;
+    if (nt < nk)
+      load_stage<TX, VEC>(smem_raw + (nt % kQStages) * kQStageBytes, x, w, m, n, k, m0, n0,
+                          kb + nt * kQK, kend);
+    cp_async_commit();
+    const unsigned char* st = smem_raw + (t % kQStages) * kQStageBytes;
+    mma_stage<TX>(acc, reinterpret_cast<const TX*>(st),
+                  reinterpret_cast<const int8_t*>(st + kQXBytes), wn0, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every stage consumed: the partials take their memory
+  float* red = reinterpret_cast<float*>(smem_raw);  // [64][128]
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int gm = m0 + wm * 32 + i * 16 + g + (e >> 1) * 8;
-        const int gn = n0 + wn * 32 + j * 8 + tg * 2 + (e & 1);
-        if (gm < m && gn < n) out[(size_t)gm * n + gn] = from_f<TO>(acc[i][j][e] * scale[gn]);
-      }
+      for (int e = 0; e < 4; ++e)
+        red[(i * 16 + g + (e >> 1) * 8) * kQBN + wn0 + 4 * (2 * t4 + (e & 1)) + j] =
+            acc[i][j][e];
+  store_sums<TO, kQBM, kQBN, kQThreads>(red, scale, out, m, n, m0, n0);
+}
+
+// one cluster launch of a row-17 kernel: grid (x, y, splits), cluster (1,
+// 1, splits), `smem` bytes of dynamic shared memory
+template <typename K, typename TX, typename TO>
+cudaError_t launch_cluster(K kern, dim3 grid, int threads, int smem, const TX* x,
+                           const int8_t* w, const float* sc, TO* out, int m, int n, int k,
+                           int k_split, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = grid.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, x, w, sc, out, m, n, k, k_split);
+}
+
+// K rows a split: whole stages (or k-steps), so splits start aligned
+int split_rows(int k, int splits, int step) {
+  const int per = (k + splits - 1) / splits;
+  return (per + step - 1) / step * step;
+}
+
+// row 17 for M rows: the small kernel up to 32 rows (64-column strips, K
+// split toward two blocks an SM, at least 128 K rows a split), else the
+// staged 64 x 128 tiles (K split likewise, at least two stages a split)
+template <typename TX, typename TO, bool VEC>
+cudaError_t launch_mma(const TX* x, const int8_t* w, const float* sc, TO* out, int m, int n,
+                       int k, cudaStream_t stream) {
+  if (m <= kSmallRows) {
+    const int strips = (n + kSmallCols - 1) / kSmallCols;
+    const int splits = k_splits(strips, k, 128);
+    return launch_cluster(quant_small_kernel<TX, TO, VEC>, dim3(strips, 1, splits),
+                          kSmallThreads, kSmallSmem, x, w, sc, out, m, n, k,
+                          split_rows(k, splits, 16), stream);
+  }
+  const dim3 tiles((n + kQBN - 1) / kQBN, (m + kQBM - 1) / kQBM, 1);
+  const int splits = k_splits(tiles.x * tiles.y, k, 2 * kQK);
+  return launch_cluster(quant_mma_kernel<TX, TO, VEC>, dim3(tiles.x, tiles.y, splits),
+                        kQThreads, kQSmem, x, w, sc, out, m, n, k,
+                        split_rows(k, splits, kQK), stream);
 }
 
 template <typename TX, typename TO>
@@ -490,14 +776,14 @@ cudaError_t launch(bool gemv, const void* x, const void* w, const void* scale,
                                  op, m, n, k, k_split);
     if (e != cudaSuccess) return e;
   } else if constexpr (!std::is_same<TX, float>::value) {
-    const dim3 grid((n + kMmaN - 1) / kMmaN, (m + kMmaM - 1) / kMmaM);
+    // VEC: the vector loads (8 bytes in the small kernel, 16 in the
+    // staged one) are aligned and each chunk is wholly in or out
     const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
-    if (k % 8 == 0 && n % 16 == 0 && xa % 16 == 0 && wa % 16 == 0)
-      quant_mma_kernel<TX, TO, true><<<grid, kMmaThreads, 0, stream>>>(xp, wp, sp, op, m,
-                                                                      n, k);
-    else
-      quant_mma_kernel<TX, TO, false><<<grid, kMmaThreads, 0, stream>>>(xp, wp, sp, op,
-                                                                       m, n, k);
+    const bool vec = m <= kSmallRows
+                         ? k % 4 == 0 && n % 8 == 0 && xa % 8 == 0 && wa % 8 == 0
+                         : k % 8 == 0 && n % 16 == 0 && xa % 16 == 0 && wa % 16 == 0;
+    if (vec) return launch_mma<TX, TO, true>(xp, wp, sp, op, m, n, k, stream);
+    return launch_mma<TX, TO, false>(xp, wp, sp, op, m, n, k, stream);
   } else {
     const dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
     if (n % 4 == 0 && wa % 4 == 0)

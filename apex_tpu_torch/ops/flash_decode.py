@@ -34,6 +34,7 @@ The int8 branches count their launches as ``flash_decode_int8`` and
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -159,6 +160,20 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _aligned16(cache):
+    """The cache itself, or a copy where a view's data starts off 16
+    bytes (the kernel reads rows 16 bytes at a time)."""
+    return cache if cache.data_ptr() % 16 == 0 else cache.clone()
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_splits(b: int, h: int, bs: int, mp: int) -> int:
+    """Row 14's number of position splits (the C side's rule), asked
+    once a shape: the serve's decode repeats a few shapes every tick."""
+    return _build.library("flash_decode").apex_flash_decode_splits(
+        b, h, bs, mp)
+
+
 def _launch(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens,
             scale):
     _check_launch("flash_decode", q, k_cache, v_cache, k_scale, v_scale,
@@ -171,14 +186,27 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens,
     if block_tables.shape[1] == 0:
         return out.zero_()
     lib = _build.library("flash_decode")
+    mp = block_tables.shape[1]
+    k_cache, v_cache = _aligned16(k_cache), _aligned16(v_cache)
+    # a row's splits meet in one fp32 scratch: each split leaves its
+    # accumulator (part_o) and (max, sum) (part_ml, after every part_o);
+    # one split writes out directly
+    splits = _decode_splits(b, h, bs, mp)
+    part_o = part_ml = None
+    if splits > 1:
+        rows = b * h * splits
+        part = torch.empty(rows * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        part_o = part.data_ptr()
+        part_ml = part_o + rows * d * part.element_size()
     with torch.cuda.device(q.device):
         rc = lib.apex_flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-            seq_lens.data_ptr(), out.data_ptr(), b, h, d, bs,
-            block_tables.shape[1], q.stride(0), q.stride(1), float(scale),
-            _build.dtype_code(q.dtype), _build.dtype_code(k_cache.dtype),
-            _build.stream_ptr(q.device))
+            seq_lens.data_ptr(), part_o, part_ml,
+            out.data_ptr(), b, h, d, bs, mp, q.stride(0), q.stride(1),
+            float(scale), _build.dtype_code(q.dtype),
+            _build.dtype_code(k_cache.dtype), _build.stream_ptr(q.device))
     name = "flash_decode_int8" if k_scale is not None else "flash_decode"
     _build.check("flash_decode", rc, f"{name} kernel")
     bump(name)

@@ -22,3 +22,8 @@ inline __half __float2half(float f) {
 }
 inline __half2 __floats2half2_rn(float a, float b) { return {__float2half(a), __float2half(b)}; }
 inline __half __ushort_as_half(unsigned short v) { return __half{v}; }
+// lane-wise a - b, rounded to fp16
+inline __half2 __hsub2(__half2 a, __half2 b) {
+  return {__float2half(__half2float(a.x) - __half2float(b.x)),
+          __float2half(__half2float(a.y) - __half2float(b.y))};
+}
