@@ -104,16 +104,23 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # g, p, m, v, lowp, n, lr, beta1, beta2, eps, weight_decay, bc1,
         # bc2, gscale, keep, adam_w_mode, g_dtype, lowp_dtype, stream
         "apex_adam_pipeline": [_P] * 5 + [_L] + [_F] * 9 + [_I] * 3 + [_P],
-        # g, p, m, v, lowp, n, lr, beta1, 1 - beta1, beta2, 1 - beta2,
-        # eps, weight_decay, bc1, bc2, adam_w_mode, g_dtype, lowp_dtype,
-        # stream
-        "apex_adam_step": [_P] * 5 + [_L] + [_F] * 9 + [_I] * 3 + [_P],
+        # -> the leaves one apex_adam_step_leaves launch takes
+        "apex_adam_step_capacity": [],
+        # ptrs ((count, 5) int64: g, p, m, v, lowp), ns ((count,) int64),
+        # count, chunk, lr, beta1, 1 - beta1, beta2, 1 - beta2, eps,
+        # weight_decay, bc1, bc2, adam_w_mode, g_dtype, lowp_dtype, stream
+        "apex_adam_step_leaves": [_P, _P, _I, _I] + [_F] * 9 + [_I] * 3
+        + [_P],
     },
     "fused_sgd": {
-        # g, p, mom, lowp, n, lr, momentum, 1 - dampening, weight_decay,
+        # -> the leaves one apex_sgd_step_leaves launch takes
+        "apex_sgd_step_capacity": [],
+        # ptrs ((count, 4) int64: g, p, mom, lowp), ns ((count,) int64),
+        # count, chunk, lr, momentum, 1 - dampening, weight_decay,
         # first_run, nesterov, wd_after_momentum, g_dtype, lowp_dtype,
         # stream
-        "apex_sgd_step": [_P] * 4 + [_L] + [_F] * 4 + [_I] * 5 + [_P],
+        "apex_sgd_step_leaves": [_P, _P, _I, _I] + [_F] * 4 + [_I] * 5
+        + [_P],
         # g, p, mom, lowp, gscale, keep (device fp32 scalars), n, lr,
         # momentum, 1 - dampening, weight_decay, first_run, nesterov,
         # wd_after_momentum, g_dtype, lowp_dtype, stream

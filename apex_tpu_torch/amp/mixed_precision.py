@@ -31,9 +31,10 @@ kept one a parameter (an fp32 parameter, such as a batch norm's under
 O5, is its own master), ``.grad`` are ordinary tensors, and a step
 unscales the gradients in their own dtype (:func:`~.scaler.unscale`),
 then runs ``optimizer.fused_step`` on the state of
-``optimizer.staged_init`` (one buffer a master) — one kernel a
-parameter, which steps the master and state and writes the model copy
-straight into the parameter's storage when the kernel emits it (JAX's
+``optimizer.staged_init`` (one buffer a master) — one call over every
+parameter, a kernel launch a (gradient, copy) dtype pair and table of
+parameters, which steps the masters and state and writes each model copy
+straight into its parameter's storage where the kernel emits it (JAX's
 ``_lowp_dtype_for``: the model dtype differs from the master's); an
 fp32 parameter is stepped in place.
 

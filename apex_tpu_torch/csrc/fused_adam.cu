@@ -1,4 +1,5 @@
-// The Adam pipeline sweep for Hopper (sm_90a), plain C interface.
+// Adam for Hopper (sm_90a), plain C interface: the pipeline sweep and the
+// staged step over a table of leaves.
 //
 // Replaces: apex_tpu/ops/fused_optim.py `_elementwise_call` running
 // apex_tpu/ops/fused_pipeline.py `_adam_pipeline_kernel` — the
@@ -12,7 +13,7 @@
 //
 // Also replaces `_adam_step_kernel` (`adam_step`, fused_optim.py:196-246),
 // the per-leaf step of the staged amp route: the same Adam or AdamW update
-// on one leaf with no scale and no skip (amp unscales before and skips
+// on each leaf with no scale and no skip (amp unscales before and skips
 // around it), writing p, m, v in place and the model-dtype copy.  Its
 // every operation is written with an explicit round-to-nearest intrinsic
 // (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn) in the order of the plain
@@ -26,79 +27,28 @@
 // m, v, 2 for the bf16 copy): one stream with no reuse, ~3 ms at
 // 3.35 TB/s for GPT-345M's 355M elements.
 //
-// What the simple design does about it: one pass, each element read and
-// written exactly once, four elements per thread per iteration with
-// 16-byte loads of p/m/v and 8-byte loads of a 16-bit g (a scalar loop
-// takes over when a pointer is not aligned for that, and for the tail),
-// and a grid-stride loop over a grid sized to fill the card.  Math is
-// fp32 in the order of the JAX kernel.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <type_traits>
+// What the design does about it: one pass, each element read and written
+// exactly once, with 16-byte loads of p/m/v and 8-byte loads of a 16-bit
+// g (a scalar loop takes over when a pointer is not aligned for that, and
+// for the tail).  The sweep: four elements a thread an iteration, a
+// grid-stride loop over a grid sized to fill the card.  The step: one
+// launch walks a table of leaves, one block a chunk of a leaf, kUnroll
+// vectors in flight a thread, as csrc/fused_sgd.cu's step does (the
+// reasons are there).  Math is fp32 in the order of the JAX kernel.
+#include "optim_step.cuh"
 
 namespace {
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half v) {
-  return __half2float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) {
-  return __float2half(v);
-}
 
 struct Hyp {
   float lr, b1, b2, eps, wd, bc1, bc2, gscale, keep;
 };
 
-// the per-leaf step's: 1 - beta1 and 1 - beta2 formed in fp32 by the caller
+// the step's: 1 - beta1 and 1 - beta2 formed in fp32 by the caller;
+// adam_w 1: decoupled decay (AdamW), 0: L2 decay folded into g
 struct StepHyp {
   float lr, b1, omb1, b2, omb2, eps, wd, bc1, bc2;
+  int adam_w;
 };
-
-constexpr int kThreads = 256;
-
-// four elements of T at p (aligned for the vector width) as fp32
-template <typename T> struct Vec4;
-template <> struct Vec4<float> {
-  static __device__ __forceinline__ void load(const float* p, float* o) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* i) {
-    *reinterpret_cast<float4*>(p) = make_float4(i[0], i[1], i[2], i[3]);
-  }
-};
-template <typename H> struct Vec4Half {
-  static __device__ __forceinline__ void load(const H* p, float* o) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const H* h = reinterpret_cast<const H*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[e] = to_f<H>(h[e]);
-  }
-  static __device__ __forceinline__ void store(H* p, const float* i) {
-    uint2 u;
-    H* h = reinterpret_cast<H*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) h[e] = from_f<H>(i[e]);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
-};
-template <> struct Vec4<__nv_bfloat16> : Vec4Half<__nv_bfloat16> {};
-template <> struct Vec4<__half> : Vec4Half<__half> {};
 
 // one element: the `_adam_pipeline_kernel` expression, in its order
 __device__ __forceinline__ void adam_one(float g, float& p, float& m, float& v,
@@ -129,42 +79,6 @@ __device__ __forceinline__ void adam_step_one(float g, float& p, float& m, float
   p = __fsub_rn(p, __fmul_rn(h.lr, upd));
   m = m_new;
   v = v_new;
-}
-
-template <typename G, typename L, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-adam_step_kernel(const G* __restrict__ g, float* __restrict__ p, float* __restrict__ m,
-                 float* __restrict__ v, L* __restrict__ lowp, long long n, StepHyp h,
-                 int adam_w) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long tail = 0;
-  if (kVec) {
-    const long long n4 = n / 4;
-    for (long long q = first; q < n4; q += stride) {
-      const long long i = 4 * q;
-      float gg[4], pp[4], mm[4], vv[4];
-      Vec4<G>::load(g + i, gg);
-      Vec4<float>::load(p + i, pp);
-      Vec4<float>::load(m + i, mm);
-      Vec4<float>::load(v + i, vv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) adam_step_one(gg[e], pp[e], mm[e], vv[e], h, adam_w);
-      Vec4<float>::store(p + i, pp);
-      Vec4<float>::store(m + i, mm);
-      Vec4<float>::store(v + i, vv);
-      if (lowp != nullptr) Vec4<L>::store(lowp + i, pp);
-    }
-    tail = 4 * n4;
-  }
-  for (long long i = tail + first; i < n; i += stride) {
-    float pp = p[i], mm = m[i], vv = v[i];
-    adam_step_one(to_f<G>(g[i]), pp, mm, vv, h, adam_w);
-    p[i] = pp;
-    m[i] = mm;
-    v[i] = vv;
-    if (lowp != nullptr) lowp[i] = from_f<L>(pp);
-  }
 }
 
 template <typename G, typename L, bool kVec>
@@ -204,30 +118,69 @@ adam_pipeline_kernel(const G* __restrict__ g, float* __restrict__ p,
   }
 }
 
-bool aligned(const void* ptr, uintptr_t bytes) {
-  return ptr == nullptr || (reinterpret_cast<uintptr_t>(ptr) % bytes) == 0;
+// The leaf-table step (optim_step.cuh): a leaf's g, p, m, v, lowp
+using AdamTable = StepTable<StepHyp, 5>;
+static_assert(sizeof(AdamTable) <= kParamBytes, "the Adam leaf table outgrows its budget");
+
+// Block b steps one chunk of one leaf, as `sgd_leaves_kernel` does
+// (csrc/fused_sgd.cu)
+template <typename G, typename L>
+__global__ void __launch_bounds__(kThreads)
+adam_leaves_kernel(const __grid_constant__ AdamTable t) {
+  const bool adam_w = t.h.adam_w != 0;
+  const int l = leaf_of(t, blockIdx.x);
+  const long long c0 = (long long)(blockIdx.x - t.start[l]) * t.chunk;
+  const long long rest = t.n[l] - c0;
+  const int len = rest < t.chunk ? (int)rest : t.chunk;
+  const G* g = static_cast<const G*>(t.ptr[0][l]) + c0;
+  float* p = static_cast<float*>(t.ptr[1][l]) + c0;
+  float* m = static_cast<float*>(t.ptr[2][l]) + c0;
+  float* v = static_cast<float*>(t.ptr[3][l]) + c0;
+  L* lowp = t.ptr[4][l] == nullptr ? nullptr : static_cast<L*>(t.ptr[4][l]) + c0;
+  int tail = 0;
+  if (t.vec[l]) {
+    const int nv = len / 4;
+    for (int base = 0; base < nv; base += kThreads * kUnroll) {
+      float gg[kUnroll][4], pp[kUnroll][4], mm[kUnroll][4], vv[kUnroll][4];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int q = base + u * kThreads + threadIdx.x;
+        if (q < nv) {
+          Vec4<G>::load(g + 4 * q, gg[u]);
+          Vec4<float>::load(p + 4 * q, pp[u]);
+          Vec4<float>::load(m + 4 * q, mm[u]);
+          Vec4<float>::load(v + 4 * q, vv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int q = base + u * kThreads + threadIdx.x;
+        if (q < nv) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            adam_step_one(gg[u][e], pp[u][e], mm[u][e], vv[u][e], t.h, adam_w);
+          Vec4<float>::store(p + 4 * q, pp[u]);
+          Vec4<float>::store(m + 4 * q, mm[u]);
+          Vec4<float>::store(v + 4 * q, vv[u]);
+          if (lowp != nullptr) Vec4<L>::store(lowp + 4 * q, pp[u]);
+        }
+      }
+    }
+    tail = 4 * nv;
+  }
+  for (int i = tail + threadIdx.x; i < len; i += kThreads) {
+    float pp = p[i], mm = m[i], vv = v[i];
+    adam_step_one(to_f<G>(g[i]), pp, mm, vv, t.h, adam_w);
+    p[i] = pp;
+    m[i] = mm;
+    v[i] = vv;
+    if (lowp != nullptr) lowp[i] = from_f<L>(pp);
+  }
 }
 
-// blocks for `work` threads' worth of elements: enough to fill the card,
-// at most 8 resident blocks of 256 per SM (a grid-stride loop does the rest)
-cudaError_t grid_for(long long work, long long* blocks) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  long long b = (work + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * 8;
-  if (b > cap) b = cap;
-  if (b < 1) b = 1;
-  *blocks = b;
-  return cudaSuccess;
-}
-
-// H is Hyp (the pipeline sweep) or StepHyp (the per-leaf step)
-template <typename G, typename L, typename H>
-cudaError_t launch(const void* g, void* p, void* m, void* v, void* lowp, long long n,
-                   const H& h, int adam_w, cudaStream_t stream) {
+template <typename G, typename L>
+cudaError_t launch_pipeline(const void* g, void* p, void* m, void* v, void* lowp,
+                            long long n, const Hyp& h, int adam_w, cudaStream_t stream) {
   const bool vec = aligned(g, 4 * sizeof(G)) && aligned(p, 16) && aligned(m, 16) &&
                    aligned(v, 16) && aligned(lowp, 4 * sizeof(L));
   long long blocks = 0;
@@ -238,55 +191,26 @@ cudaError_t launch(const void* g, void* p, void* m, void* v, void* lowp, long lo
   float* mp = static_cast<float*>(m);
   float* vp = static_cast<float*>(v);
   L* lp = static_cast<L*>(lowp);
-  if constexpr (std::is_same_v<H, StepHyp>) {
-    if (vec)
-      adam_step_kernel<G, L, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
-          gp, pp, mp, vp, lp, n, h, adam_w);
-    else
-      adam_step_kernel<G, L, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
-          gp, pp, mp, vp, lp, n, h, adam_w);
-  } else {
-    if (vec)
-      adam_pipeline_kernel<G, L, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
-          gp, pp, mp, vp, lp, n, h, adam_w);
-    else
-      adam_pipeline_kernel<G, L, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
-          gp, pp, mp, vp, lp, n, h, adam_w);
-  }
+  if (vec)
+    adam_pipeline_kernel<G, L, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        gp, pp, mp, vp, lp, n, h, adam_w);
+  else
+    adam_pipeline_kernel<G, L, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        gp, pp, mp, vp, lp, n, h, adam_w);
   return cudaGetLastError();
 }
 
-template <typename G, typename H>
-cudaError_t launch_g(const void* g, void* p, void* m, void* v, void* lowp,
-                     long long n, const H& h, int adam_w, int lowp_dtype,
-                     cudaStream_t stream) {
-  if (lowp == nullptr) return launch<G, float>(g, p, m, v, nullptr, n, h, adam_w, stream);
-  switch (lowp_dtype) {
-    case 1:
-      return launch<G, __nv_bfloat16>(g, p, m, v, lowp, n, h, adam_w, stream);
-    case 2:
-      return launch<G, __half>(g, p, m, v, lowp, n, h, adam_w, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename H>
-cudaError_t dispatch(const void* g, void* p, void* m, void* v, void* lowp, long long n,
-                     const H& h, int adam_w, int g_dtype, int lowp_dtype, void* stream) {
-  if (n < 0) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (g_dtype) {
-    case 0:
-      return launch_g<float>(g, p, m, v, lowp, n, h, adam_w, lowp_dtype, s);
-    case 1:
-      return launch_g<__nv_bfloat16>(g, p, m, v, lowp, n, h, adam_w, lowp_dtype, s);
-    case 2:
-      return launch_g<__half>(g, p, m, v, lowp, n, h, adam_w, lowp_dtype, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <typename G, typename L>
+cudaError_t launch_leaves(const long long* ptrs, const long long* ns, int count,
+                          int chunk, const StepHyp& h, cudaStream_t stream) {
+  AdamTable t{};
+  t.h = h;
+  const int width[5] = {4 * (int)sizeof(G), 16, 16, 16, 4 * (int)sizeof(L)};
+  const cudaError_t e = fill_table(t, ptrs, ns, count, chunk, kHasLowp<L>, width);
+  if (e != cudaSuccess) return e;
+  if (t.start[count] == 0) return cudaSuccess;
+  adam_leaves_kernel<G, L><<<t.start[count], kThreads, 0, stream>>>(t);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -298,8 +222,8 @@ const char* apex_cuda_error_string(int e) {
 }
 
 // g (n,) of g_dtype; p, m, v (n,) fp32, updated in place; lowp (n,) of
-// lowp_dtype (1 bfloat16, 2 float16) or null for an fp32 group whose
-// master is the model copy.  The nine hyperparameters are those of
+// lowp_dtype (1 bfloat16, 2 float16), or 0 and null for an fp32 group
+// whose master is the model copy.  The nine hyperparameters are those of
 // `_adam_pipeline_kernel`: lr, beta1, beta2, eps, weight_decay, the bias
 // corrections bc1 and bc2, gscale, and keep (> 0.5 steps, else the state
 // stays as it was).  adam_w_mode 1: decoupled decay (AdamW), 0: L2 decay
@@ -309,19 +233,37 @@ int apex_adam_pipeline(const void* g, void* p, void* m, void* v, void* lowp,
                        float weight_decay, float bc1, float bc2, float gscale,
                        float keep, int adam_w_mode, int g_dtype, int lowp_dtype,
                        void* stream) {
+  if (n < 0 || (lowp != nullptr) != (lowp_dtype != 0)) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
   const Hyp h{lr, beta1, beta2, eps, weight_decay, bc1, bc2, gscale, keep};
-  return dispatch(g, p, m, v, lowp, n, h, adam_w_mode, g_dtype, lowp_dtype, stream);
+  return with_types(g_dtype, lowp_dtype, [&](auto* gt, auto* lt) {
+    using G = std::remove_pointer_t<decltype(gt)>;
+    using L = std::remove_pointer_t<decltype(lt)>;
+    return launch_pipeline<G, L>(g, p, m, v, lowp, n, h, adam_w_mode,
+                                 static_cast<cudaStream_t>(stream));
+  });
 }
 
-// The per-leaf step (`_adam_step_kernel`): the buffers as above, no scale
-// and no skip; omb1 = 1 - beta1 and omb2 = 1 - beta2 formed in fp32 by the
-// caller, as the plain version forms them.
-int apex_adam_step(const void* g, void* p, void* m, void* v, void* lowp, long long n,
-                   float lr, float beta1, float omb1, float beta2, float omb2, float eps,
-                   float weight_decay, float bc1, float bc2, int adam_w_mode, int g_dtype,
-                   int lowp_dtype, void* stream) {
-  const StepHyp h{lr, beta1, omb1, beta2, omb2, eps, weight_decay, bc1, bc2};
-  return dispatch(g, p, m, v, lowp, n, h, adam_w_mode, g_dtype, lowp_dtype, stream);
+// The leaves one `apex_adam_step_leaves` launch takes.
+int apex_adam_step_capacity() { return AdamTable::kCap; }
+
+// The step (`_adam_step_kernel`) over `count` leaves in one launch: ptrs
+// (count, 5) int64 rows of g, p, m, v, lowp; ns (count,) int64 lengths;
+// the buffers as above, no scale and no skip; chunk: elements a block, a
+// multiple of 4; omb1 = 1 - beta1 and omb2 = 1 - beta2 formed in fp32 by
+// the caller, as the plain version forms them.
+int apex_adam_step_leaves(const void* ptrs, const void* ns, int count, int chunk,
+                          float lr, float beta1, float omb1, float beta2, float omb2,
+                          float eps, float weight_decay, float bc1, float bc2,
+                          int adam_w_mode, int g_dtype, int lowp_dtype, void* stream) {
+  const StepHyp h{lr, beta1, omb1, beta2, omb2, eps, weight_decay, bc1, bc2, adam_w_mode};
+  return with_types(g_dtype, lowp_dtype, [&](auto* gt, auto* lt) {
+    using G = std::remove_pointer_t<decltype(gt)>;
+    using L = std::remove_pointer_t<decltype(lt)>;
+    return launch_leaves<G, L>(static_cast<const long long*>(ptrs),
+                               static_cast<const long long*>(ns), count, chunk, h,
+                               static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

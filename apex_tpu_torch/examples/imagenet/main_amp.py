@@ -9,7 +9,8 @@ masters), ``fused_sgd(lr, momentum, weight_decay)`` or
 ``mean(softmax_cross_entropy_loss(logits, labels, half_to_float=True))``.
 amp routes the step as JAX does (``pipeline=None``): ResNet-50's cast
 model is 51 MB, under the 128 MiB cutoff, so it takes the staged
-per-leaf route, one ``sgd_step`` (or ``adam_step``) kernel a parameter
+route: one ``sgd_step_leaves`` (or ``adam_step_leaves``) call a step, a
+kernel launch a dtype pair and table of parameters
 (``make_train_setup(pipeline=True)`` takes the persistent pipeline).
 Runs on the card unless ``--device cpu``::
 

@@ -7,14 +7,17 @@ bodies (``adam_update``, ``adagrad_update``, ``novograd_update``,
 ``sgd_update``; see the section below) and
 
 * ``sgd_step`` (:393, body ``_sgd_step_kernel`` :368) and ``adam_step``
-  (:220, body ``_adam_step_kernel`` :196): the single-pass steps the
-  staged amp route runs once per leaf — over the gradient ``g`` (bf16,
-  fp16 or fp32), the fp32 master ``p`` and the optimizer's fp32 state,
-  the update in fp32, the new ``p`` and state written in place and, when
-  the model keeps a low-precision copy, ``lowp`` cast from the new
-  ``p`` in the same pass (the amp O2/O5 writeback).  JAX's
-  ``flatten_for_kernel`` LANE padding has no counterpart: the kernels
-  take any length;
+  (:220, body ``_adam_step_kernel`` :196): the single-pass steps of the
+  staged amp route — over the gradient ``g`` (bf16, fp16 or fp32), the
+  fp32 master ``p`` and the optimizer's fp32 state, the update in fp32,
+  the new ``p`` and state written in place and, when the model keeps a
+  low-precision copy, ``lowp`` cast from the new ``p`` in the same pass
+  (the amp O2/O5 writeback).  JAX runs them leaf by leaf inside one
+  jitted program; the port's :func:`sgd_step_leaves` and
+  :func:`adam_step_leaves` take every leaf at once and launch one kernel
+  a (g, lowp) dtype pair and table of leaves (``sgd_step`` and
+  ``adam_step`` are their one-leaf calls).  JAX's ``flatten_for_kernel``
+  LANE padding has no counterpart: the kernels take any length;
 * ``lamb_phase1`` (:262-305, body ``_lamb_phase1_kernel``): over one flat
   group —
   gradient ``g`` in the model's dtype, fp32 master ``p`` and moments
@@ -32,8 +35,8 @@ bodies (``adam_update``, ``adagrad_update``, ``novograd_update``,
   The per-tensor trust ratio (phase 2) is
   :mod:`apex_tpu_torch.optimizers.fused_lamb`'s, in plain torch.
 
-On CUDA tensors :func:`sgd_step` launches ``csrc/fused_sgd.cu``,
-:func:`adam_step` the step kernel of ``csrc/fused_adam.cu`` and
+On CUDA tensors the SGD steps launch ``csrc/fused_sgd.cu``'s table
+kernel, the Adam steps ``csrc/fused_adam.cu``'s and
 :func:`lamb_phase1` ``csrc/fused_lamb.cu``, or they raise; on CPU
 tensors they run their plain versions.  The step kernels round every
 operation in the plain versions' order (no FMA), so on the card the two
@@ -47,7 +50,7 @@ static loss scale) never makes the host wait.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,6 +60,9 @@ from ._counts import bump
 
 __all__ = ["lamb_phase1", "lamb_phase1_reference", "sgd_step",
            "sgd_step_reference", "adam_step", "adam_step_reference",
+           "sgd_step_leaves", "sgd_step_leaves_reference",
+           "adam_step_leaves", "adam_step_leaves_reference",
+           "step_capacity",
            "check_update_buffers", "adam_update", "adam_update_reference",
            "adagrad_update", "adagrad_update_reference", "novograd_update",
            "novograd_update_reference", "sgd_update",
@@ -152,30 +158,37 @@ def one_minus(x) -> float:
     return float(np.float32(1.0) - np.float32(x))
 
 
-def check_buffers(what: str, g, state, lowp=None) -> None:
+def check_buffers(what: str, g, state, lowp=None) -> Tuple[int, int]:
     """Raise unless ``state`` (the master first) are contiguous fp32
     buffers of one length on one device, ``g`` a contiguous gradient of
     that length in a dtype the kernels take, and ``lowp`` None or a
     contiguous bf16/fp16 buffer of that length: what the element-wise
-    kernels read as flat arrays."""
+    kernels read as flat arrays.  Returns the length and the master's
+    ``get_device()``.  (Called on the kernels' path only, where the
+    master lies on a CUDA device: ``get_device()`` tells devices apart
+    there, at a fraction of ``.device``'s cost.)"""
     p = state[0]
     n = p.numel()
-    for t in state:
-        if t.dtype != torch.float32 or not t.is_contiguous() or \
-                t.numel() != n or t.device != p.device:
-            raise ValueError(f"{what}: the master and state must be "
-                             f"contiguous float32 buffers of {n} elements "
-                             f"on {p.device}")
+    dev = p.get_device()
+    ok = p.dtype == torch.float32 and p.is_contiguous()
+    for t in state[1:]:
+        ok = ok and t.dtype == torch.float32 and t.is_contiguous() and \
+            t.numel() == n and t.get_device() == dev
+    if not ok:
+        raise ValueError(f"{what}: the master and state must be "
+                         f"contiguous float32 buffers of {n} elements "
+                         f"on {p.device}")
     if g.dtype not in _G_TAKES or not g.is_contiguous() or \
-            g.numel() != n or g.device != p.device:
+            g.numel() != n or g.get_device() != dev:
         raise ValueError(f"{what}: g must be a contiguous {_G_TAKES} "
                          f"buffer of {n} elements on {p.device}")
     if lowp is not None and (lowp.dtype not in _LOWP_TAKES
                              or not lowp.is_contiguous()
                              or lowp.numel() != n
-                             or lowp.device != p.device):
+                             or lowp.get_device() != dev):
         raise ValueError(f"{what}: lowp must be a contiguous {_LOWP_TAKES} "
                          f"buffer of {n} elements on {p.device}")
+    return n, dev
 
 
 def sgd_step_reference(g, p, mom, lowp=None, *, lr, momentum, dampening,
@@ -197,38 +210,6 @@ def sgd_step_reference(g, p, mom, lowp=None, *, lr, momentum, dampening,
     mom.copy_(mom_new)
     if lowp is not None:
         lowp.copy_(p)
-    return p, mom, lowp
-
-
-def sgd_step(g: torch.Tensor, p: torch.Tensor, mom: torch.Tensor,
-             lowp: Optional[torch.Tensor] = None, *, lr: float,
-             momentum: float, dampening: float, weight_decay: float,
-             nesterov: bool = False, wd_after_momentum: bool = False,
-             first_run: bool):
-    """One momentum-SGD step over one leaf, in place: ``p`` and ``mom``
-    updated, the model copy cast into ``lowp`` (None when the master is
-    the model copy).  ``first_run``: torch's first step, ``mom <- g``.
-    Returns ``(p, mom, lowp)``."""
-    kw = dict(lr=lr, momentum=momentum, dampening=dampening,
-              weight_decay=weight_decay, nesterov=nesterov,
-              wd_after_momentum=wd_after_momentum, first_run=first_run)
-    if p.device.type == "cpu":
-        return sgd_step_reference(g, p, mom, lowp, **kw)
-    if p.device.type != "cuda":
-        raise ValueError(f"sgd_step runs on cuda or cpu, not {p.device}")
-    check_buffers("sgd_step", g, (p, mom), lowp)
-    lib = _build.library("fused_sgd")
-    with torch.cuda.device(p.device):
-        rc = lib.apex_sgd_step(
-            g.data_ptr(), p.data_ptr(), mom.data_ptr(),
-            None if lowp is None else lowp.data_ptr(), p.numel(), f32(lr),
-            f32(momentum), one_minus(dampening), f32(weight_decay),
-            int(bool(first_run)), int(bool(nesterov)),
-            int(bool(wd_after_momentum)), _build.dtype_code(g.dtype),
-            _build.dtype_code(lowp.dtype) if lowp is not None else 0,
-            _build.stream_ptr(p.device))
-    _build.check("fused_sgd", rc, "sgd_step kernel")
-    bump("sgd_step")
     return p, mom, lowp
 
 
@@ -259,36 +240,207 @@ def adam_step_reference(g, p, m, v, lowp=None, *, lr, beta1, beta2, eps,
     return p, m, v, lowp
 
 
+# The steps over a list of leaves: on CUDA tensors one launch of the leaf
+# table kernel (``csrc/optim_step.cuh``) per dtype pair of (g, lowp) and
+# table's worth of leaves, each launch counted; on CPU tensors the plain
+# per-leaf versions in a loop.  The table is packed anew on every call
+# from each buffer's ``data_ptr()``: amp's staged route hands over new
+# gradient tensors every step.
+
+# elements a block of the table kernels takes (a multiple of 4): one
+# pass of a block's 256 threads, 4 vectors of 4 each; the fastest of 4096,
+# 8192 and 16384 on the H100 over ResNet-50's leaves (PERF.md, row 19)
+STEP_CHUNK = 4096
+
+_CAPACITY = {}
+
+
+def step_capacity(lib: str) -> int:
+    """The leaves one launch of ``csrc/<lib>.cu``'s step takes (``lib``
+    ``fused_sgd`` or ``fused_adam``): its table's size in the kernel's
+    4 KB parameter block, asked of the built library once."""
+    if lib not in _CAPACITY:
+        name = {"fused_sgd": "sgd", "fused_adam": "adam"}[lib]
+        _CAPACITY[lib] = getattr(_build.library(lib),
+                                 f"apex_{name}_step_capacity")()
+    return _CAPACITY[lib]
+
+
+def _on_cpu_leaves(what: str, masters) -> bool:
+    """True where every master lies on the CPU; False where the first
+    lies on a CUDA device (each leaf's own check follows); raises on any
+    other device or a mix with the CPU."""
+    if not masters:
+        return True
+    kind = masters[0].device.type
+    if kind == "cpu":
+        if any(p.device.type != "cpu" for p in masters):
+            raise ValueError(f"{what}: the leaves lie on more than one "
+                             f"device")
+        return True
+    if kind != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not "
+                         f"{masters[0].device}")
+    return False
+
+
+def _launch_leaves(what: str, lib_name: str, grads, states, lowps,
+                   hyp) -> None:
+    """Check every leaf as :func:`check_buffers` does (raising on the
+    first that fails), group the leaves by (g dtype, lowp dtype), pack each
+    group's pointers and lengths into int64 rows, and launch
+    ``apex_<what>_leaves`` once a table's worth of rows, counting each
+    launch under ``what``."""
+    lists = (grads, *states, lowps)
+    if len({len(x) for x in lists}) != 1:
+        raise ValueError(f"{what}: {[len(x) for x in lists]} grads, "
+                         f"masters, states and copies")
+    if not grads:
+        return
+    dev = states[0][0].device
+    index = dev.index if dev.type == "cuda" else -1
+    groups = {}
+    for leaf in zip(*lists):
+        g, lowp = leaf[0], leaf[-1]
+        n, on = check_buffers(what, g, leaf[1:-1], lowp)
+        if on != index:
+            raise ValueError(f"{what}: every leaf must lie on {dev}, not "
+                             f"{leaf[1].device}")
+        if n:
+            row = [t.data_ptr() for t in leaf[:-1]]
+            row += (0, n) if lowp is None else (lowp.data_ptr(), n)
+            key = (g.dtype, None if lowp is None else lowp.dtype)
+            groups.setdefault(key, []).append(row)
+    if not groups:
+        return
+    lib = _build.library(lib_name)
+    fn = getattr(lib, f"apex_{what}_leaves")
+    cap = step_capacity(lib_name)
+    stream = _build.stream_ptr(dev)
+    with torch.cuda.device(dev):
+        for (gdt, ldt), rows in groups.items():
+            table = np.array(rows, dtype=np.int64)
+            ptrs = np.ascontiguousarray(table[:, :-1])
+            ns = np.ascontiguousarray(table[:, -1])
+            codes = (_build.dtype_code(gdt),
+                     0 if ldt is None else _build.dtype_code(ldt))
+            for i in range(0, len(rows), cap):
+                rc = fn(ptrs[i:].ctypes.data, ns[i:].ctypes.data,
+                        min(cap, len(rows) - i), STEP_CHUNK, *hyp, *codes,
+                        stream)
+                _build.check(lib_name, rc, f"{what} kernel")
+                bump(what)
+
+
+def sgd_step_leaves_reference(grads: Sequence[torch.Tensor],
+                              masters: Sequence[torch.Tensor],
+                              moms: Sequence[torch.Tensor],
+                              lowps: Sequence[Optional[torch.Tensor]],
+                              **hyp) -> None:
+    """The plain SGD step over each leaf in turn."""
+    for g, p, mom, lowp in zip(grads, masters, moms, lowps):
+        sgd_step_reference(g, p, mom, lowp, **hyp)
+
+
+def _sgd_leaves_launch(grads, masters, moms, lowps, *, lr, momentum,
+                       dampening, weight_decay, nesterov, wd_after_momentum,
+                       first_run) -> None:
+    _launch_leaves("sgd_step", "fused_sgd", grads, (masters, moms), lowps,
+                   (f32(lr), f32(momentum), one_minus(dampening),
+                    f32(weight_decay), int(bool(first_run)),
+                    int(bool(nesterov)), int(bool(wd_after_momentum))))
+
+
+def sgd_step_leaves(grads: Sequence[torch.Tensor],
+                    masters: Sequence[torch.Tensor],
+                    moms: Sequence[torch.Tensor],
+                    lowps: Sequence[Optional[torch.Tensor]], *, lr: float,
+                    momentum: float, dampening: float, weight_decay: float,
+                    nesterov: bool = False, wd_after_momentum: bool = False,
+                    first_run: bool) -> None:
+    """One momentum-SGD step over every leaf, in place: each fp32 master
+    and its momentum updated, the model copy cast into its ``lowps`` entry
+    (None where the master is the model copy).  ``first_run``: torch's
+    first step, ``mom <- g``.  On CUDA tensors one launch a dtype pair and
+    table (:func:`step_capacity` leaves)."""
+    kw = dict(lr=lr, momentum=momentum, dampening=dampening,
+              weight_decay=weight_decay, nesterov=nesterov,
+              wd_after_momentum=wd_after_momentum, first_run=first_run)
+    if _on_cpu_leaves("sgd_step_leaves", masters):
+        sgd_step_leaves_reference(grads, masters, moms, lowps, **kw)
+    else:
+        _sgd_leaves_launch(grads, masters, moms, lowps, **kw)
+
+
+def sgd_step(g: torch.Tensor, p: torch.Tensor, mom: torch.Tensor,
+             lowp: Optional[torch.Tensor] = None, *, lr: float,
+             momentum: float, dampening: float, weight_decay: float,
+             nesterov: bool = False, wd_after_momentum: bool = False,
+             first_run: bool):
+    """One momentum-SGD step over one leaf (:func:`sgd_step_leaves` of
+    one), in place.  Returns ``(p, mom, lowp)``."""
+    sgd_step_leaves([g], [p], [mom], [lowp], lr=lr, momentum=momentum,
+                    dampening=dampening, weight_decay=weight_decay,
+                    nesterov=nesterov, wd_after_momentum=wd_after_momentum,
+                    first_run=first_run)
+    return p, mom, lowp
+
+
+def adam_step_leaves_reference(grads: Sequence[torch.Tensor],
+                               masters: Sequence[torch.Tensor],
+                               ms: Sequence[torch.Tensor],
+                               vs: Sequence[torch.Tensor],
+                               lowps: Sequence[Optional[torch.Tensor]],
+                               **hyp) -> None:
+    """The plain Adam step over each leaf in turn."""
+    for g, p, m, v, lowp in zip(grads, masters, ms, vs, lowps):
+        adam_step_reference(g, p, m, v, lowp, **hyp)
+
+
+def _adam_leaves_launch(grads, masters, ms, vs, lowps, *, lr, beta1, beta2,
+                        eps, weight_decay, bias_correction1,
+                        bias_correction2, adam_w_mode) -> None:
+    _launch_leaves("adam_step", "fused_adam", grads, (masters, ms, vs),
+                   lowps, (f32(lr), f32(beta1), one_minus(beta1), f32(beta2),
+                           one_minus(beta2), f32(eps), f32(weight_decay),
+                           f32(bias_correction1), f32(bias_correction2),
+                           int(bool(adam_w_mode))))
+
+
+def adam_step_leaves(grads: Sequence[torch.Tensor],
+                     masters: Sequence[torch.Tensor],
+                     ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
+                     lowps: Sequence[Optional[torch.Tensor]], *, lr: float,
+                     beta1: float, beta2: float, eps: float,
+                     weight_decay: float, bias_correction1: float,
+                     bias_correction2: float,
+                     adam_w_mode: bool = True) -> None:
+    """One Adam (``adam_w_mode=False``: L2) or AdamW step over every leaf,
+    in place: each fp32 master and its moments updated, the model copy
+    cast into its ``lowps`` entry (None where the master is the model
+    copy).  On CUDA tensors one launch a dtype pair and table
+    (:func:`step_capacity` leaves)."""
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, bias_correction1=bias_correction1,
+              bias_correction2=bias_correction2, adam_w_mode=adam_w_mode)
+    if _on_cpu_leaves("adam_step_leaves", masters):
+        adam_step_leaves_reference(grads, masters, ms, vs, lowps, **kw)
+    else:
+        _adam_leaves_launch(grads, masters, ms, vs, lowps, **kw)
+
+
 def adam_step(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
               v: torch.Tensor, lowp: Optional[torch.Tensor] = None, *,
               lr: float, beta1: float, beta2: float, eps: float,
               weight_decay: float, bias_correction1: float,
               bias_correction2: float, adam_w_mode: bool = True):
-    """One Adam (``adam_w_mode=False``: L2) or AdamW step over one leaf,
-    in place: ``p``, ``m``, ``v`` updated, the model copy cast into
-    ``lowp`` (None when the master is the model copy).  Returns ``(p, m,
-    v, lowp)``."""
-    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
-              weight_decay=weight_decay, bias_correction1=bias_correction1,
-              bias_correction2=bias_correction2, adam_w_mode=adam_w_mode)
-    if p.device.type == "cpu":
-        return adam_step_reference(g, p, m, v, lowp, **kw)
-    if p.device.type != "cuda":
-        raise ValueError(f"adam_step runs on cuda or cpu, not {p.device}")
-    check_buffers("adam_step", g, (p, m, v), lowp)
-    lib = _build.library("fused_adam")
-    with torch.cuda.device(p.device):
-        rc = lib.apex_adam_step(
-            g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
-            None if lowp is None else lowp.data_ptr(), p.numel(), f32(lr),
-            f32(beta1), one_minus(beta1), f32(beta2), one_minus(beta2),
-            f32(eps), f32(weight_decay), f32(bias_correction1),
-            f32(bias_correction2), int(bool(adam_w_mode)),
-            _build.dtype_code(g.dtype),
-            _build.dtype_code(lowp.dtype) if lowp is not None else 0,
-            _build.stream_ptr(p.device))
-    _build.check("fused_adam", rc, "adam_step kernel")
-    bump("adam_step")
+    """One Adam or AdamW step over one leaf (:func:`adam_step_leaves` of
+    one), in place.  Returns ``(p, m, v, lowp)``."""
+    adam_step_leaves([g], [p], [m], [v], [lowp], lr=lr, beta1=beta1,
+                     beta2=beta2, eps=eps, weight_decay=weight_decay,
+                     bias_correction1=bias_correction1,
+                     bias_correction2=bias_correction2,
+                     adam_w_mode=adam_w_mode)
     return p, m, v, lowp
 
 

@@ -13,8 +13,9 @@ buffers for packed groups once it is raised), and one
 :func:`~apex_tpu_torch.ops.adam_update` runs a group.  The other two are
 for the two routes of :mod:`apex_tpu_torch.amp.mixed_precision`.
 Staged: the moments live in one fp32 buffer a leaf, and one
-:func:`~apex_tpu_torch.ops.adam_step` kernel a leaf updates the master
-and moments in place and writes the model-dtype copy; the count always
+:func:`~apex_tpu_torch.ops.adam_step_leaves` call over every leaf (a
+kernel launch a dtype pair and table of leaves) updates the masters and
+moments in place and writes the model-dtype copies; the count always
 advances (amp skips around the step).  Pipeline: the moments live in
 one flat fp32 buffer per group, and one sweep per group (the
 :func:`~apex_tpu_torch.ops.adam_pipeline` kernel) does the same with
@@ -37,8 +38,8 @@ import numpy as np
 import torch
 
 from ..ops import multi_tensor
-from ..ops.fused_optim import (adam_step, adam_step_reference, adam_update,
-                               adam_update_reference)
+from ..ops.fused_optim import (adam_step_leaves, adam_step_leaves_reference,
+                               adam_update, adam_update_reference)
 from ..ops.fused_pipeline import adam_pipeline, adam_pipeline_reference
 
 __all__ = ["FusedAdam", "FusedAdamState", "fused_adam"]
@@ -124,18 +125,17 @@ class FusedAdam:
     def fused_step(self, grads: Sequence[torch.Tensor],
                    state: FusedAdamState, masters: Sequence[torch.Tensor],
                    lowps: Sequence) -> FusedAdamState:
-        """One Adam step a leaf, in place: each fp32 master and its
-        moments updated, the model copy written into its ``lowps`` entry
-        (None where the master is the parameter itself).  Gradients
+        """One Adam step over every leaf, in place: each fp32 master and
+        its moments updated, the model copy written into its ``lowps``
+        entry (None where the master is the parameter itself).  Gradients
         arrive unscaled, in their own dtype.  Returns the new state."""
         bc1, bc2 = self.bias_corrections(state.count + 1)
-        step = adam_step if self.kernels else adam_step_reference
-        for g, p, m, v, lowp in zip(grads, masters, state.m, state.v,
-                                    lowps):
-            step(g, p, m, v, lowp, lr=self.learning_rate, beta1=self.beta1,
-                 beta2=self.beta2, eps=self.eps,
-                 weight_decay=self.weight_decay, bias_correction1=bc1,
-                 bias_correction2=bc2, adam_w_mode=self.adam_w_mode)
+        step = adam_step_leaves if self.kernels \
+            else adam_step_leaves_reference
+        step(grads, masters, state.m, state.v, lowps, lr=self.learning_rate,
+             beta1=self.beta1, beta2=self.beta2, eps=self.eps,
+             weight_decay=self.weight_decay, bias_correction1=bc1,
+             bias_correction2=bc2, adam_w_mode=self.adam_w_mode)
         return dataclasses.replace(state, count=state.count + 1)
 
     def staged_init(self, masters: Sequence[torch.Tensor]

@@ -6,8 +6,9 @@ Port of ``apex_tpu/optimizers/fused_sgd.py:29-200`` — ``fused_sgd`` with
 :func:`~apex_tpu_torch.optimizers.apply_updates`, one
 :func:`~apex_tpu_torch.ops.sgd_update` a group of
 ``compute_metas(params, split_direct=True)``), ``fused_step`` (the
-single-pass step the staged amp route takes, one
-:func:`~apex_tpu_torch.ops.sgd_step` kernel a leaf) and
+single-pass step the staged amp route takes: one
+:func:`~apex_tpu_torch.ops.sgd_step_leaves` call over every leaf, a
+kernel launch a dtype pair and table of leaves) and
 ``pipeline_init`` / ``pipeline_step`` (one
 :func:`~apex_tpu_torch.ops.sgd_pipeline` sweep a flat group). The
 semantics are JAX's, which are the reference's FusedSGD (momentum,
@@ -33,7 +34,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..ops import multi_tensor
-from ..ops.fused_optim import (f32, sgd_step, sgd_step_reference, sgd_update,
+from ..ops.fused_optim import (f32, sgd_step_leaves,
+                               sgd_step_leaves_reference, sgd_update,
                                sgd_update_reference)
 from ..ops.fused_pipeline import sgd_pipeline, sgd_pipeline_reference
 
@@ -125,18 +127,19 @@ class FusedSGD:
                    masters: Sequence[torch.Tensor],
                    lowps: Sequence[Optional[torch.Tensor]]
                    ) -> FusedSGDState:
-        """One step a leaf, in place: each fp32 master and its momentum
-        updated, the model copy written into its ``lowps`` entry (None
-        where the master is the parameter itself).  Gradients arrive
+        """One step over every leaf, in place: each fp32 master and its
+        momentum updated, the model copy written into its ``lowps`` entry
+        (None where the master is the parameter itself).  Gradients arrive
         unscaled, in their own dtype.  Returns the new state."""
-        hyp = self._hyp(state.count)
-        step = sgd_step if self.kernels else sgd_step_reference
-        for g, p, mom, lowp in zip(grads, masters, state.momentum, lowps):
-            if self.momentum == 0.0:
+        if self.momentum == 0.0:
+            for g, p, lowp in zip(grads, masters, lowps):
                 _plain_no_momentum(g, p, lowp, self.learning_rate,
                                    self.weight_decay)
-            else:
-                step(g, p, mom, lowp, **hyp)
+        else:
+            step = sgd_step_leaves if self.kernels \
+                else sgd_step_leaves_reference
+            step(grads, masters, state.momentum, lowps,
+                 **self._hyp(state.count))
         return dataclasses.replace(state, count=state.count + 1)
 
     def staged_init(self, masters: Sequence[torch.Tensor]

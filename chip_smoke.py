@@ -220,8 +220,10 @@ Phases, in order; any failure exits non-zero without the result line:
                    weight_decay=1e-4)``, seeded weights and one seeded
                    batch.  The routed default must be the staged route
                    (51 MB of cast model < 128 MiB): 8 steps, launch
-                   counts reset just before and held exactly (161
-                   ``sgd_step`` a step, nothing else), losses finite and
+                   counts reset just before and held exactly (the
+                   leaf-table step's ``sgd_step`` launches, one a dtype
+                   pair and table of leaves, ``staged_launches``: 3 a
+                   step at 4 KB tables; nothing else), losses finite and
                    falling; step ms, images/s, model TFLOP/s at
                    bench.py's 3 x 4.1 GFLOP an image, the optimizer's
                    host time and peak memory.  Then, on cuDNN's
@@ -232,14 +234,15 @@ Phases, in order; any failure exits non-zero without the result line:
                    kernel run's; one staged and one pipeline optimizer
                    stepped twice on the same captured gradients (masters,
                    momenta and model copies bitwise equal); 3 Adam steps
-                   (161 ``adam_step`` a step); 4 O2 steps (fp16, a
-                   dynamic scale from 2^16: scale and skips printed, 161
-                   launches an applied step); and the graft entry's eval
+                   (``adam_step``, counted alike); 4 O2 steps (fp16, a
+                   dynamic scale from 2^16: scale and skips printed, the
+                   same launches an applied step); and the graft entry's eval
                    forward (batch 8, ``train=False``) against the same
                    weights in fp32 compute.
 6g. resnet_faults — each fault of ``RESNET_FAULTS`` (the weight decay's
                    sign flipped; every fourth element frozen) planted in
-                   a temporary copy of ``fused_sgd.cu``, built there, and
+                   a temporary copy of ``fused_sgd.cu``'s leaf-table
+                   step, built there, and
                    the deterministic kernel-against-plain leg of
                    train_resnet run in that copy: every fault must move a
                    loss past ``TRAIN_RESNET_LOSS_TOL``.
@@ -603,7 +606,8 @@ MOE_DROP_CF = 1.25
 MOE_SAMPLE_EVERY = 25
 # the ResNet slice: bench.py's bench_resnet50 (batch 256, 224x224, 1000
 # classes, O5, fused_sgd(0.1, momentum=0.9, weight_decay=1e-4)); the
-# staged route launches one optimizer kernel a leaf, 161 a step
+# staged route steps its 161 leaves in one leaf-table launch a dtype pair
+# and table (``staged_launches``)
 RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 256, 224, 1000
 RESNET_STEPS, RESNET_LEAVES = 8, 161
 RESNET_ADAM_STEPS, RESNET_O2_STEPS, RESNET_EVAL_BATCH = 3, 4, 8
@@ -612,6 +616,9 @@ RESNET_ADAM_LR = 1e-3
 RN50_TRAIN_FLOPS_PER_IMG = 3 * 4.1e9
 # the optimizer checks' odd-length buffer (the kernels' scalar tail)
 OPT_ODD_N = 1_000_003
+# the leaf-table steps' chunk sizes (elements a block) timed beside the
+# default, ``fused_optim.STEP_CHUNK``
+STEP_CHUNKS = (4096, 8192, 16384)
 # (nesterov, dampening, wd_after_momentum, first_run)
 SGD_FLAGS = ((False, 0.0, False, False), (True, 0.0, False, False),
              (False, 0.1, True, False), (False, 0.1, False, True),
@@ -628,8 +635,8 @@ TRAIN_RESNET_LOSS_TOL = (1e-6, 1e-4, 1e-4)
 RESNET_FAULTS = {
     "wd_sign": ("g = __fadd_rn(g, __fmul_rn(h.wd, p));",
                 "g = __fsub_rn(g, __fmul_rn(h.wd, p));"),
-    "every_4th_frozen": ("sgd_one(ge, pp[e], mm[e], h, keep);",
-                         "sgd_one(ge, pp[e], mm[e], h, keep && e != 3);"),
+    "every_4th_frozen": ("sgd_one(gg[u][e], pp[u][e], mm[u][e], t.h, true);",
+                         "sgd_one(gg[u][e], pp[u][e], mm[u][e], t.h, e != 3);"),
 }
 # the eval forward (train=False) in bf16 against the same weights in fp32
 # compute: bf16 rounds ~50 layers of activations (measured 2.2e-3 of
@@ -981,6 +988,12 @@ def free_memory() -> None:
 def phase_build():
     from apex_tpu_torch import _build
 
+    ver = subprocess.run([_build.nvcc_path(), "--version"],
+                         capture_output=True, text=True).stdout
+    rel = [ln for ln in ver.splitlines() if "release" in ln]
+    log(f"build: nvcc {rel[0].strip() if rel else ver.strip()} (the "
+        f"leaf-table steps keep a 4 KB parameter block, every toolkit's "
+        f"limit)")
     t0 = time.perf_counter()
     built = _build.build()
     dt = time.perf_counter() - t0
@@ -3100,6 +3113,20 @@ def _step_leaves(step, bufs, leaves, hyp):
     return outs
 
 
+def _step_leaves_once(step, name, bufs, leaves, hyp):
+    """One ``step`` call (a ``*_step_leaves``) over clones of every leaf's
+    master and state, the model copy in the leaf's dtype (None for an
+    fp32 leaf).  Returns the outputs, per leaf, and the launches of
+    kernel ``name`` it made."""
+    states = [[t.clone() for t in state] for _, *state in bufs]
+    lows = [None if dt == torch.float32 else torch.empty_like(b[0])
+            for b, (_, _, dt) in zip(bufs, leaves)]
+    n = _launched(name, lambda: step([b[0] for b in bufs], *zip(*states),
+                                     lows, **hyp))
+    return [st + ([] if lowp is None else [lowp])
+            for st, lowp in zip(states, lows)], n
+
+
 def _bitwise(label, got, want) -> float:
     """Max |got - want| over paired tensor lists; raises unless every
     pair is bitwise equal (NaN-free inputs)."""
@@ -3177,76 +3204,200 @@ def _opt_entry(name, shape, leaves, bufs, kernel_fn, plain_fn, lib_fn,
                 library_ms=lib)
 
 
+def step_launches(dtypes, lib: str) -> int:
+    """The launches of one leaf-table step over leaves of model dtypes
+    ``dtypes``: one a (g, copy) dtype pair (an fp32 leaf: fp32 g, no
+    copy) and table of ``step_capacity(lib)`` leaves."""
+    from apex_tpu_torch.ops import step_capacity
+
+    cap = step_capacity(lib)
+    groups = {}
+    for dt in dtypes:
+        groups[dt] = groups.get(dt, 0) + 1
+    return sum(-(-k // cap) for k in groups.values())
+
+
+def staged_launches(aopt, lib: str = "fused_sgd") -> int:
+    """The optimizer's launches a step of amp's staged route."""
+    return step_launches([p.dtype for _, p in aopt.params], lib)
+
+
+def _launched(name, fn) -> int:
+    """Run ``fn()``; the launches of kernel ``name`` it made."""
+    from apex_tpu_torch.ops import launch_counts
+
+    before = launch_counts()[name]
+    fn()
+    return launch_counts()[name] - before
+
+
+def _table_overflow(dev, g, name, steps, plain, hyp, states: int) -> int:
+    """More leaves than one table holds, in one (bf16 g, bf16 copy)
+    group beside an fp32 and an fp16 group: lengths 1 to 2 chunks and
+    odd, one master a view one element off alignment; kernel against
+    plain, bitwise, and the launches counted.  Returns the leaves."""
+    from apex_tpu_torch.ops import fused_optim, step_capacity
+
+    lib = {"sgd_step": "fused_sgd", "adam_step": "fused_adam"}[name]
+    cap = step_capacity(lib)
+    chunk = fused_optim.STEP_CHUNK
+    lens = [1 + (i * 7919) % (2 * chunk + 3) for i in range(cap + 9)]
+    dts = [torch.bfloat16] * (cap + 5) + [torch.float32] * 3 + \
+        [torch.float16]
+    leaves, outs = [], []
+    for i, (n, dt) in enumerate(zip(lens, dts)):
+        grad = (0.01 * torch.randn(n, generator=g, device=dev)).to(dt)
+        base = [0.05 * torch.randn(n + 1, generator=g, device=dev)] + [
+            0.01 * torch.randn(n + 1, generator=g, device=dev).abs()
+            for _ in range(states)]
+        off = 1 if i == cap else 0
+        leaves.append((grad, [t[off:off + n] for t in base], dt))
+    for fn in (steps, None):
+        # copies at the views' own offsets: the misaligned one stays so
+        bufs = [[torch.empty(t.storage_offset() + t.numel(), device=dev)[
+            t.storage_offset():].copy_(t) for t in st] for _, st, _ in leaves]
+        lows = [None if dt == torch.float32 else
+                torch.empty_like(grad) for grad, _, dt in leaves]
+        if fn is None:
+            for (grad, _, _), st, lowp in zip(leaves, bufs, lows):
+                plain(grad, *st, lowp, **hyp)
+        else:
+            grads = [x[0] for x in leaves]
+            n_launch = _launched(name, lambda: fn(
+                grads, *zip(*bufs), lows, **hyp))
+        outs.append([t for st, lowp in zip(bufs, lows)
+                     for t in st + ([] if lowp is None else [lowp])])
+    torch.cuda.synchronize()
+    _bitwise(f"{name} over {len(leaves)} leaves ({cap} a table)", outs[0],
+             outs[1])
+    want = step_launches(dts, lib)
+    if n_launch != want or want != 4:
+        raise AssertionError(f"{name}: {n_launch} launches over "
+                             f"{len(leaves)} leaves, want {want}")
+    return len(leaves)
+
+
+def _chunk_times(run):
+    """The whole step's device ms at each of ``STEP_CHUNKS`` elements a
+    block (``fused_optim.STEP_CHUNK`` restored after)."""
+    from apex_tpu_torch.ops import fused_optim
+
+    keep = fused_optim.STEP_CHUNK
+    out = {}
+    try:
+        for c in STEP_CHUNKS:
+            fused_optim.STEP_CHUNK = c
+            out[c] = time_ms(run)[0]
+    finally:
+        fused_optim.STEP_CHUNK = keep
+    return out
+
+
 def check_sgd_step(dev, g):
-    """Row 19's SGD step, one launch a leaf, over ResNet-50's 161 real
-    leaves (bf16 g and copy on the conv/fc leaves, fp32 g on the batch
-    norms') at bench_resnet50's hyperparameters, bitwise against the
-    plain version; the flag grid on an odd length and misaligned views;
-    times of the whole 161-leaf step."""
-    from apex_tpu_torch.ops import sgd_step, sgd_step_reference
+    """Row 19's SGD step over ResNet-50's 161 real leaves in one
+    ``sgd_step_leaves`` call (bf16 g and copy on the conv/fc leaves, fp32
+    g on the batch norms') at bench_resnet50's hyperparameters, bitwise
+    against the plain version, its launches counted; the flag grid on an
+    odd length and misaligned views through the one-leaf ``sgd_step``;
+    more leaves than a table holds; times of the whole 161-leaf step at
+    each chunk size and beside the library's."""
+    from apex_tpu_torch.ops import (fused_optim, sgd_step, sgd_step_leaves,
+                                    sgd_step_reference)
 
     leaves = resnet50_leaves()
     bufs = _leaf_buffers(dev, g, leaves, 1)
     hyp = dict(lr=0.1, momentum=0.9, dampening=0.0, weight_decay=1e-4,
                nesterov=False, wd_after_momentum=False, first_run=False)
-    k = _step_leaves(sgd_step, bufs, leaves, hyp)
+    per_step = step_launches([dt for _, _, dt in leaves], "fused_sgd")
+    k, launches = _step_leaves_once(sgd_step_leaves, "sgd_step", bufs,
+                                    leaves, hyp)
     torch.cuda.synchronize()
     r = _step_leaves(sgd_step_reference, bufs, leaves, hyp)
-    err = _bitwise("sgd_step (ResNet-50 leaves)",
+    err = _bitwise("sgd_step_leaves (ResNet-50 leaves)",
                    [t for o in k for t in o], [t for o in r for t in o])
+    if launches != per_step:
+        raise AssertionError(f"sgd_step_leaves: {launches} launches, want "
+                             f"{per_step}")
     cases = _odd_cases(dev, g, sgd_step, sgd_step_reference,
                        dict(lr=0.1, momentum=0.9, weight_decay=1e-4), 1,
                        [dict(nesterov=a, dampening=b, wd_after_momentum=c,
                              first_run=d) for a, b, c, d in SGD_FLAGS])
+    over = _table_overflow(dev, g, "sgd_step", sgd_step_leaves,
+                           sgd_step_reference, hyp, 1)
     n = sum(int(np.prod(s)) for _, s, _ in leaves)
     log(f"kernel sgd_step: ResNet-50's {len(leaves)} leaves ({n} elements) "
-        f"bitwise equal to the plain version; {cases} flag/dtype cases at "
-        f"n={OPT_ODD_N} (and misaligned views) bitwise equal ok")
+        f"in one sgd_step_leaves call, {launches} launches (chunk "
+        f"{fused_optim.STEP_CHUNK}), bitwise equal to the plain version; "
+        f"{cases} flag/dtype cases at n={OPT_ODD_N} (and misaligned views) "
+        f"through the one-leaf sgd_step and {over} leaves over 4 tables "
+        f"bitwise equal ok")
     g32 = [b[0].float() for b in bufs]
     ps = [b[1].clone() for b in bufs]
     ms_ = [b[2].clone() for b in bufs]
     lows = [None if dt == torch.float32 else torch.empty_like(b[0])
             for b, (_, _, dt) in zip(bufs, leaves)]
+    grads = [b[0] for b in bufs]
 
-    def run(step):
+    def run():
+        sgd_step_leaves(grads, ps, ms_, lows, **hyp)
+
+    def plain():
         for b, p, m, lowp in zip(bufs, ps, ms_, lows):
-            step(b[0], p, m, lowp, **hyp)
+            sgd_step_reference(b[0], p, m, lowp, **hyp)
 
+    chunks = _chunk_times(run)
+    log("  sgd_step: device ms of the whole step by chunk: " + ", ".join(
+        f"{c} {t:.5f}" for c, t in chunks.items()))
     e = _opt_entry(
         "sgd_step", f"ResNet-50's {len(leaves)} leaves, {n} elements (bf16 "
-        f"g and copy on 55, fp32 on 106)", leaves, bufs,
-        lambda: run(sgd_step), lambda: run(sgd_step_reference),
+        f"g and copy on 55, fp32 on 106), {per_step} launches", leaves,
+        bufs, run, plain,
         lambda: torch._fused_sgd_(
             ps, g32, ms_, weight_decay=1e-4, momentum=0.9, lr=0.1,
             dampening=0.0, nesterov=False, maximize=False,
             is_first_step=False), 16, 8)
     e["max_abs_err"] = err
+    e["launches_a_step"] = per_step
+    e["chunk_ms"] = chunks
     return e
 
 
 def check_adam_step(dev, g):
-    """Row 19's Adam step over ResNet-50's 161 leaves, bitwise against
-    the plain version (AdamW, ``main_amp``'s ``fused_adam``), the L2 mode
-    and the dtype pairs on an odd length; times of the whole step."""
-    from apex_tpu_torch.ops import adam_step, adam_step_reference
+    """Row 19's Adam step over ResNet-50's 161 leaves in one
+    ``adam_step_leaves`` call, bitwise against the plain version (AdamW,
+    ``main_amp``'s ``fused_adam``), its launches counted; the L2 mode and
+    the dtype pairs on an odd length through the one-leaf ``adam_step``;
+    more leaves than a table holds; times of the whole step."""
+    from apex_tpu_torch.ops import (adam_step, adam_step_leaves,
+                                    adam_step_reference, fused_optim)
 
     leaves = resnet50_leaves()
     bufs = _leaf_buffers(dev, g, leaves, 2)
     hyp = dict(lr=RESNET_ADAM_LR, beta1=0.9, beta2=0.999, eps=1e-8,
                weight_decay=1e-4, bias_correction1=1 - 0.9 ** 3,
                bias_correction2=1 - 0.999 ** 3, adam_w_mode=True)
-    k = _step_leaves(adam_step, bufs, leaves, hyp)
+    per_step = step_launches([dt for _, _, dt in leaves], "fused_adam")
+    k, launches = _step_leaves_once(adam_step_leaves, "adam_step", bufs,
+                                    leaves, hyp)
     torch.cuda.synchronize()
     r = _step_leaves(adam_step_reference, bufs, leaves, hyp)
-    err = _bitwise("adam_step (ResNet-50 leaves)",
+    err = _bitwise("adam_step_leaves (ResNet-50 leaves)",
                    [t for o in k for t in o], [t for o in r for t in o])
+    if launches != per_step:
+        raise AssertionError(f"adam_step_leaves: {launches} launches, want "
+                             f"{per_step}")
     base = {k_: v for k_, v in hyp.items() if k_ != "adam_w_mode"}
     cases = _odd_cases(dev, g, adam_step, adam_step_reference, base, 2,
                        [dict(adam_w_mode=True), dict(adam_w_mode=False)])
+    over = _table_overflow(dev, g, "adam_step", adam_step_leaves,
+                           adam_step_reference, hyp, 2)
     n = sum(int(np.prod(s)) for _, s, _ in leaves)
-    log(f"kernel adam_step: ResNet-50's {len(leaves)} leaves bitwise equal "
-        f"to the plain version; {cases} mode/dtype cases at n={OPT_ODD_N} "
-        f"(and misaligned views) bitwise equal ok")
+    log(f"kernel adam_step: ResNet-50's {len(leaves)} leaves in one "
+        f"adam_step_leaves call, {launches} launches (chunk "
+        f"{fused_optim.STEP_CHUNK}), bitwise equal to the plain version; "
+        f"{cases} mode/dtype cases at n={OPT_ODD_N} (and misaligned views) "
+        f"through the one-leaf adam_step and {over} leaves over 4 tables "
+        f"bitwise equal ok")
     g32 = [b[0].float() for b in bufs]
     ps = [b[1].clone() for b in bufs]
     m1 = [b[2].clone() for b in bufs]
@@ -3254,20 +3405,29 @@ def check_adam_step(dev, g):
     lows = [None if dt == torch.float32 else torch.empty_like(b[0])
             for b, (_, _, dt) in zip(bufs, leaves)]
     steps = [torch.full((), 3.0, device=dev) for _ in bufs]
+    grads = [b[0] for b in bufs]
 
-    def run(step):
+    def run():
+        adam_step_leaves(grads, ps, m1, v1, lows, **hyp)
+
+    def plain():
         for b, p, m, v, lowp in zip(bufs, ps, m1, v1, lows):
-            step(b[0], p, m, v, lowp, **hyp)
+            adam_step_reference(b[0], p, m, v, lowp, **hyp)
 
+    chunks = _chunk_times(run)
+    log("  adam_step: device ms of the whole step by chunk: " + ", ".join(
+        f"{c} {t:.5f}" for c, t in chunks.items()))
     e = _opt_entry(
         "adam_step", f"ResNet-50's {len(leaves)} leaves, {n} elements (bf16 "
-        f"g and copy on 55, fp32 on 106)", leaves, bufs,
-        lambda: run(adam_step), lambda: run(adam_step_reference),
+        f"g and copy on 55, fp32 on 106), {per_step} launches", leaves,
+        bufs, run, plain,
         lambda: torch._fused_adamw_(
             ps, g32, m1, v1, [], steps, lr=RESNET_ADAM_LR, beta1=0.9,
             beta2=0.999, weight_decay=1e-4, eps=1e-8, amsgrad=False,
             maximize=False), 24, 16)
     e["max_abs_err"] = err
+    e["launches_a_step"] = per_step
+    e["chunk_ms"] = chunks
     return e
 
 
@@ -4656,7 +4816,8 @@ def _resnet_same_grads(dev) -> None:
                 and all(torch.equal(p, pnamed[n])
                         for n, p in st.model.named_parameters()))
         log(f"train_resnet same gradients, step {step + 1}: staged "
-            f"(161 sgd_step launches) and pipeline (2 sgd_pipeline "
+            f"({staged_launches(st.amp_opt)} sgd_step launches) and "
+            f"pipeline (2 sgd_pipeline "
             f"launches) masters, momenta and model copies bitwise equal: "
             f"{same} (max |master diff| {_max_diff(ms, mp):.3e}) "
             f"{'ok' if same else 'FAIL'}")
@@ -4700,11 +4861,11 @@ def train_resnet(dev) -> dict:
     the legs."""
     from apex_tpu_torch import amp
 
-    per_step = {"sgd_step": RESNET_LEAVES}
     torch.cuda.reset_peak_memory_stats(dev)
     r, total = _resnet_run(
         dev, "staged O5", RESNET_STEPS,
-        lambda r: {"sgd_step": RESNET_LEAVES * RESNET_STEPS})
+        lambda r: {"sgd_step": staged_launches(r.setup.amp_opt)
+                   * RESNET_STEPS})
     aopt = r.setup.amp_opt
     nbytes = amp.packed_nbytes(r.setup.model.named_parameters(),
                                amp.get_policy("O5"))
@@ -4728,8 +4889,8 @@ def train_resnet(dev) -> dict:
         f"3 x 4.1 GFLOP an image, {100 * tf / peak:.2f}% of the "
         f"{peak:.0f} TFLOP/s bf16 dense peak); the optimizer step's host "
         f"time {host:.3f} ms ({[round(x, 3) for x in r.opt_ms]}), "
-        f"{100 * host / med:.2f}% of the step ({RESNET_LEAVES} ctypes "
-        f"launches)")
+        f"{100 * host / med:.2f}% of the step ({staged_launches(aopt)} "
+        f"ctypes launches over {RESNET_LEAVES} leaves)")
     del r, aopt
     free_memory()
     # the same step on the other route, timed alike, for the routing
@@ -4754,7 +4915,8 @@ def train_resnet(dev) -> dict:
     try:
         rk, ck = _resnet_run(
             dev, "staged O5, deterministic cuDNN", PLAIN_STEPS,
-            lambda r: {"sgd_step": RESNET_LEAVES * PLAIN_STEPS})
+            lambda r: {"sgd_step": staged_launches(r.setup.amp_opt)
+                       * PLAIN_STEPS})
         kl, km = rk.losses, _masters(rk)
         del rk
         free_memory()
@@ -4787,15 +4949,17 @@ def train_resnet(dev) -> dict:
     ra, ca = _resnet_run(
         dev, f"Adam (fused_adam({RESNET_ADAM_LR}, weight_decay=1e-4))",
         RESNET_ADAM_STEPS,
-        lambda r: {"adam_step": RESNET_LEAVES * RESNET_ADAM_STEPS},
+        lambda r: {"adam_step": staged_launches(r.setup.amp_opt,
+                                                "fused_adam")
+                   * RESNET_ADAM_STEPS},
         optimizer="adam", lr=RESNET_ADAM_LR)
     del ra
     free_memory()
     ro, co = _resnet_run(
         dev, "O2 (fp16 convs, fp32 batch norm, dynamic scale)",
         RESNET_O2_STEPS,
-        lambda r: {k: v * sum(1 for f, _, _ in r.steps if f)
-                   for k, v in per_step.items()}, opt_level="O2")
+        lambda r: {"sgd_step": staged_launches(r.setup.amp_opt)
+                   * sum(1 for f, _, _ in r.steps if f)}, opt_level="O2")
     for i, (fin, scale, skipped) in enumerate(ro.steps):
         log(f"  O2 step {i + 1}: loss {ro.losses[i]:.6f} finite {fin} "
             f"scale {scale:g} skipped {skipped} step ms "
@@ -4820,7 +4984,8 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cudnn.deterministic = True
 n = cs.PLAIN_STEPS
 rk, _ = cs._resnet_run(dev, "fault kernel", n,
-                       lambda r: {"sgd_step": cs.RESNET_LEAVES * n})
+                       lambda r: {"sgd_step":
+                                  cs.staged_launches(r.setup.amp_opt) * n})
 kl, km = rk.losses, cs._masters(rk)
 del rk
 cs.free_memory()
@@ -6037,13 +6202,13 @@ def profile_resnet(dev) -> None:
     # max pool first: ATen's channels-last pool kernels end in "_nhwc"
     conv_marks = ("xmma", "cudnn", "conv", "implicit", "cutlass", "dgrad",
                   "wgrad", "fprop", "gemm")
-    parts = {"optimizer (sgd_kernel)": 0.0,
+    parts = {"optimizer (sgd_leaves_kernel)": 0.0,
              "cuDNN convolutions and the fc GEMM": 0.0, "max pool": 0.0,
              "batch norm, ReLU, casts, loss (plain)": 0.0}
     for name, ms, _ in rows:
         low = name.lower()
-        if "sgd_kernel" in name:
-            parts["optimizer (sgd_kernel)"] += ms
+        if "sgd_leaves_kernel" in name:
+            parts["optimizer (sgd_leaves_kernel)"] += ms
         elif "max_pool" in low:
             parts["max pool"] += ms
         elif any(k in low for k in conv_marks):

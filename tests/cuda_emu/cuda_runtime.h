@@ -28,6 +28,7 @@
 #define __launch_bounds__(...)
 #define __align__(n)
 #define __restrict__
+#define __grid_constant__
 
 struct uint3 {
   unsigned x, y, z;
@@ -51,6 +52,7 @@ struct int4 {
 struct char4 {
   signed char x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
@@ -235,5 +237,29 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   const unsigned long long v = (unsigned long long)y << 32 | x;
   unsigned r = 0;
   for (int n = 0; n < 4; ++n) r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+}
+
+// the round-to-nearest fp32 operations, each one IEEE operation: the
+// result passes through a volatile, so the host compiler can contract
+// none of them into a fused multiply-add
+inline float __fadd_rn(float a, float b) {
+  volatile float r = a + b;
+  return r;
+}
+inline float __fsub_rn(float a, float b) {
+  volatile float r = a - b;
+  return r;
+}
+inline float __fmul_rn(float a, float b) {
+  volatile float r = a * b;
+  return r;
+}
+inline float __fdiv_rn(float a, float b) {
+  volatile float r = a / b;
+  return r;
+}
+inline float __fsqrt_rn(float a) {
+  volatile float r = sqrtf(a);
   return r;
 }

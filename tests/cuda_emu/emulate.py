@@ -1,11 +1,11 @@
-"""Build the flash kernels' CUDA sources with g++ over this directory's
-stand-in of the CUDA runtime, and route the port's launches to them.
+"""Build the port's CUDA sources with g++ over this directory's stand-in
+of the CUDA runtime, and route the port's launches to them.
 
 The sources are rewritten for the host compiler (:func:`host_source`),
 compiled one library a process, all at once (:func:`build`), and bound
 with the port's own ctypes signatures; :func:`route` makes the port's
-wrappers launch them on CPU tensors.  The tests of the flash forward and
-backward share this: ``tests/test_torch_flash_{fwd,bwd}_emulated.py``.
+wrappers launch them on CPU tensors.  The ``tests/test_torch_*_emulated.py``
+files share this.
 """
 import contextlib
 import ctypes
@@ -55,8 +55,10 @@ def build(out: Path, libs) -> dict:
         (out / src.name).write_text(host_source(src.read_text()))
 
     def compile_one(name):
-        cmd = [gxx, "-x", "c++", "-std=c++20", "-O2", "-shared", "-fPIC",
-               "-pthread", "-w", f"-I{EMU}", "-include",
+        # no strict aliasing: the sources read a 16-bit vector's elements
+        # through a cast of the loaded word, as nvcc allows
+        cmd = [gxx, "-x", "c++", "-std=c++20", "-O2", "-fno-strict-aliasing",
+               "-shared", "-fPIC", "-pthread", "-w", f"-I{EMU}", "-include",
                str(EMU / "warp_prims.h"), str(out / f"{name}.cu"), "-o",
                str(out / f"lib{name}.so")]
         return subprocess.run(cmd, capture_output=True, text=True)

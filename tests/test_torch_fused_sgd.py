@@ -1,6 +1,8 @@
 """Port parity: row 19's SGD-step, SGD-pipeline and Adam-step bodies
-(``apex_tpu_torch.ops.sgd_step``, ``sgd_pipeline``, ``adam_step``)
-against the JAX package's Pallas bodies in CPU interpret mode
+(``apex_tpu_torch.ops.sgd_step``, ``sgd_pipeline``, ``adam_step``, and
+the steps over a list of leaves, ``sgd_step_leaves`` and
+``adam_step_leaves``) against the JAX package's Pallas bodies in CPU
+interpret mode, leaf by leaf
 (``fused_optim.sgd_step(..., interpret=True)``,
 ``fused_pipeline.sgd_pipeline(use_pallas=True)``,
 ``fused_optim.adam_step``), and ``FusedSGD``'s staged and pipeline steps
@@ -30,7 +32,8 @@ import jax.numpy as jnp
 from apex_tpu.ops import fused_optim as jfo
 from apex_tpu.ops import fused_pipeline as jfp
 from apex_tpu.optimizers import fused_sgd as jax_fused_sgd
-from apex_tpu_torch.ops import adam_step, sgd_pipeline, sgd_step
+from apex_tpu_torch.ops import (adam_step, adam_step_leaves, sgd_pipeline,
+                                sgd_step, sgd_step_leaves)
 from apex_tpu_torch.optimizers import fused_adam, fused_sgd
 
 N = 128 * 40 + 37            # an odd length: the kernels' scalar tail
@@ -165,6 +168,74 @@ def test_adam_step_matches_jax_pallas(adam_w_mode, lowp):
         _lowp_close(tl, restore(outs[3]).astype(jnp.float32), lowp)
 
 
+# a mixed leaf list, as the staged route hands it over: (g dtype, lowp
+# dtype, length), odd lengths
+LEAF_MIX = [(None, None, 37), ("bf16", "bf16", 301), ("fp16", "fp16", 130),
+            ("bf16", None, 65), (None, "fp16", 9)]
+
+
+def _leaf_mix(seed, states):
+    """Per leaf of ``LEAF_MIX``: (g, lowp dtype, [p, state...]) as numpy,
+    g holding the values of its dtype."""
+    out = []
+    for i, (gdt, ldt, n) in enumerate(LEAF_MIX):
+        g, p, s1, s2 = _inputs(seed + i, n, gdt)
+        out.append((g, gdt, ldt, [p, s1, s2 * 5 + 0.01][:states + 1]))
+    return out
+
+
+def _jax_leaf(fn, g, gdt, ldt, bufs, **kw):
+    """The JAX step on one leaf (LANE-padded by ``flatten_for_kernel``):
+    the new p and state, and the copy (or None), as numpy."""
+    flats, restore = jfo.flatten_for_kernel(
+        jnp.asarray(g).astype(JAXD[gdt] or jnp.float32),
+        *(jnp.asarray(b) for b in bufs))
+    outs = fn(*flats, lowp_dtype=JAXD[ldt], interpret=True, **kw)
+    new = [np.asarray(restore(o)) for o in outs[:len(bufs)]]
+    low = None if ldt is None else \
+        restore(outs[len(bufs)]).astype(jnp.float32)
+    return new, low
+
+
+def _hold_leaves(leaves, got, lows, jax_fn, **kw):
+    for (g, gdt, ldt, bufs), tb, tl in zip(leaves, got, lows):
+        want, low = _jax_leaf(jax_fn, g, gdt, ldt, bufs, **kw)
+        for a, b in zip(tb, want):
+            _ulps_close(a.numpy(), b, g, *bufs, *want)
+        if ldt is not None:
+            _lowp_close(tl, low, ldt)
+
+
+@pytest.mark.parametrize("nesterov,dampening,wd_after,first", FLAGS)
+def test_sgd_step_leaves_matches_jax_pallas(nesterov, dampening, wd_after,
+                                            first):
+    leaves = _leaf_mix(40, 1)
+    kw = dict(SGD, dampening=dampening, nesterov=nesterov,
+              wd_after_momentum=wd_after)
+    got = [[_t(b) for b in bufs] for _, _, _, bufs in leaves]
+    lows = [None if ldt is None else torch.empty(len(g), dtype=TORCH[ldt])
+            for g, _, ldt, _ in leaves]
+    sgd_step_leaves([_t(g, gdt) for g, gdt, _, _ in leaves],
+                    [b[0] for b in got], [b[1] for b in got], lows,
+                    first_run=first, **kw)
+    _hold_leaves(leaves, got, lows, jfo.sgd_step, first_run=float(first),
+                 **kw)
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_adam_step_leaves_matches_jax_pallas(adam_w_mode):
+    leaves = _leaf_mix(50, 2)
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              bias_correction1=1 - 0.9 ** 3, bias_correction2=1 - 0.999 ** 3,
+              adam_w_mode=adam_w_mode)
+    got = [[_t(b) for b in bufs] for _, _, _, bufs in leaves]
+    lows = [None if ldt is None else torch.empty(len(g), dtype=TORCH[ldt])
+            for g, _, ldt, _ in leaves]
+    adam_step_leaves([_t(g, gdt) for g, gdt, _, _ in leaves],
+                     *([b[k] for b in got] for k in range(3)), lows, **kw)
+    _hold_leaves(leaves, got, lows, jfo.adam_step, **kw)
+
+
 def _tree(seed):
     """A bf16-model leaf and an fp32 (batch-norm-like) leaf."""
     rng = np.random.RandomState(seed)
@@ -258,7 +329,7 @@ def test_fused_sgd_pipeline_steps_match_jax():
 
 
 def test_fused_adam_staged_step_matches_jax():
-    # bias corrections at count + 1 in fp32, one adam_step a leaf
+    # bias corrections at count + 1 in fp32, one adam_step_leaves a step
     from apex_tpu.optimizers import fused_adam as jax_fused_adam
 
     tree = _tree(7)
