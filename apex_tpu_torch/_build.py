@@ -287,6 +287,9 @@ def check(name: str, rc: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The handle of the current stream on ``device``, a CUDA tensor's
+    (indexed) device: PyTorch's raw getter, with no ``Stream`` object
+    built a launch."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

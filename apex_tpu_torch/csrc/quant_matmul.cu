@@ -9,31 +9,41 @@
 // The codes +-127 are exact in fp32 and the products are formed in fp32,
 // as JAX's fp32 dot_general forms them.
 //
-// Row 16, what bounds it on the H100: bytes.  At M = 8 each code is used
-// 8 times, 16 FLOPs a byte read, far below the card's ~295 bf16
-// operations a byte; the (K, N) code stream is the cost (GPT-345M's qkv
-// 3.1 MB, about 1 us at 3.35 TB/s).  The design: blocks of 256 threads
-// each own a strip of 32 columns and a split of K; the strip's splits (at
-// most 4, toward two blocks an SM: 4 for N = 1024, 2 for N = 3072 or
-// 4096) form one thread-block cluster.  Of caps 1, 2, 4 and 8, 4 gave the
-// least time summed over a layer's four decode linears on the H100 (8-block
-// clusters ran the N = 1024 shapes slower than 2 or 4).  A block stages x (zero-padded to
-// 8 rows) in shared memory as fp32, 16 bytes a load, 1024 K at a time;
-// each thread owns an 8-column group of the strip (one 8-byte load of 8
-// consecutive codes per K row, four threads cover a 32-byte sector) and
-// every 64th K row of the split, with eight loads in flight before it
-// converts and accumulates, in an (8 rows x 8 columns) fp32 accumulator.  Partials are reduced in a
-// fixed order: shuffles across a warp's 8 K lanes, the 8 warps' partials
-// in shared memory, and the cluster's rank-0 block adding the ranks' in
-// rank order through distributed shared memory.  One launch, no atomics,
-// no scratch in device memory; results repeat bitwise.  The column scale
-// multiplies each sum once.  On the TPU the grid walked K in order with
-// an fp32 VMEM accumulator; here K is split over warps and over the
-// cluster's blocks instead.  Tails: N or K not a multiple of 8 (or a
-// misaligned pointer) takes element loads with bounds checks, K tails end
-// the walk early; both inside the kernel.  Later work: byte-to-float
-// conversion by permutes instead of I2F, and bf16 x on the tensor cores
-// (M padded to 16).
+// Row 16, what bounds it on the H100: bytes, and at these sizes latency.
+// At M = 8 each code is used 8 times, 16 FLOPs a byte read, far below the
+// card's ~295 bf16 operations a byte; the (K, N) code stream is the cost
+// (GPT-345M's qkv 3.1 MB, about 1 us at 3.35 TB/s), and a launch's fixed
+// steps (the first loads' latency, the reduction, the cluster barrier)
+// weigh as much again.  bf16 / fp16 x runs on the tensor cores
+// (`quant_gemv_mma_kernel`): outᵀ = wqᵀ · xᵀ, 16 code columns the m16
+// operand of an mma.sync m16n8k16 and x's (at most 8) rows the n8 one, so
+// no row of the tile is padding (x padded to m16 against n8 tiles of
+// codes, the other layout, did twice the products and ran slower on the
+// H100).  Each lane loads 16 bytes of one K row (4 rows of 128 contiguous
+// bytes a warp load) and 16 bytes of x: its loads are its fragments, the
+// codes converted in registers by row 17's `code_pair` (exact, no I2F),
+// the products exact in fp32 as in JAX's fp32 dot_general.  A warp owns
+// 128 columns and walks 32-row chunks of K, two chunks' loads in flight
+// before the first product; nothing is staged ahead of them.  K splits
+// over the warps of a block and over up to 8 blocks of a thread-block
+// cluster, toward one block an SM: 4 warps a block where each warp then
+// takes at most one pair of chunks (more blocks, over more SMs), else 8
+// (GPT-345M's qkv, dense, fc1: 8 splits of 4 warps; fc2, K = 4096: 8 of
+// 8).  The warps' partials meet in shared memory in warp order; each rank
+// pushes its sums of every rank's share into that rank's inbox through
+// distributed shared memory, and after one cluster barrier (its arrival
+// half issued at the start, so the pushes wait on nothing) each rank adds
+// its inbox in rank order: no atomics, results repeat bitwise.  The
+// column scale, loaded before the walk, multiplies each sum once.  On the
+// TPU the grid walked K in order with an fp32 VMEM accumulator.  fp32 x
+// (the O0 check) keeps the FMA kernel (`quant_gemv_kernel`): blocks of 256
+// threads own a strip of 32 columns and a split of K (at most 4 a
+// cluster), x staged in shared memory as fp32, each thread an 8 x 8 fp32
+// accumulator, partials reduced by shuffles, shared memory and the
+// cluster's rank 0.  Tails: N or K not a multiple of the vector loads (or
+// a misaligned pointer) take element loads with bounds checks, K tails
+// end the walk early; both inside the kernels.  Later work: one fewer
+// instruction a bf16 code pair (a sign-split bias on bf16x2), and wgmma.
 //
 // Row 17, what bounds it: operations at a prefill's M (704 rows do 2 * 704
 // FLOPs a code), bytes at the verify's and the chunk's (M = 24 or 32: the
@@ -700,8 +710,11 @@ template <typename K, typename TX, typename TO>
 cudaError_t launch_cluster(K kern, dim3 grid, int threads, int smem, const TX* x,
                            const int8_t* w, const float* sc, TO* out, int m, int n, int k,
                            int k_split, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
+  if (smem > 48 * 1024) {  // the default limit needs no call a launch
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads, 1, 1);
@@ -743,6 +756,247 @@ cudaError_t launch_mma(const TX* x, const int8_t* w, const float* sc, TO* out, i
                         split_rows(k, splits, kQK), stream);
 }
 
+// --- row 16 for bf16 / fp16 x: the tensor cores ------------------------
+
+constexpr int kGvCols = 128;                    // columns a warp (and its block) owns
+constexpr int kGvSteps = 2;                     // k-steps (16 K rows) a chunk
+constexpr int kGvChunk = 16 * kGvSteps;         // K rows a warp takes at a time
+constexpr int kGvUnroll = 2;                    // chunks a warp loads before their use
+constexpr int kGvMaxSplits = 8;                 // blocks a cluster
+constexpr int kGvVecs = kGemvRows * kGvCols / 4;  // a block's float4 sums
+// shared memory of a block of `warps`: their partials, then the inbox of
+// the ranks' sums
+constexpr int gv_smem(int warps) { return (warps + 1) * kGvVecs * 16 + kGvMaxSplits * 16; }
+
+// the cluster barrier in two halves: arrive (relaxed: no memory order, or
+// releasing this thread's writes) and wait (acquiring the others')
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// 16 codes of K row r from column c; columns past n, rows at or past kend: 0
+template <bool VEC>
+__device__ __forceinline__ uint4 codes16(const int8_t* __restrict__ w, int r, int c, int n,
+                                         int kend) {
+  if (r >= kend) return make_uint4(0, 0, 0, 0);
+  const int8_t* p = w + (size_t)r * n + c;
+  if (VEC) return c < n ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0, 0, 0, 0);
+  uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (c + j < n) v[j >> 2] |= (uint32_t)(uint8_t)p[j] << (8 * (j & 3));
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// 8 x values of row r from column kk; rows past m, columns at or past
+// kend: 0
+template <typename TX, bool VEC>
+__device__ __forceinline__ uint4 x8(const TX* __restrict__ x, int r, int kk, int m, int k,
+                                    int kend) {
+  if (r >= m) return make_uint4(0, 0, 0, 0);
+  const TX* p = x + (size_t)r * k + kk;
+  if (VEC) return kk < kend ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0, 0, 0, 0);
+  const unsigned short* e = reinterpret_cast<const unsigned short*>(p);
+  uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (kk + j < kend) v[j >> 1] |= (uint32_t)e[j] << (16 * (j & 1));
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Grid (128-column strips, 1, K splits), one cluster of the splits per
+// strip, kWarps warps a block.  Warp w of a block takes 32-row chunks w, w
+// + kWarps, ... of the block's K range, two at a time.  Lane (g, t) loads,
+// per chunk at K row k0, 16 codes (one 16-byte load) of each of rows k0 +
+// 8t .. k0 + 8t + 7 at columns 16g .. 16g + 15 of the strip, so the lanes
+// of one load cover 4 rows of 128 contiguous bytes, and x's row g at
+// columns k0 + 8t .. + 7 (one 16-byte load): k-step s of the chunk reads K
+// rows 8t + 4s .. + 3 as k-slots 2t, 2t + 1, 2t + 8, 2t + 9 in both
+// operands.  Swapped, m16 tile i's row g stands for column 16g + i and
+// row g + 8 for 16g + 8 + i, and n8 column j is x's row j: each lane's
+// loads are its fragments, converted in registers (`code_pair`), and its
+// sums are x's rows 2t and 2t + 1 at its 16 columns.  The warps' partials
+// meet in shared
+// memory in warp order; each rank pushes its sums of every rank's share
+// into that rank's inbox through distributed shared memory, and after one
+// cluster barrier each rank adds its inbox in rank order, the column scale
+// (loaded before the walk) multiplying each sum.
+template <typename TX, typename TO, bool VEC, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
+quant_gemv_mma_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
+                      const float* __restrict__ scale, TO* __restrict__ out, int m, int n,
+                      int k, int k_split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* red = reinterpret_cast<float4*>(smem_raw);  // [warp][8 rows][32 float4]
+  float4* inbox = red + kWarps * kGvVecs;             // [rank][share]
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kOut = (kGvVecs + kThreads - 1) / kThreads;  // a thread's float4 sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  cluster_arrive_relaxed();  // this block has started: its inbox may be written
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n0 = blockIdx.x * kGvCols;
+  const int kb = blockIdx.z * k_split;
+  const int kend = min(k, kb + k_split);
+  const int chunks = kend > kb ? (kend - kb + kGvChunk - 1) / kGvChunk : 0;
+  const int share = (kGvVecs + ranks - 1) / ranks;  // float4 sums a rank stores
+
+  // the column scales of this thread's stores, read ahead of the walk
+  float sc[kOut][4];
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) {
+    const int v = rank * share + tid + j * kThreads;
+    const int gn = n0 + 4 * v % kGvCols;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[j][e] = tid + j * kThreads < share && v < kGvVecs && gn + e < n ? scale[gn + e] : 0.f;
+  }
+
+  float acc[8][4];  // m16 tile i: columns 16g + i, 16g + 8 + i; x's rows 2t, 2t + 1
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int q0 = warp; q0 < chunks; q0 += kWarps * kGvUnroll) {
+    uint4 cw[kGvUnroll][8], xw[kGvUnroll];
+#pragma unroll
+    for (int u = 0; u < kGvUnroll; ++u) {
+      const int q = q0 + u * kWarps;
+      if (q >= chunks) continue;  // the same for the whole warp
+      const int kr = kb + q * kGvChunk + 8 * t4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cw[u][j] = codes16<VEC>(w, kr + j, n0 + 16 * g, n, kend);
+      xw[u] = x8<TX, VEC>(x, g, kr, m, k, kend);
+    }
+#pragma unroll
+    for (int u = 0; u < kGvUnroll; ++u) {
+      if (q0 + u * kWarps >= chunks) continue;
+#pragma unroll
+      for (int s = 0; s < kGvSteps; ++s) {
+        uint4 r[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          r[j] = cw[u][4 * s + j];
+          r[j].x ^= 0x80808080u;
+          r[j].y ^= 0x80808080u;
+          r[j].z ^= 0x80808080u;
+          r[j].w ^= 0x80808080u;
+        }
+        const uint32_t x0 = word(xw[u], 2 * s), x1 = word(xw[u], 2 * s + 1);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int lo = i >> 2, hi = 2 + (i >> 2), b = i & 3;
+          const uint32_t a[4] = {code_pair<TX>(word(r[0], lo), b, word(r[1], lo), b),
+                                 code_pair<TX>(word(r[0], hi), b, word(r[1], hi), b),
+                                 code_pair<TX>(word(r[2], lo), b, word(r[3], lo), b),
+                                 code_pair<TX>(word(r[2], hi), b, word(r[3], hi), b)};
+          mma16816<TX>(acc[i], a, x0, x1);
+        }
+      }
+    }
+  }
+  // the warp's partial [8 rows][128 columns]
+  float* part = reinterpret_cast<float*>(red + warp * kGvVecs);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    // e & 1: row 2t + 1; e >> 1: columns 16g + 8 ..
+    float* p = part + (2 * t4 + (e & 1)) * kGvCols + 16 * g + 8 * (e >> 1);
+    reinterpret_cast<float4*>(p)[0] = make_float4(acc[0][e], acc[1][e], acc[2][e], acc[3][e]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(acc[4][e], acc[5][e], acc[6][e], acc[7][e]);
+  }
+  __syncthreads();
+  cluster_wait();  // every rank has started
+  // the warps' sum in warp order, pushed to the inbox of the rank that
+  // stores it
+  for (int v = tid; v < kGvVecs; v += kThreads) {
+    float4 sum = red[v];
+#pragma unroll
+    for (int wp = 1; wp < kWarps; ++wp) {
+      const float4 o = red[wp * kGvVecs + v];
+      sum.x += o.x;
+      sum.y += o.y;
+      sum.z += o.z;
+      sum.w += o.w;
+    }
+    const int owner = v / share;
+    cluster.map_shared_rank(inbox, owner)[rank * share + v - owner * share] = sum;
+  }
+  cluster_arrive();
+  cluster_wait();  // every rank's sums are in their owners' inboxes
+  // this rank's share: the ranks' sums in rank order, scaled and stored
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) {
+    const int i = tid + j * kThreads;
+    const int v = rank * share + i;
+    if (i >= share || v >= kGvVecs) continue;
+    float4 sum = inbox[i];
+    for (int r = 1; r < ranks; ++r) {
+      const float4 o = inbox[r * share + i];
+      sum.x += o.x;
+      sum.y += o.y;
+      sum.z += o.z;
+      sum.w += o.w;
+    }
+    const int gm = 4 * v / kGvCols, gn = n0 + 4 * v % kGvCols;
+    if (gm < m) {
+      const float e[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (gn + c < n) out[(size_t)gm * n + gn + c] = from_f<TO>(e[c] * sc[j][c]);
+    }
+  }
+}
+
+// K splits of the GEMV over a cluster of blocks of `warps`: at most
+// kGvMaxSplits, each warp at least one chunk, toward one block an SM, or
+// two where two leave at most an eighth of the SMs without their second
+// (on the H100, 192 blocks of 4 warps over 132 SMs ran GPT-345M's qkv
+// slower than 96, and 256 ran fc1 faster than 128)
+int gemv_mma_splits(int strips, int chunks, int warps) {
+  const int sms = sm_count();
+  int splits = 1;
+  while (splits * 2 <= kGvMaxSplits && chunks >= 2 * splits * warps) {
+    const int blocks = 2 * splits * strips;
+    if (blocks > sms && (blocks > 2 * sms || 8 * blocks < 15 * sms)) break;
+    splits *= 2;
+  }
+  return splits;
+}
+
+// row 16 for bf16 / fp16 x: blocks of 4 warps where each warp then takes
+// at most one pair of chunks (the loads of one round in flight, more
+// blocks over more SMs), else of 8 (fc2's K = 4096 on 8 strips)
+template <typename TX, typename TO, bool VEC>
+cudaError_t launch_gemv(const TX* x, const int8_t* w, const float* sc, TO* out, int m, int n,
+                        int k, cudaStream_t stream) {
+  const int strips = (n + kGvCols - 1) / kGvCols;
+  const int chunks = (k + kGvChunk - 1) / kGvChunk;
+  const int s4 = gemv_mma_splits(strips, chunks, 4);
+  if (chunks <= s4 * 4 * kGvUnroll)
+    return launch_cluster(quant_gemv_mma_kernel<TX, TO, VEC, 4>, dim3(strips, 1, s4), 128,
+                          gv_smem(4), x, w, sc, out, m, n, k, split_rows(k, s4, kGvChunk),
+                          stream);
+  const int s8 = gemv_mma_splits(strips, chunks, 8);
+  return launch_cluster(quant_gemv_mma_kernel<TX, TO, VEC, 8>, dim3(strips, 1, s8), 256,
+                        gv_smem(8), x, w, sc, out, m, n, k, split_rows(k, s8, kGvChunk),
+                        stream);
+}
+
 template <typename TX, typename TO>
 cudaError_t launch(bool gemv, const void* x, const void* w, const void* scale,
                    void* out, int m, int n, int k, cudaStream_t stream) {
@@ -751,7 +1005,23 @@ cudaError_t launch(bool gemv, const void* x, const void* w, const void* scale,
   const float* sp = static_cast<const float*>(scale);
   TO* op = static_cast<TO*>(out);
   const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
-  if (gemv) {
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  if constexpr (!std::is_same<TX, float>::value) {
+    if (gemv) {
+      // VEC: the 16-byte code and x loads are aligned and each wholly in
+      // or out
+      if (n % 16 == 0 && wa % 16 == 0 && k % 8 == 0 && xa % 16 == 0)
+        return launch_gemv<TX, TO, true>(xp, wp, sp, op, m, n, k, stream);
+      return launch_gemv<TX, TO, false>(xp, wp, sp, op, m, n, k, stream);
+    }
+    // VEC: the vector loads (8 bytes in the small kernel, 16 in the
+    // staged one) are aligned and each chunk is wholly in or out
+    const bool vec = m <= kSmallRows
+                         ? k % 4 == 0 && n % 8 == 0 && xa % 8 == 0 && wa % 8 == 0
+                         : k % 8 == 0 && n % 16 == 0 && xa % 16 == 0 && wa % 16 == 0;
+    if (vec) return launch_mma<TX, TO, true>(xp, wp, sp, op, m, n, k, stream);
+    return launch_mma<TX, TO, false>(xp, wp, sp, op, m, n, k, stream);
+  } else if (gemv) {
     const int splits = gemv_splits(n, k);
     const int k_split = gemv_k_split(k, splits);
     cudaLaunchConfig_t cfg = {};
@@ -767,7 +1037,6 @@ cudaError_t launch(bool gemv, const void* x, const void* w, const void* scale,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     // VEC: 8-byte code loads and 16-byte x loads are aligned
-    const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
     const cudaError_t e =
         n % kGemvCols == 0 && wa % kGemvCols == 0 && k % 8 == 0 && xa % 16 == 0
             ? cudaLaunchKernelEx(&cfg, quant_gemv_kernel<TX, TO, true>, xp, wp, sp, op,
@@ -775,15 +1044,6 @@ cudaError_t launch(bool gemv, const void* x, const void* w, const void* scale,
             : cudaLaunchKernelEx(&cfg, quant_gemv_kernel<TX, TO, false>, xp, wp, sp,
                                  op, m, n, k, k_split);
     if (e != cudaSuccess) return e;
-  } else if constexpr (!std::is_same<TX, float>::value) {
-    // VEC: the vector loads (8 bytes in the small kernel, 16 in the
-    // staged one) are aligned and each chunk is wholly in or out
-    const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
-    const bool vec = m <= kSmallRows
-                         ? k % 4 == 0 && n % 8 == 0 && xa % 8 == 0 && wa % 8 == 0
-                         : k % 8 == 0 && n % 16 == 0 && xa % 16 == 0 && wa % 16 == 0;
-    if (vec) return launch_mma<TX, TO, true>(xp, wp, sp, op, m, n, k, stream);
-    return launch_mma<TX, TO, false>(xp, wp, sp, op, m, n, k, stream);
   } else {
     const dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
     if (n % 4 == 0 && wa % 4 == 0)

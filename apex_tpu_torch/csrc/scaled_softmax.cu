@@ -37,11 +37,31 @@
 // reads the row twice (an online max/sum pass, then the write).  The
 // forward never reads the masked upper triangle, only writes its zeros.
 // Lanes touch neighbouring addresses, so every load and store is one
-// 128-byte transaction per warp (fp32).  The padding-mask forward has the
-// same shape: one warp per (b, head, row), a block of 8 warps over 8
-// consecutive rows of one (b, head), the row's mask bytes read beside its
-// scores.  Later work: 16-byte vector loads, several rows per warp for
-// short rows.
+// 128-byte transaction per warp (fp32).
+//
+// The padding-mask forward (`masked_fwd_kernel`) moves 16 bytes a lane a
+// load: one warp per (b, head, row), a block of 8 warps over 8
+// consecutive rows, each lane's load j the 8 fp16 / bf16 (4 fp32) scores
+// from column (32 j + lane) * 8 (* 4) and the 8 (4) mask bytes beside
+// them, so a warp's load covers 512 contiguous bytes of scores; every load
+// of the row is issued before its max (2 a lane at sk = 512 in fp16, 4 in
+// fp32), the row stays in registers, and the stores are 16 bytes a lane.
+// The row's sum keeps the element path's order (the exps pass through the
+// warp's slice of shared memory, lane l adding columns l, l + 32, ...),
+// so the two paths, and the kernel before them, give the same bits: the
+// BERT O2 loss checks, read at one seed, see no change.  The division by
+// the sum is one reciprocal a row and Markstein's correction an element
+// (three operations against IEEE division's eight or so; the IEEE
+// quotient bit for bit wherever the numerator is at least 2^-100), which
+// the fp16 kernel's issue rate needed; at up to 16 elements a lane the
+// registers leave room for 8 blocks an SM in fp16 / bf16 (64 rows in
+// flight), 6 in fp32.  On the
+// H100 at BERT-large's (16, 16, 512, 512) scores, a two-row lookahead a
+// warp ran slower (more registers, fewer warps).  sk off the vector
+// width, a misaligned pointer, or sk > 1024 take the element path
+// (`masked_fwd_elem_kernel`, one element and one mask byte a load, the
+// looped variant past 1024).  The mask row is read once per (b, row) of a
+// head and shared by the np heads through a zero head stride.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -134,12 +154,116 @@ causal_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, long long rows, in
   }
 }
 
+// the word of N bytes one load moves
+template <int N> struct Word;
+template <> struct Word<16> { using type = uint4; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<4> { using type = uint32_t; };
+
+// a / b from r = 1 / b (correctly rounded) in three operations: q0 = a r,
+// its remainder a - q0 b exact in one fma, q0 corrected by it
+// (Markstein).  The IEEE quotient, bit for bit, wherever a >= 2^-100 (the
+// remainder does not underflow); below, within an ulp of a value under
+// 1e-30.  One division a row instead of one an element.
+__device__ __forceinline__ float div_by(float a, float b, float r) {
+  const float q0 = a * r;
+  return fmaf(fmaf(-q0, b, a), r, q0);
+}
+
 // rows = b * np * sq; row r is query r % sq of head (r / sq) % np of batch
-// r / (np * sq), and reads mask row (batch * mask_sb) + (r % sq) * sk.
-// kPer as in causal_fwd_kernel.
+// r / (np * sq), and reads mask row (batch * mask_sb) + (r % sq) * sk.  One
+// warp a row: lane load j covers kVec = 16 / sizeof(T) consecutive columns
+// from (32 j + lane) kVec, 16 bytes of scores and the kVec mask bytes
+// beside them, all kVecs loads issued before the row's max; the row (sk <=
+// 32 kVecs kVec) stays in registers between its max, its sum and its
+// 16-byte stores.  The sum keeps the element path's order: the exps pass
+// through the warp's slice of shared memory, lane l adds columns l, l +
+// 32, ... in turn, and the lanes' sums meet in the same butterfly, so the
+// output is bit for bit the element path's (the quotient aside, see
+// div_by).  Up to 16 elements a lane (sk <= 512), registers for 8 blocks
+// an SM in fp16 / bf16 (64 rows in flight) and 6 in fp32 (8 spilled, and
+// ran slower on the H100).
+template <typename T, int kVecs>
+__global__ void __launch_bounds__(kThreads,
+                                  kVecs * 16 / sizeof(T) <= 16 ? (sizeof(T) == 4 ? 6 : 8) : 1)
+masked_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                  T* __restrict__ y, long long rows, int np, int sq, int sk,
+                  long long mask_sb, float scale) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPer = kVecs * kVec;
+  using MW = typename Word<kVec>::type;
+  constexpr float kFill = -1e30f;  // the JAX kernel's finite fill
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const long long per_b = (long long)np * sq;
+  const T* xr = x + row * (long long)sk;
+  const uint8_t* mr = mask + row / per_b * mask_sb + (long long)(row % sq) * sk;
+  T* yr = y + row * (long long)sk;
+  uint4 xv[kVecs];
+  MW mv[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int c = (32 * i + lane) * kVec;
+    xv[i] = make_uint4(0, 0, 0, 0);
+    mv[i] = MW{};
+    if (c < sk) {
+      xv[i] = *reinterpret_cast<const uint4*>(xr + c);
+      mv[i] = *reinterpret_cast<const MW*>(mr + c);
+    }
+  }
+  float v[kPer];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int c = (32 * i + lane) * kVec;
+    const T* e = reinterpret_cast<const T*>(&xv[i]);
+    const uint8_t* mb = reinterpret_cast<const uint8_t*>(&mv[i]);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      v[i * kVec + j] = c < sk ? (mb[j] ? kFill : to_f<T>(e[j]) * scale) : -INFINITY;
+      mx = fmaxf(mx, v[i * kVec + j]);
+    }
+  }
+  mx = warp_max(mx);  // >= -1e30: finite whatever the mask
+  __shared__ __align__(16) float exps[kWarps][32 * kPer];
+  float* ex = exps[threadIdx.x >> 5];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i)
+#pragma unroll
+    for (int j = 0; j < kVec; j += 4) {
+      float4 e4;
+      e4.x = v[i * kVec + j] = expf(v[i * kVec + j] - mx);  // past sk: exp(-inf) = 0
+      e4.y = v[i * kVec + j + 1] = expf(v[i * kVec + j + 1] - mx);
+      e4.z = v[i * kVec + j + 2] = expf(v[i * kVec + j + 2] - mx);
+      e4.w = v[i * kVec + j + 3] = expf(v[i * kVec + j + 3] - mx);
+      *reinterpret_cast<float4*>(ex + (32 * i + lane) * kVec + j) = e4;
+    }
+  __syncwarp();
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) sum += ex[lane + 32 * c];
+  sum = warp_sum(sum);
+  const float rcp = 1.f / sum;  // the one division
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int c = (32 * i + lane) * kVec;
+    if (c >= sk) continue;
+    uint4 out;
+    T* e = reinterpret_cast<T*>(&out);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) e[j] = from_f<T>(div_by(v[i * kVec + j], sum, rcp));
+    *reinterpret_cast<uint4*>(yr + c) = out;
+  }
+}
+
+// The element path of masked_fwd_kernel: sk off the 16-byte vector or a
+// misaligned pointer (kPer > 0, one element and one mask byte a load), or
+// sk > 1024 (kPer == 0, any alignment).  Rows and kPer as there and in
+// causal_fwd_kernel.
 template <typename T, int kPer>
 __global__ void __launch_bounds__(kThreads)
-masked_fwd_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+masked_fwd_elem_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
                   T* __restrict__ y, long long rows, int np, int sq, int sk,
                   long long mask_sb, float scale) {
   constexpr float kFill = -1e30f;  // the JAX kernel's finite fill
@@ -246,24 +370,43 @@ cudaError_t launch_fwd(const void* x, void* y, long long rows, int sq, int sk, f
   return cudaGetLastError();
 }
 
+// The padding-mask forward: 16-byte loads where sk (at most 1024) is a
+// multiple of the vector and every pointer and plane stride is aligned to
+// its load, else the element path (the row in registers up to 1024
+// columns, the looped variant beyond)
 template <typename T>
 cudaError_t launch_masked(const void* x, const void* mask, void* y, long long rows,
                           int np, int sq, int sk, long long mask_sb, float scale,
                           cudaStream_t st) {
+  constexpr int kVec = 16 / sizeof(T);
   const T* xp = static_cast<const T*>(x);
   const uint8_t* mp = static_cast<const uint8_t*>(mask);
   T* yp = static_cast<T*>(y);
   const unsigned g = grid_for(rows);
-  if (sk <= 128)
-    masked_fwd_kernel<T, 4><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
+  const bool vec = sk <= 1024 && sk % kVec == 0 && mask_sb % kVec == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(mask) % kVec == 0;
+  if (vec) {
+    const int per = (sk + 32 * kVec - 1) / (32 * kVec);  // loads a lane
+    if (per <= 1)
+      masked_fwd_kernel<T, 1><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
+    else if (per <= 2)
+      masked_fwd_kernel<T, 2><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
+    else if (kVec == 8 || per <= 4)
+      masked_fwd_kernel<T, 4><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
+    else if constexpr (kVec == 4)  // fp32 rows of 513 to 1024 columns
+      masked_fwd_kernel<T, 8><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
+  } else if (sk <= 128)
+    masked_fwd_elem_kernel<T, 4><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
   else if (sk <= 256)
-    masked_fwd_kernel<T, 8><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
+    masked_fwd_elem_kernel<T, 8><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
   else if (sk <= 512)
-    masked_fwd_kernel<T, 16><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
+    masked_fwd_elem_kernel<T, 16><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
   else if (sk <= 1024)
-    masked_fwd_kernel<T, 32><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
+    masked_fwd_elem_kernel<T, 32><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
   else
-    masked_fwd_kernel<T, 0><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
+    masked_fwd_elem_kernel<T, 0><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
   return cudaGetLastError();
 }
 

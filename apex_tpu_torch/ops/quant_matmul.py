@@ -46,6 +46,8 @@ SCALE_FLOOR = 1e-8
 GEMV_MAX_ROWS = 8
 
 _X_TAKES = (torch.float32, torch.bfloat16, torch.float16)
+# the kernels' dtype codes (``_build.DTYPE_CODES``), read once a call
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,23 +98,26 @@ def _check(x, wq, scale):
 
 def _launch(x2, wq, scale, out_dtype):
     """The kernel for ``x2`` (M, K) on the card: the GEMV at M <= 8, the
-    tiled kernel above."""
-    if x2.dtype not in _X_TAKES:
+    tiled kernel above.  Each attribute is read once: a decode tick makes
+    four such calls a layer, and the host issues them."""
+    x_code = _CODES.get(x2.dtype)
+    if x_code is None:
         raise TypeError(f"quant_matmul kernel takes x in {_X_TAKES}, got "
                         f"{x2.dtype}")
-    if out_dtype not in (x2.dtype, torch.float32):
+    if out_dtype is not x2.dtype and out_dtype is not torch.float32:
         raise TypeError(f"quant_matmul kernel writes x's dtype or fp32, "
                         f"not {out_dtype} for x {x2.dtype}")
-    if scale.dtype != torch.float32:
+    if scale.dtype is not torch.float32:
         raise TypeError(f"scale must be fp32, got {scale.dtype}")
+    dev = x2.device
     for name, t in (("wq", wq), ("scale", scale)):
-        if t.device != x2.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x2.device}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     m, k = x2.shape
     n = wq.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
     if k == 0:
@@ -120,10 +125,14 @@ def _launch(x2, wq, scale, out_dtype):
     gemv = m <= GEMV_MAX_ROWS
     lib = _build.library("quant_matmul")
     fn = lib.apex_quant_gemv if gemv else lib.apex_quant_tiled
-    with torch.cuda.device(x2.device):
-        rc = fn(x2.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), m, n, k, _build.dtype_code(x2.dtype),
-                _build.dtype_code(out_dtype), _build.stream_ptr(x2.device))
+    args = (x2.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, n, k, x_code, _CODES[out_dtype], _build.stream_ptr(dev))
+    # the device switch only where x is not on the current device
+    if dev.type == "cuda" and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            rc = fn(*args)
+    else:
+        rc = fn(*args)
     name = "quant_gemv" if gemv else "quant_tiled"
     _build.check("quant_matmul", rc, f"{name} kernel")
     bump(name)
@@ -141,6 +150,8 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor, *,
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return quant_matmul_reference(x, wq, scale, out_dtype=out_dtype)
+    if x.dim() == 2 and x.is_contiguous():
+        return _launch(x, wq, scale, out_dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     return _launch(x2, wq, scale, out_dtype).reshape(*lead, wq.shape[1])

@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero without the result line:
                    show HMMA in every bf16/fp16 forward, dK/dV and dQ
                    instantiation, and no forward may spill (each one's
                    registers, spills and shared memory printed); that of
-                   ``quant_matmul`` HMMA in each of row 17's 16 bf16/fp16
-                   instantiations (registers and spills printed).
+                   ``quant_matmul`` HMMA in each of rows 16 and 17's 32
+                   bf16/fp16 instantiations (registers and spills
+                   printed).
 2. kernels       — hold each kernel against its plain PyTorch version on
                    the card, with the stated tolerances, and time kernel,
                    plain version, one library call and the card's bound:
@@ -1141,20 +1142,36 @@ def check_tensor_cores(_build) -> None:
     check_quant_tensor_cores(_build, tool)
 
 
-# row 17's tensor-core kernels (`csrc/quant_matmul.cu`) and their dynamic
-# shared memory: the small kernel's four warps' [32][64] fp32 partials; the
-# staged kernel's three stages of 64 x rows ([64][72] elements) and 64 raw
-# code rows (144 bytes each)
+# rows 16 and 17's tensor-core kernels (`csrc/quant_matmul.cu`) and their
+# dynamic shared memory: the small kernel's four warps' [32][64] fp32
+# partials; the staged kernel's three stages of 64 x rows ([64][72]
+# elements) and 64 raw code rows (144 bytes each); the GEMV's
+# (`_qmm_smem`): its warps' [8][128] fp32 partials, then an inbox of that
+# size again and 8 float4s of slack
 QMM_KERNELS = {"quant_small_kernel": 4 * 32 * 64 * 4,
                "quant_mma_kernel": 3 * (64 * 72 * 2 + 64 * 144)}
-_QMM_KERNEL = re.compile(r"(quant_small_kernel|quant_mma_kernel)"
-                         r"I(13__nv_bfloat16|6__half)")
+# x bf16/fp16 x out x's/fp32 x VEC: 8 of each of row 17's kernels, and of
+# the GEMV at 4 and at 8 warps a block
+QMM_INSTANTIATIONS = 32
+_QMM_KERNEL = re.compile(r"(quant_gemv_mma_kernel|quant_small_kernel|"
+                         r"quant_mma_kernel)I(13__nv_bfloat16|6__half)")
+
+
+def _qmm_smem(kernel: str, symbol: str) -> int:
+    """Dynamic shared memory of one instantiation (the GEMV's by its
+    warps, the template's last argument)."""
+    if kernel == "quant_gemv_mma_kernel":
+        warps = int(re.search(r"Lb[01]ELi(\d+)E", symbol).group(1))
+        return (warps + 1) * 8 * 128 * 4 + 8 * 16
+    return QMM_KERNELS[kernel]
 
 
 def check_quant_tensor_cores(_build, tool: str) -> None:
-    """Every bf16 and fp16 instantiation of row 17's kernels
-    (``quant_small_kernel`` and ``quant_mma_kernel``: x's dtype x out's x
-    VEC, 16 in all) must run on the tensor cores: ``cuobjdump -sass`` of
+    """Every bf16 and fp16 instantiation of row 16's GEMV
+    (``quant_gemv_mma_kernel``: x's dtype x out's x VEC x 4 or 8 warps)
+    and of row 17's kernels (``quant_small_kernel`` and
+    ``quant_mma_kernel``: x's dtype x out's x VEC), 32 in all, must run on
+    the tensor cores: ``cuobjdump -sass`` of
     ``quant_matmul`` shows ``HMMA`` in each.  Prints each one's HMMA
     count, registers and spills (or, for a library an earlier process
     built, its registers and stack frame) and dynamic shared memory."""
@@ -1181,16 +1198,17 @@ def check_quant_tensor_cores(_build, tool: str) -> None:
             use = "usage not read"
         log(f"  tensor cores quant_matmul: {m.group(1)} "
             f"{'bf16' if 'bfloat' in m.group(2) else 'fp16'} ({name}): "
-            f"{hmma} HMMA, {use}, {QMM_KERNELS[m.group(1)]} B dynamic "
+            f"{hmma} HMMA, {use}, {_qmm_smem(m.group(1), name)} B dynamic "
             f"shared memory")
         found.append((name, hmma))
     bad = [n for n, h in found if h == 0]
-    if len(found) != 16 or bad:
-        raise AssertionError(f"quant_matmul: {len(found)} row-17 tensor-core "
-                             f"instantiations (16 expected); without HMMA: "
-                             f"{bad}")
-    log("tensor cores: every bf16/fp16 instantiation of row 17's kernels "
-        "(16) holds HMMA")
+    if len(found) != QMM_INSTANTIATIONS or bad:
+        raise AssertionError(f"quant_matmul: {len(found)} rows-16/17 "
+                             f"tensor-core instantiations "
+                             f"({QMM_INSTANTIATIONS} expected); without "
+                             f"HMMA: {bad}")
+    log(f"tensor cores: every bf16/fp16 instantiation of rows 16 and 17's "
+        f"kernels ({QMM_INSTANTIATIONS}) holds HMMA")
 
 
 # --- phase 2 ------------------------------------------------------------
@@ -1633,39 +1651,56 @@ def _qmm_hold(x, wq, sc, out_dtype, label):
 
 def check_quant_matmul(dev, g):
     """Rows 16 (GEMV, M <= 8) and 17 (tiled, M > 8): JAX's self_check
-    shapes (fp32: the FMA tile above 8 rows), shapes whose N and K are no
-    multiple of the vector width (the element-load paths), bf16 and fp16
-    x (the tensor-core tile) into fp32 out, an all-zero weight column
-    (exactly 0 out, both kernels and both tiles); then the Q8 serve's shapes
-    in bf16, each held and timed: the GEMV at M = 8 for the four
-    linears of a decode tick, the tiled kernel at the 700-token
-    prefill's M = 704 for the four linears and at the verify's M = 24
-    and the chunk's M = 32 for qkv.  Returns the two entries, every
-    timed shape under ``shapes``."""
+    shapes (fp32: the FMA kernels), shapes whose N and K are no multiple
+    of the vector width and an x and wq misaligned by one element (the
+    element-load paths), bf16 and fp16 x (the tensor-core kernels) into
+    fp32 out, an all-zero weight column (exactly 0 out, both kernels and
+    every route), the GEMV at every M from 1 to 8 at the qkv shape; then
+    the Q8 serve's shapes in bf16, each held and timed: the GEMV at M = 8
+    for the four linears of a decode tick, the tiled kernel at the
+    700-token prefill's M = 704 for the four linears and at the verify's
+    M = 24 and the chunk's M = 32 for qkv.  Returns the two entries,
+    every timed shape under ``shapes``."""
     from apex_tpu_torch.ops import (dequantize_weight, launch_counts,
                                     quant_matmul, quant_matmul_reference,
                                     reset_launch_counts)
 
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     reset_launch_counts()
     for m, k, n in ((1, 96, 160), (4, 128, 384), (8, 256, 256),
                     (160, 128, 256), (3, 77, 100), (100, 77, 100)):
         x, wq, sc = _qmm_case(dev, g, m, k, n, f32)
         _qmm_hold(x, wq, sc, f32, "self_check / odd shape")
-    # bf16 and fp16 x (the tensor-core tile above 8 rows), into fp32 out;
-    # (100, 77, 100) takes the unaligned element loads
+    # bf16 and fp16 x (the tensor-core kernels), into fp32 out; (100, 77,
+    # 100), (5, 77, 100) and N = 200 take the element loads
     for m, k, n, dt in ((5, 1024, 1024, bf16), (33, 1024, 1024, bf16),
-                        (100, 77, 100, bf16), (40, 96, 160, torch.float16),
-                        (64, 256, 256, torch.float16)):
+                        (100, 77, 100, bf16), (40, 96, 160, f16),
+                        (64, 256, 256, f16), (5, 77, 100, bf16),
+                        (7, 1000, 200, f16)):
         x, wq, sc = _qmm_case(dev, g, m, k, n, dt)
         _qmm_hold(x, wq, sc, f32, f"{dt} x, fp32 out")
-    for m, dt in ((8, f32), (64, f32), (64, bf16)):
+    # x and wq one element off their 16-byte alignment: the GEMV's
+    # element loads
+    x, wq, sc = _qmm_case(dev, g, 6, 1024, 256, bf16)
+    xo = torch.empty(x.numel() + 1, dtype=bf16, device=dev)[1:].view_as(x)
+    wo = torch.empty(wq.numel() + 1, dtype=wq.dtype,
+                     device=dev)[1:].view_as(wq)
+    xo.copy_(x)
+    wo.copy_(wq)
+    _qmm_hold(xo, wo, sc, bf16, "x and wq misaligned")
+    for m, dt in ((8, f32), (64, f32), (64, bf16), (8, bf16), (3, f16)):
         x, wq, sc = _qmm_case(dev, g, m, 256, 160, dt, zero_col=37)
         out, _ = _qmm_hold(x, wq, sc, dt, "an all-zero column")
         if not bool((out[:, 37] == 0).all()):
             raise AssertionError(f"M={m}: the all-zero column is not 0")
+    # the GEMV at every M of a decode tick, at the qkv shape
+    for m in range(1, 9):
+        x, wq, sc = _qmm_case(dev, g, m, 1024, 3072, bf16)
+        _qmm_hold(x, wq, sc, bf16, "the GEMV's M, qkv")
+    x, wq, sc = _qmm_case(dev, g, 8, 1024, 3072, f16)
+    _qmm_hold(x, wq, sc, f16, "the GEMV's M, qkv")
     c = launch_counts()
-    if c["quant_gemv"] != 6 or c["quant_tiled"] != 8:
+    if c["quant_gemv"] != 20 or c["quant_tiled"] != 8:
         raise AssertionError(f"dispatch by M: launches {c}")
     linears = {"qkv": (1024, 3072), "dense": (1024, 1024),
                "fc1": (1024, 4096), "fc2": (4096, 1024)}
@@ -1684,11 +1719,13 @@ def check_quant_matmul(dev, g):
         lib, lib_w = time_ms(lambda: torch.matmul(x, wd), iters=100)
         nbytes = k * n + 4 * n + 2 * m * k + 2 * m * n
         b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, BF16_FLOPS)
+        aim = "; aim: at or below torch.matmul" if kernel == "quant_gemv" \
+            else ""
         log(f"  time {name} M={m} K={k} N={n}, device ms (wall ms per "
             f"call): kernel {ms:.5f} ({ms_w:.5f}), plain {plain:.5f} "
             f"({plain_w:.5f}), torch.matmul on the bf16 weight {lib:.5f} "
-            f"({lib_w:.5f}; the aim 2x that, {2 * lib:.5f}), bound "
-            f"{b_ms:.5f} ({b_by}); kernel / torch.matmul {ms / lib:.3f}")
+            f"({lib_w:.5f}{aim}), bound {b_ms:.5f} ({b_by}); kernel / "
+            f"torch.matmul {ms / lib:.3f}")
         entries[kernel].append(dict(
             name=kernel, shape=f"{name} M={m} K={k} N={n} bf16 x, int8 w",
             max_abs_err=err, ms=ms, ms_wall=ms_w, plain_ms=plain,

@@ -145,6 +145,7 @@ inline int __syncthreads_or(int p) {
 }
 inline int emu_lane() { return threadIdx.x & 31; }
 inline std::barrier<>& emu_warp_bar() { return *emu_block->warp_bar[threadIdx.x >> 5]; }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_bar().arrive_and_wait(); }
 inline uint64_t* emu_slot(int lane) { return emu_block->slot[(threadIdx.x & ~31u) + lane]; }
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   memcpy(emu_slot(emu_lane()), &v, sizeof v);

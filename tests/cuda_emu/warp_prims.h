@@ -1,11 +1,15 @@
-// The warp-level primitives of `apex_tpu_torch/csrc/flash_bwd.cuh`
-// (ldmatrix, cp.async, mma.sync.m16n8k16), emulated on host threads with
-// the PTX ISA's fragment layouts: a lane's groupID g = lane / 4 and
-// t = lane % 4; A (16 x 16, row) a0 (g, 2t..2t+1), a1 (g + 8, 2t..),
-// a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); B (16 x 8, col) b0 (2t..2t+1,
-// g), b1 (2t + 8.., g); C c0, c1 (g, 2t..2t+1), c2, c3 (g + 8, 2t..).
+// The warp-level primitives of `apex_tpu_torch/csrc/flash_mma.cuh`
+// (ldmatrix, cp.async, mma.sync.m16n8k16) and the split cluster barrier of
+// `quant_matmul.cu` (barrier.cluster.arrive / wait), emulated on host
+// threads, the matrix ones with the PTX ISA's fragment layouts: a lane's
+// groupID g = lane / 4 and t = lane % 4; A (16 x 16, row) a0 (g,
+// 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); B
+// (16 x 8, col) b0 (2t..2t+1, g), b1 (2t + 8.., g); C c0, c1 (g,
+// 2t..2t+1), c2, c3 (g + 8, 2t..).
 // The lower-addressed element of a pair sits in a register's low half.
 #pragma once
+#include <optional>
+
 #include "cuda_bf16.h"
 #include "cuda_fp16.h"
 #include "cuda_runtime.h"
@@ -92,4 +96,15 @@ inline void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
     for (int k = 0; k < 16; ++k) acc += A[r][k] * B[k][n];
     c[e] = acc;
   }
+}
+
+// barrier.cluster.arrive (.relaxed or not) and barrier.cluster.wait: the
+// cluster's barrier in two halves, the thread's arrival kept until its
+// wait (the host's barrier orders memory either way)
+inline thread_local std::optional<std::barrier<>::arrival_token> emu_cluster_arrival;
+inline void cluster_arrive_relaxed() { emu_cluster_arrival.emplace(emu_cluster->bar.arrive()); }
+inline void cluster_arrive() { cluster_arrive_relaxed(); }
+inline void cluster_wait() {
+  emu_cluster->bar.wait(std::move(*emu_cluster_arrival));
+  emu_cluster_arrival.reset();
 }

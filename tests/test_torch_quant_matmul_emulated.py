@@ -1,21 +1,22 @@
-"""Row 17's tensor-core kernels (``quant_small_kernel`` and
-``quant_mma_kernel`` in ``apex_tpu_torch/csrc/quant_matmul.cu``: bf16 /
-fp16 x against int8 codes) run on the CPU and are held against their
-plain version, ``quant_matmul_reference``.
+"""Rows 16 and 17's tensor-core kernels (``quant_gemv_mma_kernel``,
+``quant_small_kernel`` and ``quant_mma_kernel`` in
+``apex_tpu_torch/csrc/quant_matmul.cu``: bf16 / fp16 x against int8 codes)
+run on the CPU and are held against their plain version,
+``quant_matmul_reference``.
 
 The source is built with g++ over ``tests/cuda_emu`` (``emulate.py``, one
 host thread a CUDA thread; ``cp.async``, ``ldmatrix`` and
 ``mma.sync.m16n8k16`` with the PTX fragment layouts; a thread-block
 cluster's blocks run together, each with its own shared memory).  The
-kernels' own code runs: the route by M (up to 32 rows the small kernel,
-its codes loaded straight into B fragments and converted in registers;
-above, 64 x 128 tiles through a three-stage ring, the codes converted into
-a [k][n] tile read by ``ldmatrix.trans``), K split over a cluster where
-the tiles are fewer than twice the SMs (the stand-in card has 8), the
-warps' and the ranks' sums in their fixed orders through shared and
+kernels' own code runs: the route by M (up to 8 rows the GEMV, outᵀ =
+wqᵀ · xᵀ with 16-byte code and x loads as its fragments; up to 32 the
+small kernel, its codes loaded straight into B fragments and converted in
+registers; above, 64 x 128 tiles through a three-stage ring), K split over
+a cluster where the tiles are fewer than the SMs (the stand-in card has
+8), the warps' and the ranks' sums in their fixed orders through shared and
 distributed shared memory, the column scale at the store, and every edge:
-M, N and K off the tiles, N or K off the vector loads (the element
-loads), an all-zero weight column.
+M, N and K off the tiles, N or K off the vector loads or a misaligned
+pointer (the element loads), an all-zero weight column.
 
 The hold is ``chip_smoke.py``'s: both sides form the same exact products
 and sum them in fp32 in other orders, so an fp32 out within ``REL_TOL`` of
@@ -76,10 +77,20 @@ def _hold(got, want):
     assert u <= 1.0, f"{u:.3f} ulps beyond {slack:.2e}"
 
 
+def _misaligned(t):
+    """``t``'s values in a view one element past an aligned start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view_as(t)
+    return buf.copy_(t)
+
+
 def _run(launch, m, k, n, x_dtype=BF16, out_dtype=None, seed=0,
-         zero_col=None):
+         zero_col=None, misalign=()):
     out_dtype = out_dtype or x_dtype
     x, wq, sc = _case(m, k, n, x_dtype, seed, zero_col)
+    if "x" in misalign:
+        x = _misaligned(x)
+    if "wq" in misalign:
+        wq = _misaligned(wq)
     got = launch(x, wq, sc, out_dtype)
     _hold(got, qm.quant_matmul_reference(x, wq, sc, out_dtype=out_dtype))
     assert torch.equal(got, launch(x, wq, sc, out_dtype)), \
@@ -114,4 +125,52 @@ def test_element_loads(launch, m, k, n, x_dtype, out_dtype):
     (20, BF16, BF16), (20, F16, F32), (64, BF16, BF16), (64, F16, F16)])
 def test_zero_column(launch, m, x_dtype, out_dtype):
     got = _run(launch, m, 128, 160, x_dtype, out_dtype, seed=3, zero_col=37)
+    assert not got[:, 37].any(), "the all-zero column is not exactly 0"
+
+
+# --- row 16, the GEMV (M <= 8) -------------------------------------------
+
+@pytest.mark.parametrize("m", range(1, 9))
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (BF16, BF16), (F16, F16), (BF16, F32), (F16, F32)])
+def test_gemv_rows(launch, m, x_dtype, out_dtype):
+    # one 128-column strip, K = 256 split over 2 blocks
+    _run(launch, m, 256, 128, x_dtype, out_dtype, seed=m)
+
+
+# The launcher's K splits (one cluster a strip, at most 8, each warp at
+# least one 32-row chunk, toward one block an SM of the stand-in's 8, or
+# two where two leave at most an eighth of them without a second) and
+# block size (4 warps where each then takes at most a pair of chunks, else
+# 8): K = 1024 at one strip takes 8 splits of 4 warps and K = 4096 8 of 8,
+# as GPT-345M's decode linears at K = 1024 (dense, fc1) and 4096 (fc2) do
+# on the H100; K = 2048 gives each of 4 warps a pair of chunks, K = 512 4
+# splits, three strips of K = 1024 2 (as qkv stops at 4 there), two strips
+# of K = 4096 8 of 8 warps (two blocks on every SM).
+@pytest.mark.parametrize("m,k,n,x_dtype", [
+    (8, 1024, 128, BF16), (8, 4096, 128, F16), (4, 2048, 128, BF16),
+    (5, 512, 96, BF16), (6, 1024, 384, F16), (3, 4096, 256, BF16)])
+def test_gemv_splits(launch, m, k, n, x_dtype):
+    _run(launch, m, k, n, x_dtype, seed=k + m)
+
+
+@pytest.mark.parametrize("m,k,n,x_dtype,out_dtype", [
+    (5, 77, 100, BF16, BF16), (8, 1000, 200, F16, F32),
+    (2, 96, 131, F16, F16), (7, 333, 48, BF16, F32)])
+def test_gemv_element_loads(launch, m, k, n, x_dtype, out_dtype):
+    # N off 16 or K off 8: the codes and x load by element, with the K
+    # tail ending the last chunk early
+    _run(launch, m, k, n, x_dtype, out_dtype, seed=n)
+
+
+@pytest.mark.parametrize("misalign", [("x",), ("wq",), ("x", "wq")])
+def test_gemv_misaligned(launch, misalign):
+    _run(launch, 6, 512, 256, BF16, seed=7, misalign=misalign)
+
+
+@pytest.mark.parametrize("m,x_dtype,out_dtype", [
+    (8, BF16, BF16), (3, F16, F32), (1, F16, F16)])
+def test_gemv_zero_column(launch, m, x_dtype, out_dtype):
+    got = _run(launch, m, 512, 160, x_dtype, out_dtype, seed=11,
+               zero_col=37)
     assert not got[:, 37].any(), "the all-zero column is not exactly 0"
