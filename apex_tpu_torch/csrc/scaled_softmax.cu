@@ -30,8 +30,9 @@
 // padding-mask forward at BERT-large's O2 step, (16, 16, 512, 512) fp32
 // scores, moves 537 MB of scores and a 4 MB mask (0.16 ms).
 //
-// What the simple design does about it: one warp per row, each element
-// read from device memory once and written once.  For sk <= 1024 a lane
+// The element paths (`causal_fwd_kernel`, `masked_fwd_elem_kernel`,
+// `softmax_bwd_kernel`): one warp per row, each element read from device
+// memory once and written once.  For sk <= 1024 a lane
 // keeps its columns (lane, lane + 32, ...) in registers between the row's
 // max, its sum and the write; longer rows take a looped variant that
 // reads the row twice (an online max/sum pass, then the write).  The
@@ -62,11 +63,23 @@
 // (`masked_fwd_elem_kernel`, one element and one mask byte a load, the
 // looped variant past 1024).  The mask row is read once per (b, row) of a
 // head and shared by the np heads through a zero head stride.
+//
+// The causal forward and the backward take the same 16-byte layout
+// (`causal_fwd_vec_kernel`, `softmax_bwd_vec_kernel`) under the same
+// routing rule, and keep their element paths' bits the same way.  The
+// forward loads only the vectors that hold a kept column (about half the
+// matrix at sq = sk), its loop's trip count following the row, and
+// stores zero words above the diagonal.  The backward stages y and dy in
+// shared memory so that each lane's fma chain for sum(y * dy) runs over
+// the element path's columns in its order.  The GPT O2 loss checks, read
+// at one seed, see no change.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -313,6 +326,177 @@ masked_fwd_elem_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask
   }
 }
 
+// causal_fwd_kernel on 16-byte vectors.  One warp a row; lane load j
+// covers kVec = 16 / sizeof(T) consecutive columns from (32 j + lane)
+// kVec.  Only the vectors that hold a kept column are loaded: `loads`
+// follows the row's kept length and is the same for the whole warp, so a
+// short row runs a short loop, every load issued before the row's max.
+// Columns past `kept` inside the last vector take -inf, so their exps
+// are 0.  The exps pass through the warp's slice of shared memory and
+// lane l adds columns l, l + 32, ... below the loaded width, as the
+// element path adds its (zeros past `kept` included), then the same
+// butterfly: the element path's sum bit for bit.  One reciprocal a row,
+// and div_by an element on the exps read back from shared memory, which
+// frees their registers (48 at sk = 1024, for 5 blocks an SM: bounded to
+// 6, the kernel spilled and ran slower on the H100).  Vectors wholly
+// above the diagonal are stored as zero words with no arithmetic.  x scale
+// is one rounded multiply (`__fmul_rn`): the element path's product is
+// not contracted into the exp's subtraction either (a contracted one
+// gives other bits where the product rounds, as at scale 0.1).
+template <typename T, int kVecs>
+__global__ void __launch_bounds__(kThreads,
+                                  kVecs * 16 / sizeof(T) <= 16 ? (sizeof(T) == 4 ? 6 : 8) : 5)
+causal_fwd_vec_kernel(const T* __restrict__ x, T* __restrict__ y, long long rows, int sq,
+                      int sk, float scale) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPer = kVecs * kVec;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int kept = min((int)(row % sq) + 1, sk);  // columns 0 .. row % sq
+  const int live = (kept + kVec - 1) / kVec;      // vectors holding a kept column
+  const int loads = (live + 31) / 32;             // a lane's, the warp's trip count
+  const T* xr = x + row * (long long)sk;
+  T* yr = y + row * (long long)sk;
+  uint4 xv[kVecs];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    xv[j] = make_uint4(0, 0, 0, 0);
+    if (j < loads && 32 * j + lane < live)
+      xv[j] = *reinterpret_cast<const uint4*>(xr + (32 * j + lane) * kVec);
+  }
+  float v[kPer];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    if (j >= loads) break;
+    const int c = (32 * j + lane) * kVec;
+    const T* e = reinterpret_cast<const T*>(&xv[j]);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      v[j * kVec + k] = c + k < kept ? __fmul_rn(to_f<T>(e[k]), scale) : -INFINITY;
+      mx = fmaxf(mx, v[j * kVec + k]);
+    }
+  }
+  mx = warp_max(mx);  // finite: column 0 is always kept
+  __shared__ __align__(16) float exps[kWarps][32 * kPer];
+  float* ex = exps[threadIdx.x >> 5];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    if (j >= loads) break;
+#pragma unroll
+    for (int k = 0; k < kVec; k += 4) {
+      const int i = j * kVec + k;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[i + q] = expf(v[i + q] - mx);  // past kept: exp(-inf) = 0
+      *reinterpret_cast<float4*>(ex + (32 * j + lane) * kVec + k) =
+          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+    }
+  }
+  __syncwarp();
+  float sum = 0.f;
+  for (int i = 0; i < loads * kVec; ++i) sum += ex[lane + 32 * i];
+  sum = warp_sum(sum);
+  const float rcp = 1.f / sum;  // the one division
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    const int c = (32 * j + lane) * kVec;
+    if (c >= sk) continue;
+    uint4 out = make_uint4(0, 0, 0, 0);  // above the diagonal: zero words
+    if (32 * j + lane < live) {
+      T* e = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int k = 0; k < kVec; k += 4) {  // the exps back from shared memory
+        const float4 w = *reinterpret_cast<const float4*>(ex + c + k);
+        e[k] = from_f<T>(div_by(w.x, sum, rcp));
+        e[k + 1] = from_f<T>(div_by(w.y, sum, rcp));
+        e[k + 2] = from_f<T>(div_by(w.z, sum, rcp));
+        e[k + 3] = from_f<T>(div_by(w.w, sum, rcp));
+      }
+    }
+    *reinterpret_cast<uint4*>(yr + c) = out;
+  }
+}
+
+// softmax_bwd_kernel on 16-byte vectors: lane load j takes kVec columns
+// of y and of dy from (32 j + lane) kVec, every load of the row issued
+// before the sum, the row kept in registers for dx (96 registers at fp32
+// sk = 1024, 2 blocks an SM: bounded to 3, it spilled and ran slower on
+// the H100; 51 at fp32 sk = 512, 4 blocks).  sum(y dy) keeps the element
+// path's chain: y and dy pass through the warp's slice of shared memory
+// in their own type, 4 loads a lane at a time, the row's first columns
+// first (at fp32 sk = 1024 the row in halves, 32 KB a block: the whole
+// row would pass the 48 KB of static shared memory; quarters ran as fast
+// at sk = 1024 and slower at 512), and lane l runs s = fma(y, dy, s) over
+// columns l, l + 32, ... in turn, then the same butterfly.  dx = scale y
+// (dy - s) in the element path's order of operations, stored 16 bytes a
+// lane.
+template <typename T, int kVecs>
+__global__ void __launch_bounds__(kThreads,
+                                  kVecs * 16 / sizeof(T) <= 16
+                                      ? (sizeof(T) == 4 ? (kVecs == 4 ? 4 : 6) : 8)
+                                      : 2)
+softmax_bwd_vec_kernel(const T* __restrict__ y, const T* __restrict__ dy,
+                       T* __restrict__ dx, long long rows, int sk, float scale) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kStage = kVecs < 4 ? kVecs : 4;  // loads a lane staged at once
+  constexpr int kCols = 32 * kStage * kVec;  // a stage's columns
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const long long base = row * (long long)sk;
+  uint4 yv[kVecs], dv[kVecs];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    const int c = (32 * j + lane) * kVec;
+    yv[j] = dv[j] = make_uint4(0, 0, 0, 0);
+    if (c < sk) {
+      yv[j] = *reinterpret_cast<const uint4*>(y + base + c);
+      dv[j] = *reinterpret_cast<const uint4*>(dy + base + c);
+    }
+  }
+  __shared__ __align__(16) T ys[kWarps][kCols];
+  __shared__ __align__(16) T ds[kWarps][kCols];
+  T* yw = ys[threadIdx.x >> 5];
+  T* dw = ds[threadIdx.x >> 5];
+  float s = 0.f;
+#pragma unroll
+  for (int st = 0; st < kVecs; st += kStage) {
+    if (st > 0) __syncwarp();  // the stage before is read
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      *reinterpret_cast<uint4*>(yw + (32 * j + lane) * kVec) = yv[st + j];
+      *reinterpret_cast<uint4*>(dw + (32 * j + lane) * kVec) = dv[st + j];
+    }
+    __syncwarp();
+    const int cols = sk - st * 32 * kVec;  // the row's columns from the stage's first
+#pragma unroll
+    for (int i = 0; i < kStage * kVec; ++i) {
+      const int c = lane + 32 * i;
+      if (c < cols) s = fmaf(to_f<T>(yw[c]), to_f<T>(dw[c]), s);
+    }
+  }
+  s = warp_sum(s);
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    const int c = (32 * j + lane) * kVec;
+    if (c >= sk) continue;
+    const T* ye = reinterpret_cast<const T*>(&yv[j]);
+    const T* de = reinterpret_cast<const T*>(&dv[j]);
+    uint4 out;
+    T* e = reinterpret_cast<T*>(&out);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      e[k] = from_f<T>(scale * to_f<T>(ye[k]) * (to_f<T>(de[k]) - s));
+    *reinterpret_cast<uint4*>(dx + base + c) = out;
+  }
+}
+
+// The element path of the backward.  sum(y dy) is an explicit fma chain,
+// lane l over columns l, l + 32, ...: the chain nvcc contracts `s += y *
+// dy` into (the same bits on the H100), written out so that the 16-byte
+// path repeats it exactly.  Written so, ptxas issues every load of the row
+// before the chain (126 registers at kPer 32, against 105).
 template <typename T, int kPer>
 __global__ void __launch_bounds__(kThreads)
 softmax_bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy, T* __restrict__ dx,
@@ -332,7 +516,7 @@ softmax_bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy, T* __restr
       const int c = lane + 32 * i;
       yv[i] = c < sk ? to_f<T>(yr[c]) : 0.f;
       dv[i] = c < sk ? to_f<T>(dyr[c]) : 0.f;
-      if (c < sk) s += yv[i] * dv[i];
+      if (c < sk) s = fmaf(yv[i], dv[i], s);
     }
     s = warp_sum(s);
 #pragma unroll
@@ -342,7 +526,7 @@ softmax_bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy, T* __restr
     }
   } else {
     float s = 0.f;
-    for (int c = lane; c < sk; c += 32) s += to_f<T>(yr[c]) * to_f<T>(dyr[c]);
+    for (int c = lane; c < sk; c += 32) s = fmaf(to_f<T>(yr[c]), to_f<T>(dyr[c]), s);
     s = warp_sum(s);
     for (int c = lane; c < sk; c += 32)
       dxr[c] = from_f<T>(scale * to_f<T>(yr[c]) * (to_f<T>(dyr[c]) - s));
@@ -351,13 +535,34 @@ softmax_bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy, T* __restr
 
 unsigned grid_for(long long rows) { return (unsigned)((rows + kWarps - 1) / kWarps); }
 
+// The 16-byte paths take sk of at most 1024 columns, a multiple of the
+// vector, and 16-byte aligned pointers; anything else the element path
+template <typename T>
+bool vec_route(int sk, std::initializer_list<const void*> ptrs) {
+  if (sk > 1024 || sk % (16 / sizeof(T)) != 0) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 template <typename T>
 cudaError_t launch_fwd(const void* x, void* y, long long rows, int sq, int sk, float scale,
                        cudaStream_t st) {
+  constexpr int kVec = 16 / sizeof(T);
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
   const unsigned g = grid_for(rows);
-  if (sk <= 128)
+  if (vec_route<T>(sk, {x, y})) {
+    const int per = (sk + 32 * kVec - 1) / (32 * kVec);  // loads a lane
+    if (per <= 1)
+      causal_fwd_vec_kernel<T, 1><<<g, kThreads, 0, st>>>(xp, yp, rows, sq, sk, scale);
+    else if (per <= 2)
+      causal_fwd_vec_kernel<T, 2><<<g, kThreads, 0, st>>>(xp, yp, rows, sq, sk, scale);
+    else if (kVec == 8 || per <= 4)
+      causal_fwd_vec_kernel<T, 4><<<g, kThreads, 0, st>>>(xp, yp, rows, sq, sk, scale);
+    else if constexpr (kVec == 4)  // fp32 rows of 513 to 1024 columns
+      causal_fwd_vec_kernel<T, 8><<<g, kThreads, 0, st>>>(xp, yp, rows, sq, sk, scale);
+  } else if (sk <= 128)
     causal_fwd_kernel<T, 4><<<g, kThreads, 0, st>>>(xp, yp, rows, sq, sk, scale);
   else if (sk <= 256)
     causal_fwd_kernel<T, 8><<<g, kThreads, 0, st>>>(xp, yp, rows, sq, sk, scale);
@@ -370,10 +575,10 @@ cudaError_t launch_fwd(const void* x, void* y, long long rows, int sq, int sk, f
   return cudaGetLastError();
 }
 
-// The padding-mask forward: 16-byte loads where sk (at most 1024) is a
-// multiple of the vector and every pointer and plane stride is aligned to
-// its load, else the element path (the row in registers up to 1024
-// columns, the looped variant beyond)
+// The padding-mask forward: 16-byte loads where vec_route holds and the
+// mask's pointer and plane stride are aligned to its load, else the
+// element path (the row in registers up to 1024 columns, the looped
+// variant beyond)
 template <typename T>
 cudaError_t launch_masked(const void* x, const void* mask, void* y, long long rows,
                           int np, int sq, int sk, long long mask_sb, float scale,
@@ -383,11 +588,8 @@ cudaError_t launch_masked(const void* x, const void* mask, void* y, long long ro
   const uint8_t* mp = static_cast<const uint8_t*>(mask);
   T* yp = static_cast<T*>(y);
   const unsigned g = grid_for(rows);
-  const bool vec = sk <= 1024 && sk % kVec == 0 && mask_sb % kVec == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(mask) % kVec == 0;
-  if (vec) {
+  if (vec_route<T>(sk, {x, y}) && mask_sb % kVec == 0 &&
+      reinterpret_cast<uintptr_t>(mask) % kVec == 0) {
     const int per = (sk + 32 * kVec - 1) / (32 * kVec);  // loads a lane
     if (per <= 1)
       masked_fwd_kernel<T, 1><<<g, kThreads, 0, st>>>(xp, mp, yp, rows, np, sq, sk, mask_sb, scale);
@@ -413,11 +615,22 @@ cudaError_t launch_masked(const void* x, const void* mask, void* y, long long ro
 template <typename T>
 cudaError_t launch_bwd(const void* y, const void* dy, void* dx, long long rows, int sk,
                        float scale, cudaStream_t st) {
+  constexpr int kVec = 16 / sizeof(T);
   const T* yp = static_cast<const T*>(y);
   const T* dyp = static_cast<const T*>(dy);
   T* dxp = static_cast<T*>(dx);
   const unsigned g = grid_for(rows);
-  if (sk <= 128)
+  if (vec_route<T>(sk, {y, dy, dx})) {
+    const int per = (sk + 32 * kVec - 1) / (32 * kVec);  // loads a lane
+    if (per <= 1)
+      softmax_bwd_vec_kernel<T, 1><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);
+    else if (per <= 2)
+      softmax_bwd_vec_kernel<T, 2><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);
+    else if (kVec == 8 || per <= 4)
+      softmax_bwd_vec_kernel<T, 4><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);
+    else if constexpr (kVec == 4)  // fp32 rows of 513 to 1024 columns
+      softmax_bwd_vec_kernel<T, 8><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);
+  } else if (sk <= 128)
     softmax_bwd_kernel<T, 4><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);
   else if (sk <= 256)
     softmax_bwd_kernel<T, 8><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);

@@ -24,8 +24,11 @@ Phases, in order; any failure exits non-zero without the result line:
                    E-layout flash forward and backward, and the Adam
                    pipeline sweep at the O5 train step's shapes; the
                    causal scaled softmax forward and backward and the
-                   norm/finite sweep at the O2 train step's, and the
-                   fp16 builds of LayerNorm and the Adam sweep it runs;
+                   norm/finite sweep at the O2 train step's (each
+                   softmax's 16-byte path bitwise against its element
+                   path, taken through a view one element off 16-byte
+                   alignment), and the fp16 builds of LayerNorm and the
+                   Adam sweep it runs;
                    the Q8 tier's: the int8 GEMV (M <= 8) and tiled (M >
                    8) weight matmuls at the decode tick's and the
                    prefill's, verify's and chunk's shapes (with JAX's
@@ -38,7 +41,9 @@ Phases, in order; any failure exits non-zero without the result line:
                    phases': the padding-mask softmax at (16, 16, 512,
                    512) fp32 and fp16 with its extended mask (fully
                    masked query rows exactly 1/sk) and the softmax
-                   backward on its fp32 output, the kv_mask lanes of the
+                   backward on its fp32 output (bitwise against its
+                   element path, and timed as its own entry), the
+                   kv_mask lanes of the
                    E flash forward and backward at b=16 s=512 h=16 d=64
                    with one all-pad batch row (o = 0, zero gradients),
                    LAMB phase 1 over BERT-large's 336M-element group;
@@ -954,6 +959,22 @@ def nvidia_smi() -> str:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def misaligned(t):
+    """``t``'s values in a contiguous view one element past a 16-byte
+    boundary: the softmax kernels' element path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view_as(t).copy_(t)
+
+
+def same_as_element_path(label, vec, elem) -> bool:
+    """Log and return whether a 16-byte path's output equals its
+    element path's bit for bit."""
+    same = bool(torch.equal(vec, elem))
+    log(f"  {label}: 16-byte path bitwise equal to the element path: "
+        f"{same}")
+    return same
 
 
 def grad_excess(got, ref) -> float:
@@ -1954,31 +1975,47 @@ def check_fused_adam(dev, g, dtype=torch.bfloat16):
 def check_scaled_softmax(dev, g):
     """The causal softmax forward and the softmax backward at the O2
     step's fp32 (b*h, s, s) scores, their fp16 builds, and other row
-    lengths (each register width and the looped variant); returns the
+    lengths (each register width, lanes left idle, the element path off
+    the vector width and the looped variant); each 16-byte path bitwise
+    against its element path, taken through a misaligned view (at the
+    other lengths also at scale 0.1, whose products round).  Returns the
     two kernel entries."""
     from apex_tpu_torch.ops import (causal_softmax, causal_softmax_reference,
                                     softmax_backward,
                                     softmax_backward_reference)
 
     scale = 0.125                      # head_dim 64 ** -0.5
-    # other row lengths first: sk <= 128, 300 (two 256-row JAX blocks),
-    # and 1500 (the looped variant), fp32 and bf16
-    for shape in ((4, 64, 64), (3, 300, 300), (2, 1500, 1500)):
+    # other row lengths first: sk <= 128, 200 (16-byte loads with lanes
+    # left idle), 98 (off the vector width: the element path), 300 (two
+    # 256-row JAX blocks) and 1500 (the looped variant), fp32 and bf16;
+    # 200 and 98 draw from a generator of their own, so the checks after
+    # this one keep their inputs
+    gs = torch.Generator(device=dev)
+    gs.manual_seed(19)
+    for shape in ((4, 64, 64), (3, 300, 300), (2, 1500, 1500),
+                  (3, 200, 200), (3, 98, 98)):
+        gen = g if shape[-1] in (64, 300, 1500) else gs
         for dtype, tol in ((torch.float32, SOFTMAX_TOL),
                            (torch.bfloat16, 2.0 ** -8)):
-            x = (3 * torch.randn(*shape, generator=g, device=dev)).to(dtype)
-            dy = torch.randn(*shape, generator=g, device=dev).to(dtype)
+            x = (3 * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+            dy = torch.randn(*shape, generator=gen, device=dev).to(dtype)
             y = causal_softmax(x, scale)
             dx = softmax_backward(y, dy, scale)
             torch.cuda.synchronize()
             err = max_err(y, causal_softmax_reference(x, scale))
             berr = rel_err(dx, softmax_backward_reference(y, dy, scale))
             zero = bool((y.triu(1) == 0).all())
-            ok = err <= tol and berr <= max(tol, SOFTMAX_BWD_RTOL) and zero
+            xm, ym = misaligned(x), misaligned(y)
+            same = all(torch.equal(causal_softmax(xm, sc), causal_softmax(
+                x, sc)) for sc in (scale, 0.1)) and torch.equal(
+                    softmax_backward(ym, dy, scale), dx)
+            ok = err <= tol and berr <= max(tol, SOFTMAX_BWD_RTOL) and zero \
+                and same
             log(f"kernel scaled_softmax {tuple(shape)} {dtype}: forward "
                 f"max_abs_err={err:.3e}, backward max_rel_err={berr:.3e} "
-                f"(tol {tol:.3g}), upper triangle exactly 0: {zero} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"(tol {tol:.3g}), upper triangle exactly 0: {zero}, equal "
+                f"through a misaligned view (the element path; forward at "
+                f"scales {scale} and 0.1): {same} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"scaled_softmax kernels disagree at "
                                      f"{shape} {dtype}")
@@ -2000,14 +2037,23 @@ def check_scaled_softmax(dev, g):
         dxr = softmax_backward_reference(y, dy, scale)
         berr = max_err(dx, dxr)
         brel = berr / max(float(dxr.float().abs().max()), 1e-30)
-        del dxr, dx
+        del dxr
         btol = tol if dtype == torch.float16 else SOFTMAX_BWD_RTOL
-        ok = err <= tol and zero and brel <= btol
+        # the element paths through views one element off alignment
+        xm = misaligned(x)
+        same = same_as_element_path(f"scaled_softmax_causal_fwd {tag}", y,
+                                    causal_softmax(xm, scale))
+        del xm
+        ym = misaligned(y)
+        same = same_as_element_path(f"scaled_softmax_bwd {tag}", dx,
+                                    softmax_backward(ym, dy, scale)) and same
+        del ym, dx
+        ok = err <= tol and zero and brel <= btol and same
         log(f"kernel scaled_softmax_causal_fwd ({b3}, {s}, {s}) {tag}, "
             f"scale {scale}: max_abs_err={err:.3e} (tol {tol:.3g}), upper "
             f"triangle exactly 0: {zero}; scaled_softmax_bwd max_abs_err="
-            f"{berr:.3e}, over max |dx| {brel:.3e} (tol {btol:.3g}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{berr:.3e}, over max |dx| {brel:.3e} (tol {btol:.3g}); both "
+            f"bitwise their element paths: {same} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"scaled_softmax kernels disagree at the "
                                  f"O2 step's shape, {tag}")
@@ -2214,7 +2260,10 @@ def check_masked_softmax(dev, g):
     masked, one batch row all pad), fp16 and fp32 input; the row-4
     backward on the fp32 probabilities, as the O2 step runs it.  Fully
     masked rows must be exactly 1/sk, live rows exactly 0 on masked keys,
-    nothing NaN.  Returns the row-5 entry (fp32, with the fp16 one)."""
+    nothing NaN.  The row-4 backward is held bitwise against its element
+    path and timed beside ``torch._softmax_backward_data``.  Returns the
+    row-5 entry (fp32, with the fp16 one) and row 4's at this shape (a
+    sub-entry of ``scaled_softmax_bwd``)."""
     from apex_tpu_torch.ops import (masked_softmax, masked_softmax_reference,
                                     softmax_backward,
                                     softmax_backward_reference)
@@ -2244,12 +2293,20 @@ def check_masked_softmax(dev, g):
             dy = torch.randn(b, h, s, s, generator=g, device=dev)
             dx = softmax_backward(y, dy, scale)
             torch.cuda.synchronize()
-            brel = rel_err(dx, softmax_backward_reference(y, dy, scale))
+            dxr = softmax_backward_reference(y, dy, scale)
+            brel = rel_err(dx, dxr)
+            babs = max_err(dx, dxr)
+            del dxr
             bfin = bool(torch.isfinite(dx).all())
-            ok = ok and brel <= SOFTMAX_BWD_RTOL and bfin
+            ym = misaligned(y)
+            bsame = same_as_element_path("scaled_softmax_bwd BERT fp32", dx,
+                                         softmax_backward(ym, dy, scale))
+            del ym
+            ok = ok and brel <= SOFTMAX_BWD_RTOL and bfin and bsame
             what = (f"; scaled_softmax_bwd on its fp32 y: max_rel_err="
-                    f"{brel:.3e} (tol {SOFTMAX_BWD_RTOL}), finite {bfin}")
-            del dx, dy
+                    f"{brel:.3e} (tol {SOFTMAX_BWD_RTOL}), finite {bfin}, "
+                    f"bitwise its element path: {bsame}")
+            del dx
         log(f"kernel scaled_masked_softmax_fwd ({b}, {h}, {s}, {s}) {tag}, "
             f"(b, 1, s, s) mask, {int(dead[:, 0, :, 0].sum())} fully masked "
             f"query rows: max_abs_err={err:.3e} (tol {tol:.3g}), finite "
@@ -2279,11 +2336,30 @@ def check_masked_softmax(dev, g):
             name="scaled_masked_softmax_fwd", shape=f"({b}, {h}, {s}, {s}) "
             f"{tag}, (b, 1, s, s) mask", max_abs_err=err, ms=ms, ms_wall=ms_w,
             plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        if dtype == torch.float32:
+            # row 4 as the BERT O2 step runs it, on these probabilities
+            ms, ms_w = time_ms(lambda: softmax_backward(y, dy, scale))
+            plain, plain_w = time_ms(
+                lambda: softmax_backward_reference(y, dy, scale), iters=10)
+            lib, lib_w = time_ms(lambda: torch._softmax_backward_data(
+                dy, y, -1, dtype))
+            b_ms, b_by = bound_ms(3 * x.numel() * x.element_size(),
+                                  4.0 * x.numel(), FP32_FLOPS)
+            log(f"  scaled_softmax_bwd at this shape, device ms (wall ms "
+                f"per call): kernel {ms:.5f} ({ms_w:.5f}), plain {plain:.5f} "
+                f"({plain_w:.5f}), torch._softmax_backward_data {lib:.5f} "
+                f"({lib_w:.5f}), bound {b_ms:.5f} ({b_by})")
+            entries["bwd"] = dict(
+                name="scaled_softmax_bwd", of=("scaled_softmax_bwd", "bert"),
+                shape=f"({b}, {h}, {s}, {s}) fp32, padding-mask "
+                f"probabilities", max_abs_err=babs, ms=ms, ms_wall=ms_w,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+            del dy
         del x, y
         free_memory()
     entry = entries["fp32"]                   # the path's build
     entry["fp16"] = entries["fp16"]
-    return entry
+    return entry, entries["bwd"]
 
 
 def check_flash_attention_e_kvmask(dev, g):
@@ -6734,8 +6810,9 @@ def main(argv=None) -> int:
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             shape=e["shape"],
-            **{k: e[k] for k in ("train", "fp16", "chunk", "shapes", "d128",
-                                 "sweep", "kvmask", "fallback", "diagonal")
+            **{k: e[k] for k in ("train", "fp16", "bert", "chunk", "shapes",
+                                 "d128", "sweep", "kvmask", "fallback",
+                                 "diagonal")
                if k in e}))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

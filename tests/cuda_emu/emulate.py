@@ -57,8 +57,11 @@ def build(out: Path, libs) -> dict:
 
     def compile_one(name):
         # no strict aliasing: the sources read a 16-bit vector's elements
-        # through a cast of the loaded word, as nvcc allows
+        # through a cast of the loaded word, as nvcc allows; no
+        # contraction: each `a * b + c` a source writes stays two
+        # roundings, and only its explicit `fmaf` fuses
         cmd = [gxx, "-x", "c++", "-std=c++20", "-O2", "-fno-strict-aliasing",
+               "-ffp-contract=off",
                "-shared", "-fPIC", "-pthread", "-w", f"-I{EMU}", "-include",
                str(EMU / "warp_prims.h"), str(out / f"{name}.cu"), "-o",
                str(out / f"lib{name}.so")]

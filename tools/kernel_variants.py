@@ -3,6 +3,8 @@ other, in turns, on one CUDA card.
 
     python3 tools/kernel_variants.py qmm base= parent:_tree/parent/apex_tpu_torch/csrc=
     python3 tools/kernel_variants.py softmax base= parent:_tree/parent/apex_tpu_torch/csrc=
+    python3 tools/kernel_variants.py causal parent:_tree/parent/apex_tpu_torch/csrc= base=
+    python3 tools/kernel_variants.py softmax_bwd parent:_tree/parent/apex_tpu_torch/csrc= base=
     python3 tools/kernel_variants.py qmm --nohold base= probe=SOME_DEFINE
     python3 tools/kernel_variants.py wall
     python3 tools/kernel_variants.py profile
@@ -19,7 +21,11 @@ version with ``chip_smoke.py``'s holds (``--nohold``: not, for
 diagnostic builds whose results are wrong by design), and timed (device
 ms a call, ``chip_smoke.time_ms``): the variants in order, then in
 reverse, beside one PyTorch library call a turn.  Prints a line a variant
-a turn and a ``TABLE`` JSON line, label -> shape -> [ms a turn].
+a turn and a ``TABLE`` JSON line, label -> shape -> [ms a turn].  Each
+variant's output is also compared with the first variant's by
+``torch.equal`` (``same bits`` on its line); for the softmax targets,
+whose variants must keep the bits, a difference fails the run once every
+turn is timed.
 
 ``qmm``: row 16, the GEMV (``quant_matmul`` at M = 8, bf16 x, the Q8
 decode tick's four linears of GPT-345M width; qkv and fc1 also with fp16
@@ -27,6 +33,14 @@ x, whose codes convert in fewer instructions), against ``torch.matmul``
 on the weight in x's dtype.  ``softmax``: row 5, the padding-mask softmax
 at BERT-large's O2 step, (16, 16, 512, 512) fp16 and fp32 with its
 extended mask, against ``torch.softmax`` on the pre-filled scores.
+``causal``: row 3, the causal softmax forward at GPT-345M's O2 step,
+(128, 1024, 1024) fp32 and fp16, against ``torch.softmax`` on the
+pre-masked scores.  ``softmax_bwd``: row 4 at the same shapes on causal
+probabilities and at BERT-large's O2 step, (16, 16, 512, 512) fp32 on
+padding-mask probabilities, against ``torch._softmax_backward_data``.
+Each of the two also runs its inputs through a view one element off
+16-byte alignment (``element path``), which takes the element path: so a
+``parent:`` variant first shows that both paths keep the parent's bits.
 ``wall``: no variants; the tree's own ``quant_matmul`` wrapper at those
 four linears, device and back-to-back wall ms a call
 (``chip_smoke.time_ms``), three turns: run a copy from another tree's
@@ -53,8 +67,14 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from apex_tpu_torch import _build  # noqa: E402
 
-LIBS = {"qmm": "quant_matmul", "softmax": "scaled_softmax"}
-KERNELS = {"qmm": ("quant_gemv",), "softmax": ("masked_fwd_kernel",)}
+LIBS = {"qmm": "quant_matmul", "softmax": "scaled_softmax",
+        "causal": "scaled_softmax", "softmax_bwd": "scaled_softmax"}
+KERNELS = {"qmm": ("quant_gemv",), "softmax": ("masked_fwd_kernel",),
+           "causal": ("causal_fwd",), "softmax_bwd": ("softmax_bwd",)}
+# the targets whose variants must give the first variant's bits
+BITWISE = ("softmax", "causal", "softmax_bwd")
+O2_SCORES = (8 * 16, 1024, 1024)       # GPT-345M O2: batch 8 x 16 heads
+SCALE = 0.125                          # head_dim 64 ** -0.5
 OUT = _build.BUILD_DIR / "variants"
 
 
@@ -122,7 +142,7 @@ def qmm_run(case):
     from apex_tpu_torch.ops import quant_matmul
     x, wq, sc = case
     cs._qmm_hold(x, wq, sc, x.dtype, "variant")
-    return lambda: quant_matmul(x, wq, sc)
+    return (lambda: quant_matmul(x, wq, sc)), quant_matmul(x, wq, sc)
 
 
 def qmm_library(case):
@@ -156,7 +176,7 @@ def softmax_run(case):
     if not err <= tol or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"masked softmax variant: max_abs_err {err:.3e}"
                              f" (tol {tol})")
-    return lambda: masked_softmax(x, mask, 0.125)
+    return (lambda: masked_softmax(x, mask, 0.125)), y
 
 
 def softmax_library(case):
@@ -164,6 +184,101 @@ def softmax_library(case):
     xm = (x.float() * 0.125).masked_fill(
         mask, torch.finfo(x.dtype).min).to(x.dtype)
     return lambda: torch.softmax(xm, -1)
+
+
+def causal_cases(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    cases = {}
+    for dt, tag in ((torch.float32, "fp32"), (torch.float16, "fp16")):
+        x = (3 * torch.randn(*O2_SCORES, generator=g, device=dev)).to(dt)
+        cases[f"{O2_SCORES} {tag}"] = x, SCALE
+        cases[f"{O2_SCORES} {tag} element path"] = cs.misaligned(x), SCALE
+    # a scale whose products round (GPT-345M's 0.125 is exact): the
+    # product must not be contracted into the exp's subtraction on one
+    # path only
+    x = cases[f"{O2_SCORES} fp32"][0]
+    cases[f"{O2_SCORES} fp32 scale 0.1"] = x, 0.1
+    cases[f"{O2_SCORES} fp32 scale 0.1 element path"] = cs.misaligned(x), 0.1
+    return cases
+
+
+def causal_run(case):
+    from apex_tpu_torch.ops import causal_softmax, causal_softmax_reference
+    x, scale = case
+    y = causal_softmax(x, scale)
+    torch.cuda.synchronize()
+    err = cs.max_err(y, causal_softmax_reference(x, scale))
+    tol = cs.SOFTMAX_FP16_TOL if x.dtype == torch.float16 else cs.SOFTMAX_TOL
+    zero = bool((y.triu(1) == 0).all())
+    if not err <= tol or not zero:
+        raise AssertionError(f"causal softmax variant: max_abs_err {err:.3e}"
+                             f" (tol {tol}), upper triangle 0: {zero}")
+    return (lambda: causal_softmax(x, scale)), y
+
+
+def causal_library(case):
+    x, scale = case
+    keep = torch.ones(x.shape[-2:], dtype=torch.bool, device=x.device).tril()
+    xm = (x.float() * scale).masked_fill(~keep, float("-inf")).to(x.dtype)
+    return lambda: torch.softmax(xm, -1)
+
+
+def causal_launch(case):
+    from apex_tpu_torch.ops import causal_softmax
+    x, scale = case
+    return lambda: causal_softmax(x, scale)
+
+
+def softmax_bwd_cases(dev):
+    from apex_tpu_torch.ops import (causal_softmax_reference,
+                                    masked_softmax_reference)
+    from apex_tpu_torch.testing.standalone_bert import \
+        bert_extended_attention_mask
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    cases = {}
+    for dt, tag in ((torch.float32, "fp32"), (torch.float16, "fp16")):
+        x = (3 * torch.randn(*O2_SCORES, generator=g, device=dev)).to(dt)
+        y = causal_softmax_reference(x, SCALE)
+        dy = torch.randn(*O2_SCORES, generator=g, device=dev).to(dt)
+        del x
+        cases[f"{O2_SCORES} {tag}"] = (y, dy)
+        cases[f"{O2_SCORES} {tag} element path"] = (cs.misaligned(y), dy)
+    (b, s), h = cs.BERT_BATCH, 16
+    mask = bert_extended_attention_mask(cs.bert_mask(dev, g, dead_row=True))
+    x = 3 * torch.randn(b, h, s, s, generator=g, device=dev)
+    y = masked_softmax_reference(x, mask, SCALE)
+    dy = torch.randn(b, h, s, s, generator=g, device=dev)
+    del x
+    cases[f"({b}, {h}, {s}, {s}) fp32"] = (y, dy)
+    cases[f"({b}, {h}, {s}, {s}) fp32 element path"] = (cs.misaligned(y), dy)
+    return cases
+
+
+def softmax_bwd_run(case):
+    from apex_tpu_torch.ops import softmax_backward, softmax_backward_reference
+    y, dy = case
+    dx = softmax_backward(y, dy, SCALE)
+    torch.cuda.synchronize()
+    rel = cs.rel_err(dx, softmax_backward_reference(y, dy, SCALE))
+    tol = cs.SOFTMAX_FP16_TOL if y.dtype == torch.float16 else \
+        cs.SOFTMAX_BWD_RTOL
+    if not rel <= tol or not bool(torch.isfinite(dx).all()):
+        raise AssertionError(f"softmax backward variant: max_rel_err "
+                             f"{rel:.3e} (tol {tol})")
+    return (lambda: softmax_backward(y, dy, SCALE)), dx
+
+
+def softmax_bwd_library(case):
+    y, dy = case
+    return lambda: torch._softmax_backward_data(dy, y, -1, y.dtype)
+
+
+def softmax_bwd_launch(case):
+    from apex_tpu_torch.ops import softmax_backward
+    y, dy = case
+    return lambda: softmax_backward(y, dy, SCALE)
 
 
 def qmm_launch(case):
@@ -178,9 +293,13 @@ def softmax_launch(case):
     return lambda: masked_softmax(x, mask, 0.125)
 
 
-LAUNCH = {"qmm": qmm_launch, "softmax": softmax_launch}
+LAUNCH = {"qmm": qmm_launch, "softmax": softmax_launch,
+          "causal": causal_launch, "softmax_bwd": softmax_bwd_launch}
 WHICH = {"qmm": (qmm_cases, qmm_run, qmm_library),
-         "softmax": (softmax_cases, softmax_run, softmax_library)}
+         "softmax": (softmax_cases, softmax_run, softmax_library),
+         "causal": (causal_cases, causal_run, causal_library),
+         "softmax_bwd": (softmax_bwd_cases, softmax_bwd_run,
+                         softmax_bwd_library)}
 
 def wall(dev):
     from apex_tpu_torch.ops import quant_matmul
@@ -237,17 +356,29 @@ if __name__ == "__main__":
     cases = make_cases(dev)
     labels = [v[0] for v in variants]
     table = {lb: {s: [] for s in cases} for lb in labels + ["library"]}
+    first = {}                          # shape -> the first variant's output
+    differs = set()
     for turn, order in enumerate((labels, labels[::-1])):
         for label in order:
             _build._LIBS[lib] = loaded[label]
-            row = {}
+            row, same = {}, {}
             for shape, case in cases.items():
-                fn = run(case) if not args.nohold else \
-                    LAUNCH[args.which](case)
+                if args.nohold:
+                    fn = LAUNCH[args.which](case)
+                else:
+                    fn, out = run(case)
+                    want = first.setdefault(shape, out)
+                    same[shape] = bool(torch.equal(out, want))
+                    if not same[shape]:
+                        differs.add((label, shape))
+                    del out
                 ms, _ = cs.time_ms(fn, iters=100)
                 table[label][shape].append(ms)
                 row[shape] = round(ms, 5)
             print(f"{label} turn {turn} {row}", flush=True)
+            if same:
+                print(f"{label} turn {turn} same bits as {labels[0]}: "
+                      f"{same}", flush=True)
         row = {}
         for shape, case in cases.items():
             ms, _ = cs.time_ms(library(case), iters=100)
@@ -255,3 +386,6 @@ if __name__ == "__main__":
             row[shape] = round(ms, 5)
         print(f"library turn {turn} {row}", flush=True)
     print("TABLE " + json.dumps(table), flush=True)
+    if differs and args.which in BITWISE:
+        sys.exit(f"kernel_variants: other bits than {labels[0]}'s: "
+                 f"{sorted(differs)}")
