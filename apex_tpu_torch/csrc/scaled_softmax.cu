@@ -30,9 +30,9 @@
 // padding-mask forward at BERT-large's O2 step, (16, 16, 512, 512) fp32
 // scores, moves 537 MB of scores and a 4 MB mask (0.16 ms).
 //
-// The element paths (`causal_fwd_kernel`, `masked_fwd_elem_kernel`,
-// `softmax_bwd_kernel`): one warp per row, each element read from device
-// memory once and written once.  For sk <= 1024 a lane
+// The element paths (`causal_fwd_kernel`, `masked_fwd_elem_kernel`) and
+// the backward (`softmax_bwd_kernel`): one warp per row, each element
+// read from device memory once and written once.  For sk <= 1024 a lane
 // keeps its columns (lane, lane + 32, ...) in registers between the row's
 // max, its sum and the write; longer rows take a looped variant that
 // reads the row twice (an online max/sum pass, then the write).  The
@@ -64,15 +64,14 @@
 // looped variant past 1024).  The mask row is read once per (b, row) of a
 // head and shared by the np heads through a zero head stride.
 //
-// The causal forward and the backward take the same 16-byte layout
-// (`causal_fwd_vec_kernel`, `softmax_bwd_vec_kernel`) under the same
-// routing rule, and keep their element paths' bits the same way.  The
-// forward loads only the vectors that hold a kept column (about half the
-// matrix at sq = sk), its loop's trip count following the row, and
-// stores zero words above the diagonal.  The backward stages y and dy in
-// shared memory so that each lane's fma chain for sum(y * dy) runs over
-// the element path's columns in its order.  The GPT O2 loss checks, read
-// at one seed, see no change.
+// The causal forward takes the same 16-byte layout
+// (`causal_fwd_vec_kernel`) under the same routing rule, and keeps its
+// element path's bits the same way.  It loads only the vectors that hold
+// a kept column (about half the matrix at sq = sk), its loop's trip
+// count following the row, and stores zero words above the diagonal.
+// The backward keeps one layout, the element path's, its sum(y * dy)
+// written as an explicit fma chain.  The GPT O2 loss checks, read at one
+// seed, see no change.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -418,85 +417,14 @@ causal_fwd_vec_kernel(const T* __restrict__ x, T* __restrict__ y, long long rows
   }
 }
 
-// softmax_bwd_kernel on 16-byte vectors: lane load j takes kVec columns
-// of y and of dy from (32 j + lane) kVec, every load of the row issued
-// before the sum, the row kept in registers for dx (96 registers at fp32
-// sk = 1024, 2 blocks an SM: bounded to 3, it spilled and ran slower on
-// the H100; 51 at fp32 sk = 512, 4 blocks).  sum(y dy) keeps the element
-// path's chain: y and dy pass through the warp's slice of shared memory
-// in their own type, 4 loads a lane at a time, the row's first columns
-// first (at fp32 sk = 1024 the row in halves, 32 KB a block: the whole
-// row would pass the 48 KB of static shared memory; quarters ran as fast
-// at sk = 1024 and slower at 512), and lane l runs s = fma(y, dy, s) over
-// columns l, l + 32, ... in turn, then the same butterfly.  dx = scale y
-// (dy - s) in the element path's order of operations, stored 16 bytes a
-// lane.
-template <typename T, int kVecs>
-__global__ void __launch_bounds__(kThreads,
-                                  kVecs * 16 / sizeof(T) <= 16
-                                      ? (sizeof(T) == 4 ? (kVecs == 4 ? 4 : 6) : 8)
-                                      : 2)
-softmax_bwd_vec_kernel(const T* __restrict__ y, const T* __restrict__ dy,
-                       T* __restrict__ dx, long long rows, int sk, float scale) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kStage = kVecs < 4 ? kVecs : 4;  // loads a lane staged at once
-  constexpr int kCols = 32 * kStage * kVec;  // a stage's columns
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const long long base = row * (long long)sk;
-  uint4 yv[kVecs], dv[kVecs];
-#pragma unroll
-  for (int j = 0; j < kVecs; ++j) {
-    const int c = (32 * j + lane) * kVec;
-    yv[j] = dv[j] = make_uint4(0, 0, 0, 0);
-    if (c < sk) {
-      yv[j] = *reinterpret_cast<const uint4*>(y + base + c);
-      dv[j] = *reinterpret_cast<const uint4*>(dy + base + c);
-    }
-  }
-  __shared__ __align__(16) T ys[kWarps][kCols];
-  __shared__ __align__(16) T ds[kWarps][kCols];
-  T* yw = ys[threadIdx.x >> 5];
-  T* dw = ds[threadIdx.x >> 5];
-  float s = 0.f;
-#pragma unroll
-  for (int st = 0; st < kVecs; st += kStage) {
-    if (st > 0) __syncwarp();  // the stage before is read
-#pragma unroll
-    for (int j = 0; j < kStage; ++j) {
-      *reinterpret_cast<uint4*>(yw + (32 * j + lane) * kVec) = yv[st + j];
-      *reinterpret_cast<uint4*>(dw + (32 * j + lane) * kVec) = dv[st + j];
-    }
-    __syncwarp();
-    const int cols = sk - st * 32 * kVec;  // the row's columns from the stage's first
-#pragma unroll
-    for (int i = 0; i < kStage * kVec; ++i) {
-      const int c = lane + 32 * i;
-      if (c < cols) s = fmaf(to_f<T>(yw[c]), to_f<T>(dw[c]), s);
-    }
-  }
-  s = warp_sum(s);
-#pragma unroll
-  for (int j = 0; j < kVecs; ++j) {
-    const int c = (32 * j + lane) * kVec;
-    if (c >= sk) continue;
-    const T* ye = reinterpret_cast<const T*>(&yv[j]);
-    const T* de = reinterpret_cast<const T*>(&dv[j]);
-    uint4 out;
-    T* e = reinterpret_cast<T*>(&out);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k)
-      e[k] = from_f<T>(scale * to_f<T>(ye[k]) * (to_f<T>(de[k]) - s));
-    *reinterpret_cast<uint4*>(dx + base + c) = out;
-  }
-}
-
-// The element path of the backward.  sum(y dy) is an explicit fma chain,
-// lane l over columns l, l + 32, ...: the chain nvcc contracts `s += y *
-// dy` into (the same bits on the H100), written out so that the 16-byte
-// path repeats it exactly.  Written so, ptxas issues every load of the row
-// before the chain (126 registers at kPer 32, against 105).
+// The backward: one warp a row.  sum(y dy) is an explicit fma chain,
+// lane l over columns l, l + 32, ..., then the butterfly: the chain nvcc
+// contracts `s += y * dy` into (the same bits on the H100).  Written out,
+// ptxas issues every load of the row before the chain (126 registers at
+// kPer 32, against 105), which took the fp32 O2 shape from 0.79 to
+// 0.52 ms on the H100.  A 16-byte layout of this kernel, y and dy staged
+// in shared memory to keep the chain's order, ran within 0.3 % of it in
+// fp32, the only dtype the O2 steps feed it, and was not kept.
 template <typename T, int kPer>
 __global__ void __launch_bounds__(kThreads)
 softmax_bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy, T* __restrict__ dx,
@@ -615,22 +543,11 @@ cudaError_t launch_masked(const void* x, const void* mask, void* y, long long ro
 template <typename T>
 cudaError_t launch_bwd(const void* y, const void* dy, void* dx, long long rows, int sk,
                        float scale, cudaStream_t st) {
-  constexpr int kVec = 16 / sizeof(T);
   const T* yp = static_cast<const T*>(y);
   const T* dyp = static_cast<const T*>(dy);
   T* dxp = static_cast<T*>(dx);
   const unsigned g = grid_for(rows);
-  if (vec_route<T>(sk, {y, dy, dx})) {
-    const int per = (sk + 32 * kVec - 1) / (32 * kVec);  // loads a lane
-    if (per <= 1)
-      softmax_bwd_vec_kernel<T, 1><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);
-    else if (per <= 2)
-      softmax_bwd_vec_kernel<T, 2><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);
-    else if (kVec == 8 || per <= 4)
-      softmax_bwd_vec_kernel<T, 4><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);
-    else if constexpr (kVec == 4)  // fp32 rows of 513 to 1024 columns
-      softmax_bwd_vec_kernel<T, 8><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);
-  } else if (sk <= 128)
+  if (sk <= 128)
     softmax_bwd_kernel<T, 4><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);
   else if (sk <= 256)
     softmax_bwd_kernel<T, 8><<<g, kThreads, 0, st>>>(yp, dyp, dxp, rows, sk, scale);

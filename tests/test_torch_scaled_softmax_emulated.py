@@ -1,6 +1,9 @@
-"""Row 5's padding-mask softmax forward (``masked_fwd_kernel`` in
-``apex_tpu_torch/csrc/scaled_softmax.cu``) runs on the CPU and is held
-against its plain version, ``masked_softmax_reference``.
+"""The kernels of ``apex_tpu_torch/csrc/scaled_softmax.cu`` run on the CPU
+and are held against their plain versions: row 5's padding-mask softmax
+forward (``masked_fwd_kernel``, ``masked_softmax_reference``), row 3's
+causal forward (``causal_fwd_vec_kernel``, ``causal_softmax_reference``)
+and row 4's backward (``softmax_bwd_kernel``,
+``softmax_backward_reference``).
 
 The source is built with g++ over ``tests/cuda_emu`` (``emulate.py``: one
 host thread a CUDA thread, warp shuffles through a table of the warp's
@@ -22,6 +25,33 @@ so the two paths agree bit for bit (held at sk = 512 and 200); it divides
 by the row's sum through its reciprocal with Markstein's correction
 (``div_by``), which the last test holds to IEEE division bit for bit over
 the kernel's range of quotients.
+
+Rows 3 and 4 run by every route of their launchers: 16-byte loads with
+the row in registers (sk = 1024, which at fp32 takes 8 loads a lane;
+512; 200 and 64, which leave lanes idle); the element path where sk is
+off the vector width (98) or a pointer sits off its 16-byte alignment;
+the looped variant past 1024 columns (1500).  The forward's rows are
+every query row of a (sk, sk) matrix, so its trip count runs through
+every length from one vector to the whole row; batches of two wrap
+``row % sq``.  Their holds are those of ``test_torch_scaled_softmax.py``
+and ``chip_smoke.py``: the tolerances above, everything finite, the
+upper triangle exactly 0.  Where the aligned input takes the forward's
+16-byte path, the same values through a view one element off alignment
+take the element path, and the two outputs must be equal bit for bit
+(the exps added in the element path's order, ``div_by`` for the
+division).  The backward has one layout at every alignment; its output
+must equal, bit for bit, its sum written out here (lane l's ``fmaf``
+chain over columns l, l + 32, ..., then the butterfly), which fixes the
+order of the kernel's fp32 additions.
+
+What these tests cannot show: the stand-in builds with
+``-ffp-contract=off``, so the host keeps each ``a * b + c`` the source
+writes unfused, whatever nvcc would make of it.  That the card's build
+gives the same bits as the parent's (the backward's sum is the FFMA
+chain nvcc made of ``s += y * dy``, written out as ``fmaf``; the
+forward's product ``x * scale`` is not contracted into the exp's
+subtraction) is held on the card by ``chip_smoke.py`` and
+``tools/kernel_variants.py``.
 """
 import importlib
 import shutil
@@ -53,6 +83,20 @@ def launch(emulated, monkeypatch):
     emulated library."""
     emulate.route(monkeypatch, emulated, ss)
     return ss._launch_masked
+
+
+@pytest.fixture
+def causal(launch):
+    """``scaled_softmax``'s causal forward and backward launchers, routed
+    as ``launch`` routes the masked one."""
+    return ss._launch, ss._launch_backward
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous view one element past a 16-byte
+    boundary: the element path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view_as(t)
+    return buf.copy_(t)
 
 
 def _case(b, np_, sq, sk, dtype, seed, mask_b=None):
@@ -107,8 +151,7 @@ def test_misaligned_scores(launch, sk, dtype):
     # output the 16-byte path's must equal bit for bit (the same max, exps
     # and sum order; quotients here all far above 2^-100)
     x, mask = _case(2, 2, 4, sk, dtype, seed=4)
-    buf = torch.empty(x.numel() + 1, dtype=dtype)[1:].view_as(x)
-    y_elem = _run(launch, buf.copy_(x), mask)
+    y_elem = _run(launch, _misaligned(x), mask)
     assert torch.equal(_run(launch, x, mask), y_elem), \
         "the 16-byte path differs from the element path"
 
@@ -160,3 +203,89 @@ def test_division_is_ieee(tmp_path):
     assert out == ["0", "0"], \
         f"div_by differs from IEEE division: {out[0]} pairs with a >= " \
         f"2^-100, {out[1]} below it by more than one ulp"
+
+
+# --- rows 3 and 4 -----------------------------------------------------------
+
+ROUTES = [1024, 512, 200, 64, 98, 1500]
+
+
+def _vector_route(sk, dtype):
+    return sk <= 1024 and sk % (16 // torch.empty((), dtype=dtype)
+                                .element_size()) == 0
+
+
+def _hold(got, want, what):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all(), f"{what}: not finite"
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL[got.dtype], f"{what}: max_abs_err {err:.3e}"
+
+
+def _chain_backward(y, dy, scale):
+    """dx in the kernel's order of fp32 operations: lane l's s = fma(y,
+    dy, s) over columns l, l + 32, ... (the fused step as a float64
+    product, exact for float32 factors, and one rounding of the sum),
+    the warp's xor butterfly, then (scale y) (dy - s) per element."""
+    sk = y.shape[-1]
+    yf, df = y.float().reshape(-1, sk), dy.float().reshape(-1, sk)
+    pad = (-sk) % 32                 # fma(0, 0, s) = s: the idle columns
+    y64 = torch.nn.functional.pad(yf, (0, pad)).double().unflatten(1, (-1, 32))
+    d64 = torch.nn.functional.pad(df, (0, pad)).double().unflatten(1, (-1, 32))
+    s = torch.zeros(yf.shape[0], 32)
+    for i in range(y64.shape[1]):
+        s = (y64[:, i] * d64[:, i] + s.double()).float()
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, lanes ^ o]
+    dx = (scale * yf) * (df - s[:, :1])
+    return dx.to(y.dtype).view_as(y)
+
+
+@pytest.mark.parametrize("dtype", [F32, F16, BF16])
+@pytest.mark.parametrize("sk", ROUTES)
+def test_causal_forward_routes(causal, sk, dtype):
+    fwd, _ = causal
+    b = 2 if sk <= 512 else 1
+    rng = np.random.RandomState(sk)
+    x = torch.from_numpy(3 * rng.randn(b, sk, sk).astype(np.float32)).to(dtype)
+    y = fwd(x, SCALE)
+    _hold(y, ss.causal_softmax_reference(x, SCALE), "forward")
+    assert (y.triu(1) == 0).all(), "the upper triangle is not exactly 0"
+    if _vector_route(sk, dtype):
+        assert torch.equal(fwd(_misaligned(x), SCALE), y), \
+            "the 16-byte path differs from the element path"
+
+
+@pytest.mark.parametrize("dtype", [F32, F16, BF16])
+@pytest.mark.parametrize("sk", ROUTES)
+def test_softmax_backward_routes(causal, sk, dtype):
+    # 3 x 5 rows of dense probabilities (every column in the sum): the
+    # last block's warps past the end
+    _, bwd = causal
+    rng = np.random.RandomState(sk + 1)
+    x = torch.from_numpy(3 * rng.randn(3, 5, sk).astype(np.float32))
+    y = torch.softmax(x * SCALE, -1).to(dtype)
+    dy = torch.from_numpy(rng.randn(3, 5, sk).astype(np.float32)).to(dtype)
+    dx = bwd(y, dy, SCALE)
+    _hold(dx, ss.softmax_backward_reference(y, dy, SCALE), "backward")
+    assert torch.equal(dx, _chain_backward(y, dy, SCALE)), \
+        "the backward's sum is not the fma chain in the lanes' order"
+
+
+@pytest.mark.parametrize("dtype", [F32, F16])
+def test_backward_on_dense_rows(causal, dtype):
+    # dense probabilities (every column live, as the padding-mask
+    # forward's rows are) at sk = 512, BERT-large's length, and through a
+    # misaligned view
+    _, bwd = causal
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(3 * rng.randn(2, 7, 512).astype(np.float32))
+    y = torch.softmax(x * SCALE, -1).to(dtype)
+    dy = torch.from_numpy(rng.randn(2, 7, 512).astype(np.float32)).to(dtype)
+    dx = bwd(y, dy, SCALE)
+    _hold(dx, ss.softmax_backward_reference(y, dy, SCALE), "backward")
+    assert torch.equal(dx, _chain_backward(y, dy, SCALE)), \
+        "the backward's sum is not the fma chain in the lanes' order"
+    assert torch.equal(bwd(_misaligned(y), dy, SCALE), dx), \
+        "a misaligned y gave other bits"

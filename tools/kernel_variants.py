@@ -35,12 +35,13 @@ at BERT-large's O2 step, (16, 16, 512, 512) fp16 and fp32 with its
 extended mask, against ``torch.softmax`` on the pre-filled scores.
 ``causal``: row 3, the causal softmax forward at GPT-345M's O2 step,
 (128, 1024, 1024) fp32 and fp16, against ``torch.softmax`` on the
-pre-masked scores.  ``softmax_bwd``: row 4 at the same shapes on causal
-probabilities and at BERT-large's O2 step, (16, 16, 512, 512) fp32 on
-padding-mask probabilities, against ``torch._softmax_backward_data``.
-Each of the two also runs its inputs through a view one element off
-16-byte alignment (``element path``), which takes the element path: so a
+pre-masked scores, each also through a view one element off 16-byte
+alignment (``element path``), which takes the element path: so a
 ``parent:`` variant first shows that both paths keep the parent's bits.
+``softmax_bwd``: row 4 at the same shapes on causal probabilities, at
+BERT-large's O2 step, (16, 16, 512, 512) fp32 on padding-mask
+probabilities, and at (2, 1500, 1500) fp32, the looped variant, against
+``torch._softmax_backward_data``.
 ``wall``: no variants; the tree's own ``quant_matmul`` wrapper at those
 four linears, device and back-to-back wall ms a call
 (``chip_smoke.time_ms``), three turns: run a copy from another tree's
@@ -138,11 +139,14 @@ def qmm_cases(dev):
     return cases
 
 
-def qmm_run(case):
+def qmm_run(case, hold=True):
     from apex_tpu_torch.ops import quant_matmul
     x, wq, sc = case
+    fn = lambda: quant_matmul(x, wq, sc)
+    if not hold:
+        return fn, None
     cs._qmm_hold(x, wq, sc, x.dtype, "variant")
-    return (lambda: quant_matmul(x, wq, sc)), quant_matmul(x, wq, sc)
+    return fn, fn()
 
 
 def qmm_library(case):
@@ -166,17 +170,20 @@ def softmax_cases(dev):
     return cases
 
 
-def softmax_run(case):
+def softmax_run(case, hold=True):
     from apex_tpu_torch.ops import masked_softmax, masked_softmax_reference
     x, mask = case
-    y = masked_softmax(x, mask, 0.125)
+    fn = lambda: masked_softmax(x, mask, 0.125)
+    if not hold:
+        return fn, None
+    y = fn()
     torch.cuda.synchronize()
     err = cs.max_err(y, masked_softmax_reference(x, mask, 0.125))
     tol = cs.SOFTMAX_FP16_TOL if x.dtype == torch.float16 else cs.SOFTMAX_TOL
     if not err <= tol or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"masked softmax variant: max_abs_err {err:.3e}"
                              f" (tol {tol})")
-    return (lambda: masked_softmax(x, mask, 0.125)), y
+    return fn, y
 
 
 def softmax_library(case):
@@ -203,10 +210,13 @@ def causal_cases(dev):
     return cases
 
 
-def causal_run(case):
+def causal_run(case, hold=True):
     from apex_tpu_torch.ops import causal_softmax, causal_softmax_reference
     x, scale = case
-    y = causal_softmax(x, scale)
+    fn = lambda: causal_softmax(x, scale)
+    if not hold:
+        return fn, None
+    y = fn()
     torch.cuda.synchronize()
     err = cs.max_err(y, causal_softmax_reference(x, scale))
     tol = cs.SOFTMAX_FP16_TOL if x.dtype == torch.float16 else cs.SOFTMAX_TOL
@@ -214,7 +224,7 @@ def causal_run(case):
     if not err <= tol or not zero:
         raise AssertionError(f"causal softmax variant: max_abs_err {err:.3e}"
                              f" (tol {tol}), upper triangle 0: {zero}")
-    return (lambda: causal_softmax(x, scale)), y
+    return fn, y
 
 
 def causal_library(case):
@@ -222,12 +232,6 @@ def causal_library(case):
     keep = torch.ones(x.shape[-2:], dtype=torch.bool, device=x.device).tril()
     xm = (x.float() * scale).masked_fill(~keep, float("-inf")).to(x.dtype)
     return lambda: torch.softmax(xm, -1)
-
-
-def causal_launch(case):
-    from apex_tpu_torch.ops import causal_softmax
-    x, scale = case
-    return lambda: causal_softmax(x, scale)
 
 
 def softmax_bwd_cases(dev):
@@ -244,7 +248,6 @@ def softmax_bwd_cases(dev):
         dy = torch.randn(*O2_SCORES, generator=g, device=dev).to(dt)
         del x
         cases[f"{O2_SCORES} {tag}"] = (y, dy)
-        cases[f"{O2_SCORES} {tag} element path"] = (cs.misaligned(y), dy)
     (b, s), h = cs.BERT_BATCH, 16
     mask = bert_extended_attention_mask(cs.bert_mask(dev, g, dead_row=True))
     x = 3 * torch.randn(b, h, s, s, generator=g, device=dev)
@@ -252,14 +255,21 @@ def softmax_bwd_cases(dev):
     dy = torch.randn(b, h, s, s, generator=g, device=dev)
     del x
     cases[f"({b}, {h}, {s}, {s}) fp32"] = (y, dy)
-    cases[f"({b}, {h}, {s}, {s}) fp32 element path"] = (cs.misaligned(y), dy)
+    # past 1024 columns: the looped variant
+    x = 3 * torch.randn(2, 1500, 1500, generator=g, device=dev)
+    y = causal_softmax_reference(x, SCALE)
+    cases["(2, 1500, 1500) fp32"] = (
+        y, torch.randn(2, 1500, 1500, generator=g, device=dev))
     return cases
 
 
-def softmax_bwd_run(case):
+def softmax_bwd_run(case, hold=True):
     from apex_tpu_torch.ops import softmax_backward, softmax_backward_reference
     y, dy = case
-    dx = softmax_backward(y, dy, SCALE)
+    fn = lambda: softmax_backward(y, dy, SCALE)
+    if not hold:
+        return fn, None
+    dx = fn()
     torch.cuda.synchronize()
     rel = cs.rel_err(dx, softmax_backward_reference(y, dy, SCALE))
     tol = cs.SOFTMAX_FP16_TOL if y.dtype == torch.float16 else \
@@ -267,7 +277,7 @@ def softmax_bwd_run(case):
     if not rel <= tol or not bool(torch.isfinite(dx).all()):
         raise AssertionError(f"softmax backward variant: max_rel_err "
                              f"{rel:.3e} (tol {tol})")
-    return (lambda: softmax_backward(y, dy, SCALE)), dx
+    return fn, dx
 
 
 def softmax_bwd_library(case):
@@ -275,31 +285,12 @@ def softmax_bwd_library(case):
     return lambda: torch._softmax_backward_data(dy, y, -1, y.dtype)
 
 
-def softmax_bwd_launch(case):
-    from apex_tpu_torch.ops import softmax_backward
-    y, dy = case
-    return lambda: softmax_backward(y, dy, SCALE)
-
-
-def qmm_launch(case):
-    from apex_tpu_torch.ops import quant_matmul
-    x, wq, sc = case
-    return lambda: quant_matmul(x, wq, sc)
-
-
-def softmax_launch(case):
-    from apex_tpu_torch.ops import masked_softmax
-    x, mask = case
-    return lambda: masked_softmax(x, mask, 0.125)
-
-
-LAUNCH = {"qmm": qmm_launch, "softmax": softmax_launch,
-          "causal": causal_launch, "softmax_bwd": softmax_bwd_launch}
 WHICH = {"qmm": (qmm_cases, qmm_run, qmm_library),
          "softmax": (softmax_cases, softmax_run, softmax_library),
          "causal": (causal_cases, causal_run, causal_library),
          "softmax_bwd": (softmax_bwd_cases, softmax_bwd_run,
                          softmax_bwd_library)}
+
 
 def wall(dev):
     from apex_tpu_torch.ops import quant_matmul
@@ -363,10 +354,8 @@ if __name__ == "__main__":
             _build._LIBS[lib] = loaded[label]
             row, same = {}, {}
             for shape, case in cases.items():
-                if args.nohold:
-                    fn = LAUNCH[args.which](case)
-                else:
-                    fn, out = run(case)
+                fn, out = run(case, hold=not args.nohold)
+                if out is not None:
                     want = first.setdefault(shape, out)
                     same[shape] = bool(torch.equal(out, want))
                     if not same[shape]:
