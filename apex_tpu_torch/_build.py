@@ -70,10 +70,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # stride b, q stride h, scale, q dtype, cache dtype, stream
         "apex_flash_decode": [_P] * 10 + [_I] * 5 + [_L, _L, _F, _I, _I,
                                                      _P],
-        # block_size, max_pages -> the number of position splits
-        "apex_flash_decode_multi_splits": [_I, _I],
+        # b, t, h, block_size, max_pages -> the number of position splits
+        "apex_flash_decode_multi_plan": [_I] * 5,
         # q (b, t, h, d), k_cache, v_cache, k_scale, v_scale,
-        # block_tables, seq_lens, part_o, part_ml (fp32 scratch), out, b,
+        # block_tables, seq_lens, part_o, part_ml (fp32 scratch, null at
+        # one split), out, b,
         # t, h, d, block_size, max_pages, q strides b, t, h, scale,
         # q dtype, cache dtype, stream
         "apex_flash_decode_multi": [_P] * 10 + [_I] * 6 + [_L] * 3

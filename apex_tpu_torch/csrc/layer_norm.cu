@@ -19,24 +19,36 @@
 // where the tensor cores (or even the 67 TFLOP/s fp32 pipes) would be the
 // limit.
 //
-// What the simple designs do about it.  Forward: one block per row (256
-// threads), the row is read from device memory exactly once into shared
-// memory as fp32, mean and then the centred variance are reduced from
-// there (two passes over shared memory, never over device memory, which
-// keeps the JAX kernel's two-pass numerics), and y is written once.
-// Backward: a fixed number of blocks, each walking rows blockIdx.x,
+// What the designs do about it.  Forward: one warp a row where hidden is a
+// multiple of 256 up to 2048 and x, y, gamma and beta are 16-byte aligned
+// (`vec_route`), else the PR 1 kernel, one 256-thread block a row, as the
+// element path.  The vector kernel (`ln_fwd_vec_kernel`, 4 rows a block)
+// issues all of a row's 16-byte loads (8 bf16/fp16 or 4 fp32 values a
+// lane) before its first sum, keeps the row in registers through the mean,
+// the centred variance and the output, reduces by warp shuffles alone (no
+// __syncthreads), reads gamma/beta 16 bytes at a time in their own dtype
+// and stores y 16 bytes at a time.  It keeps the element path's bits: a
+// lane's loads hold exactly the columns of 8 of the element path's 256
+// threads ("virtual threads"; bf16/fp16 lane l: threads 8l..8l+7, fp32:
+// 4l..4l+3 and 128+4l..128+4l+3), each summed over its columns in the same
+// order, and `vthread_sum` adds them in the element path's shuffle tree
+// (its warp butterflies and its tree over the 8 warp totals mapped onto
+// lane and in-lane steps).  The affine step is the FFMA nvcc made of the
+// element path's `v * g + b`, written `fmaf`.  Backward: a fixed number
+// of blocks, each walking rows blockIdx.x,
 // blockIdx.x + gridDim.x, ...; a thread owns the same columns in every
 // row, keeps xhat and gdy for them in shared memory between the row's
 // one reduction (mean(gdy), mean(gdy * xhat) together) and the dx write,
 // and accumulates its columns' dgamma/dbeta partials in shared memory
 // across the block's rows.  Each block writes one fp32 partial row; a
 // second small kernel sums the partial rows per column in a fixed order,
-// so the result is deterministic (no atomics).  Later work: several rows
-// per block and 16-byte vector loads.
+// so the result is deterministic (no atomics).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -86,7 +98,8 @@ ln_fwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
               const W* __restrict__ beta, T* __restrict__ y,
               float* __restrict__ mean_out, float* __restrict__ rstd_out,
               int hidden, float eps) {
-  extern __shared__ float row[];  // hidden floats
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* row = reinterpret_cast<float*>(smem_raw);  // hidden floats
   __shared__ float red[33];
   const size_t base = (size_t)blockIdx.x * hidden;
   const T* xr = x + base;
@@ -116,15 +129,195 @@ ln_fwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
   }
 }
 
+constexpr int kVecWarps = 4;             // rows a block of the vector path
+constexpr int kVecThreads = kVecWarps * 32;
+constexpr int kVecMaxHidden = 2048;      // 64 row values a lane in registers
+
+// The 8 values of lane `lane`'s virtual threads j (see the header) from its
+// 16-byte words w (one a pass in bf16/fp16: columns 8 lane + j; two in
+// fp32: 4 lane + j and 128 + 4 lane + j)
+template <typename T, int kWords>
+__device__ __forceinline__ void unpack8(const uint4 (&w)[kWords], float (&f)[8]) {
+  constexpr int kVec = 16 / sizeof(T);
+  static_assert(kWords * kVec == 8, "8 values a lane a pass");
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const T* e = reinterpret_cast<const T*>(&w[i]);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) f[i * kVec + j] = to_f<T>(e[j]);
+  }
+}
+
+// kVec values of W at p (16-byte aligned) as floats
+template <typename W, int kVec>
+__device__ __forceinline__ void load_w(const W* __restrict__ p, float (&f)[kVec]) {
+  constexpr int kWords = kVec * sizeof(W) / 16;
+  uint4 w[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) w[i] = reinterpret_cast<const uint4*>(p)[i];
+  const W* e = reinterpret_cast<const W*>(w);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) f[j] = to_f<W>(e[j]);
+}
+
+// The sum over the element path's 256 threads of their partials, each lane
+// holding 8 of them (p, in place) as ln_fwd_vec_kernel lays them out, added
+// in block_sum's order: its warp butterfly (xor 16, 8, 4, 2, 1 over a
+// thread's lane in its warp), then warp 0's over the 8 warp totals (xor 4,
+// 2, 1; its xor 16 and 8 add zeros, which change nothing: no partial is
+// -0).  bf16/fp16: virtual thread 8 l + j sits in warp l / 4 at lane
+// 8 (l % 4) + j, so the butterfly's xor 16 and 8 are lane xor 2 and 1, its
+// xor 4, 2, 1 are j's; warp w's total sits in lanes 4 w .. 4 w + 3, so the
+// last tree's xor 4, 2, 1 are lane xor 16, 8, 4.  fp32: virtual threads
+// 4 l + j (j < 4) and 128 + 4 l + j - 4 sit in warps l / 8 and 4 + l / 8 at
+// lane 4 (l % 8) + j % 4: xor 16, 8, 4 are lane xor 4, 2, 1, xor 2 and 1
+// are j's; warps w and w + 4 share lanes 8 w .. 8 w + 7, so the last
+// tree's xor 4 adds in the lane, its xor 2 and 1 are lane xor 16 and 8.
+// Every lane gets the total.
+template <int kVec>
+__device__ __forceinline__ float vthread_sum(float (&p)[8]) {
+  constexpr unsigned kAll = 0xffffffffu;
+  if constexpr (kVec == 8) {
+#pragma unroll
+    for (int o = 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p[j] += __shfl_xor_sync(kAll, p[j], o);
+    const float a0 = p[0] + p[4], a1 = p[1] + p[5], a2 = p[2] + p[6], a3 = p[3] + p[7];
+    float w = (a0 + a2) + (a1 + a3);
+#pragma unroll
+    for (int o = 16; o >= 4; o >>= 1) w += __shfl_xor_sync(kAll, w, o);
+    return w;
+  } else {
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p[j] += __shfl_xor_sync(kAll, p[j], o);
+    const float wp = (p[0] + p[2]) + (p[1] + p[3]);
+    const float wq = (p[4] + p[6]) + (p[5] + p[7]);
+    float w = wp + wq;
+#pragma unroll
+    for (int o = 16; o >= 8; o >>= 1) w += __shfl_xor_sync(kAll, w, o);
+    return w;
+  }
+}
+
+// One warp a row, kVecWarps rows a block; hidden = 256 passes, passes <=
+// kPasses.  Lane `lane`'s pass k covers columns 256 k + 128 i + kVec lane
+// + j (i < 8 / kVec, j < kVec): the columns the element path's virtual
+// threads 128 i + kVec lane + j read in their k-th step.
+template <typename T, typename W, int kPasses>
+__global__ void __launch_bounds__(kVecThreads)
+ln_fwd_vec_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
+                  const W* __restrict__ beta, T* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  int rows, int hidden, float eps) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kWords = 8 / kVec;  // 16-byte words a lane a pass
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kVecWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;  // no barrier below
+  const int passes = hidden >> 8;
+  const size_t base = (size_t)r * hidden;
+  const T* xr = x + base;
+  uint4 w[kPasses][kWords];
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k)
+    if (k < passes)
+#pragma unroll
+      for (int i = 0; i < kWords; ++i)
+        w[k][i] = *reinterpret_cast<const uint4*>(xr + 256 * k + 128 * i + kVec * lane);
+  float v[kPasses][8], p[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) p[j] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k)
+    if (k < passes) {
+      unpack8<T, kWords>(w[k], v[k]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p[j] += v[k][j];
+    }
+  const float mean = vthread_sum<kVec>(p) / (float)hidden;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) p[j] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k)
+    if (k < passes)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float c = v[k][j] - mean;
+        p[j] = fmaf(c, c, p[j]);
+      }
+  const float var = vthread_sum<kVec>(p) / (float)hidden;
+  const float rstd = 1.0f / sqrtf(var + eps);  // as the element path
+  T* yr = y + base;
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k)
+    if (k < passes)
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        const int c0 = 256 * k + 128 * i + kVec * lane;
+        float g[kVec], b[kVec];
+        if (gamma != nullptr) {
+          load_w<W, kVec>(gamma + c0, g);
+          load_w<W, kVec>(beta + c0, b);
+        }
+        uint4 out;
+        T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          float t = (v[k][i * kVec + j] - mean) * rstd;
+          if (gamma != nullptr) t = fmaf(t, g[j], b[j]);  // the element path's FFMA
+          o[j] = from_f<T>(t);
+        }
+        *reinterpret_cast<uint4*>(yr + c0) = out;
+      }
+  if (lane == 0) {
+    mean_out[r] = mean;
+    rstd_out[r] = rstd;
+  }
+}
+
+// The vector path takes hidden a multiple of 256 (the element path's block
+// width, which a warp's 16-byte loads tile exactly in every dtype) up to
+// kVecMaxHidden, and 16-byte aligned x, y, gamma and beta (null: no
+// affine); anything else the element path
+bool vec_route(int hidden, const void* x, const void* gamma, const void* beta,
+               const void* y) {
+  if (hidden % 256 != 0 || hidden > kVecMaxHidden) return false;
+  for (const void* p : {x, gamma, beta, y})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 template <typename T, typename W>
 cudaError_t launch(const void* x, const void* gamma, const void* beta, void* y,
                    void* mean, void* rstd, int rows, int hidden, float eps,
                    cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  const W* gp = static_cast<const W*>(gamma);
+  const W* bp = static_cast<const W*>(beta);
+  T* yp = static_cast<T*>(y);
+  float* mp = static_cast<float*>(mean);
+  float* rp = static_cast<float*>(rstd);
+  if (vec_route(hidden, x, gamma, beta, y)) {
+    const unsigned g = (unsigned)((rows + kVecWarps - 1) / kVecWarps);
+    const int passes = hidden / 256;
+    if (passes <= 1)
+      ln_fwd_vec_kernel<T, W, 1><<<g, kVecThreads, 0, stream>>>(xp, gp, bp, yp, mp, rp, rows,
+                                                               hidden, eps);
+    else if (passes <= 2)
+      ln_fwd_vec_kernel<T, W, 2><<<g, kVecThreads, 0, stream>>>(xp, gp, bp, yp, mp, rp, rows,
+                                                               hidden, eps);
+    else if (passes <= 4)
+      ln_fwd_vec_kernel<T, W, 4><<<g, kVecThreads, 0, stream>>>(xp, gp, bp, yp, mp, rp, rows,
+                                                               hidden, eps);
+    else
+      ln_fwd_vec_kernel<T, W, 8><<<g, kVecThreads, 0, stream>>>(xp, gp, bp, yp, mp, rp, rows,
+                                                               hidden, eps);
+    return cudaGetLastError();
+  }
   const size_t smem = (size_t)hidden * sizeof(float);
-  ln_fwd_kernel<T, W><<<rows, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(gamma),
-      static_cast<const W*>(beta), static_cast<T*>(y),
-      static_cast<float*>(mean), static_cast<float*>(rstd), hidden, eps);
+  ln_fwd_kernel<T, W><<<rows, kThreads, smem, stream>>>(xp, gp, bp, yp, mp, rp, hidden, eps);
   return cudaGetLastError();
 }
 
@@ -171,7 +364,8 @@ ln_bwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
               const float* __restrict__ rstd, T* __restrict__ dx,
               float* __restrict__ dgamma_part, float* __restrict__ dbeta_part,
               int rows, int hidden) {
-  extern __shared__ float sm[];  // xhat, gdy, dgamma part, dbeta part
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);  // xhat, gdy, dgamma part, dbeta part
   float* xh = sm;
   float* gd = sm + hidden;
   float* pg = sm + 2 * hidden;

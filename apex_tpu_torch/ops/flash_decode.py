@@ -174,6 +174,23 @@ def _decode_splits(b: int, h: int, bs: int, mp: int) -> int:
         b, h, bs, mp)
 
 
+@functools.lru_cache(maxsize=256)
+def _multi_splits(b: int, t: int, h: int, bs: int, mp: int) -> int:
+    """Row 15's number of position splits (the C side's rule), asked once
+    a shape: the fast path repeats a few shapes every step."""
+    return _build.library("flash_decode").apex_flash_decode_multi_plan(
+        b, t, h, bs, mp)
+
+
+def _scratch(rows: int, d: int, device):
+    """One fp32 scratch for ``rows`` split rows: each split's accumulator
+    (part_o) and (max, sum) (part_ml, after every part_o), as two
+    pointers."""
+    part = torch.empty(rows * (d + 2), dtype=torch.float32, device=device)
+    part_o = part.data_ptr()
+    return part, part_o, part_o + rows * d * part.element_size()
+
+
 def _launch(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens,
             scale):
     _check_launch("flash_decode", q, k_cache, v_cache, k_scale, v_scale,
@@ -194,11 +211,7 @@ def _launch(q, k_cache, v_cache, k_scale, v_scale, block_tables, seq_lens,
     splits = _decode_splits(b, h, bs, mp)
     part_o = part_ml = None
     if splits > 1:
-        rows = b * h * splits
-        part = torch.empty(rows * (d + 2), dtype=torch.float32,
-                           device=q.device)
-        part_o = part.data_ptr()
-        part_ml = part_o + rows * d * part.element_size()
+        part, part_o, part_ml = _scratch(b * h * splits, d, q.device)
     with torch.cuda.device(q.device):
         rc = lib.apex_flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -226,18 +239,18 @@ def _launch_multi(q, k_cache, v_cache, k_scale, v_scale, block_tables,
         return out.zero_()
     lib = _build.library("flash_decode")
     mp = block_tables.shape[1]
-    # the kernel's two passes meet in fp32 scratch: each split of the
-    # positions leaves every row's accumulator and (max, sum)
-    splits = lib.apex_flash_decode_multi_splits(bs, mp)
-    part_o = torch.empty((b * t * h * splits, d), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((b * t * h * splits, 2), dtype=torch.float32,
-                          device=q.device)
+    k_cache, v_cache = _aligned16(k_cache), _aligned16(v_cache)
+    # a row's splits meet in one fp32 scratch, as row 14's; one split
+    # writes out directly
+    splits = _multi_splits(b, t, h, bs, mp)
+    part_o = part_ml = None
+    if splits > 1:
+        part, part_o, part_ml = _scratch(b * t * h * splits, d, q.device)
     with torch.cuda.device(q.device):
         rc = lib.apex_flash_decode_multi(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-            seq_lens.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
+            seq_lens.data_ptr(), part_o, part_ml,
             out.data_ptr(), b, t, h, d, bs, mp, q.stride(0), q.stride(1),
             q.stride(2), float(scale), _build.dtype_code(q.dtype),
             _build.dtype_code(k_cache.dtype), _build.stream_ptr(q.device))

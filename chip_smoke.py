@@ -368,8 +368,8 @@ LN_TOL = 3e-2        # |y| up to ~4 for unit-normal rows: 1 ulp = 2^-6
 ATTN_TOL = 1e-2      # |o| < 1 (a convex mix of unit-normal v rows)
 LSE_TOL = 1e-3       # fp32 log-sum-exp
 DECODE_TOL = 1e-2
-# row 14 element by element, beside DECODE_TOL: the kernel and its plain
-# version both sum in fp32 and round once to the output's dtype, so each
+# rows 14 and 15 element by element, beside DECODE_TOL: the kernel and its
+# plain version both sum in fp32 and round once to the output's dtype, so each
 # element lies within one ulp of that dtype (2^-7 of |ref| in bf16, 0 in
 # fp32) plus DECODE_ATOL of fp32 noise.  At 16,384 positions |o| is about
 # 0.01, so a split lost or counted twice in the merge of 64 moves
@@ -388,6 +388,9 @@ DECODE_CASES = (
     ("d=128", 8, 128, 16, 64, [0, 16 * 20 + 7, 1024, 1, 700, 733, 64, 515],
      None),
 )
+# row 15's long-context verify, held beside the kernel phase's timed cases:
+# (b, t, seq_lens), 1024 pages of 16
+MULTI_LONG = (1, 3, [16384])
 # int8 weight matmul, kernel vs plain version on the same inputs: both
 # form the same fp32 products and differ by the order of K fp32 sums, so
 # an fp32 out is held to 1e-5 of its largest value, and a bf16 out (both
@@ -978,7 +981,7 @@ def grad_excess(got, ref) -> float:
 
 def decode_excess(got, ref) -> float:
     """max over elements of |got - ref| beyond one ulp of the output's
-    dtype (``DECODE_ULP_RTOL`` |ref|): row 14's element hold."""
+    dtype (``DECODE_ULP_RTOL`` |ref|): rows 14 and 15's element hold."""
     diff = (got.float() - ref.float()).abs()
     return float((diff - DECODE_ULP_RTOL[got.dtype]
                   * ref.float().abs()).max())
@@ -1224,7 +1227,23 @@ def check_quant_tensor_cores(_build, tool: str) -> None:
 
 # --- phase 2 ------------------------------------------------------------
 
+def ln_paths_equal(x, gamma, beta):
+    """Row 1's vector path (``x`` as given, 16-byte aligned) against its
+    element path (the same values through a view one element off 16-byte
+    alignment): whether y, mean and rstd are equal bit for bit."""
+    from apex_tpu_torch.ops import layer_norm_with_stats
+
+    vec = layer_norm_with_stats(x, gamma, beta, 1e-5)
+    elem = layer_norm_with_stats(misaligned(x), gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(vec, elem))
+
+
 def check_layer_norm(dev, g):
+    """Row 1 at the serve's shapes (a decode tick's 8 rows, the longest
+    prefill's 1024), bf16 x with fp32 gamma/beta: held to the plain
+    version, and the vector path's y, mean and rstd bit for bit the element
+    path's (``ln_paths_equal``)."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import layer_norm_with_stats
@@ -1241,11 +1260,13 @@ def check_layer_norm(dev, g):
         yr, mr, rr = layer_norm_stats_reference(x, gamma, beta, 1e-5)
         err = max_err(y, yr)
         stat_err = max(max_err(mean, mr), max_err(rstd, rr))
-        ok = err <= LN_TOL and stat_err <= 1e-4
+        same = ln_paths_equal(x, gamma, beta)
+        ok = err <= LN_TOL and stat_err <= 1e-4 and same
         log(f"kernel layer_norm rows={rows} hidden={hd} bf16 x, fp32 "
             f"gamma: max_abs_err={err:.3e} (tol {LN_TOL}) "
             f"max_rel_err={rel_err(y, yr):.3e} "
-            f"stats_err={stat_err:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+            f"stats_err={stat_err:.3e} (tol 1e-4), vector path y/mean/rstd "
+            f"bitwise the element path's: {same} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("layer_norm kernel disagrees")
         ms, ms_w = time_ms(
@@ -1487,6 +1508,25 @@ def _paged_case(dev, g, lens, h, d, bs, mp, nb):
     return kc, vc, bt, sl
 
 
+def multi_library(q, kc, vc, bt, sl, kw):
+    """Row 15's library yardstick: SDPA over the pages gathered (and
+    dequantized) beforehand (not timed), one boolean mask row per query
+    row; returns the call."""
+    import torch.nn.functional as F
+
+    b, t, h, d = q.shape
+    mp, bs = bt.shape[1], kc.shape[2]
+    kl, vl = _kv_library(kc, vc, kw)
+    kg = kl[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
+    vg = vl[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
+    qp = (sl.long()[:, None] - t
+          + torch.arange(t, device=q.device)[None, :]).clamp(min=0)
+    mask = (torch.arange(mp * bs, device=q.device)[None, None, :]
+            <= qp[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask)
+
+
 def check_flash_decode_multi(dev, g, int8: bool = False):
     """Row 15 at the serve_fast legs' shapes, bf16: the verify step
     (b=8, t=3: K=2 draft tokens plus one) and the chunk steps (b=1, t=32
@@ -1496,10 +1536,11 @@ def check_flash_decode_multi(dev, g, int8: bool = False):
     inactive row, a row with seq_len < t (front padding at negative
     positions), a page-straddling row and a full row; those rows must
     give exactly 0 where nothing is attended, nothing may be NaN, and at
-    t=1 the kernel must agree with the row-14 kernel.  Returns the verify
+    t=1 the kernel must agree with the row-14 kernel.  Every case, and the
+    timed chunk cases, is held element by element (``decode_excess``
+    within ``DECODE_ATOL``) beside ``DECODE_TOL``, as row 14 is: a merge
+    that drops a split passes ``DECODE_TOL`` alone.  Returns the verify
     entry with the chunk shapes under ``chunk``."""
-    import torch.nn.functional as F
-
     from apex_tpu_torch.ops import (flash_decode, flash_decode_multi,
                                     paged_attention_multi_reference)
 
@@ -1525,28 +1566,29 @@ def check_flash_decode_multi(dev, g, int8: bool = False):
         out = flash_decode_multi(q, kc, vc, bt, sl, **kw)
         torch.cuda.synchronize()
         ref = paged_attention_multi_reference(q, kc, vc, bt, sl, **kw)
-        err = max_err(out, ref)
+        err, excess = max_err(out, ref), decode_excess(out, ref)
         qpos = torch.tensor(lens, device=dev)[:, None] - t \
             + torch.arange(t, device=dev)[None, :]
         dead = qpos < 0                  # nothing to attend: exactly 0
         zero = bool((out[dead] == 0).all()) and int(dead.sum()) >= t + 1
         finite = bool(torch.isfinite(out).all())
-        ok = err <= DECODE_TOL and zero and finite
+        ok = err <= DECODE_TOL and excess <= DECODE_ATOL and zero and finite
         msg = ""
         if t == 3:
             # t = 1 through the multi kernel against the row-14 kernel
             one = flash_decode_multi(q[:, :1], kc, vc, bt, sl, **kw)[:, 0]
             dec = flash_decode(q[:, 0].contiguous(), kc, vc, bt, sl, **kw)
             torch.cuda.synchronize()
-            e1 = max_err(one, dec)
-            ok = ok and e1 <= DECODE_TOL
-            msg = f" t=1 vs flash_decode {e1:.3e} (tol {DECODE_TOL})"
+            e1, x1 = max_err(one, dec), decode_excess(one, dec)
+            ok = ok and e1 <= DECODE_TOL and x1 <= DECODE_ATOL
+            msg = (f" t=1 vs flash_decode {e1:.3e} (tol {DECODE_TOL}), past "
+                   f"one ulp {x1:.3e} (tol {DECODE_ATOL})")
         log(f"kernel {name} b={len(lens)} t={t} h={h} d={d} "
             f"bs={bs} pages={mp} {tag} seq_lens={lens}: max_abs_err="
-            f"{err:.3e} (tol {DECODE_TOL}) max_rel_err="
-            f"{rel_err(out, ref):.3e} {int(dead.sum())} rows with nothing "
-            f"to attend exactly 0: {zero}, finite: {finite}{msg} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{err:.3e} (tol {DECODE_TOL}), past one ulp {excess:.3e} (tol "
+            f"{DECODE_ATOL}) max_rel_err={rel_err(out, ref):.3e} "
+            f"{int(dead.sum())} rows with nothing to attend exactly 0: "
+            f"{zero}, finite: {finite}{msg} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} kernel disagrees at t={t}")
         if timed is not None:            # the main path's batch of one
@@ -1555,25 +1597,20 @@ def check_flash_decode_multi(dev, g, int8: bool = False):
             q = torch.randn(b, t, h, d, generator=g, device=dev).bfloat16()
             out = flash_decode_multi(q, kc, vc, bt, sl, **kw)
             torch.cuda.synchronize()
-            err = max(err, max_err(out, paged_attention_multi_reference(
-                q, kc, vc, bt, sl, **kw)))
+            ref = paged_attention_multi_reference(q, kc, vc, bt, sl, **kw)
+            e2, x2 = max_err(out, ref), decode_excess(out, ref)
+            log(f"  timed case seq_lens={lens}: max_abs_err={e2:.3e}, past "
+                f"one ulp {x2:.3e}")
+            if not (e2 <= DECODE_TOL and x2 <= DECODE_ATOL):
+                raise AssertionError(f"{name} kernel disagrees at t={t} "
+                                     f"seq_lens={lens}")
+            err = max(err, e2)
         ms, ms_w = time_ms(
             lambda: flash_decode_multi(q, kc, vc, bt, sl, **kw), iters=100)
         plain, plain_w = time_ms(
             lambda: paged_attention_multi_reference(q, kc, vc, bt, sl, **kw))
-        # library yardstick: SDPA over the pages gathered (and
-        # dequantized) beforehand (not timed), one boolean mask row per
-        # query row
-        kl, vl = _kv_library(kc, vc, kw)
-        kg = kl[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
-        vg = vl[bt.long()].permute(0, 2, 1, 3, 4).reshape(b, h, mp * bs, d)
-        qp = (sl.long()[:, None] - t
-              + torch.arange(t, device=dev)[None, :]).clamp(min=0)
-        mask = (torch.arange(mp * bs, device=dev)[None, None, :]
-                <= qp[:, :, None])[:, None]
-        qt = q.transpose(1, 2)
-        lib, lib_w = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kg, vg, attn_mask=mask), iters=100)
+        lib, lib_w = time_ms(multi_library(q, kc, vc, bt, sl, kw),
+                             iters=100)
         keys = sum(min(n, mp * bs) for n in lens)
         attended = sum(max(0, min(n - t + r + 1, mp * bs))
                        for n in lens for r in range(t))
@@ -1592,6 +1629,34 @@ def check_flash_decode_multi(dev, g, int8: bool = False):
                   f"seq_lens={lens}",
             max_abs_err=err, ms=ms, ms_wall=ms_w, plain_ms=plain,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    # the long-context user's verify, held only: 16,384 positions over 64
+    # splits, where a merge that drops one moves elements by about
+    # DECODE_TOL / 2 (from a generator of its own, so later checks keep
+    # their inputs)
+    gl = torch.Generator(device=dev)
+    gl.manual_seed(14 + int8)
+    b, t, lens = MULTI_LONG
+    kc, vc, bt, sl = _paged_case(dev, gl, lens, h, d, bs, 1024,
+                                 sum(-(-n // bs) for n in lens) + 1)
+    kc, vc, kw = _kv_int8(kc, vc) if int8 else (kc, vc, {})
+    q = torch.randn(b, t, h, d, generator=gl, device=dev).bfloat16()
+    out = flash_decode_multi(q, kc, vc, bt, sl, **kw)
+    one = flash_decode_multi(q[:, :1], kc, vc, bt, sl, **kw)[:, 0]
+    dec = flash_decode(q[:, 0].contiguous(), kc, vc, bt, sl, **kw)
+    torch.cuda.synchronize()
+    ref = paged_attention_multi_reference(q, kc, vc, bt, sl, **kw)
+    err, excess = max_err(out, ref), decode_excess(out, ref)
+    x1 = decode_excess(one, dec)
+    ok = err <= DECODE_TOL and excess <= DECODE_ATOL and x1 <= DECODE_ATOL \
+        and bool(torch.isfinite(out).all())
+    log(f"kernel {name} long verify b={b} t={t} h={h} d={d} bs={bs} "
+        f"pages=1024 {tag} seq_lens={lens}: max_abs_err={err:.3e} (tol "
+        f"{DECODE_TOL}), past one ulp {excess:.3e} (tol {DECODE_ATOL}); t=1 "
+        f"vs flash_decode past one ulp {x1:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} kernel disagrees at the long verify")
+    del kc, vc, q, out, ref
+    free_memory()
     entry = dict(entries[0])
     entry["chunk"] = entries[1:]
     return entry
@@ -1783,11 +1848,13 @@ def check_layer_norm_bwd(dev, g, dtype=torch.bfloat16):
         ok, what = u <= 1.0, f"max {u:.3f} fp16 ulps of the reference (tol 1)"
     else:
         ok, what = err <= LN_TOL, f"tol {LN_TOL}"
-    ok = ok and stat_err <= 1e-4
+    same = ln_paths_equal(x, gamma, beta)
+    ok = ok and stat_err <= 1e-4 and same
     log(f"kernel layer_norm rows={rows} hidden={hd} {tag} x, {tag} "
         f"gamma/beta: max_abs_err={err:.3e} ({what}) "
         f"max_rel_err={rel_err(y, yr):.3e} "
-        f"stats_err={stat_err:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+        f"stats_err={stat_err:.3e} (tol 1e-4), vector path y/mean/rstd "
+        f"bitwise the element path's: {same} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("layer_norm kernel disagrees at the train "
                              "shape")

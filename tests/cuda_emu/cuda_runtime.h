@@ -37,6 +37,9 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+struct float2 {
+  float x, y;
+};
 struct float4 {
   float x, y, z, w;
 };
@@ -52,6 +55,7 @@ struct int4 {
 struct char4 {
   signed char x, y, z, w;
 };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }

@@ -4,6 +4,15 @@
 against their plain versions, ``paged_attention_reference`` and
 ``paged_attention_multi_reference``.
 
+Row 15 runs by each of its routes: up to 4 query rows (t = 1, 3: every
+warp owns all the rows and the warps split the keys, merging in shared
+memory) and from 5 (t = 6, which leaves two warps of the block without
+rows, 16, 32: each warp owns 4 rows and walks every key), at d 64 and 128,
+bs 16 and 5 (t past bs), a float and an int8 cache and every other dtype
+pair, q through strided views, many splits and one (the output written
+directly), with front padding (seq_len < t), a seq_len-0 row, a limit
+mid-page and a cache view off 16 bytes (copied by the wrapper).
+
 The source is built with g++ over ``tests/cuda_emu`` (``emulate.py``, one
 host thread a CUDA thread).  The kernel's own code runs: the split of a
 row's positions (its count from the C entry, as on the card), the span's
@@ -180,3 +189,115 @@ def test_misaligned_cache_view_is_copied(lib):
     assert kv.is_contiguous() and kv.data_ptr() % 16
     got = fd._launch(q, kv, vc, None, None, bt, sl, d ** -0.5)
     _hold(got, fd.paged_attention_reference(q, kc, vc, bt, sl))
+
+
+def _multi(lib, lens, t, h, d, bs, mp, q_dtype, cache_dtype, seed=0,
+           splits=None):
+    """Row 15 on one case through the wrapper's launcher, held element by
+    element and to ``DECODE_TOL`` against its plain version; rows at a
+    negative position exactly 0; a second call bitwise equal.  ``splits``:
+    the count the C side must plan."""
+    q, kc, vc, bt, sl, kw = _cache(lens, h, d, bs, mp, q_dtype, cache_dtype,
+                                   seed, t=t)
+    b = len(lens)
+    if splits is not None:
+        assert lib.apex_flash_decode_multi_plan(b, t, h, bs, mp) == splits
+    ks, vs = kw.get("k_scale"), kw.get("v_scale")
+    got = fd._launch_multi(q, kc, vc, ks, vs, bt, sl, d ** -0.5)
+    _hold(got, fd.paged_attention_multi_reference(q, kc, vc, bt, sl, **kw))
+    qpos = sl.long()[:, None] - t + torch.arange(t)[None, :]
+    assert not got[qpos < 0].any(), "a row with nothing to attend is not 0"
+    again = fd._launch_multi(q, kc, vc, ks, vs, bt, sl, d ** -0.5)
+    assert torch.equal(got, again), "a second call gave other bits"
+    return q, kc, vc, bt, sl, kw, got
+
+
+# row 0 inactive, row 1 front-padded (seq_len < t), row 2 ends mid-page,
+# row 3 fills every page
+@pytest.mark.parametrize("t", (1, 3, 6, 16, 32))
+@pytest.mark.parametrize("d", (64, 128))
+@pytest.mark.parametrize("cache_dtype", (BF16, I8))
+def test_multi_routes(lib, t, d, cache_dtype):
+    bs, mp = 16, 12
+    _multi(lib, [0, t // 2, 16 * 5 + 7, mp * bs], t, 2, d, bs, mp, BF16,
+           cache_dtype, seed=t + d, splits=3)
+
+
+@pytest.mark.parametrize("t", (3, 16))
+@pytest.mark.parametrize("q_dtype,cache_dtype", [
+    (F32, F32), (F32, BF16), (F32, I8), (F16, F16), (F16, I8)])
+def test_multi_dtype_pairs(lib, t, q_dtype, cache_dtype):
+    # the other five pairs multi_dispatch takes; bs 5, so t = 16 spans
+    # pages and rows end pages before the last row does
+    bs, mp = 5, 16
+    _multi(lib, [33, 0, 4, mp * bs], t, 2, 64, bs, mp, q_dtype, cache_dtype,
+           seed=t)
+
+
+@pytest.mark.parametrize("t", (3, 16))
+def test_multi_one_split(lib, t):
+    # four pages: one split, the rows' outputs written by the first pass
+    bs, mp = 16, 4
+    _multi(lib, [0, 2, 16 * 2 + 9, mp * bs], t, 2, 64, bs, mp, BF16, BF16,
+           seed=5, splits=1)
+
+
+@pytest.mark.parametrize("cache_dtype", (BF16, I8))
+def test_multi_many_splits(lib, cache_dtype):
+    # one head of one row: twenty splits of four pages merged in order; a
+    # second row ends inside the fourth
+    bs, mp = 16, 80
+    _multi(lib, [mp * bs, 200], 3, 1, 64, bs, mp, BF16, cache_dtype, seed=8,
+           splits=20)
+
+
+@pytest.mark.parametrize("t", (3, 16))
+def test_multi_strided_q(lib, t):
+    # q a view of the extend step's qkv: strides on b, t and h past d
+    bs, mp, h, d = 16, 8, 2, 64
+    q, kc, vc, bt, sl, _ = _cache([100, 0, t - 1, 128], h, d, bs, mp, BF16,
+                                  BF16, 21, t=t)
+    wide = torch.zeros(4, t, h, 3 * d, dtype=BF16)
+    wide[..., d:2 * d] = q
+    qv = wide[..., d:2 * d]
+    assert not qv.is_contiguous()
+    got = fd._launch_multi(qv, kc, vc, None, None, bt, sl, d ** -0.5)
+    _hold(got, fd.paged_attention_multi_reference(q, kc, vc, bt, sl))
+
+
+@pytest.mark.parametrize("t", (3, 16))
+def test_multi_misaligned_cache_view_is_copied(lib, t):
+    # a contiguous cache view 2 bytes off 16: the wrapper hands the kernel
+    # a copy, and the C entry refuses the pointer itself
+    bs, mp, h, d = 16, 8, 2, 64
+    q, kc, vc, bt, sl, _ = _cache([100, 0, 128], h, d, bs, mp, BF16, BF16,
+                                  23, t=t)
+    flat = torch.empty(vc.numel() + 1, dtype=BF16)
+    flat[1:] = vc.flatten()
+    vv = flat[1:].view(vc.shape)
+    assert vv.is_contiguous() and vv.data_ptr() % 16
+    got = fd._launch_multi(q, kc, vv, None, None, bt, sl, d ** -0.5)
+    _hold(got, fd.paged_attention_multi_reference(q, kc, vc, bt, sl))
+    out = torch.empty_like(q)
+    rc = lib.apex_flash_decode_multi(
+        q.data_ptr(), kc.data_ptr(), vv.data_ptr(), None, None,
+        bt.data_ptr(), sl.data_ptr(), None, None, out.data_ptr(), 3, t, h,
+        d, bs, mp, q.stride(0), q.stride(1), q.stride(2), d ** -0.5, 1, 1,
+        None)
+    assert rc != 0, "a misaligned cache pointer was taken"
+
+
+@pytest.mark.parametrize("cache_dtype", (BF16, I8))
+@pytest.mark.parametrize("d", (64, 128))
+def test_multi_t1_matches_decode_everywhere(lib, cache_dtype, d):
+    # t = 1 through row 15 against row 14, element by element
+    bs, mp, h = 16, 12, 2
+    lens = [0, 1, 16 * 5 + 7, mp * bs]
+    q, kc, vc, bt, sl, kw = _cache(lens, h, d, bs, mp, BF16, cache_dtype,
+                                   31, t=1)
+    ks, vs = kw.get("k_scale"), kw.get("v_scale")
+    one = fd._launch_multi(q, kc, vc, ks, vs, bt, sl, d ** -0.5)[:, 0]
+    dec = fd._launch(q[:, 0].contiguous(), kc, vc, ks, vs, bt, sl,
+                     d ** -0.5)
+    _hold(one, dec)
+    assert not one[0].any()

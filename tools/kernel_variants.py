@@ -5,6 +5,9 @@ other, in turns, on one CUDA card.
     python3 tools/kernel_variants.py softmax base= parent:_tree/parent/apex_tpu_torch/csrc=
     python3 tools/kernel_variants.py causal parent:_tree/parent/apex_tpu_torch/csrc= base=
     python3 tools/kernel_variants.py softmax_bwd parent:_tree/parent/apex_tpu_torch/csrc= base=
+    python3 tools/kernel_variants.py ln parent:_tree/parent/apex_tpu_torch/csrc= base=
+    python3 tools/kernel_variants.py decode_multi parent:_tree/parent/apex_tpu_torch/csrc= base=
+    python3 tools/kernel_variants.py decode parent:_tree/parent/apex_tpu_torch/csrc= base=
     python3 tools/kernel_variants.py qmm --nohold base= probe=SOME_DEFINE
     python3 tools/kernel_variants.py wall
     python3 tools/kernel_variants.py profile
@@ -42,6 +45,25 @@ alignment (``element path``), which takes the element path: so a
 BERT-large's O2 step, (16, 16, 512, 512) fp32 on padding-mask
 probabilities, and at (2, 1500, 1500) fp32, the looped variant, against
 ``torch._softmax_backward_data``.
+``ln``: row 1, the LayerNorm forward, at the O5 and O2 steps' (8192,
+1024) bf16 and fp16 with gamma/beta in x's dtype, at the serve's prefill
+(1024, 1024) and decode tick (8, 1024) with fp32 gamma/beta in bf16 and
+fp16, and at (8192, 1024) bf16 and (1024, 1024) bf16 through views one
+element off 16-byte alignment (``element path``), against
+``F.layer_norm``; its variants must keep the bits (y, mean and rstd).
+``decode_multi``: row 15 at the kernel phase's six timed cases (the
+verify b=8 t=3, the chunk t=32 at 390 keys and the warm tail t=16 at 703,
+each on a bf16 and an int8 cache) and its long verify (t=3 at 16,384
+positions), held as the kernel phase holds them
+(``DECODE_TOL``, ``decode_excess`` within ``DECODE_ATOL``, rows with
+nothing to attend exactly 0) with each variant's readings printed, against
+SDPA on the gathered pages; it calls the C entry itself, so that a
+``parent:`` build with the earlier split rule
+(``apex_flash_decode_multi_splits``) runs beside this tree's.
+``decode``: row 14, the single-query decode with its merge, at the serve's
+tick (b=8, 3,364 keys) on a bf16 and an int8 cache and at one row of
+16,384 positions, each element held within one ulp plus ``DECODE_ATOL``,
+against SDPA on the gathered pages.
 ``wall``: no variants; the tree's own ``quant_matmul`` wrapper at those
 four linears, device and back-to-back wall ms a call
 (``chip_smoke.time_ms``), three turns: run a copy from another tree's
@@ -69,11 +91,18 @@ import chip_smoke as cs  # noqa: E402
 from apex_tpu_torch import _build  # noqa: E402
 
 LIBS = {"qmm": "quant_matmul", "softmax": "scaled_softmax",
-        "causal": "scaled_softmax", "softmax_bwd": "scaled_softmax"}
+        "causal": "scaled_softmax", "softmax_bwd": "scaled_softmax",
+        "ln": "layer_norm", "decode_multi": "flash_decode",
+        "decode": "flash_decode"}
 KERNELS = {"qmm": ("quant_gemv",), "softmax": ("masked_fwd_kernel",),
-           "causal": ("causal_fwd",), "softmax_bwd": ("softmax_bwd",)}
+           "causal": ("causal_fwd",), "softmax_bwd": ("softmax_bwd",),
+           "ln": ("ln_fwd",), "decode_multi": ("decode_multi",),
+           "decode": ("decode_kernel", "decode_multi_combine")}
 # the targets whose variants must give the first variant's bits
-BITWISE = ("softmax", "causal", "softmax_bwd")
+BITWISE = ("softmax", "causal", "softmax_bwd", "ln")
+# launchers of earlier trees that this tree's SIGNATURES no longer list
+EARLIER = {"flash_decode": {"apex_flash_decode_multi_splits":
+                            [ctypes.c_int, ctypes.c_int]}}
 O2_SCORES = (8 * 16, 1024, 1024)       # GPT-345M O2: batch 8 x 16 heads
 SCALE = 0.125                          # head_dim 64 ** -0.5
 OUT = _build.BUILD_DIR / "variants"
@@ -113,8 +142,11 @@ def build_all(lib: str, kernels, variants):
                                    if "Used" in x or "spill" in x)
                 print(f"ptxas {label}: {name} {usage}", flush=True)
         cdll = ctypes.CDLL(str(so))
-        for fn, argtypes in _build.SIGNATURES[lib].items():
-            f = getattr(cdll, fn)
+        sigs = {**EARLIER.get(lib, {}), **_build.SIGNATURES[lib]}
+        for fn, argtypes in sigs.items():
+            f = getattr(cdll, fn, None)   # an earlier tree's set differs
+            if f is None:
+                continue
             f.argtypes = argtypes
             f.restype = ctypes.c_int
         cdll.apex_cuda_error_string.argtypes = [ctypes.c_int]
@@ -285,11 +317,195 @@ def softmax_bwd_library(case):
     return lambda: torch._softmax_backward_data(dy, y, -1, y.dtype)
 
 
+def ln_cases(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    hd = 1024
+    cases = {}
+    for rows, dt, wdt, tag in ((8192, torch.bfloat16, torch.bfloat16,
+                                "bf16, bf16 gamma"),
+                               (8192, torch.float16, torch.float16,
+                                "fp16, fp16 gamma"),
+                               (1024, torch.bfloat16, torch.float32,
+                                "bf16, fp32 gamma"),
+                               (1024, torch.float16, torch.float32,
+                                "fp16, fp32 gamma"),
+                               (8, torch.bfloat16, torch.float32,
+                                "bf16, fp32 gamma")):
+        x = torch.randn(rows, hd, generator=g, device=dev).to(dt)
+        gamma = (1 + 0.1 * torch.randn(hd, generator=g, device=dev)).to(wdt)
+        beta = (0.1 * torch.randn(hd, generator=g, device=dev)).to(wdt)
+        cases[f"({rows}, {hd}) {tag}"] = (x, gamma, beta)
+    for key in ("(8192, 1024) bf16, bf16 gamma",
+                "(1024, 1024) bf16, fp32 gamma"):
+        x, gamma, beta = cases[key]
+        cases[f"{key} element path"] = (cs.misaligned(x), gamma, beta)
+    return cases
+
+
+def ln_run(case, hold=True):
+    from apex_tpu_torch.ops import layer_norm_with_stats
+    from apex_tpu_torch.ops.layer_norm import layer_norm_stats_reference
+    x, gamma, beta = case
+    fn = lambda: layer_norm_with_stats(x, gamma, beta, 1e-5)
+    if not hold:
+        return fn, None
+    out = fn()
+    torch.cuda.synchronize()
+    yr, mr, rr = layer_norm_stats_reference(x, gamma, beta, 1e-5)
+    y, mean, rstd = out
+    if x.dtype == torch.float16:
+        u = cs.ulps_of_ref(y, yr)
+        ok, what = u <= 1.0, f"{u:.3f} fp16 ulps (tol 1)"
+    else:
+        err = cs.max_err(y, yr)
+        ok, what = err <= cs.LN_TOL, f"max_abs_err {err:.3e} (tol {cs.LN_TOL})"
+    stat = max(cs.max_err(mean, mr), cs.max_err(rstd, rr))
+    if not (ok and stat <= 1e-4):
+        raise AssertionError(f"layer_norm variant: {what}, stats_err "
+                             f"{stat:.3e} (tol 1e-4)")
+    return fn, out
+
+
+def ln_library(case):
+    import torch.nn.functional as F
+    x, gamma, beta = case
+    g, b = gamma.to(x.dtype), beta.to(x.dtype)
+    return lambda: F.layer_norm(x, (x.shape[-1],), g, b, 1e-5)
+
+
+LABEL = ""                # the variant being run
+MULTI_FAILS = []          # (label, shape, readings) past a hold
+
+
+def decode_multi_cases(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    h, d, bs, mp, nb = 16, 64, 16, 64, 512
+    cases = {}
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+        for b, t, lens in ((8, 3, [0, 2, 16 * 20 + 7, mp * bs, 700, 733, 64,
+                                   515]),
+                           (1, 32, [390]), (1, 16, [703])):
+            kc, vc, bt, sl = cs._paged_case(dev, g, lens, h, d, bs, mp, nb)
+            kc, vc, kw = cs._kv_int8(kc, vc) if int8 else (kc, vc, {})
+            q = torch.randn(b, t, h, d, generator=g, device=dev).bfloat16()
+            cases[f"b={b} t={t} {tag} seq_lens={lens}"] = (q, kc, vc, bt, sl,
+                                                          kw)
+        # the kernel phase's long verify (held there only), where a merge
+        # that drops a split moves elements by less than DECODE_TOL
+        b, t, lens = cs.MULTI_LONG
+        kc, vc, bt, sl = cs._paged_case(dev, g, lens, h, d, bs, 1024,
+                                        sum(-(-n // bs) for n in lens) + 1)
+        kc, vc, kw = cs._kv_int8(kc, vc) if int8 else (kc, vc, {})
+        q = torch.randn(b, t, h, d, generator=g, device=dev).bfloat16()
+        cases[f"long b={b} t={t} {tag} seq_lens={lens}"] = (q, kc, vc, bt, sl,
+                                                           kw)
+    return cases
+
+
+def _multi_call(q, kc, vc, bt, sl, kw):
+    """Row 15 through the routed library's C entry: its split count from
+    this tree's planner or an earlier tree's rule, the scratch for that
+    many splits."""
+    from apex_tpu_torch.ops.flash_decode import _ptr
+    lib = _build._LIBS["flash_decode"]
+    b, t, h, d = q.shape
+    bs, mp = kc.shape[2], bt.shape[1]
+    plan = getattr(lib, "apex_flash_decode_multi_plan", None)
+    splits = plan(b, t, h, bs, mp) if plan is not None else \
+        lib.apex_flash_decode_multi_splits(bs, mp)
+    part = torch.empty(b * t * h * splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    part_o = part.data_ptr()
+    out = torch.empty_like(q)
+    rc = lib.apex_flash_decode_multi(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), _ptr(kw.get("k_scale")),
+        _ptr(kw.get("v_scale")), bt.data_ptr(), sl.data_ptr(), part_o,
+        part_o + b * t * h * splits * d * 4, out.data_ptr(), b, t, h, d, bs,
+        mp, q.stride(0), q.stride(1), q.stride(2), d ** -0.5,
+        _build.dtype_code(q.dtype), _build.dtype_code(kc.dtype),
+        _build.stream_ptr(q.device))
+    _build.check("flash_decode", rc, "flash_decode_multi variant")
+    return out
+
+
+def decode_multi_run(case, hold=True):
+    from apex_tpu_torch.ops import paged_attention_multi_reference
+    q, kc, vc, bt, sl, kw = case
+    fn = lambda: _multi_call(q, kc, vc, bt, sl, kw)
+    if not hold:
+        return fn, None
+    out = fn()
+    torch.cuda.synchronize()
+    ref = paged_attention_multi_reference(q, kc, vc, bt, sl, **kw)
+    t = q.shape[1]
+    err, excess = cs.max_err(out, ref), cs.decode_excess(out, ref)
+    qpos = sl.long()[:, None] - t + torch.arange(t, device=q.device)[None, :]
+    zero = bool((out[qpos < 0] == 0).all())
+    finite = bool(torch.isfinite(out).all())
+    ok = err <= cs.DECODE_TOL and excess <= cs.DECODE_ATOL and zero and finite
+    reading = (f"max_abs_err {err:.3e} (tol {cs.DECODE_TOL}), past one ulp "
+               f"{excess:.3e} (tol {cs.DECODE_ATOL}), dead rows 0: {zero}, "
+               f"finite: {finite} {'ok' if ok else 'FAIL'}")
+    print(f"  {LABEL} hold {tuple(q.shape)} {reading}", flush=True)
+    if not ok:
+        MULTI_FAILS.append((LABEL, tuple(q.shape), reading))
+    return fn, out
+
+
+def decode_multi_library(case):
+    q, kc, vc, bt, sl, kw = case
+    return cs.multi_library(q, kc, vc, bt, sl, kw)
+
+
+def decode_cases(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    h, d, bs = 16, 64, 16
+    lens = [0, 16 * 20 + 7, 1024, 1, 700, 733, 64, 515]
+    kc, vc, bt, sl = cs._paged_case(dev, g, lens, h, d, bs, 64, 512)
+    q = torch.randn(len(lens), h, d, generator=g, device=dev).bfloat16()
+    kq, vq, kw = cs._kv_int8(kc, vc)
+    cases = {"tick b=8 bf16": (q, kc, vc, bt, sl, {}),
+             "tick b=8 int8": (q, kq, vq, bt, sl, kw)}
+    kc, vc, bt, sl = cs._paged_case(dev, g, [16384], h, d, bs, 1024, 1025)
+    q = torch.randn(1, h, d, generator=g, device=dev).bfloat16()
+    cases["long b=1 bf16 16384"] = (q, kc, vc, bt, sl, {})
+    return cases
+
+
+def decode_run(case, hold=True):
+    from apex_tpu_torch.ops import flash_decode, paged_attention_reference
+    q, kc, vc, bt, sl, kw = case
+    fn = lambda: flash_decode(q, kc, vc, bt, sl, **kw)
+    if not hold:
+        return fn, None
+    out = fn()
+    torch.cuda.synchronize()
+    ref = paged_attention_reference(q, kc, vc, bt, sl, **kw)
+    err, excess = cs.max_err(out, ref), cs.decode_excess(out, ref)
+    if not (err <= cs.DECODE_TOL and excess <= cs.DECODE_ATOL):
+        raise AssertionError(f"decode variant: max_abs_err {err:.3e}, past "
+                             f"one ulp {excess:.3e}")
+    return fn, out
+
+
+def decode_library(case):
+    q, kc, vc, bt, sl, kw = case
+    return cs.multi_library(q[:, None], kc, vc, bt, sl, kw)
+
+
 WHICH = {"qmm": (qmm_cases, qmm_run, qmm_library),
          "softmax": (softmax_cases, softmax_run, softmax_library),
          "causal": (causal_cases, causal_run, causal_library),
          "softmax_bwd": (softmax_bwd_cases, softmax_bwd_run,
-                         softmax_bwd_library)}
+                         softmax_bwd_library),
+         "ln": (ln_cases, ln_run, ln_library),
+         "decode_multi": (decode_multi_cases, decode_multi_run,
+                          decode_multi_library),
+         "decode": (decode_cases, decode_run, decode_library)}
 
 
 def wall(dev):
@@ -352,12 +568,15 @@ if __name__ == "__main__":
     for turn, order in enumerate((labels, labels[::-1])):
         for label in order:
             _build._LIBS[lib] = loaded[label]
+            LABEL = label
             row, same = {}, {}
             for shape, case in cases.items():
                 fn, out = run(case, hold=not args.nohold)
                 if out is not None:
-                    want = first.setdefault(shape, out)
-                    same[shape] = bool(torch.equal(out, want))
+                    outs = out if isinstance(out, tuple) else (out,)
+                    want = first.setdefault(shape, outs)
+                    same[shape] = all(torch.equal(a, b)
+                                      for a, b in zip(outs, want))
                     if not same[shape]:
                         differs.add((label, shape))
                     del out
@@ -375,6 +594,8 @@ if __name__ == "__main__":
             row[shape] = round(ms, 5)
         print(f"library turn {turn} {row}", flush=True)
     print("TABLE " + json.dumps(table), flush=True)
+    if MULTI_FAILS:
+        sys.exit(f"kernel_variants: holds failed: {MULTI_FAILS}")
     if differs and args.which in BITWISE:
         sys.exit(f"kernel_variants: other bits than {labels[0]}'s: "
                  f"{sorted(differs)}")
