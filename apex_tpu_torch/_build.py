@@ -172,13 +172,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "apex_quant_tiled": [_P] * 4 + [_I] * 5 + [_P],
     },
     "moe_routing": {
-        # T, E, C, top_k -> int32 scratch elements; T, E -> fp32 ones
-        "apex_moe_route_scratch_ints": [_I] * 4,
-        "apex_moe_route_scratch_floats": [_I] * 2,
         # x, logits, u (null unless random), idx, gate, slot, keep, aux,
-        # buf, int32 scratch, fp32 scratch, T, H, E, capacity, top_k,
+        # buf, int32 scratch (null at T <= 32), T, H, E, capacity, top_k,
         # random, x element bytes, stream
-        "apex_moe_route_dispatch": [_P] * 11 + [_I] * 7 + [_P],
+        "apex_moe_route_dispatch": [_P] * 10 + [_I] * 7 + [_P],
     },
 }
 

@@ -35,14 +35,23 @@
 // (its warp butterflies and its tree over the 8 warp totals mapped onto
 // lane and in-lane steps).  The affine step is the FFMA nvcc made of the
 // element path's `v * g + b`, written `fmaf`.  Backward: a fixed number
-// of blocks, each walking rows blockIdx.x,
-// blockIdx.x + gridDim.x, ...; a thread owns the same columns in every
-// row, keeps xhat and gdy for them in shared memory between the row's
-// one reduction (mean(gdy), mean(gdy * xhat) together) and the dx write,
-// and accumulates its columns' dgamma/dbeta partials in shared memory
-// across the block's rows.  Each block writes one fp32 partial row; a
-// second small kernel sums the partial rows per column in a fixed order,
-// so the result is deterministic (no atomics).
+// `parts` of row walkers, each leaving one fp32 partial row of dgamma and
+// one of dbeta, which a second small kernel (`ln_bwd_wgrad_kernel`) sums
+// per column in a fixed order, so the result is deterministic (no
+// atomics).  The element path (`ln_bwd_kernel`) is a block a
+// walker: a thread owns the same columns in every row, keeps xhat and gdy
+// for them in shared memory between the row's one reduction (mean(gdy),
+// mean(gdy * xhat) together, `block_sum2`) and the dx write, and its
+// columns' partials in shared memory across the block's rows.  The vector
+// path (`ln_bwd_vec_kernel`, under the forward's `vec_route` with dy and
+// dx) is a warp a walker: walker p still takes rows p, p + parts, ..., so
+// every partial adds the same rows in the same order; a lane holds 8
+// virtual threads' columns as the forward does, loads the next row's
+// 16-byte words before the current row's sums, reduces both sums by
+// shuffles alone in `block_sum2`'s tree (`vthread_sum`), keeps its
+// partials in registers (in the warp's slice of shared memory where the
+// rows' words would crowd them out) and writes dx 16 bytes at a time, with
+// the element path's bits.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -355,6 +364,23 @@ __device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
   return total;
 }
 
+// The two expressions of the backward whose rounding nvcc chose in the
+// element path, written out so that both paths and the CPU stand-in
+// (which contracts nothing) round them alike.  Read on the card against
+// builds of the other forms: g = dy * gamma is its own product and s1 += g
+// a separate add (an FFMA into s1 gives other bits with fp32 gamma, where
+// the product rounds); dx's (gdy - m1) - xhat * m2 is one FFMA (a separate
+// product gives other bits everywhere).
+__device__ __forceinline__ float ln_gdy(float dyv, float gam, float& s1) {
+  const float g = __fmul_rn(dyv, gam);
+  s1 += g;
+  return g;
+}
+
+__device__ __forceinline__ float ln_dx(float rs, float g, float m1, float xh, float m2) {
+  return rs * fmaf(-xh, m2, g - m1);
+}
+
 // dx for rows blockIdx.x, blockIdx.x + gridDim.x, ...; with gamma, this
 // block's dgamma/dbeta partial rows (fp32, one row of `hidden` each).
 template <typename T, typename W>
@@ -388,10 +414,11 @@ ln_bwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
     for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
       const float xv = (to_f<T>(x[base + i]) - mu) * rs;
       const float dyv = to_f<T>(dy[base + i]);
-      const float g = affine ? dyv * to_f<W>(gamma[i]) : dyv;
+      float g = dyv;
+      if (affine) g = ln_gdy(dyv, to_f<W>(gamma[i]), s1);
+      else s1 += g;
       xh[i] = xv;
       gd[i] = g;
-      s1 += g;
       s2 = fmaf(g, xv, s2);
       if (affine) {
         pg[i] = fmaf(dyv, xv, pg[i]);
@@ -402,7 +429,7 @@ ln_bwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
     const float m1 = t.x * inv_h;
     const float m2 = t.y * inv_h;
     for (int i = threadIdx.x; i < hidden; i += blockDim.x)
-      dx[base + i] = from_f<T>(rs * (gd[i] - m1 - xh[i] * m2));
+      dx[base + i] = from_f<T>(ln_dx(rs, gd[i], m1, xh[i], m2));
   }
   if (affine) {
     const size_t prow = (size_t)blockIdx.x * hidden;
@@ -411,6 +438,192 @@ ln_bwd_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
       dbeta_part[prow + i] = pb[i];
     }
   }
+}
+
+// Whether ln_bwd_vec_kernel<T, *, kPasses> keeps its dgamma/dbeta partials
+// in the warp's slice of shared memory rather than in registers: where a
+// row's packed x and dy, twice (the row in the sums and the next), would
+// crowd 2 * 8 * kPasses partials past the register file (2-byte x at 8
+// passes, fp32 x at 4)
+template <typename T>
+__host__ __device__ constexpr bool bwd_smem_parts(int passes) {
+  return passes * (int)sizeof(T) > 8;
+}
+
+// The kPasses 16-byte-word sets of row r a lane loads (see ln_fwd_vec_kernel)
+template <typename T, int kPasses, int kWords>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, int passes, int lane,
+                                         uint4 (&w)[kPasses][kWords]) {
+  constexpr int kVec = 16 / sizeof(T);
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k)
+    if (k < passes)
+#pragma unroll
+      for (int i = 0; i < kWords; ++i)
+        w[k][i] = *reinterpret_cast<const uint4*>(p + 256 * k + 128 * i + kVec * lane);
+}
+
+// One warp a partial, kVecWarps a block: warp p < parts walks rows p,
+// p + parts, ... in order, as the element path's block p does, so each
+// column's dgamma/dbeta partial adds the same rows in the same order; a
+// lane holds the columns of 8 of the element path's virtual threads (as in
+// ln_fwd_vec_kernel), sums s1 = sum(gdy) and s2 = sum(gdy * xhat) over
+// them in each thread's order and adds the 256 partials in block_sum2's
+// tree (vthread_sum), so dx has the element path's bits too.  The next
+// row's 16-byte loads are issued before the current row's sums; xhat and
+// gdy are recomputed from the packed row for dx (the same expressions,
+// the same bits) rather than kept.
+template <typename T, typename W, int kPasses>
+__global__ void __launch_bounds__(kVecThreads)
+ln_bwd_vec_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
+                  const T* __restrict__ dy, const float* __restrict__ mean,
+                  const float* __restrict__ rstd, T* __restrict__ dx,
+                  float* __restrict__ dgamma_part, float* __restrict__ dbeta_part,
+                  int rows, int hidden, int parts) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kWords = 8 / kVec;
+  constexpr bool kSmem = bwd_smem_parts<T>(kPasses);
+  constexpr int kRegPasses = kSmem ? 1 : kPasses;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kVecWarps + warp;
+  if (p >= parts) return;  // no barrier below
+  const bool affine = gamma != nullptr;
+  const int passes = hidden >> 8;
+  const float inv_h = 1.0f / (float)hidden;
+  // the partials: registers, or the warp's slice of shared memory laid
+  // out [dgamma, dbeta][pass][j][lane], each entry read back by its lane
+  float pg[kRegPasses][8], pb[kRegPasses][8];
+  float* sp = reinterpret_cast<float*>(smem_raw) + (size_t)warp * 2 * kPasses * 8 * 32 + lane;
+  float* sq = sp + kPasses * 8 * 32;
+  if (affine) {
+#pragma unroll
+    for (int k = 0; k < kPasses; ++k)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if constexpr (kSmem) {
+          sp[(k * 8 + j) * 32] = 0.f;
+          sq[(k * 8 + j) * 32] = 0.f;
+        } else {
+          pg[k][j] = 0.f;
+          pb[k][j] = 0.f;
+        }
+      }
+  }
+  uint4 cx[kPasses][kWords], cd[kPasses][kWords];
+  load_row<T, kPasses, kWords>(x + (size_t)p * hidden, passes, lane, cx);
+  load_row<T, kPasses, kWords>(dy + (size_t)p * hidden, passes, lane, cd);
+  float mu = mean[p], rs = rstd[p];
+  for (int r = p; r < rows; r += parts) {
+    const int rn = r + parts;
+    uint4 nx[kPasses][kWords], nd[kPasses][kWords];
+    float nmu = 0.f, nrs = 0.f;
+    if (rn < rows) {
+      load_row<T, kPasses, kWords>(x + (size_t)rn * hidden, passes, lane, nx);
+      load_row<T, kPasses, kWords>(dy + (size_t)rn * hidden, passes, lane, nd);
+      nmu = mean[rn];
+      nrs = rstd[rn];
+    }
+    float s1[8], s2[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s1[j] = s2[j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kPasses; ++k)
+      if (k < passes) {
+        float xv[8], dv[8], gm[8];
+        unpack8<T, kWords>(cx[k], xv);
+        unpack8<T, kWords>(cd[k], dv);
+        if (affine)
+#pragma unroll
+          for (int i = 0; i < kWords; ++i)
+            load_w<W, kVec>(gamma + 256 * k + 128 * i + kVec * lane,
+                            *reinterpret_cast<float(*)[kVec]>(gm + i * kVec));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xh = (xv[j] - mu) * rs;
+          float g = dv[j];
+          if (affine) g = ln_gdy(dv[j], gm[j], s1[j]);
+          else s1[j] += g;
+          s2[j] = fmaf(g, xh, s2[j]);
+          if (affine) {
+            if constexpr (kSmem) {
+              float* a = sp + (k * 8 + j) * 32;
+              float* b = sq + (k * 8 + j) * 32;
+              *a = fmaf(dv[j], xh, *a);
+              *b += dv[j];
+            } else {
+              pg[k][j] = fmaf(dv[j], xh, pg[k][j]);
+              pb[k][j] += dv[j];
+            }
+          }
+        }
+      }
+    // the element path's t.x * inv_h, kept a product of its own
+    const float m1 = __fmul_rn(vthread_sum<kVec>(s1), inv_h);
+    const float m2 = __fmul_rn(vthread_sum<kVec>(s2), inv_h);
+    T* dr = dx + (size_t)r * hidden;
+#pragma unroll
+    for (int k = 0; k < kPasses; ++k)
+      if (k < passes) {
+        float xv[8], dv[8], gm[8];
+        unpack8<T, kWords>(cx[k], xv);
+        unpack8<T, kWords>(cd[k], dv);
+        if (affine)
+#pragma unroll
+          for (int i = 0; i < kWords; ++i)
+            load_w<W, kVec>(gamma + 256 * k + 128 * i + kVec * lane,
+                            *reinterpret_cast<float(*)[kVec]>(gm + i * kVec));
+#pragma unroll
+        for (int i = 0; i < kWords; ++i) {
+          uint4 out;
+          T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            const int c = i * kVec + j;
+            const float xh = (xv[c] - mu) * rs;
+            const float g = affine ? __fmul_rn(dv[c], gm[c]) : dv[c];
+            o[j] = from_f<T>(ln_dx(rs, g, m1, xh, m2));
+          }
+          *reinterpret_cast<uint4*>(dr + 256 * k + 128 * i + kVec * lane) = out;
+        }
+      }
+#pragma unroll
+    for (int k = 0; k < kPasses; ++k)
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+        cx[k][i] = nx[k][i];
+        cd[k][i] = nd[k][i];
+      }
+    mu = nmu;
+    rs = nrs;
+  }
+  if (!affine) return;
+  float* gp = dgamma_part + (size_t)p * hidden;
+  float* bp = dbeta_part + (size_t)p * hidden;
+#pragma unroll
+  for (int k = 0; k < kPasses; ++k)
+    if (k < passes)
+#pragma unroll
+      for (int i = 0; i < kWords; ++i)
+#pragma unroll
+        for (int q = 0; q < kVec; q += 4) {
+          float a[4], b[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = i * kVec + q + j;
+            if constexpr (kSmem) {
+              a[j] = sp[(k * 8 + c) * 32];
+              b[j] = sq[(k * 8 + c) * 32];
+            } else {
+              a[j] = pg[k][c];
+              b[j] = pb[k][c];
+            }
+          }
+          const int col = 256 * k + 128 * i + kVec * lane + q;
+          *reinterpret_cast<float4*>(gp + col) = make_float4(a[0], a[1], a[2], a[3]);
+          *reinterpret_cast<float4*>(bp + col) = make_float4(b[0], b[1], b[2], b[3]);
+        }
 }
 
 constexpr int kColTile = 32;  // columns per block of the partial sum
@@ -449,32 +662,73 @@ ln_bwd_wgrad_kernel(const float* __restrict__ dgamma_part,
   }
 }
 
+template <typename T, typename W, int kPasses>
+cudaError_t launch_bwd_vec(const T* x, const W* gamma, const T* dy, const float* mean,
+                           const float* rstd, T* dx, float* dgamma_part,
+                           float* dbeta_part, int rows, int hidden, int parts,
+                           cudaStream_t stream) {
+  const size_t smem = bwd_smem_parts<T>(kPasses) && gamma != nullptr
+                          ? (size_t)kVecWarps * 2 * kPasses * 8 * 32 * sizeof(float)
+                          : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ln_bwd_vec_kernel<T, W, kPasses>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const unsigned g = (unsigned)((parts + kVecWarps - 1) / kVecWarps);
+  ln_bwd_vec_kernel<T, W, kPasses><<<g, kVecThreads, smem, stream>>>(
+      x, gamma, dy, mean, rstd, dx, dgamma_part, dbeta_part, rows, hidden, parts);
+  return cudaGetLastError();
+}
+
 template <typename T, typename W>
 cudaError_t launch_bwd(const void* x, const void* gamma, const void* dy,
                        const void* mean, const void* rstd, void* dx,
                        void* dgamma_part, void* dbeta_part, void* dgamma,
                        void* dbeta, int rows, int hidden, int parts,
                        cudaStream_t stream) {
-  const size_t smem = (size_t)4 * hidden * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ln_bwd_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+  const T* xp = static_cast<const T*>(x);
+  const W* gp = static_cast<const W*>(gamma);
+  const T* dyp = static_cast<const T*>(dy);
+  const float* mp = static_cast<const float*>(mean);
+  const float* rp = static_cast<const float*>(rstd);
+  T* dxp = static_cast<T*>(dx);
+  float* pgp = static_cast<float*>(dgamma_part);
+  float* pbp = static_cast<float*>(dbeta_part);
+  cudaError_t e = cudaSuccess;
+  // the vector path under the forward's rule, with dy and dx for y and
+  // beta; fp32 rows past 1024 columns (two rows' words alone would fill
+  // the register file) take the element path
+  if (vec_route(hidden, x, gamma, dy, dx) && (sizeof(T) == 2 || hidden <= 1024)) {
+    const int passes = hidden / 256;
+    if (passes <= 1)
+      e = launch_bwd_vec<T, W, 1>(xp, gp, dyp, mp, rp, dxp, pgp, pbp, rows, hidden, parts,
+                                  stream);
+    else if (passes <= 2)
+      e = launch_bwd_vec<T, W, 2>(xp, gp, dyp, mp, rp, dxp, pgp, pbp, rows, hidden, parts,
+                                  stream);
+    else if (passes <= 4)
+      e = launch_bwd_vec<T, W, 4>(xp, gp, dyp, mp, rp, dxp, pgp, pbp, rows, hidden, parts,
+                                  stream);
+    else if constexpr (sizeof(T) == 2)
+      e = launch_bwd_vec<T, W, 8>(xp, gp, dyp, mp, rp, dxp, pgp, pbp, rows, hidden, parts,
+                                  stream);
+  } else {
+    const size_t smem = (size_t)4 * hidden * sizeof(float);
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(ln_bwd_kernel<T, W>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    ln_bwd_kernel<T, W><<<parts, kThreads, smem, stream>>>(xp, gp, dyp, mp, rp, dxp, pgp,
+                                                           pbp, rows, hidden);
+    e = cudaGetLastError();
   }
-  ln_bwd_kernel<T, W><<<parts, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(gamma),
-      static_cast<const T*>(dy), static_cast<const float*>(mean),
-      static_cast<const float*>(rstd), static_cast<T*>(dx),
-      static_cast<float*>(dgamma_part), static_cast<float*>(dbeta_part), rows,
-      hidden);
-  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || gamma == nullptr) return e;
   const int blocks = (hidden + kColTile - 1) / kColTile;
   ln_bwd_wgrad_kernel<W><<<blocks, kColTile * kPartLanes, 0, stream>>>(
-      static_cast<const float*>(dgamma_part),
-      static_cast<const float*>(dbeta_part), static_cast<W*>(dgamma),
-      static_cast<W*>(dbeta), parts, hidden);
+      pgp, pbp, static_cast<W*>(dgamma), static_cast<W*>(dbeta), parts, hidden);
   return cudaGetLastError();
 }
 

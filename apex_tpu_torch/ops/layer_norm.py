@@ -18,6 +18,7 @@ pairs them under autograd (:func:`fused_layer_norm`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -155,6 +156,17 @@ def layer_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
     return layer_norm_with_stats(x, gamma, beta, eps)[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(device) -> int:
+    """The SMs of the CUDA ``device``, read once."""
+    return _sms(device.index if device.index is not None
+                else torch.cuda.current_device())
+
+
 def _launch_backward(x, gamma, dy, mean, rstd):
     _check(x, gamma, gamma, "layer_norm_bwd")
     if dy.shape != x.shape or dy.dtype != x.dtype or \
@@ -179,10 +191,10 @@ def _launch_backward(x, gamma, dy, mean, rstd):
             dgamma.zero_()
             dbeta.zero_()
         return dx, dgamma, dbeta
-    # row-walking blocks: four per SM fill the card, each leaves one
-    # fp32 partial row of dgamma and of dbeta
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    parts = min(rows, 4 * sms)
+    # row walkers (a block, or a warp on the vector path): four per SM
+    # fill the card, each leaves one fp32 partial row of dgamma and of
+    # dbeta; the count fixes which rows each partial adds, and so the bits
+    parts = min(rows, 4 * _sm_count(x.device))
     if gamma is not None:
         part = torch.empty((2, parts, hidden), dtype=torch.float32,
                            device=x.device)

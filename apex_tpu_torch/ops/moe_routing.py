@@ -28,7 +28,9 @@ tensors; there is no other switch.  It is differentiable in ``x`` and
 ``logits`` through :class:`MoERouteDispatchFunction`, JAX's custom VJP:
 the forward is the kernel, the backward differentiates the plain version
 at the saved ``(x, logits, u)`` (the routing decisions are bit-identical,
-so the plain version's gradient is the kernel's).
+so the plain version's gradient is the kernel's).  Where no input
+requires grad (the serve), the call skips the Function: one CUDA launch at
+T <= 32, two above, and a scratch kept across calls.
 
 ``u``, the (T,) uniform draw of the ``random`` policy, comes from the
 caller's ``torch.Generator``; :func:`_fused` takes it explicitly, so that
@@ -38,20 +40,23 @@ torch, as JAX keeps it in jnp.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import contextlib
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 from ._counts import bump
+from .layer_norm import _needs_grad
 
 __all__ = ["RouteDispatch", "MoERouteDispatchFunction", "moe_route_dispatch",
            "moe_route_dispatch_reference", "moe_combine"]
 
 _X_TAKES = (torch.float32, torch.bfloat16, torch.float16)
-# the route launch keeps one fp32 mean-prob partial per warp and expert in
-# shared memory (8 warps x E x 4 bytes, under the 48 KB default)
+_TOK_PER_BLOCK = 32          # tokens a route block takes (the kernel's)
+# a route block keeps each of its 32 tokens' probabilities in shared
+# memory (32 x E x 4 bytes, 128 KB at 1024: within the card's 227 KB)
 MAX_EXPERTS = 1024
 
 
@@ -141,6 +146,40 @@ def moe_route_dispatch_reference(x: torch.Tensor, logits: torch.Tensor,
                          load_balancing_loss=aux)
 
 
+def _scratch_words(t: int, e: int, top_k: int) -> int:
+    """int32 words of the launch's scratch (``csrc/moe_routing.cu``'s
+    rule): none at T <= 32, which routes in the dispatch launch itself;
+    else the ranks (top_k * T), the counts (top_k * nb * E) and the fp32
+    probability sums (nb * E) of nb = ceil(T / 32) route blocks."""
+    if t <= _TOK_PER_BLOCK:
+        return 0
+    nb = -(-t // _TOK_PER_BLOCK)
+    return top_k * t + top_k * nb * e + nb * e
+
+
+# (device index, stream handle) -> the launches' int32 scratch, kept
+# across calls and grown when too small: the stream orders each call's use
+# of it after the last one's
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(dev: torch.device, stream: int, words: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    w = _WORKSPACE.get(key)
+    if w is None or w.numel() < words:
+        w = torch.empty(words, dtype=torch.int32, device=dev)
+        _WORKSPACE[key] = w
+    return w
+
+
+def _on_device(dev: torch.device):
+    """A switch to the CUDA device ``dev`` where it is not the current one
+    already (the launch goes to the current device)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def _launch(x, logits, u, capacity, top_k, random):
     t, h = x.shape
     e = logits.shape[1]
@@ -156,25 +195,26 @@ def _launch(x, logits, u, capacity, top_k, random):
                              f"on {x.device}")
     dev = x.device
     lib = _build.library("moe_routing")
-    idx = torch.empty((top_k, t), dtype=torch.int32, device=dev)
-    gate = torch.empty((top_k, t), dtype=torch.float32, device=dev)
-    slot = torch.empty(top_k * t, dtype=torch.int32, device=dev)
-    keep = torch.empty(top_k * t, dtype=torch.bool, device=dev)
-    aux = torch.empty((), dtype=torch.float32, device=dev)
-    buf = torch.empty((e, capacity, h), dtype=x.dtype, device=dev)
-    scratch_i = torch.empty(
-        lib.apex_moe_route_scratch_ints(t, e, capacity, top_k),
-        dtype=torch.int32, device=dev)
-    scratch_f = torch.empty(lib.apex_moe_route_scratch_floats(t, e),
-                            dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    # one allocation an output (``new_empty``, the cheapest form): on the
+    # card's host a view costs as much as an allocation, and a
+    # dtype-reinterpreting view chain more
+    kt = top_k * t
+    idx = x.new_empty((top_k, t), dtype=torch.int32)
+    gate = x.new_empty((top_k, t), dtype=torch.float32)
+    slot = x.new_empty(kt, dtype=torch.int32)
+    keep = x.new_empty(kt, dtype=torch.bool)
+    aux = x.new_empty((), dtype=torch.float32)
+    buf = x.new_empty((e, capacity, h))
+    stream = _build.stream_ptr(dev)
+    words = _scratch_words(t, e, top_k)
+    scratch = _workspace(dev, stream, words).data_ptr() if words else None
+    with _on_device(dev):
         rc = lib.apex_moe_route_dispatch(
             x.data_ptr(), logits.data_ptr(),
-            u.data_ptr() if u is not None else None,
-            idx.data_ptr(), gate.data_ptr(), slot.data_ptr(),
-            keep.data_ptr(), aux.data_ptr(), buf.data_ptr(),
-            scratch_i.data_ptr(), scratch_f.data_ptr(), t, h, e, capacity,
-            top_k, int(random), x.element_size(), _build.stream_ptr(dev))
+            u.data_ptr() if u is not None else None, idx.data_ptr(),
+            gate.data_ptr(), slot.data_ptr(), keep.data_ptr(), aux.data_ptr(),
+            buf.data_ptr(), scratch, t, h, e, capacity, top_k, int(random),
+            x.element_size(), stream)
     _build.check("moe_routing", rc, "moe_route_dispatch kernel")
     bump("moe_route_dispatch")
     return RouteDispatch(buf=buf, expert_index=idx, gate=gate, slot=slot,
@@ -234,12 +274,19 @@ def _fused(x: torch.Tensor, logits: torch.Tensor,
            u: Optional[torch.Tensor], *, capacity: int, top_k: int = 1,
            second_policy: str = "all") -> RouteDispatch:
     """:func:`moe_route_dispatch` with the ``random`` policy's (T,)
-    uniform draw ``u`` given (None for the other policies)."""
+    uniform draw ``u`` given (None for the other policies).  When autograd
+    records and x or logits requires grad, it is
+    :class:`MoERouteDispatchFunction`; else the kernel (or the plain
+    version) alone, with no graph.  The choice reads only the tensors'
+    flags, so it is the same on both devices."""
     _check_args(x, logits, capacity, top_k, second_policy)
     if top_k == 2 and second_policy == "random" and u is None:
         raise ValueError("second_policy='random' requires rng")
-    return RouteDispatch(*MoERouteDispatchFunction.apply(
-        x, logits, u, int(capacity), int(top_k), second_policy))
+    if _needs_grad(x, logits):
+        return RouteDispatch(*MoERouteDispatchFunction.apply(
+            x, logits, u, int(capacity), int(top_k), second_policy))
+    return _route_dispatch(x, logits, u, int(capacity), int(top_k),
+                           second_policy)
 
 
 def moe_route_dispatch(x: torch.Tensor, logits: torch.Tensor, *,

@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero without the result line:
                    LayerNorm forward, flash prefill and paged decode at
                    the serving path's shapes; the multi-token paged
                    attention at the fast path's verify (t=3) and chunk
-                   (t=32, t=16) shapes; LayerNorm backward, the
+                   (t=32, t=16) shapes; LayerNorm backward (its vector
+                   path bit for bit its element path's, with gamma in x's
+                   dtype and in fp32, and fp32 gamma's dgamma/dbeta
+                   against float64 sums), the
                    E-layout flash forward and backward, and the Adam
                    pipeline sweep at the O5 train step's shapes; the
                    causal scaled softmax forward and backward and the
@@ -61,8 +64,9 @@ Phases, in order; any failure exits non-zero without the result line:
                    at bench.py's bench_moe_ep shape (T 4096, H 256, E 8,
                    fp32; top1/all, top2/all, top2/random) and at the MoE
                    serve's decode (8 rows) and prefill (1024 rows) in
-                   bf16 at capacity factors 8.0 and 1.25, integers and
-                   buffer exactly equal, and its gradient (the plain
+                   bf16 at capacity factors 8.0 and 1.25, off every grain
+                   and at T = 32 and 33 (one launch, then two), integers
+                   and buffer exactly equal, and its gradient (the plain
                    version at the saved inputs) once on the card; the
                    ResNet slice's (row 19's SGD step, Adam step and SGD
                    pipeline sweep): the steps over ResNet-50's 161 real
@@ -302,7 +306,10 @@ Phases, in order; any failure exits non-zero without the result line:
                    plain versions, no worse than the bf16 plain run's
                    (``MHA_ERR_RATIO``, ``MHA_ERR_FLOOR``); the (b, h, s, d)
                    kv_mask lane alone at the encdec shape, held and timed.
-7. profiles      — the O5 serve, the O5 speculative serve (self draft), the
+7. profiles      — first, row 18's CUDA launches over ten calls at each
+                   of its kernel-phase shapes (one a call at T <= 32, two
+                   above, nothing else); then the
+                   O5 serve, the O5 speculative serve (self draft), the
                    Q8 serve over an int8 cache, the MoE serve at cf 8.0
                    and 1.25, one O5 and one O2 train
                    step of GPT-345M and of BERT-large (on bench.py's
@@ -423,6 +430,14 @@ MOE_GRAD_TOL = 1e-6
 # bf16, so they are held relative to their largest value (2.5 ulps)
 LN_BWD_TOL = 3e-2
 LN_WGRAD_RTOL = 1e-2
+# LayerNorm backward with fp32 gamma: dgamma/dbeta stay fp32, so they are
+# held against a float64 sum of the plain version's own terms (its fp32
+# xhat, dy), relative to their largest value.  Only the kernel's fp32
+# partial sums differ (about 1e-7); a walker that drops one of its rows,
+# or a partial row left out, moves a column by one row's term or a
+# sixteen-row sum of them (about 1e-2 of the largest).  The holds above
+# pass both (one of 528 partials is ~0.2 % of a same-signed column).
+LN_WGRAD_F64_RTOL = 1e-5
 # E-layout flash backward, bf16.  Against its plain version on the same
 # (qkv, o, lse, do): both compute in fp32 and round dqkv to bf16 once,
 # so an element may differ by one bf16 ulp of the reference (at most
@@ -718,6 +733,30 @@ MHA_SELF = (16, 512)
 MHA_ENCDEC = (16, 256, 512)
 MHA_ERR_RATIO = 2.0
 MHA_ERR_FLOOR = 1e-3
+
+# row 18's cases: bench.py's bench_moe_ep shape (T 4096, H 256, E 8, fp32
+# x) at top1/all (capacity 640), top2/all and top2/random (1280); the MoE
+# serve's shapes (E 8, bf16 x): the decode tick's 8 rows and the 700-token
+# prompt's 1024 padded rows at capacity factors 8.0 and 1.25; shapes off
+# every grain (E 5 and 40, H 100, T 130 and 33); and T = 32 and 33, the
+# last one-launch and the first two-launch call, top2/random with drops
+MOE_CASES = (
+    ("bench_moe_ep top1", 4096, 256, 8, 640, 1, "all", torch.float32),
+    ("bench_moe_ep top2", 4096, 256, 8, 1280, 2, "all", torch.float32),
+    ("bench_moe_ep top2 random", 4096, 256, 8, 1280, 2, "random",
+     torch.float32),
+    ("serve decode cf 8", 8, 1024, 8, 8, 1, "all", torch.bfloat16),
+    ("serve decode cf 1.25", 8, 1024, 8, 1, 1, "all", torch.bfloat16),
+    ("serve prefill cf 8", 1024, 1024, 8, 1024, 1, "all", torch.bfloat16),
+    ("serve prefill cf 1.25", 1024, 1024, 8, 160, 1, "all", torch.bfloat16),
+    ("off grain", 130, 100, 5, 33, 2, "random", torch.float32),
+    ("off grain, E > T", 33, 100, 40, 1, 2, "all", torch.bfloat16),
+    ("one-launch boundary T 32", 32, 1024, 8, 6, 2, "random",
+     torch.bfloat16),
+    ("two-launch boundary T 33", 33, 1024, 8, 6, 2, "random",
+     torch.bfloat16))
+# CUDA launches a row-18 call makes: one at T <= 32, two above
+MOE_ONE_LAUNCH_T = 32
 
 # --- the card (NVIDIA H100 SXM data sheet, dense) ----------------------
 HBM_BYTES_S = 3.35e12
@@ -1818,10 +1857,42 @@ def check_quant_matmul(dev, g):
 
 # --- phase 2, the train step's shapes ----------------------------------
 
+def ln_bwd_paths_equal(x, gamma, dy, mean, rstd):
+    """Row 2's vector path (``x`` as given, 16-byte aligned) against its
+    element path (the same values through a view one element off 16-byte
+    alignment): whether dx, dgamma and dbeta are equal bit for bit."""
+    from apex_tpu_torch.ops import layer_norm_backward
+
+    vec = layer_norm_backward(x, gamma, dy, mean, rstd)
+    elem = layer_norm_backward(misaligned(x), gamma, dy, mean, rstd)
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(vec, elem))
+
+
+def ln_wgrad_f64(x, gamma32, dy, mean, rstd) -> float:
+    """Row 2's fp32-gamma dgamma and dbeta against float64 sums over the
+    rows of the plain version's own terms (dy times its fp32 xhat, and
+    dy): the larger of the two max errors, each over its largest value
+    (``LN_WGRAD_F64_RTOL``)."""
+    from apex_tpu_torch.ops import layer_norm_backward
+
+    _, dg, db = layer_norm_backward(x, gamma32, dy, mean, rstd)
+    torch.cuda.synchronize()
+    xhat = (x.float() - mean.unsqueeze(-1)) * rstd.unsqueeze(-1)
+    dyd = dy.double()
+    rg = (dyd * xhat.double()).sum(0)
+    rb = dyd.sum(0)
+    return max(float((a.double() - r).abs().max() / r.abs().max())
+               for a, r in ((dg, rg), (db, rb)))
+
+
 def check_layer_norm_bwd(dev, g, dtype=torch.bfloat16):
     """LayerNorm forward and backward at the train step's shape with
     gamma/beta in x's dtype: bf16 (O5) or fp16 (O2), the tolerances
-    scaled to the dtype's ulp.  Returns ``(forward, backward)``
+    scaled to the dtype's ulp; the backward's vector path bit for bit its
+    element path's (``ln_bwd_paths_equal``) with gamma in x's dtype and in
+    fp32, and fp32 gamma's dgamma/dbeta within ``LN_WGRAD_F64_RTOL`` of
+    float64 sums (``ln_wgrad_f64``).  Returns ``(forward, backward)``
     entries."""
     import torch.nn.functional as F
 
@@ -1893,6 +1964,20 @@ def check_layer_norm_bwd(dev, g, dtype=torch.bfloat16):
         f"{wrel:.3e} ({what[1]}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("layer_norm_bwd kernel disagrees")
+    # the vector path against the element path, gamma in x's dtype and in
+    # fp32; fp32 gamma's dgamma/dbeta against float64 sums
+    same = ln_bwd_paths_equal(x, gamma, dy, mean, rstd)
+    g32 = gamma.float()
+    same32 = ln_bwd_paths_equal(x, g32, dy, mean, rstd)
+    f64 = ln_wgrad_f64(x, g32, dy, mean, rstd)
+    ok = same and same32 and f64 <= LN_WGRAD_F64_RTOL
+    log(f"kernel layer_norm_bwd rows={rows} hidden={hd} {tag}: vector path "
+        f"dx/dgamma/dbeta bitwise the element path's with {tag} gamma: "
+        f"{same}, with fp32 gamma: {same32}; fp32-gamma dgamma/dbeta against "
+        f"float64 sums {f64:.3e} of their largest (tol {LN_WGRAD_F64_RTOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("layer_norm_bwd paths or wgrad sums disagree")
     ms, ms_w = time_ms(lambda: layer_norm_backward(x, gamma, dy, mean, rstd))
     plain, plain_w = time_ms(
         lambda: layer_norm_backward_reference(x, gamma, dy, mean, rstd))
@@ -3139,36 +3224,21 @@ def _route_hold(label, x, logits, u, kw, got):
 
 
 def check_moe_routing(dev, g):
-    """Row 18 against its plain version: bench.py's bench_moe_ep shape
-    (T 4096, H 256, E 8, fp32 x ~ N(0, 1), logits from a 0.02 randn
-    router) at top1/all (capacity 640), top2/all and top2/random (1280);
-    the MoE serve's shapes (E 8, bf16 x, a 0.02 randn router): the decode
-    tick's 8 rows and the 700-token prompt's 1024 padded rows at capacity
-    factors 8.0 and 1.25; shapes off every grain (E 5 and 40, H 100, T
-    130 and 33).  Integers and buf exact, each timed (device, wall,
-    plain, bound; no single PyTorch call computes it).  Then the gradient
-    path once: autograd through ``MoERouteDispatchFunction`` on CUDA
-    tensors against the plain version's own gradient."""
+    """Row 18 against its plain version at ``MOE_CASES`` (x ~ N(0, 1),
+    logits from a 0.02 randn router), one launch at T <= 32, two above.
+    Integers and buf exact, each timed (device, wall, plain, bound; no
+    single PyTorch call computes it).  Then the gradient path once:
+    autograd through ``MoERouteDispatchFunction`` on CUDA tensors against
+    the plain version's own gradient."""
     from apex_tpu_torch.ops import (launch_counts, moe_combine,
                                     moe_route_dispatch_reference,
                                     reset_launch_counts)
     from apex_tpu_torch.ops.moe_routing import _fused
 
-    f32, bf16 = torch.float32, torch.bfloat16
     e = MOE_EXPERTS
-    cases = [("bench_moe_ep top1", 4096, 256, e, 640, 1, "all", f32),
-             ("bench_moe_ep top2", 4096, 256, e, 1280, 2, "all", f32),
-             ("bench_moe_ep top2 random", 4096, 256, e, 1280, 2, "random",
-              f32),
-             ("serve decode cf 8", 8, 1024, e, 8, 1, "all", bf16),
-             ("serve decode cf 1.25", 8, 1024, e, 1, 1, "all", bf16),
-             ("serve prefill cf 8", 1024, 1024, e, 1024, 1, "all", bf16),
-             ("serve prefill cf 1.25", 1024, 1024, e, 160, 1, "all", bf16),
-             ("off grain", 130, 100, 5, 33, 2, "random", f32),
-             ("off grain, E > T", 33, 100, 40, 1, 2, "all", bf16)]
     entries = []
     reset_launch_counts()
-    for label, t, h, ne, cap, k, pol, dt in cases:
+    for label, t, h, ne, cap, k, pol, dt in MOE_CASES:
         x = torch.randn(t, h, generator=g, device=dev)
         router = 0.02 * torch.randn(h, ne, generator=g, device=dev)
         logits = x @ router
@@ -6394,6 +6464,57 @@ def _profile_rows(prof):
     return rows
 
 
+def check_moe_launches(dev, calls: int = 10) -> None:
+    """Row 18's CUDA launches a call, read under one ``torch.profiler``
+    window over ``calls`` calls at each of ``MOE_CASES``' shapes: every
+    device kernel those calls start, told apart by name (the one-launch
+    dispatch at T <= ``MOE_ONE_LAUNCH_T``; above, the route and the
+    two-launch dispatch), and nothing else.  Run first among the
+    profiles: in a window after earlier ones the profiler has dropped
+    some kernels' records (73 of 80, or all of them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.ops.moe_routing import _fused
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    args = []
+    for label, t, h, ne, cap, k, pol, dt in MOE_CASES:
+        x = torch.randn(t, h, generator=g, device=dev).to(dt)
+        logits = torch.randn(t, ne, generator=g, device=dev)
+        u = torch.rand(t, generator=g, device=dev) if pol == "random" \
+            else None
+        args.append((x, logits, u, dict(capacity=cap, top_k=k,
+                                         second_policy=pol)))
+        _fused(x, logits, u, **args[-1][3])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x, logits, u, kw in args:
+            for _ in range(calls):
+                _fused(x, logits, u, **kw)
+        torch.cuda.synchronize()
+    got = {"one": 0, "route": 0, "two": 0, "other": 0}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        kind = ("route" if "route_kernel" in e.key else
+                "one" if "dispatch_kernel" in e.key and ", true>" in e.key
+                else "two" if "dispatch_kernel" in e.key else "other")
+        got[kind] += e.count
+    n_one = sum(t <= MOE_ONE_LAUNCH_T for _, t, *_ in MOE_CASES)
+    n_two = len(MOE_CASES) - n_one
+    want = {"one": calls * n_one, "route": calls * n_two,
+            "two": calls * n_two, "other": 0}
+    ok = got == want
+    log(f"moe_route_dispatch launches over {calls} calls at each of "
+        f"{len(MOE_CASES)} shapes ({n_one} at T <= {MOE_ONE_LAUNCH_T}): "
+        f"{got} (want {want}: one launch a call at T <= "
+        f"{MOE_ONE_LAUNCH_T}, two above) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"moe_route_dispatch launch counts {got} != "
+                             f"{want}")
+
+
 def profile_train(dev, policy: str = "O5", family: str = "gpt"):
     """One train step in ``policy``'s recipe under ``torch.profiler``
     (model built and two steps taken outside the window): device time by
@@ -6785,6 +6906,9 @@ def main(argv=None) -> int:
             run("numerics", lambda: flash_numerics(dev))
             run("numerics spread", lambda: train_spread(dev))
         if "profile" in phases:
+            if "serve_moe" in phases:
+                run("moe_route_dispatch launches",
+                    lambda: check_moe_launches(dev))
             if "serve" in phases:
                 run("serve profile", lambda: profile_serve(dev))
             if "serve_fast" in phases:

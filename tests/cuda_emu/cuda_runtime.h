@@ -76,13 +76,17 @@ enum cudaError_t {
   cudaErrorMisalignedAddress = 716
 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeClusterDimension = 4,
+  cudaLaunchAttributeProgrammaticStreamSerialization = 5
+};
 struct cudaLaunchAttribute {
   cudaLaunchAttributeID id;
   struct {
     struct {
       unsigned x, y, z;
     } clusterDim;
+    int programmaticStreamSerializationAllowed;
   } val;
 };
 struct cudaLaunchConfig_t {
@@ -151,10 +155,11 @@ inline int emu_lane() { return threadIdx.x & 31; }
 inline std::barrier<>& emu_warp_bar() { return *emu_block->warp_bar[threadIdx.x >> 5]; }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_bar().arrive_and_wait(); }
 inline uint64_t* emu_slot(int lane) { return emu_block->slot[(threadIdx.x & ~31u) + lane]; }
-inline float __shfl_xor_sync(unsigned, float v, int mask) {
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int mask) {
   memcpy(emu_slot(emu_lane()), &v, sizeof v);
   emu_warp_bar().arrive_and_wait();
-  float r;
+  T r;
   memcpy(&r, emu_slot(emu_lane() ^ mask), sizeof r);
   emu_warp_bar().arrive_and_wait();
   return r;

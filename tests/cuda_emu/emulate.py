@@ -24,7 +24,8 @@ EMU = Path(__file__).resolve().parent
 # the definitions `warp_prims.h` replaces
 PRIMS = ("smem_addr", "ldsm_x4", "ldsm_x4_t", "cp_async16", "cp_async4",
          "cp_async_commit", "cp_async_wait", "mma16816",
-         "cluster_arrive_relaxed", "cluster_arrive", "cluster_wait")
+         "cluster_arrive_relaxed", "cluster_arrive", "cluster_wait",
+         "grid_dependency_wait", "launch_dependents")
 
 
 def host_source(text: str) -> str:

@@ -1,6 +1,7 @@
 // The warp-level primitives of `apex_tpu_torch/csrc/flash_mma.cuh`
-// (ldmatrix, cp.async, mma.sync.m16n8k16) and the split cluster barrier of
-// `quant_matmul.cu` (barrier.cluster.arrive / wait), emulated on host
+// (ldmatrix, cp.async, mma.sync.m16n8k16), the split cluster barrier of
+// `quant_matmul.cu` (barrier.cluster.arrive / wait) and the programmatic
+// launch controls of `moe_routing.cu` (griddepcontrol), emulated on host
 // threads, the matrix ones with the PTX ISA's fragment layouts: a lane's
 // groupID g = lane / 4 and t = lane % 4; A (16 x 16, row) a0 (g,
 // 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); B
@@ -108,3 +109,9 @@ inline void cluster_wait() {
   emu_cluster->bar.wait(std::move(*emu_cluster_arrival));
   emu_cluster_arrival.reset();
 }
+
+// griddepcontrol.wait / .launch_dependents (programmatic dependent
+// launch): the stand-in runs launches one after another, so a dependent
+// launch starts after its primary has ended, and both are no-ops
+inline void grid_dependency_wait() {}
+inline void launch_dependents() {}

@@ -1,6 +1,7 @@
-"""Row 1's LayerNorm forward kernels (``apex_tpu_torch/csrc/layer_norm.cu``)
-run on the CPU and are held against their plain version,
-``layer_norm_stats_reference``, and against each other.
+"""Rows 1 and 2's LayerNorm forward and backward kernels
+(``apex_tpu_torch/csrc/layer_norm.cu``) run on the CPU and are held against
+their plain versions, ``layer_norm_stats_reference`` and
+``layer_norm_backward_reference``, and each against its other path.
 
 The source is built with g++ over ``tests/cuda_emu`` (``emulate.py``, one
 host thread a CUDA thread, warp shuffles through a table of the warp's
@@ -21,6 +22,21 @@ mean and rstd must equal, bit for bit, the element path's on the same
 values taken through a misaligned view: the vector kernel sums each of
 the element path's 256 threads' columns in that thread's order and adds
 the partials in its shuffle tree.
+
+The backward's routing is the forward's rule with dy and dx (fp32 x only
+up to 1024 columns): the vector path (``ln_bwd_vec_kernel``, a warp a row
+walker, 16-byte loads of the next row before the current row's sums,
+shuffle sums in ``block_sum2``'s tree, the partials in registers or, where
+the rows' words would crowd them out, in the warp's slice of shared
+memory) and the element path (``ln_bwd_kernel``, a block a walker).  Both
+keep ``parts`` walkers, set here for 2 SMs (8 walkers), so every partial
+adds the same rows in the same order: dx, dgamma and dbeta must be equal
+bit for bit, at row counts below ``parts`` (a walker a row) and above it
+(walkers of two to four rows), in every register bucket and dtype, with
+gamma in x's dtype, in fp32 and absent.  The holds against
+the plain version: dx within the forward's tolerances, dgamma and dbeta
+within ``WGRAD_RTOL`` of their largest value (fp32 sums over other
+orders, then one rounding to gamma's dtype).
 
 What these tests cannot show: the stand-in builds with
 ``-ffp-contract=off``, so it keeps the element path's ``v * g + b`` two
@@ -45,6 +61,9 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 TOL = {F32: 1e-5, BF16: 3e-2, F16: 2.0 ** -8}
 STAT_TOL = 1e-5
 EPS = 1e-5
+WGRAD_RTOL = {F32: 1e-5, BF16: 1e-2, F16: 2e-3}
+SMS = 2                  # an SM count for the backward's walkers: few, as
+PARTS = 4 * SMS          # each element-path walker is 256 host threads
 
 
 @pytest.fixture(scope="module")
@@ -160,3 +179,106 @@ def test_one_row(launch):
     # the decode tick's shape in miniature: one block, three warps idle
     x, g, b = _case(1, 1024, BF16, F32, seed=11)
     _hold(launch, x, g, b)
+
+
+# --- backward (row 2) --------------------------------------------------
+
+@pytest.fixture
+def launch_bwd(emulated, monkeypatch):
+    """``layer_norm._launch_backward`` on CPU tensors, through the
+    emulated library, with the stand-in card's SM count."""
+    emulate.route(monkeypatch, emulated, ln)
+    monkeypatch.setattr(ln, "_sm_count", lambda device: SMS)
+    return ln._launch_backward
+
+
+def _bwd_case(rows, hidden, dtype, w_dtype, seed):
+    """x and gamma as ``_case``, dy ~ N(0, 1) in x's dtype, and the
+    forward's fp32 mean and rstd."""
+    x, g, _ = _case(rows, hidden, dtype, w_dtype, seed)
+    rng = np.random.RandomState(seed + 1000)
+    dy = torch.from_numpy(rng.randn(rows, hidden).astype(np.float32)) \
+        .to(dtype)
+    _, mean, rstd = ln.layer_norm_stats_reference(x, None, None, EPS)
+    return x, g, dy, mean, rstd
+
+
+def _hold_bwd(launch_bwd, x, g, dy, mean, rstd):
+    dx, dg, db = launch_bwd(x, g, dy, mean, rstd)
+    rx, rg, rb = ln.layer_norm_backward_reference(x, g, dy, mean, rstd)
+    assert dx.dtype == x.dtype and dx.shape == x.shape
+    tol = TOL[x.dtype]
+    np.testing.assert_allclose(dx.float().numpy(), rx.float().numpy(),
+                               rtol=tol, atol=tol)
+    if g is None:
+        assert dg is None and db is None
+        return dx, dg, db
+    for what, a, b in (("dgamma", dg, rg), ("dbeta", db, rb)):
+        assert a.dtype == g.dtype and a.shape == g.shape
+        err = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        assert err <= WGRAD_RTOL[g.dtype] * scale, \
+            f"{what}: {err:.3e} of max {scale:.3e}"
+    return dx, dg, db
+
+
+def _bwd_paths_equal(launch_bwd, x, g, dy, mean, rstd):
+    """The vector path (aligned x and dy) and the element path (x through
+    a misaligned view) give the same dx, dgamma and dbeta."""
+    vec = _hold_bwd(launch_bwd, x, g, dy, mean, rstd)
+    elem = _hold_bwd(launch_bwd, _misaligned(x), g, dy, mean, rstd)
+    for what, a, b in zip(("dx", "dgamma", "dbeta"), vec, elem):
+        assert (a is None and b is None) or torch.equal(a, b), \
+            f"{what}: the paths' bits differ"
+
+
+@pytest.mark.parametrize("dtype,w_dtype", AFFINE)
+def test_backward_every_instantiation_bitwise(launch_bwd, dtype, w_dtype):
+    # 27 rows over 8 walkers: three or four rows each, the next in flight
+    x, g, dy, mean, rstd = _bwd_case(27, 1024, dtype, w_dtype, seed=21)
+    _bwd_paths_equal(launch_bwd, x, g, dy, mean, rstd)
+
+
+@pytest.mark.parametrize("rows", [5, 13])
+@pytest.mark.parametrize("dtype", [BF16, F16, F32])
+@pytest.mark.parametrize("hidden", [256, 512, 768, 2048])
+def test_backward_register_buckets(launch_bwd, hidden, dtype, rows):
+    # one pass, two, three of four, eight (the shared-memory partials of
+    # 2-byte x; fp32 keeps them there from four passes and takes the
+    # element path past 1024 columns); 5 rows: fewer than the walkers,
+    # 13: more
+    x, g, dy, mean, rstd = _bwd_case(rows, hidden, dtype, F32,
+                                     seed=hidden + rows)
+    _bwd_paths_equal(launch_bwd, x, g, dy, mean, rstd)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_backward_no_affine_shared_bucket(launch_bwd, dtype):
+    # without gamma no partial is kept, in any bucket
+    x, g, dy, mean, rstd = _bwd_case(17, 2048, dtype, None, seed=23)
+    _bwd_paths_equal(launch_bwd, x, g, dy, mean, rstd)
+
+
+def test_backward_misaligned_dy_takes_element_path(launch_bwd):
+    # dy one element off 16 bytes: the element path, with its bits
+    x, g, dy, mean, rstd = _bwd_case(17, 1024, BF16, BF16, seed=24)
+    vec = _hold_bwd(launch_bwd, x, g, dy, mean, rstd)
+    elem = _hold_bwd(launch_bwd, x, g, _misaligned(dy), mean, rstd)
+    for a, b in zip(vec, elem):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,w_dtype", [(BF16, F32), (F16, F16),
+                                           (F32, None)])
+def test_backward_element_path_odd_width(launch_bwd, dtype, w_dtype):
+    # hidden off a multiple of 256, and past the vector path's 2048
+    for hidden in (1000, 2304):
+        x, g, dy, mean, rstd = _bwd_case(13, hidden, dtype, w_dtype,
+                                         seed=hidden)
+        _hold_bwd(launch_bwd, x, g, dy, mean, rstd)
+
+
+def test_backward_one_row(launch_bwd):
+    # one walker, one row: a block with three idle warps
+    x, g, dy, mean, rstd = _bwd_case(1, 1024, BF16, F32, seed=25)
+    _bwd_paths_equal(launch_bwd, x, g, dy, mean, rstd)

@@ -8,6 +8,9 @@ other, in turns, on one CUDA card.
     python3 tools/kernel_variants.py ln parent:_tree/parent/apex_tpu_torch/csrc= base=
     python3 tools/kernel_variants.py decode_multi parent:_tree/parent/apex_tpu_torch/csrc= base=
     python3 tools/kernel_variants.py decode parent:_tree/parent/apex_tpu_torch/csrc= base=
+    python3 tools/kernel_variants.py ln_bwd parent:_tree/parent/apex_tpu_torch/csrc= base=
+    python3 tools/kernel_variants.py moe parent:_tree/parent/apex_tpu_torch/csrc= base=
+    python3 tools/kernel_variants.py moe_wall . _tree/parent
     python3 tools/kernel_variants.py qmm --nohold base= probe=SOME_DEFINE
     python3 tools/kernel_variants.py wall
     python3 tools/kernel_variants.py profile
@@ -64,6 +67,26 @@ SDPA on the gathered pages; it calls the C entry itself, so that a
 tick (b=8, 3,364 keys) on a bf16 and an int8 cache and at one row of
 16,384 positions, each element held within one ulp plus ``DECODE_ATOL``,
 against SDPA on the gathered pages.
+``ln_bwd``: row 2, the LayerNorm backward, at the O5 and O2 steps' (8192,
+1024) bf16 and fp16 with gamma in x's dtype and in fp32, at (2048, 2048)
+bf16 and (2048, 1024) fp32 (the partials in shared memory), and at the
+first two through x one element off 16-byte alignment (``element
+path``), against aten's ``native_layer_norm_backward``; its variants
+must keep the bits (dx, dgamma and dbeta).
+``moe``: row 18 at ``chip_smoke.py``'s cases (``bench_moe_ep``, the MoE
+serve's decode and prefill, the off-grain shapes and T = 32 and 33 at the
+one-launch boundary), held as ``chip_smoke.py`` holds it; it calls the C
+entry itself on outputs and scratch made once a case, so the times are
+the launches' alone, and an earlier tree's entry (its scratch sized by
+its own ``apex_moe_route_scratch_*``) runs beside this tree's; its
+variants must keep the bits (every output, the gates and aux included).
+``moe_wall``: no variants; the arguments are tree roots, and each tree's
+own wrapper (``ops.moe_routing._fused``) is timed at those cases in a
+process of its own, device and wall ms a call, grad on and under
+``torch.inference_mode``, beside the host time a call of its parts
+(``time.perf_counter``; the wrapper, the call below the autograd
+Function, the launcher alone, one ``torch.empty`` of the buffer, one
+``torch.cuda.device`` switch), three turns.
 ``wall``: no variants; the tree's own ``quant_matmul`` wrapper at those
 four linears, device and back-to-back wall ms a call
 (``chip_smoke.time_ms``), three turns: run a copy from another tree's
@@ -93,16 +116,27 @@ from apex_tpu_torch import _build  # noqa: E402
 LIBS = {"qmm": "quant_matmul", "softmax": "scaled_softmax",
         "causal": "scaled_softmax", "softmax_bwd": "scaled_softmax",
         "ln": "layer_norm", "decode_multi": "flash_decode",
-        "decode": "flash_decode"}
+        "decode": "flash_decode", "ln_bwd": "layer_norm",
+        "moe": "moe_routing"}
 KERNELS = {"qmm": ("quant_gemv",), "softmax": ("masked_fwd_kernel",),
            "causal": ("causal_fwd",), "softmax_bwd": ("softmax_bwd",),
            "ln": ("ln_fwd",), "decode_multi": ("decode_multi",),
-           "decode": ("decode_kernel", "decode_multi_combine")}
+           "decode": ("decode_kernel", "decode_multi_combine"),
+           "ln_bwd": ("ln_bwd",), "moe": ("route_kernel", "slot_kernel",
+                                          "copy_kernel", "dispatch_kernel")}
 # the targets whose variants must give the first variant's bits
-BITWISE = ("softmax", "causal", "softmax_bwd", "ln")
+BITWISE = ("softmax", "causal", "softmax_bwd", "ln", "ln_bwd", "moe")
 # launchers of earlier trees that this tree's SIGNATURES no longer list
-EARLIER = {"flash_decode": {"apex_flash_decode_multi_splits":
-                            [ctypes.c_int, ctypes.c_int]}}
+# (or list with other arguments)
+_I, _P = ctypes.c_int, ctypes.c_void_p
+EARLIER = {"flash_decode": {"apex_flash_decode_multi_splits": [_I, _I]},
+           "moe_routing": {"apex_moe_route_scratch_ints": [_I] * 4,
+                           "apex_moe_route_scratch_floats": [_I] * 2}}
+# an earlier tree's entry whose arguments differ from this tree's, told
+# apart by a function only the earlier tree exports
+EARLIER_ARGS = {"moe_routing": ("apex_moe_route_scratch_ints",
+                                {"apex_moe_route_dispatch":
+                                 [_P] * 11 + [_I] * 7 + [_P]})}
 O2_SCORES = (8 * 16, 1024, 1024)       # GPT-345M O2: batch 8 x 16 heads
 SCALE = 0.125                          # head_dim 64 ** -0.5
 OUT = _build.BUILD_DIR / "variants"
@@ -143,6 +177,9 @@ def build_all(lib: str, kernels, variants):
                 print(f"ptxas {label}: {name} {usage}", flush=True)
         cdll = ctypes.CDLL(str(so))
         sigs = {**EARLIER.get(lib, {}), **_build.SIGNATURES[lib]}
+        marker, args = EARLIER_ARGS.get(lib, (None, {}))
+        if marker is not None and hasattr(cdll, marker):
+            sigs.update(args)
         for fn, argtypes in sigs.items():
             f = getattr(cdll, fn, None)   # an earlier tree's set differs
             if f is None:
@@ -497,6 +534,224 @@ def decode_library(case):
     return cs.multi_library(q[:, None], kc, vc, bt, sl, kw)
 
 
+def ln_bwd_cases(dev):
+    from apex_tpu_torch.ops.layer_norm import layer_norm_stats_reference
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    cases = {}
+    for rows, hd, dt, wdt, tag in (
+            (8192, 1024, torch.bfloat16, torch.bfloat16, "bf16, bf16 gamma"),
+            (8192, 1024, torch.float16, torch.float16, "fp16, fp16 gamma"),
+            (8192, 1024, torch.bfloat16, torch.float32, "bf16, fp32 gamma"),
+            (8192, 1024, torch.float16, torch.float32, "fp16, fp32 gamma"),
+            (2048, 2048, torch.bfloat16, torch.bfloat16, "bf16, bf16 gamma"),
+            (2048, 1024, torch.float32, torch.float32, "fp32, fp32 gamma")):
+        x = torch.randn(rows, hd, generator=g, device=dev).to(dt)
+        dy = torch.randn(rows, hd, generator=g, device=dev).to(dt)
+        gamma = (1 + 0.1 * torch.randn(hd, generator=g, device=dev)).to(wdt)
+        _, mean, rstd = layer_norm_stats_reference(x, None, None, 1e-5)
+        cases[f"({rows}, {hd}) {tag}"] = (x, gamma, dy, mean, rstd)
+    for key in ("(8192, 1024) bf16, bf16 gamma",
+                "(8192, 1024) fp16, fp16 gamma"):
+        x, gamma, dy, mean, rstd = cases[key]
+        cases[f"{key} element path"] = (cs.misaligned(x), gamma, dy, mean,
+                                        rstd)
+    return cases
+
+
+def ln_bwd_run(case, hold=True):
+    from apex_tpu_torch.ops import layer_norm_backward
+    from apex_tpu_torch.ops.layer_norm import layer_norm_backward_reference
+    x, gamma, dy, mean, rstd = case
+    fn = lambda: layer_norm_backward(x, gamma, dy, mean, rstd)
+    if not hold:
+        return fn, None
+    out = fn()
+    torch.cuda.synchronize()
+    rx, rg, rb = layer_norm_backward_reference(x, gamma, dy, mean, rstd)
+    dx, dg, db = out
+    wrel = max(cs.rel_err(dg, rg), cs.rel_err(db, rb))
+    if x.dtype == torch.float16:
+        u = cs.ulps_of_ref(dx, rx)
+        ok, what = u <= 1.0, f"dx {u:.3f} fp16 ulps (tol 1)"
+    else:
+        err = cs.max_err(dx, rx)
+        tol = cs.LN_BWD_TOL if x.dtype == torch.bfloat16 else 1e-4
+        ok, what = err <= tol, f"dx max_abs_err {err:.3e} (tol {tol})"
+    if not (ok and wrel <= cs.LN_WGRAD_RTOL):
+        raise AssertionError(f"layer_norm_bwd variant: {what}, dgamma/dbeta "
+                             f"max_rel_err {wrel:.3e} (tol "
+                             f"{cs.LN_WGRAD_RTOL})")
+    return fn, out
+
+
+def ln_bwd_library(case):
+    x, gamma, dy, mean, rstd = case
+    hd = x.shape[-1]
+    gw = gamma.to(x.dtype)
+    return lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [hd], mean, rstd, gw, gw, [True, True, True])
+
+
+def moe_cases(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    cases = {}
+    for label, t, h, ne, cap, k, pol, dt in cs.MOE_CASES:
+        x = torch.randn(t, h, generator=g, device=dev)
+        logits = x @ (0.02 * torch.randn(h, ne, generator=g, device=dev))
+        u = torch.rand(t, generator=g, device=dev) if pol == "random" \
+            else None
+        cases[label] = (x.to(dt), logits, u,
+                        dict(capacity=cap, top_k=k, second_policy=pol))
+    return cases
+
+
+def _moe_args(case):
+    """The routed library's entry on outputs (and scratch) made once:
+    ``(call, outputs)``; the scratch by the library's own rule."""
+    from apex_tpu_torch.ops.moe_routing import RouteDispatch, _scratch_words
+    lib = _build._LIBS["moe_routing"]
+    x, logits, u, kw = case
+    t, h = x.shape
+    e, cap, k = logits.shape[1], kw["capacity"], kw["top_k"]
+    dev = x.device
+    idx = torch.empty((k, t), dtype=torch.int32, device=dev)
+    gate = torch.empty((k, t), dtype=torch.float32, device=dev)
+    slot = torch.empty(k * t, dtype=torch.int32, device=dev)
+    keep = torch.empty(k * t, dtype=torch.bool, device=dev)
+    aux = torch.empty((), dtype=torch.float32, device=dev)
+    buf = torch.empty((e, cap, h), dtype=x.dtype, device=dev)
+    random = int(kw["second_policy"] == "random")
+    head = (x.data_ptr(), logits.data_ptr(),
+            u.data_ptr() if u is not None else None, idx.data_ptr(),
+            gate.data_ptr(), slot.data_ptr(), keep.data_ptr(),
+            aux.data_ptr(), buf.data_ptr())
+    tail = (t, h, e, cap, k, random, x.element_size(),
+            _build.stream_ptr(dev))
+    if hasattr(lib, "apex_moe_route_scratch_ints"):      # an earlier tree
+        si = torch.empty(lib.apex_moe_route_scratch_ints(t, e, cap, k),
+                         dtype=torch.int32, device=dev)
+        sf = torch.empty(lib.apex_moe_route_scratch_floats(t, e),
+                         dtype=torch.float32, device=dev)
+        scratch = (si.data_ptr(), sf.data_ptr())
+        keepalive = (si, sf)
+    else:
+        words = _scratch_words(t, e, k)
+        ws = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+        scratch = (ws.data_ptr() if words else None,)
+        keepalive = (ws,)
+
+    def call():
+        rc = lib.apex_moe_route_dispatch(*head, *scratch, *tail)
+        _build.check("moe_routing", rc, "moe_route_dispatch variant")
+        return keepalive
+
+    out = RouteDispatch(buf=buf, expert_index=idx, gate=gate, slot=slot,
+                        keep=keep, load_balancing_loss=aux)
+    return call, out
+
+
+def moe_run(case, hold=True):
+    x, logits, u, kw = case
+    call, out = _moe_args(case)
+    if not hold:
+        return call, None
+    call()
+    torch.cuda.synchronize()
+    cs._route_hold(f"moe variant {LABEL}", x, logits, u, kw, out)
+    return call, tuple(t.clone() for t in out)
+
+
+def moe_library(case):
+    from apex_tpu_torch.ops import moe_route_dispatch_reference
+    x, logits, u, kw = case
+    # no single PyTorch call computes it: the plain version
+    return lambda: moe_route_dispatch_reference(x, logits, u, **kw)
+
+
+_MOE_WALL = r"""
+import importlib.util, json, sys, time
+import torch
+root, cs_path, turns = sys.argv[1], sys.argv[2], int(sys.argv[3])
+sys.path.insert(0, root)
+spec = importlib.util.spec_from_file_location("cs", cs_path)
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from apex_tpu_torch.ops import moe_routing as m
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev)
+g.manual_seed(13)
+cases = {}
+for label, t, h, ne, cap, k, pol, dt in cs.MOE_CASES:
+    x = torch.randn(t, h, generator=g, device=dev)
+    logits = x @ (0.02 * torch.randn(h, ne, generator=g, device=dev))
+    u = torch.rand(t, generator=g, device=dev) if pol == "random" else None
+    cases[label] = (x.to(dt), logits, u,
+                    dict(capacity=cap, top_k=k, second_policy=pol))
+
+
+def host_us(fn, n=2000, batch=100):
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(n // batch):
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / n * 1e6
+
+
+for turn in range(turns):
+    row = {}
+    for label, (x, logits, u, kw) in cases.items():
+        random = kw["second_policy"] == "random"
+        fused = lambda: m._fused(x, logits, u, **kw)
+        ms, wall = cs.time_ms(fused, iters=200)
+        with torch.inference_mode():
+            ms_i, wall_i = cs.time_ms(fused, iters=200)
+        buf_shape = (logits.shape[1], kw["capacity"], x.shape[1])
+        parts = {
+            "wrapper": host_us(fused),
+            "below the Function": host_us(lambda: m._route_dispatch(
+                x, logits, u, kw["capacity"], kw["top_k"],
+                kw["second_policy"])),
+            "launcher": host_us(lambda: m._launch(
+                x, logits, u if random else None, kw["capacity"],
+                kw["top_k"], random)),
+            "torch.empty of the buffer": host_us(lambda: torch.empty(
+                buf_shape, dtype=x.dtype, device=dev)),
+            "torch.cuda.device": host_us(
+                lambda: torch.cuda.device(dev).__enter__() or None),
+        }
+        row[label] = dict(ms=round(ms, 5), wall=round(wall, 5),
+                          ms_inference=round(ms_i, 5),
+                          wall_inference=round(wall_i, 5),
+                          host_us={k: round(v, 2) for k, v in parts.items()})
+    print("MOE_WALL " + json.dumps(dict(root=root, turn=turn, row=row)),
+          flush=True)
+"""
+
+
+def moe_wall(roots):
+    """Each tree's own MoE wrapper at the cases, one process a tree, in
+    turns: the trees in order, then in reverse."""
+    for turn, order in enumerate((roots, roots[::-1])):
+        for root in order:
+            r = subprocess.run([sys.executable, "-c", _MOE_WALL,
+                                str(ROOT / root), str(ROOT / "chip_smoke.py"),
+                                "1"], capture_output=True, text=True,
+                               timeout=900)
+            sys.stdout.write(r.stdout)
+            if r.returncode:
+                sys.exit(f"moe_wall {root}: exit {r.returncode}\n"
+                         f"{r.stderr[-3000:]}")
+            sys.stdout.flush()
+
+
 WHICH = {"qmm": (qmm_cases, qmm_run, qmm_library),
          "softmax": (softmax_cases, softmax_run, softmax_library),
          "causal": (causal_cases, causal_run, causal_library),
@@ -505,7 +760,9 @@ WHICH = {"qmm": (qmm_cases, qmm_run, qmm_library),
          "ln": (ln_cases, ln_run, ln_library),
          "decode_multi": (decode_multi_cases, decode_multi_run,
                           decode_multi_library),
-         "decode": (decode_cases, decode_run, decode_library)}
+         "decode": (decode_cases, decode_run, decode_library),
+         "ln_bwd": (ln_bwd_cases, ln_bwd_run, ln_bwd_library),
+         "moe": (moe_cases, moe_run, moe_library)}
 
 
 def wall(dev):
@@ -543,7 +800,8 @@ def profile(dev):
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("which", choices=sorted(WHICH) + ["wall", "profile"])
+    ap.add_argument("which", choices=sorted(WHICH) + ["wall", "profile",
+                                                      "moe_wall"])
     ap.add_argument("variants", nargs="*", help="label[:csrc]=DEFINES")
     ap.add_argument("--nohold", action="store_true",
                     help="time without the holds (diagnostic builds whose "
@@ -554,6 +812,9 @@ if __name__ == "__main__":
     print(cs.nvidia_smi(), flush=True)
     if args.which in ("wall", "profile"):
         {"wall": wall, "profile": profile}[args.which](torch.device("cuda", 0))
+        sys.exit(0)
+    if args.which == "moe_wall":
+        moe_wall(args.variants or ["."])
         sys.exit(0)
     lib = LIBS[args.which]
     variants = [parse(v) for v in args.variants]
