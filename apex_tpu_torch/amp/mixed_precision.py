@@ -155,10 +155,6 @@ class AmpOptimizer:
                 segments=[tuple(p.numel() for p in g.params)
                           for g in self.groups])
             return self
-        if getattr(self.optimizer, "fused_step", None) is None:
-            raise NotImplementedError(
-                f"{type(self.optimizer).__name__} has no staged form "
-                f"(fused_step) in the port; pass pipeline=True")
         self.params = named
         # an fp32 parameter is its own master (stepped in place)
         self._masters = [p.data if p.dtype == torch.float32

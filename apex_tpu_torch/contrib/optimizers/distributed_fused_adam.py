@@ -20,6 +20,9 @@ its slice of the rank's parameters are all the identity here; they come
 with the sharded path across ranks, ROADMAP Queue 1 item 8, as does
 JAX's ``zero_adam_plan`` (its mesh-plan contract), with ``mesh_plan``.
 
+``learning_rate`` may be a schedule, a callable of the host step count,
+read at ``count + 1`` (JAX's ``:117``).
+
 ``kernels=False`` runs the plain version of the shard update on any
 device (the oracle configuration); otherwise a CUDA shard goes through
 the kernel.
@@ -34,7 +37,8 @@ import torch.distributed as dist
 
 from ...ops import multi_tensor
 from ...ops.fused_optim import adam_update, adam_update_reference
-from ...optimizers.fused_adam import bias_corrections
+from ...optimizers.fused_adam import (ScalarOrSchedule, _lr_at,
+                                      bias_corrections)
 
 __all__ = ["DistributedFusedAdam", "DistributedFusedAdamState",
            "distributed_fused_adam"]
@@ -54,7 +58,7 @@ class DistributedFusedAdamState:
 class DistributedFusedAdam:
     """The hyperparameters, the process group and ``init`` / ``update``."""
 
-    learning_rate: float = 1e-3
+    learning_rate: ScalarOrSchedule = 1e-3
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
@@ -94,6 +98,7 @@ class DistributedFusedAdam:
             raise ValueError("distributed_fused_adam requires params")
         self._check_one_rank()
         count = state.count + 1
+        lr = _lr_at(self.learning_rate, count)
         bc1, bc2 = (bias_corrections(self.beta1, self.beta2, count)
                     if self.bias_correction else (1.0, 1.0))
         metas = multi_tensor.compute_metas(params)
@@ -104,7 +109,7 @@ class DistributedFusedAdam:
         for g, p, m, v in zip(gbufs, pbufs, state.m, state.v):
             g_shard = torch.empty_like(g)
             dist.reduce_scatter_tensor(g_shard, g, group=self.group)
-            d, m2, v2 = fn(g_shard, p, m, v, lr=self.learning_rate,
+            d, m2, v2 = fn(g_shard, p, m, v, lr=lr,
                            beta1=self.beta1, beta2=self.beta2, eps=self.eps,
                            weight_decay=self.weight_decay,
                            bias_correction1=bc1, bias_correction2=bc2,
@@ -120,7 +125,8 @@ class DistributedFusedAdam:
                                                   tuple(new_v))
 
 
-def distributed_fused_adam(learning_rate: float = 1e-3, beta1: float = 0.9,
+def distributed_fused_adam(learning_rate: ScalarOrSchedule = 1e-3,
+                           beta1: float = 0.9,
                            beta2: float = 0.999, eps: float = 1e-8,
                            weight_decay: float = 0.0,
                            adam_w_mode: bool = True,
@@ -131,10 +137,8 @@ def distributed_fused_adam(learning_rate: float = 1e-3, beta1: float = 0.9,
     ``apex_tpu/contrib/optimizers/distributed_fused_adam.py:95``).
     ``group``: a ``torch.distributed`` process group (None: the default
     one, which must be initialised before ``init``/``update``)."""
-    if callable(learning_rate):
-        raise NotImplementedError(
-            "learning-rate schedules are not ported yet; pass a number")
-    return DistributedFusedAdam(float(learning_rate), float(beta1),
+    lr = learning_rate if callable(learning_rate) else float(learning_rate)
+    return DistributedFusedAdam(lr, float(beta1),
                                 float(beta2), float(eps),
                                 float(weight_decay), bool(adam_w_mode),
                                 bool(bias_correction), group,

@@ -7,6 +7,8 @@ import torch
 from .fused_adagrad import FusedAdagrad, FusedAdagradState, fused_adagrad
 from .fused_adam import FusedAdam, FusedAdamState, fused_adam
 from .fused_lamb import FusedLAMB, FusedLAMBState, fused_lamb
+from .fused_mixed_precision_lamb import (FusedMixedPrecisionLamb,
+                                         MixedPrecisionLambState, MPLambInfo)
 from .fused_novograd import FusedNovoGrad, FusedNovoGradState, fused_novograd
 from .fused_sgd import FusedSGD, FusedSGDState, fused_sgd
 
@@ -14,7 +16,8 @@ __all__ = ["FusedAdam", "FusedAdamState", "fused_adam", "FusedLAMB",
            "FusedLAMBState", "fused_lamb", "FusedSGD", "FusedSGDState",
            "fused_sgd", "FusedAdagrad", "FusedAdagradState", "fused_adagrad",
            "FusedNovoGrad", "FusedNovoGradState", "fused_novograd",
-           "apply_updates", "state_from_numpy"]
+           "FusedMixedPrecisionLamb", "MixedPrecisionLambState",
+           "MPLambInfo", "apply_updates", "state_from_numpy"]
 
 
 @torch.no_grad()

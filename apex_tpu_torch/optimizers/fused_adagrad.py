@@ -8,7 +8,8 @@ squared gradients a group of ``compute_metas(params, split_direct=True)``
 :func:`~apex_tpu_torch.ops.adagrad_update` a group (L2 decay into the
 gradient, ``delta = -lr * g / (sqrt(h) + eps)``) and returns the deltas in
 each parameter's dtype for :func:`~apex_tpu_torch.optimizers.apply_updates`
-with the new state.  Learning-rate schedules are not ported and raise.
+with the new state.  ``learning_rate`` may be a schedule, a callable of
+the host step count, read at ``count + 1`` (JAX's ``:33``).
 
 ``kernels=False`` runs the plain version on any device (the oracle
 configuration); otherwise CUDA buffers go through the kernel.
@@ -22,6 +23,7 @@ import torch
 
 from ..ops import multi_tensor
 from ..ops.fused_optim import adagrad_update, adagrad_update_reference
+from .fused_adam import ScalarOrSchedule, _lr_at
 
 __all__ = ["FusedAdagrad", "FusedAdagradState", "fused_adagrad"]
 
@@ -38,7 +40,7 @@ class FusedAdagradState:
 class FusedAdagrad:
     """The FusedAdagrad hyperparameters and its ``init`` / ``update``."""
 
-    learning_rate: float = 1e-2
+    learning_rate: ScalarOrSchedule = 1e-2
     eps: float = 1e-10
     weight_decay: float = 0.0
     kernels: bool = True
@@ -56,28 +58,29 @@ class FusedAdagrad:
         """``(updates, new_state)``, nothing updated in place."""
         if params is None:
             raise ValueError("fused_adagrad requires params in update()")
+        count = state.count + 1
+        lr = _lr_at(self.learning_rate, count)
         metas = multi_tensor.compute_metas(params, split_direct=True)
         gbufs = multi_tensor.group_buffers(grads, metas)
         pbufs = multi_tensor.group_buffers(params, metas)
         fn = adagrad_update if self.kernels else adagrad_update_reference
         deltas, new_h = [], []
         for gb, pb, h in zip(gbufs, pbufs, state.h):
-            d, h2 = fn(gb, pb, h, lr=self.learning_rate, eps=self.eps,
+            d, h2 = fn(gb, pb, h, lr=lr, eps=self.eps,
                        weight_decay=self.weight_decay)
             deltas.append(d)
             new_h.append(h2)
         updates = multi_tensor.assemble(deltas, metas,
                                         [p.dtype for p in params])
-        return updates, FusedAdagradState(state.count + 1, tuple(new_h))
+        return updates, FusedAdagradState(count, tuple(new_h))
 
 
-def fused_adagrad(learning_rate: float = 1e-2, eps: float = 1e-10,
+def fused_adagrad(learning_rate: ScalarOrSchedule = 1e-2,
+                  eps: float = 1e-10,
                   weight_decay: float = 0.0, *,
                   kernels: bool = True) -> FusedAdagrad:
     """Build FusedAdagrad (ref:
     ``apex_tpu/optimizers/fused_adagrad.py:20``)."""
-    if callable(learning_rate):
-        raise NotImplementedError(
-            "learning-rate schedules are not ported yet; pass a number")
-    return FusedAdagrad(float(learning_rate), float(eps),
+    lr = learning_rate if callable(learning_rate) else float(learning_rate)
+    return FusedAdagrad(lr, float(eps),
                         float(weight_decay), kernels)

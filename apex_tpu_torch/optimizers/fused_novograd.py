@@ -17,8 +17,9 @@ denominator buffer
 the gaps); a direct group takes the plain expression with its one scalar
 denominator, as JAX's does even when its kernel is forced (a leaf-sized
 broadcast would be an extra pass). So the kernel runs only once
-``multi_tensor.DIRECT_MIN_ELEMS`` is raised, as in JAX. Learning-rate
-schedules are not ported and raise.
+``multi_tensor.DIRECT_MIN_ELEMS`` is raised, as in JAX.
+``learning_rate`` may be a schedule, a callable of the host step count,
+read at ``count + 1`` (JAX's ``:69``).
 
 ``kernels=False`` runs the plain versions on any device (the oracle
 configuration); otherwise CUDA buffers of packed groups go through the
@@ -34,7 +35,7 @@ import torch
 from ..ops import multi_tensor
 from ..ops.fused_optim import (f32, novograd_update,
                                novograd_update_reference)
-from .fused_adam import bias_corrections
+from .fused_adam import ScalarOrSchedule, _lr_at, bias_corrections
 
 __all__ = ["FusedNovoGrad", "FusedNovoGradState", "fused_novograd"]
 
@@ -53,7 +54,7 @@ class FusedNovoGradState:
 class FusedNovoGrad:
     """The FusedNovoGrad hyperparameters and its ``init`` / ``update``."""
 
-    learning_rate: float = 1e-3
+    learning_rate: ScalarOrSchedule = 1e-3
     beta1: float = 0.95
     beta2: float = 0.98
     eps: float = 1e-8
@@ -90,7 +91,8 @@ class FusedNovoGrad:
         metas = self._metas(params)
         gbufs = multi_tensor.group_buffers(grads, metas)
         pbufs = multi_tensor.group_buffers(params, metas)
-        kw = dict(lr=self.learning_rate, beta1=self.beta1, beta3=beta3,
+        kw = dict(lr=_lr_at(self.learning_rate, count), beta1=self.beta1,
+                  beta3=beta3,
                   weight_decay=self.weight_decay, bias_correction1=bc1)
         deltas, new_m, new_v = [], [], []
         for gb, pb, m, v, meta in zip(gbufs, pbufs, state.m, state.v,
@@ -127,7 +129,8 @@ class FusedNovoGrad:
                                            tuple(new_v))
 
 
-def fused_novograd(learning_rate: float = 1e-3, beta1: float = 0.95,
+def fused_novograd(learning_rate: ScalarOrSchedule = 1e-3,
+                   beta1: float = 0.95,
                    beta2: float = 0.98, eps: float = 1e-8,
                    weight_decay: float = 0.0, grad_averaging: bool = True,
                    init_zero: bool = False, bias_correction: bool = True,
@@ -143,10 +146,8 @@ def fused_novograd(learning_rate: float = 1e-3, beta1: float = 0.95,
         # by zero
         raise ValueError("fused_novograd requires eps > 0 "
                          "(zero-grad tensors would divide by zero)")
-    if callable(learning_rate):
-        raise NotImplementedError(
-            "learning-rate schedules are not ported yet; pass a number")
-    return FusedNovoGrad(float(learning_rate), float(beta1), float(beta2),
+    lr = learning_rate if callable(learning_rate) else float(learning_rate)
+    return FusedNovoGrad(lr, float(beta1), float(beta2),
                          float(eps), float(weight_decay),
                          bool(grad_averaging), bool(init_zero),
                          bool(bias_correction), kernels)

@@ -20,8 +20,13 @@ wd * p)``) in plain torch, as JAX writes it outside any kernel.
 ``update`` and the staged step always advance the count (amp skips
 around the step); the pipeline step advances it only on a finite step,
 holding masters and momentum bitwise otherwise. The count lives on the
-host. ``max_grad_norm`` and learning-rate schedules are not ported and
-raise.
+host. ``max_grad_norm`` clips by the global norm and ``learning_rate``
+may be a schedule (a callable of the host count), as
+:mod:`~apex_tpu_torch.optimizers.fused_adam` takes them (JAX's
+``:54``, ``:95``, ``:161``): the learning rate at ``count + 1``; the
+staged routes scale the gradients in fp32 before the step; the pipeline
+folds the clip factor, a device scalar, into the sweep's scale, which
+the SGD sweep reads from device memory (no host read).
 
 ``kernels=False`` runs the plain versions on any device (the oracle
 configuration); otherwise CUDA buffers go through the kernels.
@@ -34,10 +39,14 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..ops import multi_tensor
-from ..ops.fused_optim import (f32, sgd_step_leaves,
+from ..ops.fused_optim import (_scalar, f32, sgd_step_leaves,
                                sgd_step_leaves_reference, sgd_update,
                                sgd_update_reference)
-from ..ops.fused_pipeline import sgd_pipeline, sgd_pipeline_reference
+from ..ops.fused_pipeline import (grad_norm_finite,
+                                  grad_norm_finite_reference, sgd_pipeline,
+                                  sgd_pipeline_reference)
+from .fused_adam import (ScalarOrSchedule, _clip_enabled,
+                         _grad_clip_factor, _lr_at, _staged_clip)
 
 __all__ = ["FusedSGD", "FusedSGDState", "fused_sgd"]
 
@@ -53,9 +62,11 @@ class FusedSGDState:
 
 def _no_momentum_delta(g, p, lr, weight_decay, gscale=1.0):
     """``momentum == 0``: the fp32 delta ``-lr * (g * gscale + wd * p)``,
-    as JAX's jnp expression (no kernel, no buffer)."""
-    nlr, wd, gs = (torch.full((), x, dtype=torch.float32, device=p.device)
-                   for x in (-f32(lr), f32(weight_decay), f32(gscale)))
+    as JAX's jnp expression (no kernel, no buffer); ``gscale`` a number
+    or a 0-d device tensor."""
+    nlr, wd = (torch.full((), x, dtype=torch.float32, device=p.device)
+               for x in (-f32(lr), f32(weight_decay)))
+    gs = _scalar(gscale, p.device)
     return nlr * (g.float() * gs + wd * p.float())
 
 
@@ -73,16 +84,20 @@ def _plain_no_momentum(g, p, lowp, lr, weight_decay, gscale=1.0,
 class FusedSGD:
     """The FusedSGD hyperparameters and its two entry points."""
 
-    learning_rate: float
+    learning_rate: ScalarOrSchedule
     momentum: float = 0.0
     dampening: float = 0.0
     weight_decay: float = 0.0
     nesterov: bool = False
     wd_after_momentum: bool = False
+    max_grad_norm: Optional[float] = None
     kernels: bool = True
 
     def _hyp(self, count: int) -> dict:
-        return dict(lr=self.learning_rate, momentum=self.momentum,
+        """The step's hyperparameters from the state's ``count``: the
+        learning rate at ``count + 1``, the first-run flag at 0."""
+        return dict(lr=_lr_at(self.learning_rate, count + 1),
+                    momentum=self.momentum,
                     dampening=self.dampening,
                     weight_decay=self.weight_decay, nesterov=self.nesterov,
                     wd_after_momentum=self.wd_after_momentum,
@@ -106,13 +121,14 @@ class FusedSGD:
             raise ValueError("fused_sgd requires params in update()")
         hyp = self._hyp(state.count)
         metas = multi_tensor.compute_metas(params, split_direct=True)
-        gbufs = multi_tensor.group_buffers(grads, metas)
+        gbufs = _staged_clip(multi_tensor.group_buffers(grads, metas),
+                             self.max_grad_norm)
         pbufs = multi_tensor.group_buffers(params, metas)
         fn = sgd_update if self.kernels else sgd_update_reference
         deltas, new_mom = [], []
         for gb, pb, mom, meta in zip(gbufs, pbufs, state.momentum, metas):
             if self.momentum == 0.0:
-                d = _no_momentum_delta(gb, pb, self.learning_rate,
+                d = _no_momentum_delta(gb, pb, hyp["lr"],
                                        self.weight_decay).to(meta.dtype)
                 mom2 = mom
             else:
@@ -130,16 +146,17 @@ class FusedSGD:
         """One step over every leaf, in place: each fp32 master and its
         momentum updated, the model copy written into its ``lowps`` entry
         (None where the master is the parameter itself).  Gradients arrive
-        unscaled, in their own dtype.  Returns the new state."""
+        unscaled, in their own dtype (in fp32 once clipped).  Returns the
+        new state."""
+        hyp = self._hyp(state.count)
+        grads = _staged_clip(grads, self.max_grad_norm)
         if self.momentum == 0.0:
             for g, p, lowp in zip(grads, masters, lowps):
-                _plain_no_momentum(g, p, lowp, self.learning_rate,
-                                   self.weight_decay)
+                _plain_no_momentum(g, p, lowp, hyp["lr"], self.weight_decay)
         else:
             step = sgd_step_leaves if self.kernels \
                 else sgd_step_leaves_reference
-            step(grads, masters, state.momentum, lowps,
-                 **self._hyp(state.count))
+            step(grads, masters, state.momentum, lowps, **hyp)
         return dataclasses.replace(state, count=state.count + 1)
 
     def staged_init(self, masters: Sequence[torch.Tensor]
@@ -164,25 +181,36 @@ class FusedSGD:
         """One SGD sweep a flat group, in place, the gradients scaled by
         ``grad_scale`` (amp's inverse loss scale) inside it.  ``finite``
         False keeps masters and momentum bitwise (the model copy is
-        re-cast from the unchanged master) and holds the count;
-        ``grad_norm`` is accepted and unused (no clipping).  Returns the
-        new state."""
+        re-cast from the unchanged master) and holds the count.
+        ``grad_norm`` is amp's measured unscaled norm, which the clip
+        reads (measured here by the norm sweep when amp ran none); the
+        clip factor joins ``grad_scale`` on the device.  Returns the new
+        state."""
         finite = bool(finite)
         hyp = self._hyp(state.count)
+        gscale = grad_scale
+        if _clip_enabled(self.max_grad_norm) and gbufs:
+            dev = master_bufs[0].device
+            if grad_norm is None:
+                norm_sweep = grad_norm_finite if self.kernels \
+                    else grad_norm_finite_reference
+                grad_norm = norm_sweep(gbufs, grad_scale)[0]
+            gscale = _scalar(grad_scale, dev) * _grad_clip_factor(
+                _scalar(grad_norm, dev), self.max_grad_norm)
         sweep = sgd_pipeline if self.kernels else sgd_pipeline_reference
         for g, p, mom, lowp in zip(gbufs, master_bufs, state.momentum,
                                    lowp_bufs):
             if self.momentum == 0.0:
-                _plain_no_momentum(g, p, lowp, self.learning_rate,
-                                   self.weight_decay, grad_scale, finite)
+                _plain_no_momentum(g, p, lowp, hyp["lr"], self.weight_decay,
+                                   gscale, finite)
             else:
-                sweep(g, p, mom, lowp, grad_scale=grad_scale, keep=finite,
+                sweep(g, p, mom, lowp, grad_scale=gscale, keep=finite,
                       **hyp)
         return dataclasses.replace(state,
                                    count=state.count + (1 if finite else 0))
 
 
-def fused_sgd(learning_rate: float, momentum: float = 0.0,
+def fused_sgd(learning_rate: ScalarOrSchedule, momentum: float = 0.0,
               dampening: float = 0.0, weight_decay: float = 0.0,
               nesterov: bool = False, wd_after_momentum: bool = False,
               max_grad_norm=None, *, kernels: bool = True) -> FusedSGD:
@@ -191,12 +219,7 @@ def fused_sgd(learning_rate: float, momentum: float = 0.0,
         raise ValueError(
             "Nesterov momentum requires a momentum and zero dampening "
             "(ref: apex/optimizers/fused_sgd.py:61-62)")
-    if max_grad_norm is not None:
-        raise NotImplementedError(
-            "max_grad_norm (global-norm clipping) is not ported yet")
-    if callable(learning_rate):
-        raise NotImplementedError(
-            "learning-rate schedules are not ported yet; pass a number")
-    return FusedSGD(float(learning_rate), float(momentum), float(dampening),
+    lr = learning_rate if callable(learning_rate) else float(learning_rate)
+    return FusedSGD(lr, float(momentum), float(dampening),
                     float(weight_decay), bool(nesterov),
-                    bool(wd_after_momentum), kernels)
+                    bool(wd_after_momentum), max_grad_norm, kernels)

@@ -75,7 +75,7 @@ __all__ = ["MODELS", "TRAIN_RECIPES", "bert_extended_attention_mask",
            "BertModel", "bert_params_from_numpy", "padded_mask",
            "bert_model_flops",
            "BertTrainSetup", "make_train_setup", "bert_loss", "train_step",
-           "train_smoke", "main"]
+           "train_smoke", "bert_model_provider", "main"]
 
 # model presets: the geometry and the training batch (``seq`` tokens by
 # ``batch`` rows)
@@ -183,16 +183,19 @@ class BertModel(nn.Module):
     padding-mask softmax.  The mask is put into that one device format
     once a forward, here, and handed to every layer.  The binary head
     computes in fp32 on its (model-dtype) weights, as flax's
-    ``nn.Dense(dtype=float32)`` promotes them.  Parameters are fp32
-    until :func:`apex_tpu_torch.amp.initialize` casts them;
-    ``kernels=False`` runs every kernel's plain version (the oracle
-    configuration)."""
+    ``nn.Dense(dtype=float32)`` promotes them.
+    ``checkpoint_activations`` checkpoints every transformer layer
+    (JAX's ``:114``, ``:135``; the recompute replays the dropout).
+    Parameters are fp32 until :func:`apex_tpu_torch.amp.initialize`
+    casts them; ``kernels=False`` runs every kernel's plain version (the
+    oracle configuration)."""
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
                  num_attention_heads: int, max_sequence_length: int, *,
                  num_tokentypes: int = 2, attention_dropout: float = 0.1,
-                 hidden_dropout: float = 0.1, use_flash: bool = False,
-                 kernels: bool = True,
+                 hidden_dropout: float = 0.1,
+                 checkpoint_activations: bool = False,
+                 use_flash: bool = False, kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.use_flash = use_flash
@@ -205,6 +208,7 @@ class BertModel(nn.Module):
             attn_mask_type=AttnMaskType.padding,
             attention_dropout=attention_dropout,
             hidden_dropout=hidden_dropout, use_flash=use_flash,
+            checkpoint_activations=checkpoint_activations,
             kernels=kernels, dtype=dtype, device=device)
         self.lm_head = BertLMHead(hidden_size, vocab_size, kernels=kernels,
                                   dtype=dtype, device=device)
@@ -244,6 +248,39 @@ class BertModel(nn.Module):
             return lm_logits, binary_logits
         return (softmax_cross_entropy_loss(lm_logits, lm_labels, 0.0, True),
                 binary_logits)
+
+
+def bert_model_provider(args, pre_process: bool = True,
+                        post_process: bool = True, **overrides
+                        ) -> BertModel:
+    """A :class:`BertModel` from Megatron's arguments (ref:
+    ``apex_tpu/testing/standalone_bert.py:400-416``, itself
+    ``standalone_bert.py:215-223``): the geometry, the dropout rates,
+    ``checkpoint_activations`` and ``params_dtype`` (the compute dtype)
+    from ``args`` (:func:`~apex_tpu_torch.testing.arguments.parse_args`);
+    ``overrides`` replace any of them or add the others (``use_flash``,
+    left at the model's default False: the materialized scores through
+    the padding-mask softmax; ``num_tokentypes``, ``kernels``,
+    ``device``).  The weights are drawn by ``reset_parameters`` from a
+    generator on the model's device seeded with ``args.seed``.  One
+    program holds the whole model, so ``pre_process`` and
+    ``post_process`` change nothing."""
+    del pre_process, post_process
+    kw = dict(vocab_size=args.vocab_size, hidden_size=args.hidden_size,
+              num_layers=args.num_layers,
+              num_attention_heads=args.num_attention_heads,
+              max_sequence_length=args.max_position_embeddings,
+              attention_dropout=args.attention_dropout,
+              hidden_dropout=args.hidden_dropout,
+              checkpoint_activations=getattr(args, "checkpoint_activations",
+                                             False),
+              dtype=args.params_dtype)
+    kw.update(overrides)
+    dev = resolve_device(kw.pop("device", None))
+    net = BertModel(device=dev, **kw)
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(args.seed))
+    return net.reset_parameters(g)
 
 
 def bert_params_from_numpy(flax_params: Mapping[str, Any]
@@ -344,11 +381,9 @@ def make_train_setup(model: str = "bertlarge", *, policy: str = "O5",
     n_params = sum(p.numel() for p in net.parameters())
     opt = (fused_lamb if recipe["optimizer"] == "lamb" else fused_adam)(
         TRAIN_LR, kernels=kernels)
-    # the persistent pipeline at every preset, as the recipes were built
-    # and measured (the default route would send the tiny CPU preset to
-    # the staged route, which fused_lamb has no form for)
-    net, amp_opt = amp.initialize(net, opt, opt_level=policy,
-                                  pipeline=True)
+    # JAX's routing: BERT-large (672 MB cast) packs into the persistent
+    # pipeline, the tiny preset takes the staged route
+    net, amp_opt = amp.initialize(net, opt, opt_level=policy)
     flops = bert_model_flops(n_params, geo["num_layers"],
                              geo["hidden_size"], mask)
     rng = DropoutRNG(seed + 1, dev) \

@@ -290,14 +290,19 @@ class GPTModel(nn.Module):
     ``apex_tpu/testing/standalone_gpt.py:105-149``).  A forward with
     ``deterministic=False`` and a :class:`DropoutRNG` applies
     ``attention_dropout`` and ``hidden_dropout`` (the embedding's rate
-    too), JAX's defaults 0.1 each.  Parameters are fp32 until
+    too), JAX's defaults 0.1 each.  ``ffn_hidden_size`` (None: 4h),
+    ``checkpoint_activations`` and ``checkpoint_policy`` are the
+    transformer's (JAX's ``:115-136``).  Parameters are fp32 until
     :func:`apex_tpu_torch.amp.initialize` casts them; ``kernels=False``
     runs every kernel's plain version (the oracle configuration)."""
 
     def __init__(self, vocab_size: int, hidden_size: int, num_layers: int,
                  num_attention_heads: int, max_sequence_length: int, *,
+                 ffn_hidden_size: Optional[int] = None,
                  attention_dropout: float = 0.1, hidden_dropout: float = 0.1,
-                 use_flash: bool = True, kernels: bool = True,
+                 use_flash: bool = True,
+                 checkpoint_activations: bool = False,
+                 checkpoint_policy: str = "full", kernels: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.embedding = GPTEmbedding(vocab_size, hidden_size,
@@ -306,8 +311,11 @@ class GPTModel(nn.Module):
                                       dtype=dtype, device=device)
         self.transformer = ParallelTransformer(
             num_layers, hidden_size, num_attention_heads,
+            ffn_hidden_size=ffn_hidden_size,
             attention_dropout=attention_dropout,
             hidden_dropout=hidden_dropout, use_flash=use_flash,
+            checkpoint_activations=checkpoint_activations,
+            checkpoint_policy=checkpoint_policy,
             kernels=kernels, dtype=dtype, device=device)
 
     @torch.no_grad()

@@ -6,8 +6,9 @@ then a final LN) with the JAX modules' casts — each LayerNorm's output
 cast to the compute ``dtype`` before the block it feeds, each block's
 output cast back to the residual stream's dtype before the add.
 
-* :class:`ParallelMLP`: ``dense_h_to_4h`` -> tanh GELU (``jax.nn.gelu``'s
-  default) -> ``dense_4h_to_h``.
+* :class:`ParallelMLP`: ``dense_h_to_4h`` -> the activation (tanh GELU,
+  ``jax.nn.gelu``'s default, unless another is given) ->
+  ``dense_4h_to_h``, ``ffn_hidden_size`` wide (4h by default).
 * :class:`ParallelSelfAttention`: the fused ``query_key_value``
   projection viewed as (b, s, h, 3d), then ``dense``.  With
   ``use_flash`` (the default) the view goes straight into
@@ -42,18 +43,25 @@ each residual add, in their dtype.  Those Bernoulli masks come from
 JAX's threefry bits, only their law.  The rates default to JAX's 0.1;
 ``deterministic=True`` (the default) runs none.
 
+Activation checkpointing (:class:`ParallelTransformer`'s
+``checkpoint_activations``, JAX's ``:266-318``) wraps each layer in
+:func:`~apex_tpu_torch.transformer.tensor_parallel.random.checkpoint`
+under ``checkpoint_policy``, which replays both of the
+:class:`DropoutRNG`'s generators in the recompute: the checkpointed step
+computes the uncheckpointed one's bits.
+
 Submodule and parameter names mirror the flax tree
-(``layer_{i}.self_attention.query_key_value.kernel``, ...).
-``kernels=False`` routes LayerNorm and attention through their plain
-versions under autograd (the oracle configuration).  The MLP is 4x
-wide: other widths are not ported yet.
+(``layer_{i}.self_attention.query_key_value.kernel``, ...), with or
+without checkpointing.  ``kernels=False`` routes LayerNorm and attention
+through their plain versions under autograd (the oracle configuration).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..normalization import FusedLayerNorm
@@ -62,6 +70,8 @@ from ..ops.flash_attention import (dropout_seed, flash_attention_e,
 from .enums import AttnMaskType
 from .functional import FusedScaleMaskSoftmax
 from .tensor_parallel import ColumnParallelLinear, RowParallelLinear
+from .tensor_parallel.random import (check_policy, checkpoint,
+                                     ffn_wide_recompute)
 
 __all__ = ["ParallelMLP", "ParallelSelfAttention", "ParallelTransformerLayer",
            "ParallelTransformer", "DropoutRNG", "dropout_mask", "dropout",
@@ -118,21 +128,39 @@ def dropout_rng(deterministic: bool, rates, rng) -> Optional[DropoutRNG]:
     return rng
 
 
-class ParallelMLP(nn.Module):
-    """h -> ffn -> h (ref: ``apex_tpu/transformer/layers.py:57-80``)."""
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU, ``jax.nn.gelu``'s default form."""
+    return F.gelu(x, approximate="tanh")
 
-    def __init__(self, hidden_size: int, *,
+
+class ParallelMLP(nn.Module):
+    """h -> ffn -> h (ref: ``apex_tpu/transformer/layers.py:57-80``):
+    ``ffn_hidden_size`` wide (None: 4h), ``activation`` between (tanh
+    GELU by default).  Inside a layer checkpointed under
+    ``all_but_ffn_wide`` the body is checkpointed whole, so its two
+    ffn-wide intermediates are recomputed, not kept."""
+
+    def __init__(self, hidden_size: int,
+                 ffn_hidden_size: Optional[int] = None,
+                 activation: Callable = gelu_tanh, *,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        ffn = 4 * hidden_size
+        ffn = ffn_hidden_size or 4 * hidden_size
+        self.activation = activation
         self.dense_h_to_4h = ColumnParallelLinear(hidden_size, ffn,
                                                   dtype=dtype, device=device)
         self.dense_4h_to_h = RowParallelLinear(ffn, hidden_size, dtype=dtype,
                                                device=device)
 
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dense_4h_to_h(self.activation(self.dense_h_to_4h(x)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(self.dense_h_to_4h(x), approximate="tanh")
-        return self.dense_4h_to_h(h)
+        if ffn_wide_recompute() and torch.is_grad_enabled():
+            # the input the one tensor kept; the body draws no randomness
+            return torch.utils.checkpoint.checkpoint(self._body, x,
+                                                     use_reentrant=False)
+        return self._body(x)
 
 
 class ParallelSelfAttention(nn.Module):
@@ -218,6 +246,7 @@ class ParallelTransformerLayer(nn.Module):
     ``apex_tpu/transformer/layers.py:203-263``)."""
 
     def __init__(self, hidden_size: int, num_attention_heads: int, *,
+                 ffn_hidden_size: Optional[int] = None,
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
                  attention_dropout: float = 0.1, hidden_dropout: float = 0.1,
                  use_flash: bool = True, layernorm_epsilon: float = 1e-5,
@@ -236,7 +265,8 @@ class ParallelTransformerLayer(nn.Module):
         self.post_attention_layernorm = FusedLayerNorm(
             hidden_size, eps=layernorm_epsilon, kernels=kernels,
             device=device)
-        self.mlp = ParallelMLP(hidden_size, dtype=dtype, device=device)
+        self.mlp = ParallelMLP(hidden_size, ffn_hidden_size, dtype=dtype,
+                               device=device)
 
     def forward(self, x: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -255,22 +285,32 @@ class ParallelTransformerLayer(nn.Module):
 
 class ParallelTransformer(nn.Module):
     """``num_layers`` layers named ``layer_{i}``, then
-    ``final_layernorm`` (ref: ``apex_tpu/transformer/layers.py:266-318``;
-    activation checkpointing is not ported yet)."""
+    ``final_layernorm`` (ref: ``apex_tpu/transformer/layers.py:266-318``).
+    ``checkpoint_activations`` runs each layer under
+    :func:`~apex_tpu_torch.transformer.tensor_parallel.random.checkpoint`
+    with ``checkpoint_policy`` (a key of ``CHECKPOINT_POLICIES``; an
+    unknown one raises ``ValueError``) while gradients are recorded."""
 
     def __init__(self, num_layers: int, hidden_size: int,
                  num_attention_heads: int, *,
+                 ffn_hidden_size: Optional[int] = None,
                  attn_mask_type: AttnMaskType = AttnMaskType.causal,
                  attention_dropout: float = 0.1, hidden_dropout: float = 0.1,
-                 use_flash: bool = True, layernorm_epsilon: float = 1e-5,
+                 use_flash: bool = True,
+                 checkpoint_activations: bool = False,
+                 checkpoint_policy: str = "full",
+                 layernorm_epsilon: float = 1e-5,
                  kernels: bool = True, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
         self.dtype = dtype
         self.num_layers = num_layers
+        self.checkpoint_activations = checkpoint_activations
+        self.checkpoint_policy = check_policy(checkpoint_policy)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", ParallelTransformerLayer(
                 hidden_size, num_attention_heads,
+                ffn_hidden_size=ffn_hidden_size,
                 attn_mask_type=attn_mask_type,
                 attention_dropout=attention_dropout,
                 hidden_dropout=hidden_dropout, use_flash=use_flash,
@@ -285,8 +325,10 @@ class ParallelTransformer(nn.Module):
                 key_padding_mask: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        ckpt = self.checkpoint_activations and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, attention_mask,
-                                            key_padding_mask, deterministic,
-                                            rng)
+            layer = getattr(self, f"layer_{i}")
+            args = (x, attention_mask, key_padding_mask, deterministic, rng)
+            x = checkpoint(layer, *args, policy=self.checkpoint_policy) \
+                if ckpt else layer(*args)
         return self.final_layernorm(x).to(self.dtype)

@@ -191,6 +191,32 @@ Phases, in order; any failure exits non-zero without the result line:
                    3 plain steps within ``TRAIN_BERT_O2_LOSS_TOL`` (one
                    limit a step) and the same skips; then 8 steps on
                    the all-ones mask.
+6c'. train_bert_recipe — Megatron's BERT-large recipe: ``parse_args``
+                   on ``RECIPE_ARGV`` (Megatron's defaults, dropout 0.1,
+                   ``--clip-grad 1.0``, ``--weight-decay 0.01``, plus
+                   ``--bf16 --checkpoint-activations``), then
+                   ``bert_model_provider`` at full width, seq 512, batch
+                   16, the padded batch, O5, ``fused_lamb`` on a warmup
+                   and linear-decay schedule (``recipe_lr``).  a: the
+                   staged route (the materialized scores, rows 5 and 4)
+                   for 8 steps with checkpointing on, then off from the
+                   same seed: exact counts (the layers' forwards twice
+                   under checkpointing), losses finite and falling, the
+                   two runs' losses equal bit for bit, peak memory and
+                   the step median of each.  b: the same with
+                   ``use_flash`` (rows 10/12's kv_mask + dropout lane).
+                   c: the pipeline route (counts, the norm sweep), then
+                   each route's kernel/plain loss medians over
+                   ``TRAIN_SEEDS`` within ``RECIPE_LOSS_TOL``.  d:
+                   ``FusedMixedPrecisionLamb`` on the bf16 model with a
+                   dynamic scaler, an inf planted at step 4 (masters, m,
+                   v, parameters, count bitwise held, the scale halved).
+                   e (a, b, c's pipeline run): every step's rate against
+                   the schedule at JAX's count, its clip factor and
+                   unscaled norm, at least one step clipped.  f: the
+                   checkpoint wrapper without its generator replay,
+                   planted in a copy (``RECIPE_CKPT_FAULT``): leg a's pair
+                   must stop being bitwise.
 6d. long_context — bench.py's bench_long_context: flash attention
                    forward and backward under autograd (loss sum(o**2)),
                    causal, bf16, at (b, h, s, d) = (1, 16, 8192, 64),
@@ -314,8 +340,9 @@ Phases, in order; any failure exits non-zero without the result line:
                    and 1.25, one O5 and one O2 train
                    step of GPT-345M and of BERT-large (on bench.py's
                    all-ones mask), one GPT-345M step at seq 2048, one at
-                   attention dropout 0.1, one step of each side of the
-                   zero_adam pair and one
+                   attention dropout 0.1, one staged BERT-large recipe
+                   step with checkpointing on and one with it off, one
+                   step of each side of the zero_adam pair and one
                    staged ResNet-50 step (device time split into cuDNN
                    convolutions, the optimizer kernel, max pool and the
                    plain batch norm and elementwise work)
@@ -330,6 +357,11 @@ Phases, in order; any failure exits non-zero without the result line:
                    readback and 3 kernel and 3 plain train_dropout steps
                    run in that copy: each fault must be caught, and what
                    caught it is printed.
+8'. recipe_faults — only when named: each of ``RECIPE_LOSS_FAULTS``
+                   (LAMB phase 1's eps tenfold; row 4's sum without a
+                   row's last 32 columns) planted in a copy, and leg c's
+                   step medians on the routes it reaches: the readings
+                   ``RECIPE_LOSS_TOL`` sits below.
 9. numerics      — only when named: the flash forward's o and lse
                    against a float64 evaluation beside the plain
                    version's (signed and absolute error, bf16 flips), and
@@ -529,6 +561,56 @@ BERT_BATCH = (16, 512)
 # 2.54e-2 and 7.66e-2; a -inf fill in row 5 makes every loss NaN (PERF.md,
 # Findings)
 TRAIN_BERT_LOSS_TOL = (2.5e-3, 1e-2, 8e-3)
+# train_bert_recipe: Megatron's arguments for BERT-large (bench.py:2315's
+# shape) at their own defaults (attention and hidden dropout 0.1,
+# --clip-grad 1.0, --weight-decay 0.01) plus --bf16
+# --checkpoint-activations; the BERT phases' rate 1e-3, warmed up over
+# RECIPE_WARMUP steps, then decayed linearly to 0 at --lr-decay-iters
+RECIPE_ARGV = ("--num-layers 24 --hidden-size 1024 --num-attention-heads 16 "
+               "--seq-length 512 --max-position-embeddings 512 "
+               "--micro-batch-size 16 --vocab-size 30528 --lr 1e-3 "
+               "--lr-decay-iters 10 --bf16 --checkpoint-activations").split()
+RECIPE_WARMUP = 2
+RECIPE_STEPS = 8
+# the FusedMixedPrecisionLamb leg's step whose gradient carries an inf
+RECIPE_MP_INF_STEP = 4
+# leg c's routes: staged fused_lamb on the materialized scores (the
+# provider's default), the same with use_flash, and the pipeline
+RECIPE_ROUTES = ("staged", "flash", "pipeline")
+# leg c, |kernel - plain| losses over the first PLAIN_STEPS steps, one
+# limit a step and route, on the median over TRAIN_SEEDS.  At dropout 0.1
+# the sound medians are staged 9.81e-4, 9.16e-4, 4.49e-3; flash 1.93e-4,
+# 2.62e-3, 1.16e-2 (seed 1 alone reads 0.184 at step 3); pipeline
+# 9.81e-4, 1.34e-3, 6.97e-3, the same in every run (every kernel of the
+# path is deterministic).  Row 4 without a row's last 32 columns
+# (RECIPE_LOSS_FAULTS) reads staged 7.76e-3, 5.05e-2 and pipeline
+# 7.49e-3, 4.87e-2 at steps 2-3; LAMB phase 1 with a tenfold eps 0.154,
+# 0.585 / 0.153, 0.523 / 0.152, 0.585 (step 1 is the forward alone).  The
+# limits sit at the geometric means of the sound medians and the nearer
+# fault's readings (PERF.md, Findings), step 1's at 3-5x its sound median
+RECIPE_LOSS_TOL = {"staged": (3e-3, 2.7e-3, 1.5e-2),
+                   "flash": (1e-3, 2e-2, 7.8e-2),
+                   "pipeline": (3e-3, 3.2e-3, 1.8e-2)}
+# leg f: the checkpoint wrapper planted without its generator replay
+# (source under apex_tpu_torch/, then sound, faulty, ...): the recompute
+# then draws fresh dropout, so the pair is no longer bitwise
+RECIPE_CKPT_FAULT = ("transformer/tensor_parallel/random.py",
+                     "for g, s in zip(gens, snap):",
+                     "for g, s in zip(gens, ()):",
+                     "for g, s in zip(gens, now):",
+                     "for g, s in zip(gens, ()):")
+# the faults ``--phases recipe_faults`` plants to read leg c's limits:
+# (source, the routes it reaches, sound, faulty, ...): LAMB phase 1's
+# eps ten times too large (every route), row 4's sum(y * dy) without a
+# row's last 32 columns (the materialized routes)
+RECIPE_LOSS_FAULTS = {
+    "phase1_eps": ("csrc/fused_lamb.cu", RECIPE_ROUTES,
+                   "(sqrtf(v / h.bc2) + h.eps)",
+                   "(sqrtf(v / h.bc2) + 10.f * h.eps)"),
+    "row4_sum": ("csrc/scaled_softmax.cu", ("staged", "pipeline"),
+                 "if (c < sk) s = fmaf(yv[i], dv[i], s);",
+                 "if (c < sk - 32) s = fmaf(yv[i], dv[i], s);"),
+}
 TRAIN_BERT_O2_LOSS_TOL = (5e-5, 2e-3, 2e-3)
 # GPT-345M at seq 2048 (O5), plain vs kernel losses over the first 3
 # steps, one limit a step, on the median over TRAIN_SEEDS (as the
@@ -885,6 +967,12 @@ TRAIN_BERT_KERNELS = ("layer_norm", "layer_norm_bwd",
 TRAIN_BERT_O2_KERNELS = ("layer_norm", "layer_norm_bwd",
                          "scaled_masked_softmax_fwd", "scaled_softmax_bwd",
                          "norm_finite", "fused_adam_pipeline")
+TRAIN_BERT_RECIPE_KERNELS = ("layer_norm", "layer_norm_bwd",
+                             "scaled_masked_softmax_fwd",
+                             "scaled_softmax_bwd",
+                             "flash_attention_e_dropout",
+                             "flash_attention_e_bwd_dropout",
+                             "norm_finite", "lamb_phase1")
 SERVE_MOE_KERNELS = ("layer_norm", "flash_attention", "flash_decode",
                      "moe_route_dispatch")
 LONG_CONTEXT_KERNELS = ("flash_attention", "flash_attention_bwd")
@@ -5343,6 +5431,509 @@ def dropout_faults(dev) -> None:
                 raise AssertionError(f"fault {name} was not caught")
 
 
+# --- phase 6g, Megatron's BERT-large pretraining recipe -----------------
+
+class _TracedSchedule:
+    """A learning-rate schedule that records each ``(count, lr)`` the
+    optimizer asks it for: the trace of the rate a step used."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, count):
+        lr = self.fn(count)
+        self.calls.append((int(count), lr))
+        return lr
+
+
+class _ClipTrace:
+    """Records every ``(norm, factor)`` the optimizers' clip computes
+    (``_grad_clip_factor`` in the LAMB modules, wrapped while the trace
+    is open); the device scalars are read once, after the run."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        # the modules (the package exports fused_lamb, the function)
+        self.mods = tuple(importlib.import_module(
+            f"apex_tpu_torch.optimizers.{m}") for m in
+            ("fused_lamb", "fused_mixed_precision_lamb"))
+        self.orig = self.mods[0]._grad_clip_factor
+
+        def traced(gnorm, max_norm):
+            clip = self.orig(gnorm, max_norm)
+            self.rows.append((gnorm, clip, max_norm))
+            return clip
+
+        for m in self.mods:
+            m._grad_clip_factor = traced
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m._grad_clip_factor = self.orig
+
+    def read(self):
+        return [(float(n), float(c), float(mx)) for n, c, mx in self.rows]
+
+
+def recipe_args():
+    from apex_tpu_torch.testing.arguments import parse_args
+    return parse_args(args=list(RECIPE_ARGV))
+
+
+def recipe_lr(args):
+    """The recipe's rate as a plain function of the optimizer's count:
+    linear warmup over ``RECIPE_WARMUP`` steps to ``--lr``, then linear
+    decay to 0 at ``--lr-decay-iters``."""
+    peak, warm, end = args.lr, RECIPE_WARMUP, args.lr_decay_iters
+
+    def lr(count):
+        if count <= warm:
+            return peak * count / warm
+        return peak * max(0.0, (end - count) / (end - warm))
+    return lr
+
+
+def _recipe_batch(dev, args, seed: int):
+    """One padded batch from ``seed``: tokens, the (b, s) mask (a quarter
+    of the rows full), labels = tokens rolled by one, NSP labels."""
+    from apex_tpu_torch.testing.standalone_bert import padded_mask
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(seed))
+    b, s = args.micro_batch_size, args.seq_length
+    tokens = torch.randint(0, args.vocab_size, (b, s), generator=g,
+                           device=dev)
+    mask = padded_mask(b, s, g, device=dev)
+    nsp = torch.randint(0, 2, (b,), generator=g, device=dev)
+    return tokens, mask, torch.roll(tokens, -1, dims=-1), nsp
+
+
+def recipe_setup(dev, *, seed: int = 0, checkpoint: bool = True,
+                 use_flash: bool = False, pipeline: bool = False,
+                 kernels: bool = True):
+    """BERT-large from ``RECIPE_ARGV`` through ``bert_model_provider``
+    (weights from ``--seed`` plus ``seed``; checkpointing as the args
+    say unless ``checkpoint`` is False; ``use_flash`` through the
+    provider's overrides), ``fused_lamb`` on the recipe's schedule with
+    ``--weight-decay`` and ``--clip-grad``, ``amp.initialize`` at O5 on
+    the staged route (``pipeline=False``) or the pipeline, one padded
+    batch from ``seed`` and a DropoutRNG from ``seed + 1``.  Returns the
+    ``BertTrainSetup`` and the traced schedule."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.optimizers import fused_lamb
+    from apex_tpu_torch.testing import standalone_bert as sb
+    from apex_tpu_torch.transformer import DropoutRNG
+
+    args = recipe_args()
+    args.seed += seed
+    net = sb.bert_model_provider(
+        args, device=dev, num_tokentypes=0, use_flash=use_flash,
+        kernels=kernels,
+        checkpoint_activations=args.checkpoint_activations and checkpoint)
+    n_params = sum(p.numel() for p in net.parameters())
+    sched = _TracedSchedule(recipe_lr(args))
+    opt = fused_lamb(sched, weight_decay=args.weight_decay,
+                     max_grad_norm=args.clip_grad, kernels=kernels)
+    net, aopt = amp.initialize(net, opt, opt_level="O5", pipeline=pipeline)
+    tokens, mask, labels, nsp = _recipe_batch(dev, args, seed)
+    flops = sb.bert_model_flops(n_params, args.num_layers, args.hidden_size,
+                                mask)
+    return sb.BertTrainSetup(net, aopt, tokens, mask, labels, nsp, n_params,
+                             flops, int(mask.sum()),
+                             DropoutRNG(seed + 1, dev)), sched
+
+
+def recipe_run(setup, steps: int):
+    """``steps`` train steps; the losses and each step's wall ms through
+    the read of its loss."""
+    from apex_tpu_torch.testing.standalone_bert import train_step
+
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, _ = train_step(setup)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def recipe_pair_losses(dev, steps: int, use_flash: bool = False):
+    """The staged recipe's losses with checkpointing on, then off, from
+    one seed (leg a's pair; the planted fault's leg runs it too)."""
+    out = []
+    for ckpt in (True, False):
+        setup, _ = recipe_setup(dev, checkpoint=ckpt, use_flash=use_flash)
+        out.append(recipe_run(setup, steps)[0])
+        del setup
+        free_memory()
+    return out
+
+
+def _recipe_want(counts, layers: int, steps: int, *, ckpt: bool,
+                 use_flash: bool, phase1: int, groups: int = 0):
+    """The exact launch counts of ``steps`` recipe steps: the layers'
+    forwards run twice under checkpointing (the recompute), the LM
+    head's and the final LayerNorm once; ``phase1`` LAMB phase-1
+    launches a step (a leaf each staged, a group each on the pipeline,
+    whose static scale takes the norm sweep a group)."""
+    want = {k: 0 for k in counts}
+    runs = 2 if ckpt else 1
+    want.update(layer_norm=(2 * layers * runs + 2) * steps,
+                layer_norm_bwd=(2 * layers + 2) * steps,
+                lamb_phase1=phase1 * steps)
+    if use_flash:
+        want.update(flash_attention_e_dropout=layers * runs * steps,
+                    flash_attention_e_bwd_dropout=layers * steps)
+    else:
+        want.update(scaled_masked_softmax_fwd=layers * runs * steps,
+                    scaled_softmax_bwd=layers * steps)
+    if groups:
+        want.update(norm_finite=groups * steps)
+    return want
+
+
+def _recipe_trace(label, sched, trace, steps: int, args) -> None:
+    """Leg e: each step's rate against the schedule at JAX's count
+    (``count + 1``: the step's number, every step finite), its clip
+    factor against ``min(1, clip / norm)``, the unscaled norm; at least
+    one step must clip."""
+    lr = recipe_lr(args)
+    rows = trace.read()
+    calls = sched.calls
+    if len(rows) != steps or len(calls) != steps:
+        raise AssertionError(f"{label}: {len(calls)} rate reads and "
+                             f"{len(rows)} clips over {steps} steps")
+    clipped = 0
+    for i, ((count, used), (norm, clip, mx)) in enumerate(zip(calls, rows)):
+        want = float(np.float32(mx) / max(np.float32(norm),
+                                          np.float32(1e-12))) \
+            if norm > mx else 1.0
+        log(f"  {label} step {i + 1}: lr {used:.6e} at count {count} (the "
+            f"function at JAX's count {i + 1}: {lr(i + 1):.6e}); unscaled "
+            f"norm {norm:.6f}, clip factor {clip:.6f} (bound {mx:g})")
+        if count != i + 1 or used != lr(i + 1):
+            raise AssertionError(f"{label} step {i + 1}: the rate was read "
+                                 f"at count {count}, {used}")
+        if not (math.isfinite(norm) and abs(clip - want) <= 1e-6 * want):
+            raise AssertionError(f"{label} step {i + 1}: clip {clip} for "
+                                 f"norm {norm}, want {want}")
+        clipped += clip < 1.0
+    if not clipped:
+        raise AssertionError(f"{label}: no step clipped")
+
+
+def _recipe_leg(dev, label, *, use_flash: bool, pipeline: bool = False,
+                ckpt: bool = True, trace: bool = False):
+    """One counted run of ``RECIPE_STEPS``: losses finite and falling,
+    launch counts exact, peak memory and the step median printed."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    setup, sched = recipe_setup(dev, checkpoint=ckpt, use_flash=use_flash,
+                                pipeline=pipeline)
+    with _ClipTrace() as clips:
+        losses, ms = recipe_run(setup, RECIPE_STEPS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    args = recipe_args()
+    aopt = setup.amp_opt
+    if aopt.use_pipeline != pipeline:
+        raise AssertionError(f"{label}: took the "
+                             f"{'pipeline' if aopt.use_pipeline else 'staged'}"
+                             f" route")
+    groups = len(aopt.groups) if pipeline else 0
+    want = _recipe_want(counts, args.num_layers, RECIPE_STEPS, ckpt=ckpt,
+                        use_flash=use_flash,
+                        phase1=groups or len(aopt.params), groups=groups)
+    median = float(np.median(ms[2:]))
+    log(f"{label}: {setup.n_params} params, {setup.real_tokens} of "
+        f"{setup.mask.numel()} tokens real, checkpointing "
+        f"{'on' if ckpt else 'off'}; losses {[round(x, 6) for x in losses]};"
+        f" step ms {[round(x, 3) for x in ms]} (median of steps 3-"
+        f"{RECIPE_STEPS} {median:.3f}); peak memory {peak:.3f} GiB")
+    log(f"{label}: launch counts { {k: v for k, v in counts.items() if v} }"
+        f" (expected { {k: v for k, v in want.items() if v} })")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses not finite and falling")
+    if trace:
+        _recipe_trace(label, sched, clips, RECIPE_STEPS, args)
+    del setup, aopt
+    free_memory()
+    return counts, losses, median, peak
+
+
+def _recipe_hold_pair(label, on, off, spread=None) -> None:
+    """Leg a/b's hold: the checkpointed run's losses the uncheckpointed
+    run's bit for bit; where two uncheckpointed runs differ (``spread``,
+    their per-step gap), within that spread instead."""
+    gaps = [abs(a - b) for a, b in zip(on, off)]
+    if spread is None:
+        log(f"{label}: checkpointing on vs off, losses equal bit for bit "
+            f"at every step: {on == off} (gaps {gaps})")
+        if on != off:
+            raise AssertionError(f"{label}: checkpointed losses {on} != "
+                                 f"{off}")
+        return
+    log(f"{label}: two runs without checkpointing differ by {spread}; "
+        f"checkpointing on vs off {gaps}")
+    if any(g > s for g, s in zip(gaps, spread)):
+        raise AssertionError(f"{label}: checkpointed gaps {gaps} beyond "
+                             f"the uncheckpointed spread {spread}")
+
+
+def _recipe_ckpt_pair(dev, label, use_flash: bool, total: dict):
+    """Legs a and b: the recipe with checkpointing on (traced, counted),
+    then off from the same seed; the pair held bitwise (or, when two
+    uncheckpointed runs differ on the card, to that spread)."""
+    c_on, on, ms_on, mem_on = _recipe_leg(dev, f"{label} checkpointing on",
+                                          use_flash=use_flash, trace=True)
+    c_off, off, ms_off, mem_off = _recipe_leg(
+        dev, f"{label} checkpointing off", use_flash=use_flash, ckpt=False)
+    spread = None
+    if on != off:
+        setup, _ = recipe_setup(dev, checkpoint=False, use_flash=use_flash)
+        again = recipe_run(setup, RECIPE_STEPS)[0]
+        del setup
+        free_memory()
+        if again != off:
+            spread = [abs(a - b) for a, b in zip(again, off)]
+    _recipe_hold_pair(label, on, off, spread)
+    log(f"{label}: checkpointing costs {ms_on / ms_off:.4f}x the step "
+        f"({ms_on:.3f} against {ms_off:.3f} ms) and saves "
+        f"{mem_off - mem_on:.3f} GiB of peak memory ({mem_on:.3f} against "
+        f"{mem_off:.3f} GiB)")
+    for c in (c_on, c_off):
+        total.update(_add_counts(total, c))
+
+
+def recipe_gaps(dev, route: str, seed: int, check_plain: bool = False):
+    """|kernel - plain| losses of the recipe's first ``PLAIN_STEPS`` on
+    ``route`` (staged, flash: staged with ``use_flash``, or pipeline)
+    from ``seed``, checkpointing on; ``check_plain``: the plain run must
+    launch nothing."""
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    kw = dict(use_flash=route == "flash", pipeline=route == "pipeline")
+    pair = []
+    for kernels in (True, False):
+        reset_launch_counts()
+        setup, _ = recipe_setup(dev, seed=seed, kernels=kernels, **kw)
+        pair.append(recipe_run(setup, PLAIN_STEPS)[0])
+        del setup
+        free_memory()
+        if check_plain and not kernels and any(launch_counts().values()):
+            raise AssertionError(f"the plain {route} run launched kernels")
+    return [abs(a - b) for a, b in zip(*pair)]
+
+
+def recipe_medians(dev, label: str, routes=RECIPE_ROUTES):
+    """Each route's step medians over ``TRAIN_SEEDS`` of |kernel - plain|
+    (printed seed by seed)."""
+    out = {}
+    for route in routes:
+        gaps = []
+        for seed in TRAIN_SEEDS:
+            gaps.append(recipe_gaps(dev, route, seed, check_plain=seed == 0))
+            log(f"{label} {route} seed {seed}: |kernel - plain| "
+                f"{[f'{x:.3e}' for x in gaps[-1]]}")
+        out[route] = [float(np.median([g[i] for g in gaps]))
+                      for i in range(PLAIN_STEPS)]
+        log(f"{label} {route}: step medians over seeds {list(TRAIN_SEEDS)} "
+            f"{[f'{x:.3e}' for x in out[route]]} (tol "
+            f"{RECIPE_LOSS_TOL[route]})")
+    return out
+
+
+def _recipe_mp_lamb(dev, total: dict) -> None:
+    """Leg d: ``FusedMixedPrecisionLamb`` stepping the bf16 model (the
+    O5 policy's cast, no amp) with a dynamic scaler, ``RECIPE_STEPS``
+    steps, an inf planted in a gradient at ``RECIPE_MP_INF_STEP``:
+    masters, m, v, the parameters and the count bitwise as they were,
+    the scale halved; the other steps finite; losses finite and
+    falling; counts exact."""
+    from apex_tpu_torch.amp import get_policy, scaler
+    from apex_tpu_torch.amp.cast import cast_params
+    from apex_tpu_torch.ops import launch_counts, reset_launch_counts
+    from apex_tpu_torch.optimizers import FusedMixedPrecisionLamb
+    from apex_tpu_torch.testing import standalone_bert as sb
+    from apex_tpu_torch.transformer import DropoutRNG
+
+    label = "train_bert_recipe d (FusedMixedPrecisionLamb)"
+    free_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    args = recipe_args()
+    net = sb.bert_model_provider(args, device=dev, num_tokentypes=0)
+    cast_params(net, get_policy("O5"))
+    params = list(net.parameters())
+    sched = _TracedSchedule(recipe_lr(args))
+    opt = FusedMixedPrecisionLamb(sched, weight_decay=args.weight_decay,
+                                  max_grad_norm=args.clip_grad)
+    state, sc = opt.init(params), scaler.init("dynamic")
+    tokens, mask, labels, nsp = _recipe_batch(dev, args, 0)
+    rng = DropoutRNG(1, dev)
+    losses, rows = [], []
+    with _ClipTrace() as clips:
+        for step in range(1, RECIPE_STEPS + 1):
+            for p in params:
+                p.grad = None
+            loss = sb.bert_loss(net, tokens, mask, labels, nsp, rng)
+            (loss.float() * sc.loss_scale).backward()
+            grads = [p.grad for p in params]
+            planted = step == RECIPE_MP_INF_STEP
+            if planted:
+                grads[0].view(-1)[0] = math.inf
+                before = [t.clone() for t in (*state.masters, *state.m,
+                                              *state.v, *params)]
+            count, scale = state.count, sc.loss_scale
+            params, state, sc, info = opt.step(grads, state, params, sc)
+            losses.append(float(loss.detach()))
+            rows.append((step, info.grads_finite, scale, sc.loss_scale,
+                         state.count))
+            if planted:
+                held = all(torch.equal(a, b) for a, b in zip(
+                    before, (*state.masters, *state.m, *state.v, *params)))
+                del before
+                log(f"{label}: the planted inf at step {step}: finite "
+                    f"{info.grads_finite}, masters/m/v/params held bitwise "
+                    f"{held}, count {count} -> {state.count}, scale "
+                    f"{scale:g} -> {sc.loss_scale:g}")
+                if info.grads_finite or not held or state.count != count \
+                        or sc.loss_scale != scale / 2:
+                    raise AssertionError(f"{label}: the overflow step was "
+                                         f"not held")
+            elif not info.grads_finite or state.count != count + 1:
+                raise AssertionError(f"{label}: step {step} not applied")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = _recipe_want(counts, args.num_layers, RECIPE_STEPS, ckpt=True,
+                        use_flash=False, phase1=0)
+    want["lamb_phase1"] = len(params) * (RECIPE_STEPS - 1)
+    norms = [(round(n, 4), round(c, 6)) for n, c, _ in clips.read()]
+    log(f"{label}: losses {[round(x, 6) for x in losses]}; (step, finite, "
+        f"scale before, after, count) {rows}; (scaled norm, clip) {norms}; "
+        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} "
+        f"GiB; launch counts { {k: v for k, v in counts.items() if v} }")
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    applied = [x for x, r in zip(losses, rows) if r[1]]
+    if not all(math.isfinite(x) for x in applied) or \
+            not applied[-1] < applied[0]:
+        raise AssertionError(f"{label}: losses not finite and falling")
+    total.update(_add_counts(total, counts))
+    del net, params, state, opt
+    free_memory()
+
+
+_RECIPE_FAULT_LEG = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from apex_tpu_torch import _build
+_build.build()
+dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+mode, arg = sys.argv[1], sys.argv[2]
+if mode == "pair":
+    out = cs.recipe_pair_losses(dev, int(arg))
+else:
+    out = cs.recipe_medians(dev, "recipe_faults", tuple(arg.split(",")))
+print("FAULT " + json.dumps(out), flush=True)
+"""
+
+
+def _in_faulty_copy(tmp, name, source, edits, argv):
+    """Run ``_RECIPE_FAULT_LEG`` with ``argv`` in a copy of the port with
+    ``edits`` (sound, faulty, ...) applied to ``source``; its result."""
+    root = Path(__file__).resolve().parent
+    d = Path(tmp) / name
+    shutil.copytree(root / "apex_tpu_torch", d / "apex_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(root / "chip_smoke.py", d)
+    src = d / "apex_tpu_torch" / source
+    text = src.read_text()
+    for sound, faulty in zip(edits[::2], edits[1::2]):
+        if sound not in text:
+            raise AssertionError(f"fault {name}: {sound!r} not found")
+        text = text.replace(sound, faulty)
+    src.write_text(text)
+    out = subprocess.run([sys.executable, "-c", _RECIPE_FAULT_LEG, *argv],
+                         cwd=d, capture_output=True, text=True, timeout=1500)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("FAULT ")]
+    for ln in out.stdout.splitlines():
+        if ln.startswith("recipe_faults"):
+            log(f"  [{name}] {ln}")
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"fault {name}: the leg failed "
+                             f"({out.returncode}):\n{out.stderr[-3000:]}")
+    return json.loads(lines[-1][len("FAULT "):])
+
+
+def _recipe_no_replay(dev) -> None:
+    """Leg f: the checkpoint wrapper without its generator replay
+    (``RECIPE_CKPT_FAULT``, planted in a copy of the port): leg a's pair
+    over ``PLAIN_STEPS`` steps must no longer be bitwise."""
+    source, *edits = RECIPE_CKPT_FAULT
+    with tempfile.TemporaryDirectory() as tmp:
+        on, off = _in_faulty_copy(tmp, "ckpt_no_replay", source, edits,
+                                  ["pair", str(PLAIN_STEPS)])
+    gaps = [abs(a - b) for a, b in zip(on, off)]
+    log(f"train_bert_recipe f: the checkpoint wrapper without its replay "
+        f"({' / '.join(edits[1::2])}): losses on {on}, off {off}, gaps "
+        f"{[f'{x:.3e}' for x in gaps]}: the bitwise hold "
+        f"{'breaks' if on != off else 'HOLDS (FAIL)'}")
+    if on == off:
+        raise AssertionError("the planted wrapper fault kept the pair "
+                             "bitwise")
+
+
+def train_bert_recipe(dev) -> dict:
+    """Phase 6g: Megatron's BERT-large recipe (legs a-f).  Returns the
+    launch counts of the counted runs (legs a, b, c's pipeline run, d)."""
+    total = {}
+    _recipe_ckpt_pair(dev, "train_bert_recipe a (staged)", False, total)
+    _recipe_ckpt_pair(dev, "train_bert_recipe b (flash)", True, total)
+    counts, *_ = _recipe_leg(dev, "train_bert_recipe c (pipeline)",
+                             use_flash=False, pipeline=True, trace=True)
+    total.update(_add_counts(total, counts))
+    _recipe_mp_lamb(dev, total)
+    meds = recipe_medians(dev, "train_bert_recipe c")
+    for route, med in meds.items():
+        if any(m > t for m, t in zip(med, RECIPE_LOSS_TOL[route])):
+            raise AssertionError(f"train_bert_recipe c {route}: medians "
+                                 f"{med} beyond {RECIPE_LOSS_TOL[route]}")
+    _recipe_no_replay(dev)
+    log(f"train_bert_recipe: launch counts of the counted runs "
+        f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
+def recipe_faults(dev) -> None:
+    """Only when named: each of ``RECIPE_LOSS_FAULTS`` planted in a copy
+    of the port, and leg c's step medians on the routes it reaches: the
+    readings ``RECIPE_LOSS_TOL`` sits below."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (source, routes, *edits) in RECIPE_LOSS_FAULTS.items():
+            meds = _in_faulty_copy(tmp, name, source, edits,
+                                   ["medians", ",".join(routes)])
+            for route, med in meds.items():
+                caught = any(m > t for m, t in zip(med,
+                                                   RECIPE_LOSS_TOL[route]))
+                log(f"recipe_faults {name} ({' / '.join(edits[1::2])}) "
+                    f"{route}: step medians {[f'{x:.3e}' for x in med]} "
+                    f"(tol {RECIPE_LOSS_TOL[route]}): caught {caught}")
+
+
 # --- the flash forward's numerics (run only when named) -------------------
 
 # (b, h, s, d, std) of the causal bf16 inputs the numerics probe reads:
@@ -6568,6 +7159,39 @@ def profile_train(dev, policy: str = "O5", family: str = "gpt"):
     free_memory()
 
 
+def profile_recipe(dev) -> None:
+    """One step of the staged recipe (materialized scores) with
+    checkpointing on and off under ``torch.profiler`` (model built and
+    two steps taken outside the window): the step's wall, device busy
+    and idle share, and the leading kernels: where checkpointing's cost
+    lies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.testing.standalone_bert import train_step
+
+    for ckpt in (True, False):
+        setup, _ = recipe_setup(dev, checkpoint=ckpt)
+        for _ in range(2):
+            train_step(setup)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(train_step(setup)[0])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = _profile_rows(prof)
+        busy = sum(r[1] for r in rows)
+        log(f"train_bert_recipe profile (staged, checkpointing "
+            f"{'on' if ckpt else 'off'}, one step, profiler on): wall "
+            f"{wall:.3f} ms, device busy {busy:.3f} ms ("
+            f"{100 - 100 * busy / wall:.2f}% idle)")
+        for name, ms, n in rows[:12]:
+            log(f"  {ms:10.3f} ms {100 * ms / busy:6.2f}%  x{n:<6d} "
+                f"{name[:90]}")
+        del setup
+        free_memory()
+
+
 def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
                   kv_dtype: str = "model", moe_experts: int = 0,
                   moe_capacity_factor: float = MOE_NODROP_CF, **fast):
@@ -6628,14 +7252,17 @@ def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
 
 
 PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "serve_moe", "train",
-          "train_o2", "train_bert", "train_bert_o2", "long_context",
-          "train_long", "train_dropout", "train_resnet", "resnet_faults",
-          "zero_adam", "optim_update", "ring_flash", "flash_qkv",
-          "multihead_attn", "profile", "dropout_faults", "numerics")
+          "train_o2", "train_bert", "train_bert_o2", "train_bert_recipe",
+          "long_context", "train_long", "train_dropout", "train_resnet",
+          "resnet_faults", "zero_adam", "optim_update", "ring_flash",
+          "flash_qkv", "multihead_attn", "profile", "dropout_faults",
+          "recipe_faults", "numerics")
 # every phase but the planted dropout faults (two rebuilds of the flash
-# sources) and the forward's numerics, which run only when named
+# sources), the recipe's planted loss faults and the forward's numerics,
+# which run only when named
 DEFAULT_PHASES = tuple(p for p in PHASES
-                       if p not in ("dropout_faults", "numerics"))
+                       if p not in ("dropout_faults", "recipe_faults",
+                                    "numerics"))
 
 
 def main(argv=None) -> int:
@@ -6849,6 +7476,12 @@ def main(argv=None) -> int:
                     family="bert"))
                 run(f"{phase} all-ones mask", lambda: train_bert_full_mask(
                     dev, policy))
+        if "train_bert_recipe" in phases:
+            ok, out = run("train_bert_recipe",
+                          lambda: train_bert_recipe(dev))
+            if ok:
+                counts["train_bert_recipe"] = out
+            free_memory()
         if "long_context" in phases:
             ok, out = run("long_context", lambda: long_context(dev))
             if ok:
@@ -6902,6 +7535,8 @@ def main(argv=None) -> int:
                 free_memory()
         if "dropout_faults" in phases:
             run("dropout_faults", lambda: dropout_faults(dev))
+        if "recipe_faults" in phases:
+            run("recipe_faults", lambda: recipe_faults(dev))
         if "numerics" in phases:
             run("numerics", lambda: flash_numerics(dev))
             run("numerics spread", lambda: train_spread(dev))
@@ -6931,6 +7566,9 @@ def main(argv=None) -> int:
             if "train_bert_o2" in phases:
                 run("train_bert O2 profile", lambda: profile_train(
                     dev, "O2", "bert"))
+            if "train_bert_recipe" in phases:
+                run("train_bert_recipe profile",
+                    lambda: profile_recipe(dev))
             if "train_long" in phases:
                 run("train_long profile", lambda: profile_train(
                     dev, "O5", "gpt_long"))
@@ -6961,6 +7599,7 @@ def main(argv=None) -> int:
                     ("train_o2", TRAIN_O2_KERNELS),
                     ("train_bert", TRAIN_BERT_KERNELS),
                     ("train_bert_o2", TRAIN_BERT_O2_KERNELS),
+                    ("train_bert_recipe", TRAIN_BERT_RECIPE_KERNELS),
                     ("long_context", LONG_CONTEXT_KERNELS),
                     ("train_long", TRAIN_LONG_KERNELS),
                     ("train_resnet", TRAIN_RESNET_KERNELS),

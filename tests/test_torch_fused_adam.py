@@ -111,5 +111,28 @@ def test_pipeline_step_count_and_skip_match_jax():
 
 
 def test_max_grad_norm_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="max_grad_norm"):
-        fused_adam(1e-3, max_grad_norm=1.0)
+    # (the name is kept from when the option raised) max_grad_norm is
+    # ported: a static-scale pipeline step whose gradients' norm is far
+    # above the bound measures the norm itself and clips as JAX's does
+    n = 3000
+    _, p, _, _ = _buffers(4, n)
+    g = (np.random.RandomState(5).randn(n) * 3).astype(np.float32)
+    tree = {"w": jnp.asarray(p)}
+    masters = pack_masters(tree, {"w": tree["w"].astype(jnp.bfloat16)})
+    tx = jax_fused_adam(1e-2, max_grad_norm=1.0, use_pallas=True)
+    gj = {"w": jnp.asarray(g).astype(jnp.bfloat16)}
+    bufs, state, _ = tx.pipeline_step(
+        pack_grads(gj, masters.metas), tx.pipeline_init(masters.metas),
+        masters.bufs, masters.metas, grad_scale=1.0)
+    ours = fused_adam(1e-2, max_grad_norm=1.0)
+    assert ours.max_grad_norm == 1.0
+    pt = torch.from_numpy(p.copy())
+    ostate = ours.pipeline_step(
+        [torch.from_numpy(np.array(gj["w"].astype(jnp.float32))).bfloat16()],
+        ours.pipeline_init([pt]), [pt], [None], grad_scale=1.0)
+    assert ostate.count == int(state.count) == 1
+    np.testing.assert_allclose(pt.numpy(), np.asarray(bufs[0])[:n],
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ostate.v[0].numpy(),
+                               np.asarray(state.v[0])[:n], rtol=RTOL,
+                               atol=ATOL)

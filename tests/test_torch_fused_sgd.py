@@ -363,9 +363,12 @@ def test_unported_options_raise():
         fused_sgd(0.1, momentum=0.9, dampening=0.1, nesterov=True)
     with pytest.raises(ValueError, match="Nesterov"):
         fused_sgd(0.1, nesterov=True)
-    with pytest.raises(NotImplementedError, match="max_grad_norm"):
-        fused_sgd(0.1, momentum=0.9, max_grad_norm=1.0)
-    with pytest.raises(NotImplementedError, match="schedules"):
-        fused_sgd(lambda count: 0.1, momentum=0.9)
-    with pytest.raises(NotImplementedError, match="schedules"):
-        fused_adam(lambda count: 1e-3)
+    # (the name is kept from when they raised) global-norm clipping and
+    # schedules are ported: the constructors keep them, and a schedule
+    # is read at count + 1
+    assert fused_sgd(0.1, momentum=0.9, max_grad_norm=1.0).max_grad_norm \
+        == 1.0
+    tx = fused_sgd(lambda count: 0.1 * count, momentum=0.9)
+    assert tx._hyp(0)["lr"] == pytest.approx(0.1)
+    assert tx._hyp(2)["lr"] == pytest.approx(0.3)
+    assert fused_adam(lambda count: 1e-3).learning_rate(1) == 1e-3

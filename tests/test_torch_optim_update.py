@@ -180,9 +180,10 @@ def test_constructor_checks_match_jax():
         fused_novograd(eps=0.0)
     with pytest.raises(ValueError, match="Nesterov"):
         fused_sgd(0.1, nesterov=True)
+    # schedules are ported (tests/test_torch_optim_recipe.py holds them
+    # against JAX): the constructors keep the callable
     for make in (fused_adagrad, fused_adam, fused_novograd):
-        with pytest.raises(NotImplementedError, match="schedules"):
-            make(lambda count: 1e-3)
+        assert make(lambda count: 1e-3).learning_rate(1) == 1e-3
 
 
 def test_state_from_numpy_refuses_unknown():

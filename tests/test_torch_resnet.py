@@ -413,13 +413,15 @@ def test_routing_cutoff_and_explicit_choices():
     forced = amp.AmpOptimizer(fused_sgd(**SGD), amp.get_policy("O5"),
                               pipeline=True)
     assert forced.route_pipeline(named)
-    # fused_lamb has no staged form in the port: the staged route raises
+    # fused_lamb has a staged form: pipeline=False takes the staged
+    # route, one moment pair a parameter
     from apex_tpu_torch.optimizers import fused_lamb
     net = resnet_tiny(num_classes=CLASSES).reset_parameters(
         torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="pipeline=True"):
-        amp.initialize(net, fused_lamb(1e-3), opt_level="O5",
-                       pipeline=False)
+    _, staged = amp.initialize(net, fused_lamb(1e-3), opt_level="O5",
+                               pipeline=False)
+    assert not staged.use_pipeline
+    assert len(staged.state.m) == len(list(net.parameters()))
 
 
 def test_syncbn_one_rank_only_and_its_backward():

@@ -190,6 +190,12 @@ def test_import_loads_no_jax_and_no_apex_tpu():
         import apex_tpu_torch.contrib.xentropy, apex_tpu_torch.optimizers
         import apex_tpu_torch.ops.fused_pipeline
         import apex_tpu_torch.amp.mixed_precision
+        import apex_tpu_torch.testing.standalone_bert
+        import apex_tpu_torch.testing.arguments
+        import apex_tpu_torch.testing.global_vars
+        import apex_tpu_torch.optimizers.fused_mixed_precision_lamb
+        import apex_tpu_torch.transformer.tensor_parallel.random
+        import apex_tpu_torch.transformer.microbatches
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "optax", "apex_tpu"))

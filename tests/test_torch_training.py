@@ -155,9 +155,8 @@ def test_grads_are_views_of_the_flat_buffer():
 def test_unported_paths_raise():
     # (the (b, h, s, d) flash attention's backward, row 8, was checked
     # here until it was ported: tests/test_torch_flash_attention_bwd.py)
-    # global-norm clipping
-    with pytest.raises(NotImplementedError, match="max_grad_norm"):
-        fused_adam(1e-3, max_grad_norm=1.0)
+    # (global-norm clipping was checked here until it was ported:
+    # tests/test_torch_optim_recipe.py)
     # a policy without master weights (O3: fp16 params stepped directly)
     net = GPTModel(64, 128, 1, 2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="master weights"):
