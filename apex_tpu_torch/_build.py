@@ -109,8 +109,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "apex_adam_step_capacity": [],
         # ptrs ((count, 5) int64: g, p, m, v, lowp), ns ((count,) int64),
         # count, chunk, lr, beta1, 1 - beta1, beta2, 1 - beta2, eps,
-        # weight_decay, bc1, bc2, adam_w_mode, g_dtype, lowp_dtype, stream
-        "apex_adam_step_leaves": [_P, _P, _I, _I] + [_F] * 9 + [_I] * 3
+        # weight_decay, bc1, bc2, adam_w_mode, g_dtype, lowp_dtype,
+        # p_dtype, stream
+        "apex_adam_step_leaves": [_P, _P, _I, _I] + [_F] * 9 + [_I] * 4
         + [_P],
     },
     "fused_sgd": {

@@ -1,22 +1,26 @@
 """Mixed-precision training: the policy cast, fp32 masters, the loss
-scale, and the two optimizer routes the JAX package takes.
+scale, and the three optimizer routes the JAX package takes.
 
 Port of ``apex_tpu/amp/mixed_precision.py`` (``AmpOptimizer``,
-``initialize``) for the master-weight policies (O2, O5).
-``initialize(model, optimizer, opt_level, pipeline=None)``:
+``initialize``) for every policy.  ``initialize(model, optimizer,
+opt_level, pipeline=None)``:
 
 1. snapshots fp32 masters from the module's parameters *before* the
-   cast, so no precision is lost at initialization;
+   cast, so no precision is lost at initialization (policies with master
+   weights, O2 and O5);
 2. casts the module per the policy (:func:`~.cast.cast_params`: every
-   parameter but batch-norm ones to the model dtype);
+   parameter but batch-norm ones to the model dtype; O3 casts every
+   parameter to fp16; O0, O1 and O4 leave the module fp32);
 3. routes the step as JAX's ``AmpOptimizer._route_pipeline`` (:170-192)
    does: ``pipeline=True`` always takes the persistent pipeline,
    ``pipeline=False`` the staged route, and the default packs only when
-   the cast model's bytes (:func:`packed_nbytes`, JAX's
-   ``packed_nbytes`` rule) reach :data:`PIPELINE_PACK_MIN_BYTES` (the
-   default of JAX's ``APEX_TPU_PIPELINE_PACK_MIN_BYTES``, ``1 << 27``).
-   GPT-345M (710 MB in bf16) packs; ResNet-50 (51 MB) takes the staged
-   route.
+   the policy has master weights and the cast model's bytes
+   (:func:`packed_nbytes`, JAX's ``packed_nbytes`` rule) reach
+   :data:`PIPELINE_PACK_MIN_BYTES` (the default of JAX's
+   ``APEX_TPU_PIPELINE_PACK_MIN_BYTES``, ``1 << 27``).  GPT-345M (710 MB
+   in bf16) packs at O5; ResNet-50 (51 MB) takes the staged route.
+   ``pipeline=True`` for a policy without master weights raises
+   ``ValueError``, as JAX's constructor does (:102-111).
 
 **The persistent pipeline** (``_apply_gradients_pipeline``, :144-151,
 :313-383): the parameters of each dtype group become views of one flat
@@ -26,31 +30,39 @@ fp32 buffers beside them; a step is one fused sweep per group
 (``optimizer.pipeline_step``), which unscales, steps the masters and
 state, and writes the model copy into the parameters in place.
 
-**The staged route** (``apply_gradients``, :202-311): the masters are
-kept one a parameter (an fp32 parameter, such as a batch norm's under
-O5, is its own master), ``.grad`` are ordinary tensors, and a step
-unscales the gradients in their own dtype (:func:`~.scaler.unscale`),
-then runs ``optimizer.fused_step`` on the state of
-``optimizer.staged_init`` (one buffer a master) — one call over every
-parameter, a kernel launch a (gradient, copy) dtype pair and table of
-parameters, which steps the masters and state and writes each model copy
-straight into its parameter's storage where the kernel emits it (JAX's
-``_lowp_dtype_for``: the model dtype differs from the master's); an
-fp32 parameter is stepped in place.
+**The staged route** (``apply_gradients``, :202-311): ``.grad`` are
+ordinary tensors, and a step unscales the gradients in their own dtype
+(:func:`~.scaler.unscale`), then runs ``optimizer.fused_step`` on the
+state of ``optimizer.staged_init`` (fp32 moments, one buffer a stepped
+tensor) — one call over every parameter, a kernel launch a dtype lane
+and table of parameters.  With master weights the masters are kept one
+a parameter (an fp32 parameter, such as a batch norm's under O5, is its
+own master) and the step writes each model copy straight into its
+parameter's storage where the kernel emits it (JAX's ``_lowp_dtype_for``:
+the model dtype differs from the master's).  Without them (O0, O1, O3,
+O4; JAX's :155-160, :249-301) the stepped tensors are the parameters
+themselves, in their own dtype (O3's fp16: fp32 arithmetic, fp32
+moments, the parameter rounded back once; the optimizer must declare
+``steps_model_dtype``), and no copy is written.
 
-On both routes, whether the step inspects the gradients follows
+On every route, whether the step inspects the gradients follows
 ``check_finite`` (:meth:`AmpOptimizer._resolve_check`): by default only
-under a dynamic scale (O2), as the JAX package and apex's static
+under a dynamic scale (O1, O2), as the JAX package and apex's static
 ``LossScaler``.  A checked step reads one flag on the host.  The
 pipeline measures it with the norm/finite sweep (row 20), which also
 gives the unscaled global norm (``pipeline_step(grad_norm=...)``:
 FusedLAMB's clip reads it); the staged route with
 :func:`~.scaler.all_finite` over the unscaled gradients, and reports no
-norm, as JAX's.  A non-finite step keeps masters, optimizer state and
-model bitwise, holds the optimizer's count and backs the scale off.
-Under a static scale (O5) nothing is checked and nothing is read back.
-A policy without master weights (O0, O1, O3, O4) raises
-``NotImplementedError``.
+norm, as JAX's.  A non-finite step keeps masters (or parameters),
+optimizer state and model bitwise, holds the optimizer's count and backs
+the scale off.  Under a static scale (O0, O3, O4, O5) nothing is checked
+and nothing is read back.
+
+A policy that casts ops (O1, O4) needs its forward under
+:func:`~.autocast.autocast`: :meth:`AmpOptimizer.scale_loss` raises
+``RuntimeError`` for a loss that no autocast region in the policy's
+compute dtype returned, rather than step a model that ran in fp32
+unnoticed.
 """
 from __future__ import annotations
 
@@ -61,6 +73,7 @@ from torch import nn
 
 from . import cast as _cast
 from . import scaler as _scaler
+from .autocast import autocast_dtype_of
 from ..ops.fused_pipeline import (FlatGroup, flatten_params,
                                   grad_norm_finite,
                                   grad_norm_finite_reference)
@@ -105,11 +118,11 @@ class AmpOptimizer:
     def __init__(self, optimizer, policy: Policy,
                  check_finite: Optional[bool] = None,
                  pipeline: Optional[bool] = None):
-        if not policy.master_weights:
-            raise NotImplementedError(
-                f"the port's amp steps fp32 master weights, on the staged "
-                f"route and on the persistent pipeline alike; policy "
-                f"{policy.opt_level} has none (O1 and O3 are not ported)")
+        self.use_masters = bool(policy.master_weights)
+        if pipeline and not self.use_masters:
+            raise ValueError(f"pipeline=True requires master weights "
+                             f"(policy.master_weights); policy "
+                             f"{policy.opt_level} has none")
         if pipeline and getattr(optimizer, "pipeline_step", None) is None:
             raise ValueError(f"pipeline=True requires an optimizer with a "
                              f"pipeline form (pipeline_init/pipeline_step); "
@@ -133,7 +146,10 @@ class AmpOptimizer:
         """JAX's init-time routing (``_route_pipeline``): an explicit
         ``pipeline`` wins; by default the persistent pipeline only when
         the cast model holds at least :data:`PIPELINE_PACK_MIN_BYTES`
-        bytes.  ``named_params`` may lie on the ``meta`` device."""
+        bytes.  ``named_params`` may lie on the ``meta`` device.  A
+        policy without master weights always takes the staged route."""
+        if not self.use_masters:
+            return False
         if self.pipeline is not None:
             return bool(self.pipeline)
         if getattr(self.optimizer, "pipeline_step", None) is None:
@@ -144,7 +160,9 @@ class AmpOptimizer:
     def init(self, module: nn.Module, masters: dict) -> "AmpOptimizer":
         """Route, then set up the route over ``module``'s (already cast)
         trainable parameters and build the optimizer state; ``masters``
-        are the fp32 values by name from before the cast."""
+        are the fp32 values by name from before the cast (empty for a
+        policy without master weights: the parameters are stepped
+        themselves)."""
         named = [(n, p) for n, p in module.named_parameters()
                  if p.requires_grad]
         self.use_pipeline = self.route_pipeline(named)
@@ -156,6 +174,18 @@ class AmpOptimizer:
                           for g in self.groups])
             return self
         self.params = named
+        if not self.use_masters:
+            low = sorted({str(p.dtype) for _, p in named
+                          if p.dtype != torch.float32})
+            if low and not getattr(self.optimizer, "steps_model_dtype",
+                                   False):
+                raise NotImplementedError(
+                    f"{type(self.optimizer).__name__} steps fp32 "
+                    f"parameters only; policy {self.policy.opt_level} "
+                    f"keeps {low} parameters with no master copy")
+            self._masters = [p.data for _, p in named]
+            self.state = self.optimizer.staged_init(self._masters)
+            return self
         # an fp32 parameter is its own master (stepped in place)
         self._masters = [p.data if p.dtype == torch.float32
                          else masters[n].contiguous() for n, p in named]
@@ -163,7 +193,17 @@ class AmpOptimizer:
         return self
 
     def scale_loss(self, loss: torch.Tensor) -> torch.Tensor:
-        """The loss to call ``backward()`` on: ``loss.float() * scale``."""
+        """The loss to call ``backward()`` on: ``loss.float() * scale``.
+        Under a policy that casts ops (O1, O4) the loss must be one that
+        :func:`~.autocast.autocast` returned in the policy's compute
+        dtype: raises ``RuntimeError`` otherwise."""
+        if self.policy.cast_ops and \
+                autocast_dtype_of(loss) != self.policy.cast_ops_type:
+            raise RuntimeError(
+                f"policy {self.policy.opt_level} casts ops: compute the "
+                f"loss under amp.autocast(policy=...); this loss was not "
+                f"returned by an autocast region in "
+                f"{self.policy.cast_ops_type}")
         return _scaler.scale_loss(loss, self.scaler)
 
     def zero_grad(self) -> None:
@@ -204,7 +244,9 @@ class AmpOptimizer:
             # the step's one host read
             finite = bool(_scaler.all_finite(grads))
         if finite:
-            lowps = [None if p.dtype == torch.float32 else p.data
+            # no copy where the stepped tensor is the parameter itself
+            lowps = [None if not self.use_masters
+                     or p.dtype == torch.float32 else p.data
                      for _, p in self.params]
             self.state = self.optimizer.fused_step(
                 grads, self.state, self._masters, lowps)
@@ -259,7 +301,10 @@ class AmpOptimizer:
                         f"with amp_opt.zero_grad(), not module.zero_grad()")
 
     def masters(self) -> dict:
-        """The fp32 masters by parameter name, as views."""
+        """The fp32 masters by parameter name, as views; empty for a
+        policy without master weights."""
+        if not self.use_masters:
+            return {}
         if not self.use_pipeline:
             return {n: m for (n, _), m in zip(self.params, self._masters)}
         return {name: g.master_of(i) for g in self.groups
@@ -272,10 +317,11 @@ def initialize(model: nn.Module, optimizer, opt_level: str = "O5",
                ) -> Tuple[nn.Module, AmpOptimizer]:
     """``model, amp_opt = amp.initialize(model, optimizer,
     opt_level=..., pipeline=None)``: masters snapshotted from the fp32
-    weights, the module cast in place per the policy, the route chosen
+    weights (policies with master weights), the module cast in place per
+    the policy, the route chosen
     (``pipeline``: see the module docstring) and built."""
     policy = get_policy(opt_level)
     amp_opt = AmpOptimizer(optimizer, policy, check_finite, pipeline)
-    masters = _cast.master_copy(model)
+    masters = _cast.master_copy(model) if amp_opt.use_masters else {}
     _cast.cast_params(model, policy)
     return model, amp_opt.init(model, masters)

@@ -7,13 +7,16 @@ the low-precision logits; only the per-row lse is kept.  Backward:
 probabilities recomputed from the lse, ``(probs - target) * dloss``
 written in the logits' dtype.  Plain PyTorch, as in the JAX package
 (no Pallas kernel there); the backward works in place on its one fp32
-(tokens, vocab) temporary.
+(tokens, vocab) temporary.  Under ``amp.autocast`` the loss is one opaque
+op (JAX's is a ``custom_vjp``): it computes in the dtypes it is given.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from .._autocast_ctx import opaque
 
 __all__ = ["SoftmaxCrossEntropyFunction", "softmax_cross_entropy_loss"]
 
@@ -65,6 +68,7 @@ class SoftmaxCrossEntropyFunction(torch.autograd.Function):
         return dx.to(logits.dtype), None, None, None, None
 
 
+@opaque
 def softmax_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                                smoothing: float = 0.0,
                                half_to_float: bool = False,

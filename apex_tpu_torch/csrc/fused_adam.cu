@@ -14,7 +14,11 @@
 // Also replaces `_adam_step_kernel` (`adam_step`, fused_optim.py:196-246),
 // the per-leaf step of the staged amp route: the same Adam or AdamW update
 // on each leaf with no scale and no skip (amp unscales before and skips
-// around it), writing p, m, v in place and the model-dtype copy.  Its
+// around it), writing p, m, v in place and the model-dtype copy.  p is an
+// fp32 master, or (the policies without master weights, O3's fp16) the
+// bf16/fp16 parameter itself: read into fp32, stepped by the same fp32
+// body, rounded back once into its dtype, with no copy, as JAX's kernel
+// writes `p_new.astype(p.dtype)`; m and v stay fp32.  Its
 // every operation is written with an explicit round-to-nearest intrinsic
 // (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn) in the order of the plain
 // PyTorch version (apex_tpu_torch/ops/fused_optim.py), so nvcc contracts
@@ -123,8 +127,8 @@ using AdamTable = StepTable<StepHyp, 5>;
 static_assert(sizeof(AdamTable) <= kParamBytes, "the Adam leaf table outgrows its budget");
 
 // Block b steps one chunk of one leaf, as `sgd_leaves_kernel` does
-// (csrc/fused_sgd.cu)
-template <typename G, typename L>
+// (csrc/fused_sgd.cu); P the stepped tensor's type (float: a master)
+template <typename G, typename L, typename P>
 __global__ void __launch_bounds__(kThreads)
 adam_leaves_kernel(const __grid_constant__ AdamTable t) {
   const bool adam_w = t.h.adam_w != 0;
@@ -133,7 +137,7 @@ adam_leaves_kernel(const __grid_constant__ AdamTable t) {
   const long long rest = t.n[l] - c0;
   const int len = rest < t.chunk ? (int)rest : t.chunk;
   const G* g = static_cast<const G*>(t.ptr[0][l]) + c0;
-  float* p = static_cast<float*>(t.ptr[1][l]) + c0;
+  P* p = static_cast<P*>(t.ptr[1][l]) + c0;
   float* m = static_cast<float*>(t.ptr[2][l]) + c0;
   float* v = static_cast<float*>(t.ptr[3][l]) + c0;
   L* lowp = t.ptr[4][l] == nullptr ? nullptr : static_cast<L*>(t.ptr[4][l]) + c0;
@@ -147,7 +151,7 @@ adam_leaves_kernel(const __grid_constant__ AdamTable t) {
         const int q = base + u * kThreads + threadIdx.x;
         if (q < nv) {
           Vec4<G>::load(g + 4 * q, gg[u]);
-          Vec4<float>::load(p + 4 * q, pp[u]);
+          Vec4<P>::load(p + 4 * q, pp[u]);
           Vec4<float>::load(m + 4 * q, mm[u]);
           Vec4<float>::load(v + 4 * q, vv[u]);
         }
@@ -159,7 +163,7 @@ adam_leaves_kernel(const __grid_constant__ AdamTable t) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             adam_step_one(gg[u][e], pp[u][e], mm[u][e], vv[u][e], t.h, adam_w);
-          Vec4<float>::store(p + 4 * q, pp[u]);
+          Vec4<P>::store(p + 4 * q, pp[u]);
           Vec4<float>::store(m + 4 * q, mm[u]);
           Vec4<float>::store(v + 4 * q, vv[u]);
           if (lowp != nullptr) Vec4<L>::store(lowp + 4 * q, pp[u]);
@@ -169,9 +173,9 @@ adam_leaves_kernel(const __grid_constant__ AdamTable t) {
     tail = 4 * nv;
   }
   for (int i = tail + threadIdx.x; i < len; i += kThreads) {
-    float pp = p[i], mm = m[i], vv = v[i];
+    float pp = to_f<P>(p[i]), mm = m[i], vv = v[i];
     adam_step_one(to_f<G>(g[i]), pp, mm, vv, t.h, adam_w);
-    p[i] = pp;
+    p[i] = from_f<P>(pp);
     m[i] = mm;
     v[i] = vv;
     if (lowp != nullptr) lowp[i] = from_f<L>(pp);
@@ -200,17 +204,31 @@ cudaError_t launch_pipeline(const void* g, void* p, void* m, void* v, void* lowp
   return cudaGetLastError();
 }
 
-template <typename G, typename L>
+template <typename G, typename L, typename P>
 cudaError_t launch_leaves(const long long* ptrs, const long long* ns, int count,
                           int chunk, const StepHyp& h, cudaStream_t stream) {
   AdamTable t{};
   t.h = h;
-  const int width[5] = {4 * (int)sizeof(G), 16, 16, 16, 4 * (int)sizeof(L)};
+  const int width[5] = {4 * (int)sizeof(G), 4 * (int)sizeof(P), 16, 16,
+                        4 * (int)sizeof(L)};
   const cudaError_t e = fill_table(t, ptrs, ns, count, chunk, kHasLowp<L>, width);
   if (e != cudaSuccess) return e;
   if (t.start[count] == 0) return cudaSuccess;
-  adam_leaves_kernel<G, L><<<t.start[count], kThreads, 0, stream>>>(t);
+  adam_leaves_kernel<G, L, P><<<t.start[count], kThreads, 0, stream>>>(t);
   return cudaGetLastError();
+}
+
+// g's type for the lane of a bf16/fp16 stepped tensor P (no copy)
+template <typename P>
+cudaError_t launch_lowp_leaves(int g_dtype, const long long* ptrs, const long long* ns,
+                               int count, int chunk, const StepHyp& h,
+                               cudaStream_t stream) {
+  switch (g_dtype) {
+    case 0: return launch_leaves<float, float, P>(ptrs, ns, count, chunk, h, stream);
+    case 1: return launch_leaves<__nv_bfloat16, float, P>(ptrs, ns, count, chunk, h, stream);
+    case 2: return launch_leaves<__half, float, P>(ptrs, ns, count, chunk, h, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -251,18 +269,29 @@ int apex_adam_step_capacity() { return AdamTable::kCap; }
 // (count, 5) int64 rows of g, p, m, v, lowp; ns (count,) int64 lengths;
 // the buffers as above, no scale and no skip; chunk: elements a block, a
 // multiple of 4; omb1 = 1 - beta1 and omb2 = 1 - beta2 formed in fp32 by
-// the caller, as the plain version forms them.
+// the caller, as the plain version forms them.  p_dtype 0: p is the fp32
+// master; 1 bfloat16, 2 float16: p is the parameter itself, stepped in
+// fp32 and rounded back, with no copy (lowp_dtype 0, every lowp null).
 int apex_adam_step_leaves(const void* ptrs, const void* ns, int count, int chunk,
                           float lr, float beta1, float omb1, float beta2, float omb2,
                           float eps, float weight_decay, float bc1, float bc2,
-                          int adam_w_mode, int g_dtype, int lowp_dtype, void* stream) {
+                          int adam_w_mode, int g_dtype, int lowp_dtype, int p_dtype,
+                          void* stream) {
   const StepHyp h{lr, beta1, omb1, beta2, omb2, eps, weight_decay, bc1, bc2, adam_w_mode};
+  const long long* rows = static_cast<const long long*>(ptrs);
+  const long long* lens = static_cast<const long long*>(ns);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p_dtype != 0 && lowp_dtype != 0) return cudaErrorInvalidValue;
+  switch (p_dtype) {
+    case 0: break;
+    case 1: return launch_lowp_leaves<__nv_bfloat16>(g_dtype, rows, lens, count, chunk, h, st);
+    case 2: return launch_lowp_leaves<__half>(g_dtype, rows, lens, count, chunk, h, st);
+    default: return cudaErrorInvalidValue;
+  }
   return with_types(g_dtype, lowp_dtype, [&](auto* gt, auto* lt) {
     using G = std::remove_pointer_t<decltype(gt)>;
     using L = std::remove_pointer_t<decltype(lt)>;
-    return launch_leaves<G, L>(static_cast<const long long*>(ptrs),
-                               static_cast<const long long*>(ns), count, chunk, h,
-                               static_cast<cudaStream_t>(stream));
+    return launch_leaves<G, L, float>(rows, lens, count, chunk, h, st);
   });
 }
 

@@ -18,7 +18,9 @@ the partial entry's offsets and lse cotangent
 (``flash_attention_partial``, ``flash_attention_partial_bwd``) and its
 coordinate-hash dropout (``flash_attention_partial_dropout``,
 ``flash_attention_partial_bwd_dropout``), and the packed-qkv launches of
-rows 7 and 9 (``flash_attention_qkv``, ``flash_attention_qkv_bwd``).  A caller resets the counts just before the path it
+rows 7 and 9 (``flash_attention_qkv``, ``flash_attention_qkv_bwd``),
+and the Adam step's launches over bf16/fp16 parameters stepped without
+masters (``adam_step_lowp``, amp's O3).  A caller resets the counts just before the path it
 wants to prove and reads them just after (``chip_smoke.py`` does this
 around each serve and around each train step).
 """
@@ -45,7 +47,7 @@ KERNELS = ("layer_norm", "flash_attention", "flash_decode",
            "flash_attention_partial", "flash_attention_partial_bwd",
            "flash_attention_partial_dropout",
            "flash_attention_partial_bwd_dropout", "flash_attention_qkv",
-           "flash_attention_qkv_bwd")
+           "flash_attention_qkv_bwd", "adam_step_lowp")
 
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -17,6 +17,13 @@ streams long E sequences in (512, 512) VMEM tiles; those are devices of
 the TPU's memory, so the port keeps heads apart, walks shared-memory
 tiles at every length, and matches the numerics, not the layout.
 
+Under ``amp.autocast`` (O1/O4) every entry and its plain version is one
+opaque op (the JAX entries are ``custom_vjp`` calls): its floating
+inputs are cast to the compute dtype at the boundary, as the JAX entries
+do from ``autocast_compute_dtype()`` (``apex_tpu/ops/flash_attention.py
+:1373-1381``, ``:1467-1471``, ``:1698-1702``, ``:2621-2629``), and the
+casting mode is suspended inside.
+
 On a CUDA tensor :func:`flash_attention` launches
 ``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
 :func:`mha_reference`.  The kernel reads q/k/v through their strides
@@ -102,6 +109,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import _build
+from .._autocast_ctx import autocast_compute_dtype, boundary_cast, opaque
 from ._counts import bump
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "mha_reference",
@@ -162,6 +170,7 @@ def _diag(causal: bool, q_offset, k_offset, sq: int, sk: int) -> int:
     return max(-sq, min(sk, int(q_offset) - int(k_offset)))
 
 
+@opaque
 def mha_reference(q, k, v, scale: Optional[float] = None,
                   causal: bool = False, return_lse: bool = False,
                   kv_mask: Optional[torch.Tensor] = None,
@@ -180,6 +189,7 @@ def mha_reference(q, k, v, scale: Optional[float] = None,
     after the softmax (lse stays the undropped one).  Under causal
     masking query i sits at ``q_offset + i`` and key j at ``k_offset +
     j``; a row that then sees no key gives o = 0 and lse = -inf."""
+    q, k, v = boundary_cast(autocast_compute_dtype(), q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -513,6 +523,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+@opaque
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, scale: Optional[float] = None,
                              causal: bool = False,
@@ -520,6 +531,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)``: softmax(q k^T * scale [causal] [kv_mask]) v and the
     fp32 per-row log-sum-exp, (b, h, sq).  Differentiable in o."""
+    q, k, v = boundary_cast(autocast_compute_dtype(), q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return FlashAttentionFunction.apply(q, k, v, float(scale),
@@ -749,6 +761,7 @@ def _split_e(qkv):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
+@opaque
 def flash_attention_e_reference(qkv, scale: Optional[float] = None,
                                 causal: bool = False,
                                 kv_mask: Optional[torch.Tensor] = None,
@@ -757,6 +770,7 @@ def flash_attention_e_reference(qkv, scale: Optional[float] = None,
     """Plain version of :func:`flash_attention_e`: :func:`mha_reference`
     on the split views with :func:`rand_keep`'s mask, differentiated by
     autograd."""
+    qkv, = boundary_cast(autocast_compute_dtype(), qkv)
     b, s, h, td = qkv.shape
     drop = _drop_args(dropout_rate, dropout_seed, s, h, td // 3)
     q, k, v = _split_e(qkv)
@@ -847,6 +861,7 @@ def _forward_e(qkv, scale, causal, kv_mask=None, drop=None):
     return o.transpose(1, 2), lse
 
 
+@opaque
 def flash_attention_e_with_lse(qkv: torch.Tensor,
                                scale: Optional[float] = None,
                                causal: bool = False,
@@ -856,6 +871,7 @@ def flash_attention_e_with_lse(qkv: torch.Tensor,
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The E forward without autograd: ``(o, lse)`` with o (b, s, h*d)
     and the fp32 natural-log lse (b, h, s) of the undropped scores."""
+    qkv, = boundary_cast(autocast_compute_dtype(), qkv)
     b, s, h, td = qkv.shape
     if scale is None:
         scale = (td // 3) ** -0.5
@@ -890,6 +906,7 @@ class FlashAttentionEFunction(torch.autograd.Function):
         return dqkv, None, None, None, None
 
 
+@opaque
 def flash_attention_e(qkv: torch.Tensor, scale: Optional[float] = None,
                       causal: bool = False,
                       kv_mask: Optional[torch.Tensor] = None,
@@ -905,6 +922,7 @@ def flash_attention_e(qkv: torch.Tensor, scale: Optional[float] = None,
     Python int: :func:`dropout_seed`); rate 0 is the dropout-free call.
     Differentiable; the kernels on CUDA tensors, their plain versions on
     CPU tensors."""
+    qkv, = boundary_cast(autocast_compute_dtype(), qkv)
     b, s, h, td = qkv.shape
     if scale is None:
         scale = (td // 3) ** -0.5
@@ -972,6 +990,7 @@ def _partial_forward_reference(q, k, v, scale, causal, diag, drop):
     return o, torch.where(lse == -math.inf, _dead_lse(scale), lse)
 
 
+@opaque
 def flash_attention_partial_reference(q, k, v, scale: Optional[float] = None,
                                       causal: bool = False, q_offset=0,
                                       k_offset=0, dropout_rate: float = 0.0,
@@ -980,6 +999,7 @@ def flash_attention_partial_reference(q, k, v, scale: Optional[float] = None,
     :func:`mha_reference` with the offsets and :func:`rand_keep_global`'s
     mask, a dead row's lse JAX's -1e30 * scale; differentiable by
     autograd in o and lse."""
+    q, k, v = boundary_cast(autocast_compute_dtype(), q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     sq, sk = q.shape[2], k.shape[2]
@@ -1039,6 +1059,7 @@ class FlashAttentionPartialFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+@opaque
 def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, scale: Optional[float] = None,
                             causal: bool = False, q_offset: int = 0,
@@ -1061,6 +1082,7 @@ def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
     Differentiable in o and lse (the lse cotangent folds into the
     backward's delta, as JAX's ``_flash_bwd`` does); the kernels on CUDA
     tensors, their plain versions on CPU tensors."""
+    q, k, v = boundary_cast(autocast_compute_dtype(), q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     sq, sk = q.shape[2], k.shape[2]
@@ -1079,12 +1101,14 @@ def _check_packed(qkv):
                          f"{tuple(qkv.shape)}")
 
 
+@opaque
 def flash_attention_qkv_reference(qkv, scale: Optional[float] = None,
                                   causal: bool = False,
                                   kv_mask: Optional[torch.Tensor] = None):
     """Plain version of :func:`flash_attention_qkv`:
     :func:`mha_reference` on ``qkv[0]``, ``qkv[1]``, ``qkv[2]``,
     differentiable by autograd."""
+    qkv, = boundary_cast(autocast_compute_dtype(), qkv)
     _check_packed(qkv)
     return mha_reference(*qkv.unbind(0), scale=scale, causal=causal,
                          kv_mask=kv_mask)
@@ -1128,6 +1152,7 @@ class FlashAttentionQKVFunction(torch.autograd.Function):
         return dqkv, None, None, None
 
 
+@opaque
 def flash_attention_qkv(qkv: torch.Tensor, scale: Optional[float] = None,
                         causal: bool = False,
                         kv_mask: Optional[torch.Tensor] = None
@@ -1139,6 +1164,7 @@ def flash_attention_qkv(qkv: torch.Tensor, scale: Optional[float] = None,
     keeps the keys where it is > 0.  Differentiable into one dqkv in
     qkv's layout; the kernels on CUDA tensors, their plain versions on
     CPU tensors."""
+    qkv, = boundary_cast(autocast_compute_dtype(), qkv)
     _check_packed(qkv)
     if scale is None:
         scale = qkv.shape[-1] ** -0.5

@@ -16,8 +16,13 @@ bodies (``adam_update``, ``adagrad_update``, ``novograd_update``,
   jitted program; the port's :func:`sgd_step_leaves` and
   :func:`adam_step_leaves` take every leaf at once and launch one kernel
   a (g, lowp) dtype pair and table of leaves (``sgd_step`` and
-  ``adam_step`` are their one-leaf calls).  JAX's ``flatten_for_kernel``
-  LANE padding has no counterpart: the kernels take any length;
+  ``adam_step`` are their one-leaf calls).  The Adam step also takes a
+  bf16 or fp16 ``p`` with no copy (amp's policies without master
+  weights: O3 steps its fp16 parameters themselves): read into fp32,
+  stepped by the same fp32 body, rounded back once, as JAX's kernel
+  writes ``p_new.astype(p.dtype)``; a launch a (g, p) dtype pair and
+  table.  JAX's ``flatten_for_kernel`` LANE padding has no counterpart:
+  the kernels take any length;
 * ``lamb_phase1`` (:262-305, body ``_lamb_phase1_kernel``): over one flat
   group —
   gradient ``g`` in the model's dtype, fp32 master ``p`` and moments
@@ -158,26 +163,32 @@ def one_minus(x) -> float:
     return float(np.float32(1.0) - np.float32(x))
 
 
-def check_buffers(what: str, g, state, lowp=None) -> Tuple[int, int]:
+def check_buffers(what: str, g, state, lowp=None,
+                  lowp_master: bool = False) -> Tuple[int, int]:
     """Raise unless ``state`` (the master first) are contiguous fp32
     buffers of one length on one device, ``g`` a contiguous gradient of
     that length in a dtype the kernels take, and ``lowp`` None or a
     contiguous bf16/fp16 buffer of that length: what the element-wise
-    kernels read as flat arrays.  Returns the length and the master's
-    ``get_device()``.  (Called on the kernels' path only, where the
-    master lies on a CUDA device: ``get_device()`` tells devices apart
-    there, at a fraction of ``.device``'s cost.)"""
+    kernels read as flat arrays.  With ``lowp_master`` the master may
+    also be a bf16/fp16 tensor stepped without a copy (``lowp`` None).
+    Returns the length and the master's ``get_device()``.  (Called on
+    the kernels' path only, where the master lies on a CUDA device:
+    ``get_device()`` tells devices apart there, at a fraction of
+    ``.device``'s cost.)"""
     p = state[0]
     n = p.numel()
     dev = p.get_device()
-    ok = p.dtype == torch.float32 and p.is_contiguous()
+    low = lowp_master and p.dtype in _LOWP_TAKES and lowp is None
+    ok = (p.dtype == torch.float32 or low) and p.is_contiguous()
     for t in state[1:]:
         ok = ok and t.dtype == torch.float32 and t.is_contiguous() and \
             t.numel() == n and t.get_device() == dev
     if not ok:
         raise ValueError(f"{what}: the master and state must be "
                          f"contiguous float32 buffers of {n} elements "
-                         f"on {p.device}")
+                         f"on {p.device}" + (
+                             " (or the master a bf16/fp16 tensor with no "
+                             "copy)" if lowp_master else ""))
     if g.dtype not in _G_TAKES or not g.is_contiguous() or \
             g.numel() != n or g.get_device() != dev:
         raise ValueError(f"{what}: g must be a contiguous {_G_TAKES} "
@@ -218,21 +229,22 @@ def adam_step_reference(g, p, m, v, lowp=None, *, lr, beta1, beta2, eps,
                         adam_w_mode=True):
     """Plain version of the Adam step (the ``_adam_step_kernel`` math, in
     its order, one rounding an operation), updating ``p``, ``m``, ``v``
-    and ``lowp`` in place; returns them."""
+    and ``lowp`` in place; returns them.  A bf16/fp16 ``p`` (no ``lowp``)
+    is read into fp32 and rounded back once."""
     lr_, b1, omb1, b2, omb2, eps_, wd, bc1, bc2 = (
         _scalar(x, p.device) for x in (
             f32(lr), f32(beta1), one_minus(beta1), f32(beta2),
             one_minus(beta2), f32(eps), f32(weight_decay),
             f32(bias_correction1), f32(bias_correction2)))
-    gf = g.float()
+    gf, pf = g.float(), p.float()
     if not adam_w_mode:
-        gf = gf + wd * p
+        gf = gf + wd * pf
     m_new = b1 * m + omb1 * gf
     v_new = b2 * v + omb2 * gf * gf
     upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps_)
     if adam_w_mode:
-        upd = upd + wd * p
-    p.copy_(p - lr_ * upd)
+        upd = upd + wd * pf
+    p.copy_(pf - lr_ * upd)
     m.copy_(m_new)
     v.copy_(v_new)
     if lowp is not None:
@@ -285,12 +297,14 @@ def _on_cpu_leaves(what: str, masters) -> bool:
 
 
 def _launch_leaves(what: str, lib_name: str, grads, states, lowps,
-                   hyp) -> None:
+                   hyp, lowp_master: bool = False) -> None:
     """Check every leaf as :func:`check_buffers` does (raising on the
     first that fails), group the leaves by (g dtype, lowp dtype), pack each
     group's pointers and lengths into int64 rows, and launch
     ``apex_<what>_leaves`` once a table's worth of rows, counting each
-    launch under ``what``."""
+    launch under ``what``.  ``lowp_master``: the master may be a bf16/fp16
+    tensor (the groups keyed by its dtype too, whose code the entry takes
+    last; their launches counted under ``<what>_lowp``)."""
     lists = (grads, *states, lowps)
     if len({len(x) for x in lists}) != 1:
         raise ValueError(f"{what}: {[len(x) for x in lists]} grads, "
@@ -302,14 +316,15 @@ def _launch_leaves(what: str, lib_name: str, grads, states, lowps,
     groups = {}
     for leaf in zip(*lists):
         g, lowp = leaf[0], leaf[-1]
-        n, on = check_buffers(what, g, leaf[1:-1], lowp)
+        n, on = check_buffers(what, g, leaf[1:-1], lowp, lowp_master)
         if on != index:
             raise ValueError(f"{what}: every leaf must lie on {dev}, not "
                              f"{leaf[1].device}")
         if n:
             row = [t.data_ptr() for t in leaf[:-1]]
             row += (0, n) if lowp is None else (lowp.data_ptr(), n)
-            key = (g.dtype, None if lowp is None else lowp.dtype)
+            key = (g.dtype, None if lowp is None else lowp.dtype,
+                   leaf[1].dtype)
             groups.setdefault(key, []).append(row)
     if not groups:
         return
@@ -318,18 +333,20 @@ def _launch_leaves(what: str, lib_name: str, grads, states, lowps,
     cap = step_capacity(lib_name)
     stream = _build.stream_ptr(dev)
     with torch.cuda.device(dev):
-        for (gdt, ldt), rows in groups.items():
+        for (gdt, ldt, pdt), rows in groups.items():
             table = np.array(rows, dtype=np.int64)
             ptrs = np.ascontiguousarray(table[:, :-1])
             ns = np.ascontiguousarray(table[:, -1])
             codes = (_build.dtype_code(gdt),
                      0 if ldt is None else _build.dtype_code(ldt))
+            if lowp_master:
+                codes += (_build.dtype_code(pdt),)
             for i in range(0, len(rows), cap):
                 rc = fn(ptrs[i:].ctypes.data, ns[i:].ctypes.data,
                         min(cap, len(rows) - i), STEP_CHUNK, *hyp, *codes,
                         stream)
                 _build.check(lib_name, rc, f"{what} kernel")
-                bump(what)
+                bump(what if pdt == torch.float32 else f"{what}_lowp")
 
 
 def sgd_step_leaves_reference(grads: Sequence[torch.Tensor],
@@ -404,7 +421,7 @@ def _adam_leaves_launch(grads, masters, ms, vs, lowps, *, lr, beta1, beta2,
                    lowps, (f32(lr), f32(beta1), one_minus(beta1), f32(beta2),
                            one_minus(beta2), f32(eps), f32(weight_decay),
                            f32(bias_correction1), f32(bias_correction2),
-                           int(bool(adam_w_mode))))
+                           int(bool(adam_w_mode))), lowp_master=True)
 
 
 def adam_step_leaves(grads: Sequence[torch.Tensor],
@@ -416,10 +433,12 @@ def adam_step_leaves(grads: Sequence[torch.Tensor],
                      bias_correction2: float,
                      adam_w_mode: bool = True) -> None:
     """One Adam (``adam_w_mode=False``: L2) or AdamW step over every leaf,
-    in place: each fp32 master and its moments updated, the model copy
+    in place: each master and its fp32 moments updated, the model copy
     cast into its ``lowps`` entry (None where the master is the model
-    copy).  On CUDA tensors one launch a dtype pair and table
-    (:func:`step_capacity` leaves)."""
+    copy).  A master is an fp32 tensor, or a bf16/fp16 parameter stepped
+    without a master (its ``lowps`` entry None): fp32 arithmetic, the
+    result rounded back into it.  On CUDA tensors one launch a (g, lowp,
+    master) dtype lane and table (:func:`step_capacity` leaves)."""
     kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
               weight_decay=weight_decay, bias_correction1=bias_correction1,
               bias_correction2=bias_correction2, adam_w_mode=adam_w_mode)

@@ -15,6 +15,13 @@ On a CUDA tensor :func:`layer_norm_with_stats` and
 CPU tensor they run :func:`layer_norm_stats_reference` and
 :func:`layer_norm_backward_reference`.  :class:`FusedLayerNormFunction`
 pairs them under autograd (:func:`fused_layer_norm`).
+
+Under ``amp.autocast`` (O1/O4) :func:`layer_norm`, :func:`fused_layer_norm`
+and :func:`layer_norm_reference` are each one opaque op run in fp32, as
+``apex_tpu/ops/layer_norm.py:225-242`` casts (the reference's O1 lists
+put ``layer_norm`` in FP32_FUNCS): a bf16/fp16 ``x`` and its gamma/beta
+are cast to fp32 at the boundary, and the casting mode is suspended
+inside.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from .._autocast_ctx import autocast_compute_dtype, opaque
 from ._counts import bump
 
 __all__ = ["layer_norm", "layer_norm_with_stats", "layer_norm_reference",
@@ -33,6 +41,20 @@ __all__ = ["layer_norm", "layer_norm_with_stats", "layer_norm_reference",
 
 _MAX_HIDDEN = 8192           # hidden * 4 bytes of shared memory per row
 _TAKES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _autocast_fp32(fn):
+    """``fn(x, gamma, beta, ...)`` as one op under ``amp.autocast``, with
+    a floating non-fp32 x (and its gamma/beta) cast to fp32 first."""
+    @functools.wraps(fn)
+    def wrapped(x, gamma, beta, *args, **kwargs):
+        if autocast_compute_dtype() is not None and \
+                x.is_floating_point() and x.dtype != torch.float32:
+            x = x.float()
+            gamma = None if gamma is None else gamma.float()
+            beta = None if beta is None else beta.float()
+        return fn(x, gamma, beta, *args, **kwargs)
+    return opaque(wrapped)
 
 
 def layer_norm_stats_reference(x, gamma, beta, eps: float = 1e-5):
@@ -48,6 +70,7 @@ def layer_norm_stats_reference(x, gamma, beta, eps: float = 1e-5):
     return y.to(x.dtype), mean.squeeze(-1), rstd.squeeze(-1)
 
 
+@_autocast_fp32
 def layer_norm_reference(x, gamma, beta, eps: float = 1e-5):
     """The jnp twin's math (``_layer_norm_reference``): fp32
     statistics, mixed-dtype affine, output in x's dtype."""
@@ -143,6 +166,7 @@ def _needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+@_autocast_fp32
 def layer_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
                beta: Optional[torch.Tensor],
                eps: float = 1e-5) -> torch.Tensor:
@@ -248,6 +272,7 @@ class FusedLayerNormFunction(torch.autograd.Function):
         return dx, dgamma, dbeta, None
 
 
+@_autocast_fp32
 def fused_layer_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
                      beta: Optional[torch.Tensor],
                      eps: float = 1e-5) -> torch.Tensor:

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .._autocast_ctx import opaque
 from ._counts import bump
 from .layer_norm import _needs_grad
 
@@ -270,6 +271,7 @@ class MoERouteDispatchFunction(torch.autograd.Function):
         return dx, dl, None, None, None, None
 
 
+@opaque
 def _fused(x: torch.Tensor, logits: torch.Tensor,
            u: Optional[torch.Tensor], *, capacity: int, top_k: int = 1,
            second_policy: str = "all") -> RouteDispatch:
@@ -289,6 +291,7 @@ def _fused(x: torch.Tensor, logits: torch.Tensor,
                            second_policy)
 
 
+@opaque
 def moe_route_dispatch(x: torch.Tensor, logits: torch.Tensor, *,
                        capacity: int, top_k: int = 1,
                        second_policy: str = "all",

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .._autocast_ctx import opaque
 from ._counts import bump
 
 __all__ = ["scaled_upper_triang_masked_softmax", "causal_softmax",
@@ -210,6 +211,7 @@ class ScaledUpperTriangMaskedSoftmax(torch.autograd.Function):
         return bwd(y, dy, ctx.scale), None, None
 
 
+@opaque
 def scaled_upper_triang_masked_softmax(x: torch.Tensor, scale: float = 1.0,
                                        *, kernels: bool = True
                                        ) -> torch.Tensor:
@@ -244,6 +246,7 @@ class ScaledMaskedSoftmax(torch.autograd.Function):
         return bwd(y, dy, ctx.scale), None, None, None
 
 
+@opaque
 def scaled_masked_softmax(x: torch.Tensor, mask: torch.Tensor,
                           scale: float = 1.0, *, kernels: bool = True
                           ) -> torch.Tensor:

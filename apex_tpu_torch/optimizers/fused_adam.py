@@ -128,6 +128,10 @@ class FusedAdamState:
 class FusedAdam:
     """The FusedAdam hyperparameters and its pipeline entry points."""
 
+    # fused_step takes bf16/fp16 tensors as the stepped values (amp's
+    # policies without master weights, O3): adam_step_leaves' lane
+    steps_model_dtype = True
+
     learning_rate: ScalarOrSchedule = 1e-3
     beta1: float = 0.9
     beta2: float = 0.999
@@ -188,11 +192,12 @@ class FusedAdam:
     def fused_step(self, grads: Sequence[torch.Tensor],
                    state: FusedAdamState, masters: Sequence[torch.Tensor],
                    lowps: Sequence) -> FusedAdamState:
-        """One Adam step over every leaf, in place: each fp32 master and
-        its moments updated, the model copy written into its ``lowps``
-        entry (None where the master is the parameter itself).  Gradients
-        arrive unscaled, in their own dtype (in fp32 once clipped).
-        Returns the new state."""
+        """One Adam step over every leaf, in place: each stepped tensor
+        (an fp32 master, or a bf16/fp16 parameter with a gradient of its
+        dtype and no copy) and its fp32 moments updated, the model copy
+        written into its ``lowps`` entry (None where the stepped tensor
+        is the parameter itself).  Gradients arrive unscaled, in their
+        own dtype (in fp32 once clipped).  Returns the new state."""
         count = state.count + 1
         bc1, bc2 = self.bias_corrections(count)
         step = adam_step_leaves if self.kernels \
@@ -206,12 +211,16 @@ class FusedAdam:
 
     def staged_init(self, masters: Sequence[torch.Tensor]
                     ) -> FusedAdamState:
-        """Zero moments, one pair a master in its shape: the state
-        ``fused_step`` walks, whatever ``multi_tensor.DIRECT_MIN_ELEMS``
-        is."""
+        """Zero fp32 moments, one pair a stepped tensor in its shape (an
+        fp32 master, or a bf16/fp16 parameter stepped without one): the
+        state ``fused_step`` walks, whatever
+        ``multi_tensor.DIRECT_MIN_ELEMS`` is."""
         return FusedAdamState(
-            count=0, m=tuple(torch.zeros_like(p) for p in masters),
-            v=tuple(torch.zeros_like(p) for p in masters))
+            count=0,
+            m=tuple(torch.zeros_like(p, dtype=torch.float32)
+                    for p in masters),
+            v=tuple(torch.zeros_like(p, dtype=torch.float32)
+                    for p in masters))
 
     def pipeline_init(self, masters: Sequence[torch.Tensor],
                       segments=None) -> FusedAdamState:

@@ -7,6 +7,8 @@ Counterpart of ``apex_tpu/testing/standalone_gpt.py``: the model
     python -m apex_tpu_torch.testing.standalone_gpt --serve
     python -m apex_tpu_torch.testing.standalone_gpt --train
     python -m apex_tpu_torch.testing.standalone_gpt --train --policy O2
+    python -m apex_tpu_torch.testing.standalone_gpt --train --policy O4
+    python -m apex_tpu_torch.testing.standalone_gpt --train --policy O1
     python -m apex_tpu_torch.testing.standalone_gpt --train \
         --model gpt345m_s2048
     python -m apex_tpu_torch.testing.standalone_gpt --train \
@@ -41,7 +43,7 @@ experts (:func:`moe_serving_weights`) routed through row 18's kernel, with
 ``--train`` takes ``--steps`` optimizer steps on one seeded batch (seq
 1024, batch 8 at GPT-345M; seq 2048, batch 4 at ``gpt345m_s2048``, the
 long-sequence row) with ``fused_adam(1e-4)``, in one of the JAX
-package's two train recipes (:data:`TRAIN_RECIPES`), without dropout
+package's train recipes (:data:`TRAIN_RECIPES`), without dropout
 unless ``--attention-dropout`` / ``--hidden-dropout`` set rates (the
 embedding's is the hidden rate, as in JAX; ``--attention-dropout 0.1``
 alone is ``bench.py``'s ``gpt2_345m_dropout``, a fresh seed for every
@@ -49,7 +51,14 @@ layer every step), and prints one ``TRAIN_DONE`` line: ``O5`` is ``bench.py``'s 
 a static scale of 1); ``O2`` is ``make_smoke_setup``'s route
 (``use_flash=False``: materialized scores through the fused causal
 softmax; fp16 parameters and compute, fp32 masters, a dynamic loss
-scale from 2^16).  Both run on the card unless ``--device cpu`` is
+scale from 2^16).  The policies without master weights: ``O4`` (the
+fork's bf16 op-level level) and ``O1`` (Apex's fp16 one, a dynamic loss
+scale from 2^16) keep the model fp32 and run the forward and loss under
+``amp.autocast`` (matmuls on bf16/fp16 operands with fp32 results, flash
+attention in bf16/fp16, layer norm in fp32), through flash attention as
+O5 does; ``O0`` (fp32) and ``O3`` (fp16 parameters, a static scale of 1)
+take O2's materialized scores.  All four step the parameters themselves
+on amp's staged route.  All run on the card unless ``--device cpu`` is
 asked for.
 """
 from __future__ import annotations
@@ -80,7 +89,8 @@ from ..transformer.tensor_parallel import VocabParallelEmbedding
 __all__ = ["MODELS", "TRAIN_RECIPES", "DRAFTS", "model_config", "seeded_prompts",
            "truncated_draft", "moe_serving_weights", "serve_smoke",
            "GPTEmbedding", "GPTModel", "gpt_loss", "gpt_params_from_numpy",
-           "TrainSetup", "make_train_setup", "model_flops", "train_step",
+           "TrainSetup", "make_train_setup", "model_flops", "forward_backward",
+           "train_step",
            "TrainResult",
            "train_smoke", "masters_digest", "main"]
 
@@ -105,8 +115,12 @@ _TRAIN_KEYS = ("seq", "batch")
 # the train recipes, by amp policy: O5 is bench.py's bench_gpt345m
 # (flash attention, bf16, static scale 1); O2 is make_smoke_setup's route
 # (materialized scores and the fused softmax, fp16, dynamic scale).  The
-# compute dtype is the policy's model dtype.
-TRAIN_RECIPES = {"O5": dict(use_flash=True), "O2": dict(use_flash=False)}
+# model dtype is the policy's (fp32 for O0, O1 and O4; fp16 for O3).  O4
+# and O1 take O5's flash route under amp.autocast; O0 and O3 take
+# make_smoke_setup's route, as O2
+TRAIN_RECIPES = {"O5": dict(use_flash=True), "O2": dict(use_flash=False),
+                 "O4": dict(use_flash=True), "O1": dict(use_flash=True),
+                 "O0": dict(use_flash=False), "O3": dict(use_flash=False)}
 TRAIN_LR = 1e-4
 
 
@@ -416,11 +430,14 @@ def make_train_setup(model: str = "gpt345m", *, policy: str = "O5",
                            device=dev)
     n_params = sum(p.numel() for p in net.parameters())
     opt = fused_adam(TRAIN_LR, kernels=kernels)
-    # the persistent pipeline at every preset, as the recipes were built
-    # and measured (the default route would send the tiny CPU preset to
-    # the staged route: under 128 MiB)
+    # the persistent pipeline at every preset where the policy has master
+    # weights, as the recipes were built and measured (the default route
+    # would send the tiny CPU preset to the staged route: under 128 MiB);
+    # the staged route on the parameters themselves where it has none
+    # (JAX's make_train_setup passes pipeline=True only then)
+    masters = bool(get_policy(policy).master_weights)
     net, amp_opt = amp.initialize(net, opt, opt_level=policy,
-                                  pipeline=True)
+                                  pipeline=True if masters else None)
     rng = DropoutRNG(seed + 1, dev) \
         if attention_dropout > 0.0 or hidden_dropout > 0.0 else None
     return TrainSetup(net, amp_opt, tokens, torch.roll(tokens, -1, dims=-1),
@@ -438,18 +455,29 @@ def model_flops(model: str, n_params: int) -> float:
         + 12.0 * geo["num_layers"] * geo["hidden_size"] * s * s * b
 
 
-def train_step(setup: TrainSetup):
-    """One step: zero the flat grads, forward (with dropout, fresh seeds
-    and masks from the setup's RNG), the scaled loss's backward, and the
-    fused optimizer sweeps.  Returns the (unscaled) loss, still on the
-    device, and the step's ``StepInfo``."""
+def _forward_loss(model, tokens, labels, rng):
+    return gpt_loss(model(tokens, deterministic=rng is None, rng=rng),
+                    labels)
+
+
+def forward_backward(setup: TrainSetup) -> torch.Tensor:
+    """Zero the grads, run the forward (with dropout, fresh seeds and
+    masks from the setup's RNG) and the loss, under ``amp.autocast`` for
+    a policy that casts ops (O1, O4), and the scaled loss's backward.
+    Returns the (unscaled) loss, still on the device."""
     setup.amp_opt.zero_grad()
-    logits = setup.model(setup.tokens, deterministic=setup.rng is None,
-                         rng=setup.rng)
-    loss = gpt_loss(logits, setup.labels)
+    loss = amp.autocast(_forward_loss, policy=setup.amp_opt.policy)(
+        setup.model, setup.tokens, setup.labels, setup.rng)
     setup.amp_opt.scale_loss(loss).backward()
-    info = setup.amp_opt.apply_gradients()
-    return loss.detach(), info
+    return loss.detach()
+
+
+def train_step(setup: TrainSetup):
+    """One step: :func:`forward_backward`, then the fused optimizer step.
+    Returns the (unscaled) loss, still on the device, and the step's
+    ``StepInfo``."""
+    loss = forward_backward(setup)
+    return loss, setup.amp_opt.apply_gradients()
 
 
 @dataclasses.dataclass
@@ -483,10 +511,13 @@ class TrainResult:
 
 def masters_digest(amp_opt) -> str:
     """sha256 (first 16 hex digits) of the fp32 master buffers, in group
-    order."""
+    order (the pipeline), or of the stepped tensors in parameter order
+    (the staged route: the masters, or the parameters themselves)."""
     h = hashlib.sha256()
-    for g in amp_opt.groups:
-        h.update(g.master.detach().cpu().numpy().tobytes())
+    bufs = [g.master for g in amp_opt.groups] if amp_opt.use_pipeline \
+        else amp_opt._masters
+    for b in bufs:
+        h.update(b.detach().float().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -526,8 +557,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--policy", default="O5",
                    help="amp opt level; serve: O5 (bf16), O0 (fp32) or Q8 "
                         "(bf16, int8 weight-only layer matmuls); train: O5 "
-                        "(bf16, flash) or O2 (fp16, fused softmax, dynamic "
-                        "loss scale)")
+                        "(bf16, flash), O2 (fp16, fused softmax, dynamic "
+                        "loss scale), O4 / O1 (fp32 model, bf16 / fp16 "
+                        "autocast, flash; O1 a dynamic loss scale), O0 "
+                        "(fp32) or O3 (fp16, no masters), both fused "
+                        "softmax")
     p.add_argument("--kv-dtype", choices=KV_DTYPES, default="model",
                    help="serve: the KV cache's storage: the model's dtype, "
                         "bf16, or int8 with one fp32 scale per cached row")

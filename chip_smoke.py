@@ -95,7 +95,18 @@ Phases, in order; any failure exits non-zero without the result line:
                    against their plain versions at every (g, p) pair of
                    fp32, bf16 and fp16 on an odd length and on misaligned
                    views, then timed at n = 67,108,864 with bf16 g and fp32
-                   p beside PyTorch's fused in-place steps.
+                   p beside PyTorch's fused in-place steps; the amp
+                   slice's (from a ninth generator): row 19's Adam step
+                   with GPT-345M's 292 parameters themselves in fp16 and
+                   in bf16 (no master, fp32 moments; ``adam_step_lowp``
+                   launches) bitwise against its plain version, odd
+                   lengths with 16-bit and fp32 gradients and a
+                   misaligned view, timed beside ``torch._fused_adamw_``
+                   on the same parameters; rows 1 and 2 in fp32 at the
+                   train step's (8192, 1024) (O1/O4's layer norms) and
+                   without the affine (``gamma=None``) in fp32 and bf16,
+                   held against their plain versions, the vector paths
+                   bitwise their element paths.
 3. serve O5/O0   — GPT-345M width (vocab 50304, hidden 1024, 24 layers,
                    16 heads, max_seq 1024), O5 bf16 then fp32, seeded
                    random weights: serve 8 seeded prompts of 64..700
@@ -155,7 +166,10 @@ Phases, in order; any failure exits non-zero without the result line:
                    may launch); each loss within ``TRAIN_LOSS_TOL`` of
                    the kernel run's, on the median over ``TRAIN_SEEDS``
                    of each step's gap (3 kernel and 3 plain steps more
-                   from each further seed).
+                   from each further seed).  Then step 1's qkv-weight
+                   gradients (each layer's q columns) of a kernel run
+                   against a plain run's within ``QKV_GRAD_RTOL``: the
+                   check that sees a one-key dQ fault.
 6. train O2      — the same width and batch in the O2 recipe
                    (``use_flash=False``: fp32 scores, the fused causal
                    softmax; fp16 parameters and compute, fp32 masters,
@@ -169,6 +183,35 @@ Phases, in order; any failure exits non-zero without the result line:
                    every skipped step holding masters, moments, fp16
                    parameters and the Adam count bitwise, the scale
                    halving from the 2^24 clip.
+6a. train_o4    — amp's O4 (the fork's bf16 op-level level) at the same
+                   width and batch: the fp32 model's forward and loss
+                   under ``amp.autocast`` (matmuls on bf16 operands with
+                   fp32 results, rows 10/12 in bf16, rows 1/2 in fp32),
+                   no master copy, a static scale of 1, the staged Adam
+                   step on the fp32 parameters: 8 steps with launch
+                   counts reset just before and held exactly (the route,
+                   the parameters' dtype and no master copy asserted);
+                   losses finite and falling; the plain medians over
+                   ``TRAIN_SEEDS`` within ``TRAIN_O4_LOSS_TOL``; the qkv
+                   gradient hold; the step beside O5's of the same run.
+                   First, autocast's products at the model's shapes
+                   (x @ W for qkv, fc1, fc2, the tied head, qkv through
+                   F.linear, a batch broadcast) in bf16 and fp16, forward
+                   and both operand gradients, against the CPU rule run
+                   on the same card tensors within ``AUTOCAST_MM_TOL``.
+6a'. train_amp_nomaster — O1 (fp16 autocast, flash, a dynamic scale
+                   from 2^16), O0 (fp32) and O3 (fp16 parameters stepped
+                   by row 19's fp16-parameter lane, rows 3/4 on fp32
+                   scores) at the same width, each as train_o4 with one
+                   seed's plain gaps within ``TRAIN_NOMASTER_LOSS_TOL``
+                   (O1's (finite, scale, skipped) sequence the plain
+                   run's), O3 with the seed medians within
+                   ``TRAIN_O3_LOSS_TOL`` and row 4 held to its plain
+                   version on the step's own (y, dy);
+                   then O1's overflow leg: an inf planted in one
+                   gradient, the step skipped with parameters, moments
+                   and count bitwise held and the scale halved, the next
+                   step applied.
 6b. train_bert   — BERT-large (vocab 30528, hidden 1024, 24 layers, 16
                    heads, ffn 4096) at seq 512, batch 16 (bench.py's
                    bench_bert_large), O5: bf16, the padded batch's (b, s)
@@ -339,7 +382,9 @@ Phases, in order; any failure exits non-zero without the result line:
                    Q8 serve over an int8 cache, the MoE serve at cf 8.0
                    and 1.25, one O5 and one O2 train
                    step of GPT-345M and of BERT-large (on bench.py's
-                   all-ones mask), one GPT-345M step at seq 2048, one at
+                   all-ones mask), one O4, O1, O0 and O3 step of GPT-345M
+                   (O4/O1: no GEMM on fp32 operands, TF32 off, rows 1/2's
+                   fp32 vector kernels present), one GPT-345M step at seq 2048, one at
                    attention dropout 0.1, one staged BERT-large recipe
                    step with checkpointing on and one with it off, one
                    step of each side of the zero_adam pair and one
@@ -357,6 +402,16 @@ Phases, in order; any failure exits non-zero without the result line:
                    readback and 3 kernel and 3 plain train_dropout steps
                    run in that copy: each fault must be caught, and what
                    caught it is printed.
+8''. nomaster_faults — only when named: each of ``NOMASTER_FAULTS``
+                   (dQ's diagonal tile without its last 32 keys; row 4's
+                   sum without a row's last 32 columns; the Adam step's
+                   eps a thousandfold; autocast's product backward on the
+                   unrounded cotangent) planted in a copy of the port,
+                   and the legs it reaches read beside their limits: the
+                   qkv gradient holds (O5, O4), O4's and O3's
+                   medians, O1/O0's gaps, row 4 on O3's tensors,
+                   autocast's products.  Each fault must be caught by
+                   one of its legs.
 8'. recipe_faults — only when named: each of ``RECIPE_LOSS_FAULTS``
                    (LAMB phase 1's eps tenfold; row 4's sum without a
                    row's last 32 columns) planted in a copy, and leg c's
@@ -508,7 +563,8 @@ PLAIN_STEPS = 3
 # the seeds whose median gap the O5 GPT and BERT families hold (the first
 # is the train run's own), and those families
 TRAIN_SEEDS = (0, 1, 2, 3, 4)
-SEEDED_FAMILIES = ("gpt", "gpt_long", "gpt_dropout", "bert")
+SEEDED_FAMILIES = ("gpt", "gpt_long", "gpt_dropout", "bert", "gpt_o4",
+                   "gpt_o3")
 # fp16 builds of LayerNorm, forward and backward: each element within one
 # fp16 ulp of its own reference value, 2^(floor(log2 |ref|) - 10) (both
 # sides round one fp32 value once); below FP16_ULP_FLOOR of the largest
@@ -532,6 +588,96 @@ NORM_RTOL = 1e-5
 # columns of each row out of sum(y * dy) moves losses 2-3 by 3.91e-5 and
 # 7.53e-5 (PERF.md, Findings)
 TRAIN_O2_LOSS_TOL = 3e-5
+# amp's policies without master weights (GPT-345M, amp's staged route,
+# the parameters stepped themselves).  O4 (bf16 autocast, flash) and O3
+# (fp16 parameters, rows 3/4): each step's median |kernel - plain| loss
+# gap over TRAIN_SEEDS, as the O5 checks (the families "gpt_o4" and
+# "gpt_o3" of SEEDED_FAMILIES); O1 (fp16 autocast, flash, a dynamic
+# scale) and O0 (fp32) one seed, as O2's.  Each limit sits between the
+# sound readings and the nearest planted fault's (NOMASTER_FAULTS), at
+# their geometric mean where both are nonzero; step 1 (the forward
+# alone, which no planted backward or optimizer fault moves) at 2.5-3.5x
+# its sound reading.  Readings on an H100 (PERF.md, Findings), sound ->
+# fault:
+# O4 medians 1.43e-5, 3.34e-5, 9.73e-5 -> dQ 1.43e-5, 1.64e-4, 1.88e-4;
+# O1 7.6e-6, 2.9e-6, 3.8e-6 -> dQ 7.6e-6, 2.69e-4, 4.62e-4;
+# O0 0, 0, 0 -> Adam's eps x1000 0, 1.74e-2, 4.50e-2;
+# O3 medians 1.43e-5, 4.81e-4, 1.50e-3 -> Adam's eps 1.43e-5, 1.42e-2,
+# 4.12e-2; row 4's short sum 1.43e-5, 1.57e-3, 3.02e-3 (2-3x the sound
+# medians: fp16 parameters without masters flip ulps on any gradient
+# difference, and one seed's gaps scatter 20x) is left to row 4 on the
+# step's own tensors
+TRAIN_O4_LOSS_TOL = (5e-5, 7.4e-5, 1.35e-4)
+TRAIN_O3_LOSS_TOL = (5e-5, 2.6e-3, 7.9e-3)
+TRAIN_NOMASTER_LOSS_TOL = {"O1": (2.5e-5, 2.8e-5, 4.2e-5),
+                           "O0": (1e-5, 1e-5, 1e-5)}
+# the policies train_amp_nomaster runs, each with its family
+NOMASTER_LEGS = {"O1": "gpt", "O0": "gpt", "O3": "gpt_o3"}
+# step 1's qkv-weight gradients, the q columns of each layer, kernel run
+# against the plain run from the same weights and batch: the largest
+# per-layer ||kernel - plain|| / ||plain||.  A one-key dQ fault reads
+# inside the loss medians (ROADMAP Queue 3); the gradient shows it:
+# sound O5 1.31e-2 to 3.15e-2 a layer, O4 7.8e-3 to 2.89e-2; the dQ pass
+# without the diagonal tile's last 32 keys 0.165 to 0.311 (O5) and 0.165
+# to 0.315 (O4) (PERF.md, Findings).  Not O3: its fp16 gradients at a
+# loss scale of 1 read 0.215 to 0.392 a layer sound, as many as row 4
+# without a row's last 32 columns (0.233 to 0.399); O3 holds row 4 on
+# the step's own (y, dy) instead (o3_row4_reading, SOFTMAX_BWD_RTOL)
+QKV_GRAD_RTOL = {"O5": 0.1, "O4": 0.1}
+# amp.autocast's products on the card (O4's bf16, O1's fp16) against the
+# CPU rule run on the same card tensors (operands rounded, widened, an
+# fp32 product with TF32 off, the cotangent rounded): the forward's
+# max |err| / max |ref|, and the operand gradients' largest error in
+# ulps of the compute dtype (AUTOCAST_MM_ULP_FLOOR as FP16_ULP_FLOOR),
+# a limit a policy.  Readings on an H100 (PERF.md, Findings), sound -> a
+# backward on the unrounded cotangent: the forward 1.8e-7 to 6.2e-6
+# (bf16), 3.6e-7 to 7.6e-6 (fp16); the gradients 1.000 bf16 ulp (0.46 %
+# of the elements differ, 2.46 % for the head's 50304-long sums) and
+# 1.0 to 8.0 fp16 ulps (3.2 %, 14.4 %) -> 56 to 98 ulps (42.3-42.6 %)
+# in either.  The tensor cores' fp32 sums differ from the reference's
+# by more than a reordering (the same readings with the backward's
+# products written in fp32 and rounded after): 8 fp16 ulps are one of
+# bf16.  The forward's limit at 4x its largest sound reading, the
+# gradients' at the geometric mean of the sound and faulty readings
+AUTOCAST_MM_TOL = {"O4": (3e-5, 7.5), "O1": (3e-5, 21.0)}
+AUTOCAST_MM_ULP_FLOOR = 2.0 ** -8
+# GPT-345M's products at seq 1024, batch 8: (name, x, w, how): x @ W for
+# qkv, fc1, fc2, the tied head's x @ embedding.T, qkv through F.linear
+# with its bias, and a batch broadcast on both sides
+AUTOCAST_MM_CASES = (("qkv", (8, 1024, 1024), (1024, 3072), "matmul"),
+                     ("fc1", (8, 1024, 1024), (1024, 4096), "matmul"),
+                     ("fc2", (8, 1024, 4096), (4096, 1024), "matmul"),
+                     ("logits", (8, 1024, 1024), (50304, 1024), "head"),
+                     ("qkv linear", (8, 1024, 1024), (3072, 1024),
+                      "linear"),
+                     ("broadcast", (4, 1, 256, 64), (3, 64, 128),
+                      "matmul"))
+# the faults ``--phases nomaster_faults`` plants in a copy of the port:
+# (source, the legs it runs, sound, faulty): dQ's diagonal tile without
+# its last 32 keys (rows 8/12's tensor-core pass); row 4's sum without a
+# row's last 32 columns; the Adam step's eps a thousandfold; autocast's
+# product backward on the fp32 cotangent (not rounded to the compute
+# dtype)
+NOMASTER_FAULTS = {
+    "dq_diag": ("csrc/flash_bwd.cuh",
+                ("qkv O5", "qkv O4", "medians O4", "gap O1"),
+                "(!causal || j <= last[hh])",
+                "(!causal || (j <= last[hh] && j < i0 + 32))"),
+    "row4_sum": ("csrc/scaled_softmax.cu",
+                 ("medians O3", "row4 O3"),
+                 "if (c < sk) s = fmaf(yv[i], dv[i], s);",
+                 "if (c < sk - 32) s = fmaf(yv[i], dv[i], s);"),
+    "adam_eps": ("csrc/fused_adam.cu", ("gap O0", "gap O1", "medians O3"),
+                 "__fadd_rn(__fsqrt_rn(__fdiv_rn(v_new, h.bc2)), h.eps)",
+                 "__fadd_rn(__fsqrt_rn(__fdiv_rn(v_new, h.bc2)), "
+                 "1000.f * h.eps)"),
+    "cotangent": ("amp/autocast.py", ("matmul O4", "matmul O1"),
+                  "        g = g.to(a.dtype)\n",
+                  "        a, b = a.float(), b.float()\n"),
+}
+# rows 1/2 in fp32 (O1/O4's layer norms): the same fp32 statistics summed
+# in another order, |y| and |dx| up to ~5
+LN_F32_TOL = 1e-5
 OVERFLOW_SCALE = 2.0 ** 40
 OVERFLOW_MAX_STEPS = 12
 # LAMB phase 1: the same fp32 expression (contraction may differ by an
@@ -892,6 +1038,7 @@ REPLACES = {
     "flash_attention_bwd_kvmask": "apex_tpu/ops/flash_attention.py:1426",
     "flash_attention_qkv": "apex_tpu/ops/flash_attention.py:671",
     "flash_attention_qkv_bwd": "apex_tpu/ops/flash_attention.py:1205",
+    "adam_step_lowp": "apex_tpu/ops/fused_optim.py:220",
 }
 SOURCES = {
     "layer_norm": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -946,6 +1093,7 @@ SOURCES = {
         "apex_tpu_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_qkv": "apex_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_qkv_bwd": "apex_tpu_torch/csrc/flash_attention_bwd.cu",
+    "adam_step_lowp": "apex_tpu_torch/csrc/fused_adam.cu",
 }
 # the path each kernel's launches are counted on
 SERVE_KERNELS = ("layer_norm", "flash_attention", "flash_decode")
@@ -999,6 +1147,12 @@ MHA_KERNELS = ("flash_attention_e_kvmask", "flash_attention_e_bwd_kvmask",
                "layer_norm", "layer_norm_bwd")
 OPTIM_UPDATE_KERNELS = ("adam_update", "adagrad_update", "novograd_update",
                         "sgd_update")
+TRAIN_O4_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_attention_e",
+                    "flash_attention_e_bwd", "adam_step")
+TRAIN_NOMASTER_KERNELS = ("layer_norm", "layer_norm_bwd", "flash_attention_e",
+                          "flash_attention_e_bwd",
+                          "scaled_softmax_causal_fwd", "scaled_softmax_bwd",
+                          "adam_step", "adam_step_lowp")
 # the kernel checks that draw from a generator of their own (the Q8
 # tier's, the BERT phases', the long-context, MoE, ResNet, dropout and
 # update slices'), so the earlier checks keep their inputs
@@ -1009,6 +1163,7 @@ MOE_CHECKS = ("moe_routing",)
 RESNET_CHECKS = ("sgd_step", "adam_step", "sgd_pipeline")
 DROPOUT_CHECKS = ("flash_attention_e_dropout",)
 UPDATE_CHECKS = ("optim_update",)
+AMP_CHECKS = ("adam_step_lowp", "layer_norm_fp32")
 
 
 def log(msg: str) -> None:
@@ -1954,7 +2109,9 @@ def ln_bwd_paths_equal(x, gamma, dy, mean, rstd):
     vec = layer_norm_backward(x, gamma, dy, mean, rstd)
     elem = layer_norm_backward(misaligned(x), gamma, dy, mean, rstd)
     torch.cuda.synchronize()
-    return all(torch.equal(a, b) for a, b in zip(vec, elem))
+    # without gamma: dgamma and dbeta are None on both paths
+    return all(torch.equal(a, b) if a is not None else b is None
+               for a, b in zip(vec, elem))
 
 
 def ln_wgrad_f64(x, gamma32, dy, mean, rstd) -> float:
@@ -3748,6 +3905,221 @@ def check_adam_step(dev, g):
     return e
 
 
+def gpt345m_leaves(dtype):
+    """(name, shape, dtype) of GPT-345M's parameters, all in ``dtype`` (O3
+    casts every one to fp16), from the port's module on the ``meta``
+    device."""
+    from apex_tpu_torch.testing.standalone_gpt import MODELS, GPTModel
+
+    geo = MODELS["gpt345m"]
+    net = GPTModel(geo["vocab_size"], geo["hidden_size"], geo["num_layers"],
+                   geo["num_heads"], geo["max_seq"], device="meta")
+    return [(n, tuple(p.shape), dtype) for n, p in net.named_parameters()]
+
+
+def check_adam_step_lowp(dev, g):
+    """Row 19's Adam step with the parameters themselves stepped in fp16
+    and bf16 (amp's policies without master weights: O3): over GPT-345M's
+    leaves in one ``adam_step_leaves`` call, gradients in the parameters'
+    dtype, fp32 moments, no copy; bitwise against the plain version, its
+    ``adam_step_lowp`` launches counted; an odd length with fp32 and
+    16-bit gradients and a misaligned parameter view; times of the whole
+    step beside ``torch._fused_adamw_`` on the same 16-bit parameters
+    (its moments in their dtype, as ``torch.optim`` keeps them)."""
+    from apex_tpu_torch.ops import adam_step_leaves, adam_step_reference
+
+    hyp = dict(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+               weight_decay=0.0, bias_correction1=1 - 0.9 ** 3,
+               bias_correction2=1 - 0.999 ** 3, adam_w_mode=True)
+    out = {}
+    for pdt in (torch.float16, torch.bfloat16):
+        tag = {torch.float16: "fp16", torch.bfloat16: "bf16"}[pdt]
+        leaves = gpt345m_leaves(pdt)
+        bufs = _leaf_buffers(dev, g, leaves, 2)
+        bufs = [(gr, p.to(pdt), m, v) for gr, p, m, v in bufs]
+        per_step = step_launches([dt for _, _, dt in leaves], "fused_adam")
+        nl = len(bufs)
+        k_st = [[t.clone() for t in b[1:]] for b in bufs]
+        launches = _launched("adam_step_lowp", lambda: adam_step_leaves(
+            [b[0] for b in bufs], *zip(*k_st), [None] * nl, **hyp))
+        torch.cuda.synchronize()
+        r_st = [[t.clone() for t in b[1:]] for b in bufs]
+        for b, st in zip(bufs, r_st):
+            adam_step_reference(b[0], *st, None, **hyp)
+        err = _bitwise(f"adam_step_leaves, GPT-345M's {tag} parameters",
+                       [t for st in k_st for t in st],
+                       [t for st in r_st for t in st])
+        if launches != per_step:
+            raise AssertionError(f"adam_step_leaves ({tag} parameters): "
+                                 f"{launches} launches, want {per_step}")
+        del k_st, r_st
+        # an odd length: 16-bit and fp32 (clipped) gradients, and a
+        # parameter view one element off alignment
+        n = OPT_ODD_N
+        cases = 0
+        for gdt in (pdt, torch.float32):
+            for off in (0, 1):
+                grad = torch.randn(n, generator=g, device=dev).to(gdt)
+                base = [(0.05 * torch.randn(n + 1, generator=g, device=dev)
+                         ).to(pdt)] + [0.01 * torch.randn(
+                             n + 1, generator=g, device=dev).abs()
+                                       for _ in range(2)]
+                outs = []
+                for fn in (adam_step_leaves, None):
+                    st = [t.clone()[off:off + n] for t in base]
+                    if fn is None:
+                        adam_step_reference(grad, *st, None, **hyp)
+                    else:
+                        fn([grad], *[[t] for t in st], [None], **hyp)
+                    outs.append(st)
+                torch.cuda.synchronize()
+                _bitwise(f"{tag} parameter, g {gdt}, offset {off}", outs[0],
+                         outs[1])
+                cases += 1
+        nel = sum(int(np.prod(s)) for _, s, _ in leaves)
+        log(f"kernel adam_step_lowp ({tag} parameters, no master): "
+            f"GPT-345M's {nl} leaves ({nel} elements) in one "
+            f"adam_step_leaves call, {launches} launches, bitwise equal to "
+            f"the plain version; {cases} odd-length cases (fp32 and {tag} g, "
+            f"a misaligned view) bitwise equal ok")
+        grads = [b[0] for b in bufs]
+        ps, ms_, vs = ([b[i] for b in bufs] for i in (1, 2, 3))
+        low_m = [m.to(pdt) for m in ms_]
+        low_v = [v.to(pdt) for v in vs]
+        steps = [torch.full((), 3.0, device=dev) for _ in bufs]
+
+        def run():
+            adam_step_leaves(grads, ps, ms_, vs, [None] * nl, **hyp)
+
+        def plain():
+            for gr, p, m, v in zip(grads, ps, ms_, vs):
+                adam_step_reference(gr, p, m, v, None, **hyp)
+
+        ms, ms_w = time_ms(run)
+        plain_w = time_ms_wall(plain, iters=3)
+        lib, lib_w = time_ms(lambda: torch._fused_adamw_(
+            ps, grads, low_m, low_v, [], steps, lr=1e-4, beta1=0.9,
+            beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+            maximize=False))
+        # g read, p read and written in its dtype, m and v read and
+        # written in fp32; ~20 fp32 operations an element
+        nbytes = nel * (3 * torch.finfo(pdt).bits // 8 + 16)
+        b_ms, b_by = bound_ms(nbytes, 20.0 * nel, FP32_FLOPS)
+        log(f"  adam_step_lowp ({tag}): time, device ms (wall ms) of the "
+            f"whole step: kernel {ms:.5f} ({ms_w:.5f}), plain (wall) "
+            f"{plain_w:.5f}, torch._fused_adamw_ ({tag} moments) {lib:.5f} "
+            f"({lib_w:.5f}), bound {b_ms:.5f} ({b_by}, {nbytes / 1e6:.1f} "
+            f"MB)")
+        out[tag] = dict(name="adam_step_lowp", shape=(
+            f"GPT-345M's {nl} leaves, {nel} elements, {tag} g and "
+            f"parameters, fp32 m/v, {per_step} launches"), max_abs_err=err,
+            ms=ms, ms_wall=ms_w, plain_ms=plain_w, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib, launches_a_step=per_step)
+        del bufs, grads, ps, ms_, vs, low_m, low_v
+        free_memory()
+    e = out["fp16"]
+    e["bf16"] = out["bf16"]
+    return e
+
+
+def check_layer_norm_fp32(dev, g):
+    """Rows 1 and 2 as amp's O1/O4 train steps launch them: fp32 x with
+    fp32 gamma/beta at the train step's (8192, 1024) (the backward's
+    vector path takes fp32 up to 1024 columns: the bound of that route),
+    and the non-affine form (``gamma=None``) in fp32 and bf16: each held
+    against its plain version, the vector paths bit for bit their element
+    paths, fp32 gamma's dgamma/dbeta against float64 sums.  Returns the
+    fp32 forward and backward as sub-entries (``fp32``) of rows 1 and 2,
+    and the non-affine bf16 pair (``noaffine``)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import layer_norm_backward, layer_norm_with_stats
+    from apex_tpu_torch.ops.layer_norm import (layer_norm_backward_reference,
+                                               layer_norm_stats_reference)
+
+    rows, hd = 8192, 1024
+    entries = []
+    for dtype, affine in ((torch.float32, True), (torch.float32, False),
+                          (torch.bfloat16, False)):
+        tag = ("fp32" if dtype == torch.float32 else "bf16") + \
+            ("" if affine else ", no affine")
+        x = (2 * torch.randn(rows, hd, generator=g, device=dev) + 0.5).to(
+            dtype)
+        dy = torch.randn(rows, hd, generator=g, device=dev).to(dtype)
+        gamma = beta = None
+        if affine:
+            gamma = 1 + 0.1 * torch.randn(hd, generator=g, device=dev)
+            beta = 0.1 * torch.randn(hd, generator=g, device=dev)
+        y, mean, rstd = layer_norm_with_stats(x, gamma, beta, 1e-5)
+        torch.cuda.synchronize()
+        yr, mr, rr = layer_norm_stats_reference(x, gamma, beta, 1e-5)
+        tol = LN_F32_TOL if dtype == torch.float32 else LN_TOL
+        err = max_err(y, yr)
+        stat_err = max(max_err(mean, mr), max_err(rstd, rr))
+        same = ln_paths_equal(x, gamma, beta)
+        dx, dg, db = layer_norm_backward(x, gamma, dy, mean, rstd)
+        torch.cuda.synchronize()
+        rx, rg, rb = layer_norm_backward_reference(x, gamma, dy, mr, rr)
+        btol = LN_F32_TOL if dtype == torch.float32 else LN_BWD_TOL
+        berr = max_err(dx, rx)
+        bsame = ln_bwd_paths_equal(x, gamma, dy, mean, rstd)
+        f64 = ln_wgrad_f64(x, gamma, dy, mean, rstd) if affine else 0.0
+        ok = (err <= tol and stat_err <= 1e-4 and same and berr <= btol
+              and bsame and f64 <= LN_WGRAD_F64_RTOL
+              and (affine or (dg is None and db is None)))
+        log(f"kernel layer_norm rows={rows} hidden={hd} {tag}: forward "
+            f"max_abs_err={err:.3e} (tol {tol}) stats_err={stat_err:.3e}, "
+            f"vector path bitwise the element path's: {same}; backward dx "
+            f"max_abs_err={berr:.3e} (tol {btol}), vector path bitwise: "
+            f"{bsame}" + (f", dgamma/dbeta against float64 sums {f64:.3e} "
+                          f"(tol {LN_WGRAD_F64_RTOL})" if affine else
+                          ", no dgamma/dbeta") + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"layer_norm ({tag}) disagrees")
+        ms, ms_w = time_ms(lambda: layer_norm_with_stats(x, gamma, beta,
+                                                         1e-5))
+        plain, _ = time_ms(lambda: layer_norm_stats_reference(
+            x, gamma, beta, 1e-5))
+        lib, _ = time_ms(lambda: F.layer_norm(x, (hd,), gamma, beta, 1e-5))
+        es = x.element_size()
+        b_ms, b_by = bound_ms(2 * rows * hd * es + 2 * rows * 4
+                              + (2 * hd * 4 if affine else 0),
+                              8.0 * rows * hd, FP32_FLOPS)
+        bms, bms_w = time_ms(lambda: layer_norm_backward(x, gamma, dy, mean,
+                                                         rstd))
+        bplain, _ = time_ms(lambda: layer_norm_backward_reference(
+            x, gamma, dy, mean, rstd))
+        _, m2, r2 = torch.ops.aten.native_layer_norm(x, [hd], gamma, beta,
+                                                     1e-5)
+        blib, _ = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [hd], m2, r2, gamma, beta, [True, affine, affine]))
+        bb_ms, bb_by = bound_ms(3 * rows * hd * es + 2 * rows * 4
+                                + (3 * hd * 4 if affine else 0),
+                                12.0 * rows * hd, FP32_FLOPS)
+        log(f"  time ({tag}), device ms (wall ms per call): forward kernel "
+            f"{ms:.5f} ({ms_w:.5f}), plain {plain:.5f}, F.layer_norm "
+            f"{lib:.5f}, bound {b_ms:.5f} ({b_by}); backward kernel "
+            f"{bms:.5f} ({bms_w:.5f}), plain {bplain:.5f}, aten "
+            f"native_layer_norm_backward {blib:.5f}, bound {bb_ms:.5f} "
+            f"({bb_by})")
+        if dtype == torch.float32 and affine:
+            key = "fp32"
+        elif dtype == torch.bfloat16:
+            key = "noaffine"
+        else:
+            continue
+        shape = f"({rows}, {hd}) {tag}"
+        entries += [dict(name="layer_norm", of=("layer_norm", key),
+                         shape=shape, max_abs_err=err, ms=ms, ms_wall=ms_w,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib),
+                    dict(name="layer_norm_bwd", of=("layer_norm_bwd", key),
+                         shape=shape, max_abs_err=berr, ms=bms,
+                         ms_wall=bms_w, plain_ms=bplain, bound_ms=bb_ms,
+                         bound_by=bb_by, library_ms=blib)]
+    return tuple(entries)
+
+
 def check_sgd_pipeline(dev, g):
     """Row 19's SGD pipeline sweep over one packed group of ResNet-50's
     element count (bf16 g and copy, fp32 master and momentum), its scale
@@ -4737,12 +5109,17 @@ TRAIN_FAMILIES = {"gpt": ("train", "gpt345m"),
                   "bert": ("train_bert", "bertlarge"),
                   "gpt_dropout": ("train_dropout", "gpt345m"),
                   "gpt_dropout_long": ("train_dropout long",
-                                       "gpt345m_s2048")}
+                                       "gpt345m_s2048"),
+                  "gpt_o4": ("train_o4", "gpt345m"),
+                  "gpt_o3": ("train", "gpt345m")}
 # the train_smoke arguments of a family: bench.py's gpt2_345m_dropout
 # (bench_gpt345m(dropout=0.1): attention dropout 0.1, hidden 0), and the
-# same recipe at seq 2048
+# same recipe at seq 2048; the policy of a family that runs one other
+# than O5 (its seeded spread runs it)
 TRAIN_KW = {"gpt_dropout": dict(attention_dropout=DROPOUT_RATE),
-            "gpt_dropout_long": dict(attention_dropout=DROPOUT_RATE)}
+            "gpt_dropout_long": dict(attention_dropout=DROPOUT_RATE),
+            "gpt_o4": dict(policy="O4"),
+            "gpt_o3": dict(policy="O3")}
 
 
 def _train_module(family: str):
@@ -4757,12 +5134,28 @@ def _train_module(family: str):
 
 def _train_want(counts, family: str, policy: str, layers: int,
                 groups: int):
-    """The exact launch counts of ``TRAIN_STEPS`` steps."""
+    """The exact launch counts of ``TRAIN_STEPS`` steps; ``groups``: the
+    pipeline's groups, or on the staged route the Adam step's launches a
+    step."""
     want = {k: 0 for k in counts}
     # GPT: the stack's 2L + 1 LayerNorms; BERT adds the LM head's
     ln = (2 * layers + (2 if family == "bert" else 1)) * TRAIN_STEPS
     want.update(layer_norm=ln, layer_norm_bwd=ln)
-    if family == "gpt" and policy == "O5":
+    if family in ("gpt", "gpt_o4") and policy in ("O4", "O1"):
+        # autocast over the fp32 model: rows 10/12 in bf16 / fp16, rows
+        # 1/2 in fp32, the staged Adam step on the fp32 parameters
+        want.update(flash_attention_e=layers * TRAIN_STEPS,
+                    flash_attention_e_bwd=layers * TRAIN_STEPS,
+                    adam_step=groups * TRAIN_STEPS)
+    elif family == "gpt" and policy == "O0":
+        # fp32: PyTorch's softmax (the fused path wants a 16-bit model)
+        want.update(adam_step=groups * TRAIN_STEPS)
+    elif family == "gpt_o3":
+        # rows 3/4 on fp32 scores, the fp16 parameters' Adam lane
+        want.update(scaled_softmax_causal_fwd=layers * TRAIN_STEPS,
+                    scaled_softmax_bwd=layers * TRAIN_STEPS,
+                    adam_step_lowp=groups * TRAIN_STEPS)
+    elif family == "gpt" and policy == "O5":
         want.update(flash_attention_e=layers * TRAIN_STEPS,
                     flash_attention_e_bwd=layers * TRAIN_STEPS,
                     fused_adam_pipeline=groups * TRAIN_STEPS)
@@ -4816,19 +5209,34 @@ def train_and_check(dev, policy: str = "O5", family: str = "gpt"):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
-    r = mod.train_smoke(TRAIN_STEPS, model=model, policy=policy, seed=0,
-                        device=dev, **TRAIN_KW.get(family, {}))
+    r = mod.train_smoke(TRAIN_STEPS, model=model, seed=0, device=dev,
+                        **{**TRAIN_KW.get(family, {}), "policy": policy})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     geo = mod.MODELS[model]
     layers = geo["num_layers"]
-    if not r.setup.amp_opt.use_pipeline:
-        raise AssertionError(f"{label} did not take the persistent "
-                             f"pipeline")
-    groups = len(r.setup.amp_opt.groups)
-    gdtypes = "/".join(str(g.dtype).replace("torch.", "")
-                       for g in r.setup.amp_opt.groups)
+    aopt = r.setup.amp_opt
+    if aopt.policy.master_weights:
+        if not aopt.use_pipeline:
+            raise AssertionError(f"{label} did not take the persistent "
+                                 f"pipeline")
+        groups = len(aopt.groups)
+        route = f"{groups} pipeline group(s) (" + "/".join(
+            str(g.dtype).replace("torch.", "") for g in aopt.groups) + ")"
+    else:
+        # no master weights: the staged route on the parameters themselves
+        dts = {p.dtype for p in r.setup.model.parameters()}
+        if aopt.use_pipeline or aopt.masters() or \
+                dts != {aopt.policy.param_dtype}:
+            raise AssertionError(f"{label}: pipeline {aopt.use_pipeline}, "
+                                 f"{len(aopt.masters())} masters, "
+                                 f"parameters {dts}: not the staged route "
+                                 f"on {aopt.policy.param_dtype} parameters")
+        groups = staged_launches(aopt, "fused_adam")
+        route = (f"the staged route, no master copy, "
+                 f"{str(aopt.policy.param_dtype).replace('torch.', '')} "
+                 f"parameters, {groups} Adam launch(es) a step")
     want = _train_want(counts, family, policy, layers, groups)
     padded = ""
     if family == "bert":
@@ -4838,8 +5246,7 @@ def train_and_check(dev, policy: str = "O5", family: str = "gpt"):
     log(f"{label}: {model} (vocab {geo['vocab_size']}, hidden "
         f"{geo['hidden_size']}, {layers} layers, {geo['num_heads']} heads), "
         f"seq {geo['seq']} batch {geo['batch']}{padded}, "
-        f"{r.setup.n_params} params in {groups} pipeline group(s) "
-        f"({gdtypes}), "
+        f"{r.setup.n_params} params on {route}, "
         f"{TRAIN_STEPS} steps (setup + steps {wall:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB)")
     log(f"{label}: launch counts {counts} (expected {want})")
@@ -4876,8 +5283,8 @@ def train_and_check(dev, policy: str = "O5", family: str = "gpt"):
 def _log_speed(label: str, r, policy: str) -> None:
     """A train run's step ms, tokens/s (over every position, and over
     the real ones for BERT) and model TFLOP/s."""
-    peak = BF16_FLOPS / 1e12
-    dt = "bf16" if policy == "O5" else "fp16"
+    dt = {"O5": "bf16", "O4": "bf16", "O0": "fp32"}.get(policy, "fp16")
+    peak = (FP32_FLOPS if dt == "fp32" else BF16_FLOPS) / 1e12
     real = getattr(r.setup, "real_tokens", None)
     real_s = "" if real is None else \
         f" ({real / (r.median_ms / 1e3):.1f} over the {real} real tokens)"
@@ -4887,7 +5294,8 @@ def _log_speed(label: str, r, policy: str) -> None:
         f"{r.tflops_per_sec:.3f} ({r.setup.flops_per_step / 1e12:.3f} "
         f"TFLOP a step, {100 * r.tflops_per_sec / peak:.2f}% of the "
         f"{peak:.0f} TFLOP/s {dt} dense peak, so no step could take under "
-        f"{r.setup.flops_per_step / BF16_FLOPS * 1e3:.2f} ms)")
+        f"{r.setup.flops_per_step / (peak * 1e12) * 1e3:.2f} ms); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def train_bert_full_mask(dev, policy: str):
@@ -4935,13 +5343,18 @@ def train_plain_and_compare(dev, kernel_losses, policy: str = "O5",
            ("gpt_long", "O5"): TRAIN_LONG_LOSS_TOL,
            ("bert", "O5"): TRAIN_BERT_LOSS_TOL,
            ("bert", "O2"): TRAIN_BERT_O2_LOSS_TOL,
-           ("gpt_dropout", "O5"): TRAIN_DROPOUT_LOSS_TOL}[family, policy]
-    seeded = policy == "O5" and family in SEEDED_FAMILIES
+           ("gpt_dropout", "O5"): TRAIN_DROPOUT_LOSS_TOL,
+           ("gpt_o4", "O4"): TRAIN_O4_LOSS_TOL,
+           ("gpt_o3", "O3"): TRAIN_O3_LOSS_TOL,
+           **{("gpt", p): t for p, t in TRAIN_NOMASTER_LOSS_TOL.items()}
+           }[family, policy]
+    seeded = family in SEEDED_FAMILIES and \
+        policy == TRAIN_KW.get(family, {}).get("policy", "O5")
     reset_launch_counts()
     t0 = time.perf_counter()
-    r = mod.train_smoke(PLAIN_STEPS, model=model, policy=policy,
-                        seed=0, kernels=False, device=dev,
-                        **TRAIN_KW.get(family, {}))
+    r = mod.train_smoke(PLAIN_STEPS, model=model, seed=0, kernels=False,
+                        device=dev,
+                        **{**TRAIN_KW.get(family, {}), "policy": policy})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -5040,6 +5453,353 @@ def overflow_leg(dev):
     if not applied:
         raise AssertionError(f"no applied step within "
                              f"{OVERFLOW_MAX_STEPS} steps from 2^40")
+
+
+# --- amp without master weights: O4, O1, O0, O3 -------------------------
+
+def qkv_grad_gaps(dev, policy: str):
+    """Step 1's qkv-weight gradients of GPT-345M in ``policy``'s recipe,
+    the q columns of each layer, from a kernel run and a plain run on the
+    same weights and batch: ``||kernel - plain|| / ||plain||`` a layer, in
+    layer order."""
+    from apex_tpu_torch.testing import standalone_gpt as mod
+
+    geo = mod.MODELS["gpt345m"]
+    hd, h = geo["hidden_size"], geo["num_heads"]
+    runs = []
+    for kernels in (True, False):
+        setup = mod.make_train_setup("gpt345m", policy=policy, seed=0,
+                                     kernels=kernels, device=dev)
+        mod.forward_backward(setup)
+        layers = setup.model.transformer
+        # the kernel's (hidden, 3 hidden) columns are [head][q|k|v][d]
+        runs.append([getattr(layers, f"layer_{i}").self_attention
+                     .query_key_value.kernel.grad.view(hd, h, 3, hd // h)
+                     [:, :, 0].float().clone()
+                     for i in range(geo["num_layers"])])
+        del setup, layers
+        free_memory()
+    return [float((a - b).norm() / b.norm()) for a, b in zip(*runs)]
+
+
+def qkv_grad_check(dev, policy: str) -> list:
+    """:func:`qkv_grad_gaps` held to ``QKV_GRAD_RTOL[policy]``."""
+    t0 = time.perf_counter()
+    gaps = qkv_grad_gaps(dev, policy)
+    tol = QKV_GRAD_RTOL[policy]
+    worst = max(gaps)
+    log(f"train {policy} qkv gradients: step 1's per-layer |kernel - "
+        f"plain| / |plain| of the q columns "
+        f"{[f'{x:.3e}' for x in gaps]}: largest {worst:.3e} in layer "
+        f"{gaps.index(worst)} (tol {tol}; {time.perf_counter() - t0:.1f} "
+        f"s) {'ok' if worst <= tol else 'FAIL'}")
+    if worst > tol:
+        raise AssertionError(f"{policy} qkv gradients differ from the plain "
+                             f"run's: {worst:.3e} > {tol}")
+    return gaps
+
+
+def autocast_mm_readings(dev, policy: str):
+    """``amp.autocast``'s products at ``AUTOCAST_MM_CASES`` on the card in
+    ``policy``'s compute dtype, forward and both operand gradients for a
+    seeded fp32 cotangent, against the CPU rule run on the same card
+    tensors: the operands rounded to the compute dtype and widened, an
+    fp32 product with TF32 off, autograd with the cotangent rounded to
+    the compute dtype.  A reading a case, in ``AUTOCAST_MM_TOL``'s order:
+    the forward's max |err| / max |ref| and the operand gradients'
+    largest error in ulps (the share of their elements that differ is
+    printed)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch import amp
+
+    dtype = amp.get_policy(policy).cast_ops_type
+    mant = {torch.bfloat16: 7, torch.float16: 10}[dtype]
+
+    class RoundCotangent(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, y):
+            return y.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g.to(dtype).float()
+
+    def ulps(err, ref):
+        floor = AUTOCAST_MM_ULP_FLOOR * ref.abs().max()
+        e = torch.floor(torch.log2(torch.maximum(ref.abs(), floor)))
+        return float((err / torch.exp2(e - mant)).max())
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the reference wants TF32 off")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = []
+    for name, xs, ws, how in AUTOCAST_MM_CASES:
+        k = ws[-2] if how == "matmul" else ws[-1]
+        x = torch.randn(xs, generator=gen, device=dev)
+        w = torch.randn(ws, generator=gen, device=dev) * k ** -0.5
+        bias = torch.randn(ws[0], generator=gen, device=dev) \
+            if how == "linear" else None
+
+        def port(x, w):
+            if how == "linear":
+                return F.linear(x, w, bias)
+            return x @ (w.T if how == "head" else w)
+
+        def ref(x, w):
+            x, w = x.to(dtype).float(), w.to(dtype).float()
+            y = RoundCotangent.apply(x @ (w if how == "matmul" else w.T))
+            return y if bias is None else y + bias
+
+        grads = []
+        for f in (amp.autocast(port, compute_dtype=dtype), ref):
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = f(xg, wg)
+            if y.dtype != torch.float32:
+                raise AssertionError(f"autocast {name}: a {y.dtype} result")
+            g = torch.randn(y.shape, generator=gen.manual_seed(1),
+                            device=dev)
+            y.backward(g)
+            grads.append((y.detach(), xg.grad, wg.grad))
+            del y, g, xg, wg
+        (y, gx, gw), (y_r, gx_r, gw_r) = grads
+        fwd = float((y - y_r).abs().max() / y_r.abs().max())
+        share = max(float((a != b).float().mean())
+                    for a, b in ((gx, gx_r), (gw, gw_r)))
+        ulp = max(ulps((a - b).abs(), b) for a, b in ((gx, gx_r), (gw, gw_r)))
+        out.append((fwd, ulp))
+        log(f"autocast {policy} {name} x{tuple(xs)} w{tuple(ws)} ({how}, "
+            f"{str(dtype).replace('torch.', '')} operands): forward max "
+            f"|err| / max |ref| {fwd:.3e}; operand gradients: "
+            f"{share:.4%} of the elements differ, largest {ulp:.3f} ulps "
+            f"(tol {AUTOCAST_MM_TOL[policy]})")
+        del grads, y, gx, gw, y_r, gx_r, gw_r, x, w, bias
+        free_memory()
+    return out
+
+
+def autocast_mm_check(dev) -> None:
+    """:func:`autocast_mm_readings` in O4's bf16 and O1's fp16, held to
+    ``AUTOCAST_MM_TOL``."""
+    bad = [(policy, name, got) for policy in ("O4", "O1")
+           for (name, *_), got in zip(AUTOCAST_MM_CASES,
+                                      autocast_mm_readings(dev, policy))
+           if any(x > t for x, t in zip(got, AUTOCAST_MM_TOL[policy]))]
+    if bad:
+        raise AssertionError(f"autocast products beyond {AUTOCAST_MM_TOL}: "
+                             f"{bad}")
+
+
+def o3_row4_reading(dev) -> float:
+    """Row 4 on O3's own tensors: one kernel forward and backward of
+    GPT-345M in O3's recipe with the backward's launcher recording the
+    (y, dy) of its first call (the last layer's fp32 scores), then the
+    kernel and its plain version on them: max |kernel - plain| / max
+    |plain|."""
+    ss = importlib.import_module("apex_tpu_torch.ops.scaled_softmax")
+    from apex_tpu_torch.testing import standalone_gpt as mod
+
+    setup = mod.make_train_setup("gpt345m", policy="O3", seed=0, device=dev)
+    seen, launch = [], ss._launch_backward
+
+    def record(y, dy, scale):
+        if not seen:
+            seen.append((y.clone(), dy.clone(), scale))
+        return launch(y, dy, scale)
+
+    ss._launch_backward = record
+    try:
+        mod.forward_backward(setup)
+    finally:
+        ss._launch_backward = launch
+    del setup
+    free_memory()
+    y, dy, scale = seen.pop()
+    got = ss.softmax_backward(y, dy, scale)
+    want = ss.softmax_backward_reference(y, dy, scale)
+    err = float((got - want).abs().max() / want.abs().max())
+    log(f"train O3 row 4 on the step's own {tuple(y.shape)} "
+        f"{str(y.dtype).replace('torch.', '')} (y, dy) of the last layer: "
+        f"max |kernel - plain| / max |plain| {err:.3e} (tol "
+        f"{SOFTMAX_BWD_RTOL}) {'ok' if err <= SOFTMAX_BWD_RTOL else 'FAIL'}")
+    return err
+
+
+def nomaster_gaps(dev, policy: str):
+    """The first ``PLAIN_STEPS`` losses of GPT-345M in ``policy``'s
+    recipe from seed 0, kernels and plain: their gaps."""
+    from apex_tpu_torch.testing import standalone_gpt as mod
+
+    pair = []
+    for kernels in (True, False):
+        pair.append(mod.train_smoke(PLAIN_STEPS, policy=policy, seed=0,
+                                    kernels=kernels, device=dev).losses)
+        free_memory()
+    return [abs(a - b) for a, b in zip(*pair)]
+
+
+def nomaster_medians(dev, policy: str):
+    """The step medians over ``TRAIN_SEEDS`` of |kernel - plain| of
+    ``policy``'s seeded family (O4's or O3's), as ``train plain`` holds
+    them."""
+    gaps = []
+    for seed in TRAIN_SEEDS:
+        pair = [_spread_losses(dev, f"gpt_{policy.lower()}", seed, fw)
+                for fw in ("kernel", "plain")]
+        free_memory()
+        gaps.append([abs(a - b) for a, b in zip(*pair)])
+    return [float(np.median([g[i] for g in gaps]))
+            for i in range(PLAIN_STEPS)]
+
+
+def nomaster_overflow_leg(dev):
+    """O1's skip: after one applied step, an inf planted in one gradient
+    of the next; the step must be skipped (checked, not finite) with the
+    fp32 parameters, the moments and the Adam count bitwise as they were
+    and the scale halved; the step after applies."""
+    from apex_tpu_torch.testing.standalone_gpt import (forward_backward,
+                                                       make_train_setup,
+                                                       train_step)
+
+    setup = make_train_setup("gpt345m", policy="O1", seed=0, device=dev)
+    aopt = setup.amp_opt
+    train_step(setup)
+    before = [t.clone() for t in (*aopt._masters, *aopt.state.m,
+                                  *aopt.state.v)]
+    count, scale = aopt.state.count, aopt.scaler.loss_scale
+    forward_backward(setup)
+    name, param = aopt.params[len(aopt.params) // 2]
+    param.grad.view(-1)[param.numel() // 3] = float("inf")
+    info = aopt.apply_gradients()
+    after = [*aopt._masters, *aopt.state.m, *aopt.state.v]
+    held = all(torch.equal(a, b) for a, b in zip(before, after)) and \
+        aopt.state.count == count
+    log(f"train_amp_nomaster O1 overflow leg: an inf in {name}'s gradient: "
+        f"checked {info.grads_checked} finite {info.grads_finite} scale "
+        f"{scale:g} -> {info.loss_scale:g} skipped {info.steps_skipped}; "
+        f"parameters, moments and count bitwise held {held}")
+    if info.grads_finite or not info.grads_checked or not held or \
+            info.loss_scale != scale / 2 or info.steps_skipped != 1:
+        raise AssertionError("O1's planted inf was not skipped with the "
+                             "state held")
+    del before, after
+    last = aopt._masters[-1].clone()
+    _, info = train_step(setup)
+    moved = not torch.equal(aopt._masters[-1], last)
+    log(f"train_amp_nomaster O1 overflow leg: the next step finite "
+        f"{info.grads_finite}, count {aopt.state.count}, parameters moved "
+        f"{moved}")
+    if not info.grads_finite or aopt.state.count != count + 1 or not moved:
+        raise AssertionError("the step after the skip did not apply")
+    del setup, aopt
+    free_memory()
+
+
+def train_o4(dev, o5_ms=None):
+    """Phase train_o4: O4 at GPT-345M's full shape (the fork's bf16
+    op-level level: fp32 parameters, no masters, ``amp.autocast``, scale
+    1): exact counts, falling losses, the seeded plain medians, step 1's
+    qkv gradients against the plain run's, and the step's speed beside
+    the O5 step's of the same call; first, autocast's products at the
+    model's shapes against the CPU rule (:func:`autocast_mm_check`)."""
+    autocast_mm_check(dev)
+    counts, losses, _, ms = train_and_check(dev, "O4", "gpt_o4")
+    train_plain_and_compare(dev, losses[:PLAIN_STEPS], "O4",
+                            family="gpt_o4")
+    qkv_grad_check(dev, "O4")
+    if o5_ms is not None:
+        log(f"train_o4: the O4 step {ms:.3f} ms against the O5 step's "
+            f"{o5_ms:.3f} ms in this run: {ms / o5_ms:.4f}x")
+    return counts
+
+
+def train_amp_nomaster(dev, o5_ms=None):
+    """Phase train_amp_nomaster: O1, O0 and O3 at GPT-345M's full shape,
+    each with exact counts, falling losses and its plain gaps (one seed's
+    for O1 and O0, the seed medians for O3; O1's (finite, scale, skipped)
+    sequence the plain run's too); row 4 on O3's own tensors; then O1's
+    overflow leg.  Returns the summed launch counts."""
+    total = {}
+    for policy, family in NOMASTER_LEGS.items():
+        counts, losses, steps, ms = train_and_check(dev, policy, family)
+        train_plain_and_compare(dev, losses[:PLAIN_STEPS], policy,
+                                steps[:PLAIN_STEPS], family)
+        if policy == "O3" and o3_row4_reading(dev) > SOFTMAX_BWD_RTOL:
+            raise AssertionError("row 4 on O3's tensors differs from its "
+                                 "plain version")
+        if o5_ms is not None:
+            log(f"train_amp_nomaster: the {policy} step {ms:.3f} ms against "
+                f"the O5 step's {o5_ms:.3f} ms in this run: "
+                f"{ms / o5_ms:.4f}x")
+        total = _add_counts(total, counts)
+    nomaster_overflow_leg(dev)
+    return total
+
+
+_NOMASTER_FAULT_LEG = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from apex_tpu_torch import _build
+_build.build()
+dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+out = {}
+for leg in sys.argv[1].split(","):
+    what, policy = leg.split()
+    fn = {"qkv": cs.qkv_grad_gaps, "gap": cs.nomaster_gaps,
+          "medians": cs.nomaster_medians,
+          "matmul": cs.autocast_mm_readings,
+          "row4": lambda dev, policy: [cs.o3_row4_reading(dev)]}[what]
+    out[leg] = fn(dev, policy)
+    cs.free_memory()
+print("FAULT " + json.dumps(out), flush=True)
+"""
+
+
+def nomaster_faults(dev) -> None:
+    """Only when named: each of ``NOMASTER_FAULTS`` planted in a copy of
+    the port, and the readings of the legs it reaches (the qkv gradient
+    holds, O4's and O3's medians, O1/O0's gaps, autocast's products)
+    beside their limits.  Raises if a fault none of its legs catches."""
+    missed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (source, legs, *edits) in NOMASTER_FAULTS.items():
+            out = _in_faulty_copy(tmp, name, source, edits, [",".join(legs)],
+                                  leg=_NOMASTER_FAULT_LEG)
+            caught_any = False
+            for leg, got in out.items():
+                what, policy = leg.split()
+                if what == "qkv":
+                    tol = QKV_GRAD_RTOL[policy]
+                    caught = max(got) > tol
+                    reading = f"per layer {[f'{x:.3e}' for x in got]}, " \
+                        f"largest {max(got):.3e}"
+                elif what == "row4":
+                    tol = SOFTMAX_BWD_RTOL
+                    caught = got[0] > tol
+                    reading = f"{got[0]:.3e}"
+                elif what == "matmul":
+                    tol = AUTOCAST_MM_TOL[policy]
+                    caught = any(x > t for case in got
+                                 for x, t in zip(case, tol))
+                    reading = f"{[[f'{x:.3e}' for x in c] for c in got]}"
+                else:
+                    tol = {"O4": TRAIN_O4_LOSS_TOL,
+                           "O3": TRAIN_O3_LOSS_TOL}[policy] \
+                        if what == "medians" else \
+                        TRAIN_NOMASTER_LOSS_TOL[policy]
+                    caught = any(x > t for x, t in zip(got, tol))
+                    reading = f"{[f'{x:.3e}' for x in got]}"
+                caught_any |= caught
+                log(f"nomaster_faults {name} ({' / '.join(edits[1::2])}) "
+                    f"{leg}: {reading} (tol {tol}): caught {caught}")
+            if not caught_any:
+                missed.append(name)
+    if missed:
+        raise AssertionError(f"planted faults no leg caught: {missed}")
 
 
 # --- phase 6f, the ResNet-50 train step ---------------------------------
@@ -5852,9 +6612,11 @@ print("FAULT " + json.dumps(out), flush=True)
 """
 
 
-def _in_faulty_copy(tmp, name, source, edits, argv):
-    """Run ``_RECIPE_FAULT_LEG`` with ``argv`` in a copy of the port with
-    ``edits`` (sound, faulty, ...) applied to ``source``; its result."""
+def _in_faulty_copy(tmp, name, source, edits, argv,
+                    leg: str = _RECIPE_FAULT_LEG):
+    """Run ``leg`` (``_RECIPE_FAULT_LEG`` by default) with ``argv`` in a
+    copy of the port with ``edits`` (sound, faulty, ...) applied to
+    ``source``; its result."""
     root = Path(__file__).resolve().parent
     d = Path(tmp) / name
     shutil.copytree(root / "apex_tpu_torch", d / "apex_tpu_torch",
@@ -5867,7 +6629,7 @@ def _in_faulty_copy(tmp, name, source, edits, argv):
             raise AssertionError(f"fault {name}: {sound!r} not found")
         text = text.replace(sound, faulty)
     src.write_text(text)
-    out = subprocess.run([sys.executable, "-c", _RECIPE_FAULT_LEG, *argv],
+    out = subprocess.run([sys.executable, "-c", leg, *argv],
                          cwd=d, capture_output=True, text=True, timeout=1500)
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("FAULT ")]
     for ln in out.stdout.splitlines():
@@ -5995,7 +6757,7 @@ def _spread_losses(dev, family: str, seed: int, forward: str):
     # the module (the package exports its function of the same name)
     fa = importlib.import_module("apex_tpu_torch.ops.flash_attention")
     mod, model = _train_module(family)
-    kw = TRAIN_KW.get(family, {})
+    kw = {"policy": "O5", **TRAIN_KW.get(family, {})}
     if forward in ("kernel", "plain"):
         return mod.train_smoke(
             PLAIN_STEPS, model=model, seed=seed, kernels=forward == "kernel",
@@ -6033,7 +6795,9 @@ def train_spread(dev) -> None:
     tols = {"gpt": (TRAIN_LOSS_TOL,) * PLAIN_STEPS,
             "gpt_long": TRAIN_LONG_LOSS_TOL,
             "gpt_dropout": TRAIN_DROPOUT_LOSS_TOL,
-            "bert": TRAIN_BERT_LOSS_TOL}
+            "bert": TRAIN_BERT_LOSS_TOL,
+            "gpt_o4": TRAIN_O4_LOSS_TOL,
+            "gpt_o3": TRAIN_O3_LOSS_TOL}
     for family in SEEDED_FAMILIES:
         worst, by_seed = {}, {}
         for seed in TRAIN_SEEDS:
@@ -7111,7 +7875,10 @@ def profile_train(dev, policy: str = "O5", family: str = "gpt"):
     (model built and two steps taken outside the window): device time by
     kernel, launches, and the device's idle share of the step's wall.
     For O2 also the fp32 GEMMs' share (the attention scores from fp16 q
-    and k, upcast: cuBLAS kernels whose name marks fp32 operands)."""
+    and k, upcast: cuBLAS kernels whose name marks fp32 operands); for O4
+    and O1 the GEMMs by name, none of them on fp32 operands, TF32 off,
+    and rows 1/2's fp32 vector kernels, the flash kernels and the Adam
+    table kernel among the step's."""
     from torch.profiler import ProfilerActivity, profile
 
     from apex_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -7120,8 +7887,8 @@ def profile_train(dev, policy: str = "O5", family: str = "gpt"):
     make_train_setup, train_step = mod.make_train_setup, mod.train_step
     # BERT on bench.py's own batch, the all-ones mask
     full = dict(full_mask=True) if family == "bert" else {}
-    setup = make_train_setup(model, policy=policy, seed=0, device=dev,
-                             **full, **TRAIN_KW.get(family, {}))
+    setup = make_train_setup(model, seed=0, device=dev, **full,
+                             **{**TRAIN_KW.get(family, {}), "policy": policy})
     for _ in range(2):
         train_step(setup)
     torch.cuda.synchronize()
@@ -7145,6 +7912,31 @@ def profile_train(dev, policy: str = "O5", family: str = "gpt"):
     for name, ms, n in rows[:18]:
         log(f"  {ms:10.3f} ms {100 * ms / busy:6.2f}%  x{n:<6d} "
             f"{name[:90]}")
+    if policy in ("O4", "O1"):
+        # the autocast's GEMMs take 16-bit operands (fp32 sums and
+        # results), none fp32 ones; TF32 stays off; rows 1/2 on their
+        # fp32 vector routes; the staged Adam step's table kernel
+        gemms = [(k, ms, n) for k, ms, n in rows
+                 if "gemm" in k.lower() or "nvjet" in k or "cutlass" in k]
+        # cuBLAS's nvjet names the (A/B, compute, C) types: t bf16, h
+        # fp16, s fp32 (O4's forward "tss", its backward "tst")
+        fp32 = [k for k, _, _ in gemms if "sgemm" in k
+                or "f32f32_f32f32" in k or "nvjet_s" in k]
+        names = " ".join(k for k, _, _ in rows)
+        log(f"train profile ({model} {policy}): GEMM kernels "
+            f"{sum(ms for _, ms, _ in gemms):.3f} ms in "
+            f"{sum(n for _, _, n in gemms)} launches: " + "; ".join(
+                f"{k[:70]} x{n} {ms:.3f} ms" for k, ms, n in gemms[:6])
+            + f"; fp32-operand GEMMs {fp32}; TF32 "
+            f"{torch.backends.cuda.matmul.allow_tf32}")
+        if fp32 or torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError(f"{policy}'s step ran fp32 GEMMs: {fp32}")
+        for kname in ("ln_fwd_vec_kernel", "ln_bwd_vec_kernel",
+                      "adam_leaves_kernel", "mma_fwd_kernel",
+                      "mma_dq_kernel"):
+            if kname not in names:
+                raise AssertionError(f"{policy}'s profiled step has no "
+                                     f"{kname}")
     if policy == "O2":
         fp32 = [(k, ms, n) for k, ms, n in rows
                 if "sgemm" in k or "f32f32_f32f32" in k]
@@ -7252,17 +8044,18 @@ def profile_serve(dev, model: str = "gpt345m", policy: str = "O5",
 
 
 PHASES = ("kernels", "serve", "serve_fast", "serve_q8", "serve_moe", "train",
-          "train_o2", "train_bert", "train_bert_o2", "train_bert_recipe",
+          "train_o2", "train_o4", "train_amp_nomaster", "train_bert",
+          "train_bert_o2", "train_bert_recipe",
           "long_context", "train_long", "train_dropout", "train_resnet",
           "resnet_faults", "zero_adam", "optim_update", "ring_flash",
           "flash_qkv", "multihead_attn", "profile", "dropout_faults",
-          "recipe_faults", "numerics")
+          "recipe_faults", "nomaster_faults", "numerics")
 # every phase but the planted dropout faults (two rebuilds of the flash
-# sources), the recipe's planted loss faults and the forward's numerics,
-# which run only when named
+# sources), the recipe's and the no-master legs' planted faults and the
+# forward's numerics, which run only when named
 DEFAULT_PHASES = tuple(p for p in PHASES
                        if p not in ("dropout_faults", "recipe_faults",
-                                    "numerics"))
+                                    "nomaster_faults", "numerics"))
 
 
 def main(argv=None) -> int:
@@ -7332,6 +8125,8 @@ def main(argv=None) -> int:
         gd.manual_seed(10)
         gu = torch.Generator(device=dev)
         gu.manual_seed(11)
+        ga = torch.Generator(device=dev)
+        ga.manual_seed(12)
         if "kernels" in phases:
             for name, fn in (("layer_norm", check_layer_norm),
                              ("flash_attention", check_flash_attention),
@@ -7363,18 +8158,21 @@ def main(argv=None) -> int:
                              ("sgd_pipeline", check_sgd_pipeline),
                              ("flash_attention_e_dropout",
                               check_flash_attention_e_dropout),
-                             ("optim_update", check_optim_update)):
+                             ("optim_update", check_optim_update),
+                             ("adam_step_lowp", check_adam_step_lowp),
+                             ("layer_norm_fp32", check_layer_norm_fp32)):
                 # the Q8 tier's, the BERT phases', the long-context, MoE,
-                # ResNet, dropout and update slices' checks draw from
-                # generators of their own, so the earlier checks see the
-                # inputs they saw before
+                # ResNet, dropout, update and amp slices' checks draw
+                # from generators of their own, so the earlier checks see
+                # the inputs they saw before
                 gen = gq if name in Q8_CHECKS else \
                     gb if name in BERT_CHECKS else \
                     gl if name in LONG_CHECKS else \
                     gm if name in MOE_CHECKS else \
                     gr if name in RESNET_CHECKS else \
                     gd if name in DROPOUT_CHECKS else \
-                    gu if name in UPDATE_CHECKS else g
+                    gu if name in UPDATE_CHECKS else \
+                    ga if name in AMP_CHECKS else g
                 ok, out = run(f"kernel {name}", lambda: fn(dev, gen))
                 if ok and out is not None:
                     for e in (out if isinstance(out, tuple) else (out,)):
@@ -7455,6 +8253,7 @@ def main(argv=None) -> int:
                 counts["train"], kernel_losses, _, train_ms = out
                 run("train plain", lambda: train_plain_and_compare(
                     dev, kernel_losses[:PLAIN_STEPS]))
+            run("train qkv gradients", lambda: qkv_grad_check(dev, "O5"))
         if "train_o2" in phases:
             ok, out = run("train O2", lambda: train_and_check(dev, "O2"))
             if ok:
@@ -7463,6 +8262,17 @@ def main(argv=None) -> int:
                     dev, o2_losses[:PLAIN_STEPS], "O2",
                     o2_steps[:PLAIN_STEPS]))
             run("train O2 overflow", lambda: overflow_leg(dev))
+        if "train_o4" in phases:
+            ok, out = run("train_o4", lambda: train_o4(dev, train_ms))
+            if ok:
+                counts["train_o4"] = out
+            free_memory()
+        if "train_amp_nomaster" in phases:
+            ok, out = run("train_amp_nomaster",
+                          lambda: train_amp_nomaster(dev, train_ms))
+            if ok:
+                counts["train_amp_nomaster"] = out
+            free_memory()
         for phase, policy in (("train_bert", "O5"), ("train_bert_o2", "O2")):
             if phase not in phases:
                 continue
@@ -7537,6 +8347,8 @@ def main(argv=None) -> int:
             run("dropout_faults", lambda: dropout_faults(dev))
         if "recipe_faults" in phases:
             run("recipe_faults", lambda: recipe_faults(dev))
+        if "nomaster_faults" in phases:
+            run("nomaster_faults", lambda: nomaster_faults(dev))
         if "numerics" in phases:
             run("numerics", lambda: flash_numerics(dev))
             run("numerics spread", lambda: train_spread(dev))
@@ -7560,6 +8372,13 @@ def main(argv=None) -> int:
                 run("train profile", lambda: profile_train(dev))
             if "train_o2" in phases:
                 run("train O2 profile", lambda: profile_train(dev, "O2"))
+            if "train_o4" in phases:
+                run("train_o4 profile", lambda: profile_train(
+                    dev, "O4", "gpt_o4"))
+            if "train_amp_nomaster" in phases:
+                for pol, fam in NOMASTER_LEGS.items():
+                    run(f"train {pol} profile", lambda: profile_train(
+                        dev, pol, fam))
             if "train_bert" in phases:
                 run("train_bert profile", lambda: profile_train(
                     dev, "O5", "bert"))
@@ -7597,6 +8416,8 @@ def main(argv=None) -> int:
                     ("serve_moe", SERVE_MOE_KERNELS),
                     ("train", TRAIN_KERNELS),
                     ("train_o2", TRAIN_O2_KERNELS),
+                    ("train_o4", TRAIN_O4_KERNELS),
+                    ("train_amp_nomaster", TRAIN_NOMASTER_KERNELS),
                     ("train_bert", TRAIN_BERT_KERNELS),
                     ("train_bert_o2", TRAIN_BERT_O2_KERNELS),
                     ("train_bert_recipe", TRAIN_BERT_RECIPE_KERNELS),
@@ -7621,7 +8442,7 @@ def main(argv=None) -> int:
             shape=e["shape"],
             **{k: e[k] for k in ("train", "fp16", "bert", "chunk", "shapes",
                                  "d128", "sweep", "kvmask", "fallback",
-                                 "diagonal")
+                                 "diagonal", "fp32", "noaffine", "bf16")
                if k in e}))
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

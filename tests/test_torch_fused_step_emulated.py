@@ -13,7 +13,14 @@ of a leaf whose pointers are not all aligned.  The leaves cover every
 (g, lowp) pair, odd lengths, leaves of 1 and of 0 elements, leaves of
 several chunks (at a small chunk, and at chunks of two unrolled passes),
 a misaligned view of each kind of buffer, and more leaves than one table
-holds.
+holds.  The Adam step's bf16/fp16-parameter lane (amp's policies without
+master weights: the parameter stepped in fp32 and rounded back, no copy)
+is held the same way, and against JAX's ``adam_step`` on a parameter in
+that dtype in interpret mode: the parameter within one ulp of its dtype
+(XLA's CPU compiler contracts the kernel's multiply-adds, so a rounding
+may flip), each fp32 moment within two fp32 ulps of its larger term
+(``beta * m`` or ``(1 - beta) * g``: a cancelled sum differs by many of
+its own ulps).
 
 One stand-in on the plain side: torch's CPU ``sqrt`` is not correctly
 rounded (one fp32 ulp off on some inputs, against numpy, on an AVX-512
@@ -198,3 +205,63 @@ def test_bad_leaves_raise(launches):
     with pytest.raises(ValueError, match="grads, masters"):
         fo._sgd_leaves_launch([g, g], [p], [m], [None], **hyp)
     assert launches == []
+
+
+def _lowp_param_leaves(pdt, seed):
+    """Leaves whose stepped tensor is a ``pdt`` parameter with no copy:
+    g mostly in ``pdt`` (fp32 once clipped), odd lengths, several chunks,
+    a misaligned parameter view."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for n, gdt, off in ((37, pdt, False), (4 * SMALL_CHUNK + 7, pdt, False),
+                        (515, F32, False), (700, pdt, True), (1, pdt, False),
+                        (0, pdt, False)):
+        g = torch.from_numpy((rng.randn(n) * 3).astype(np.float32)).to(gdt)
+        p = torch.from_numpy((rng.randn(n) * 0.05).astype(np.float32)).to(pdt)
+        if off:
+            p = torch.cat([p[:1], p])[1:]
+        st = [p] + [torch.from_numpy(
+            (np.abs(rng.randn(n)) * 0.1).astype(np.float32))
+            for _ in range(2)]
+        out.append((g, st, None))
+    return out
+
+
+@pytest.mark.parametrize("pdt", [BF16, F16])
+def test_adam_lowp_param_lane_bitwise(launches, exact_sqrt, pdt):
+    leaves = _lowp_param_leaves(pdt, 7)
+    _run(fo._adam_leaves_launch, fo.adam_step_reference, leaves,
+         dict(ADAM, adam_w_mode=True))
+    # a launch a (g, p) lane: pdt gradients, and the fp32 one
+    assert launches == ["adam_step_lowp"] * 2
+
+
+@pytest.mark.parametrize("pdt", [BF16, F16])
+def test_adam_lowp_param_lane_matches_jax(exact_sqrt, pdt):
+    import jax
+    import jax.numpy as jnp
+
+    from apex_tpu.ops import fused_optim as jax_fo
+
+    (g, (p, m, v), _), = [x for x in _lowp_param_leaves(pdt, 8)
+                          if x[0].numel() == 4 * SMALL_CHUNK + 7]
+    jdt = {BF16: jnp.bfloat16, F16: jnp.float16}[pdt]
+    flats, restore = jax_fo.flatten_for_kernel(
+        *(jnp.asarray(t.float().numpy()).astype(d) for t, d in
+          ((g, jdt), (p, jdt), (m, jnp.float32), (v, jnp.float32))))
+    outs = jax_fo.adam_step(*flats, **ADAM, adam_w_mode=True, interpret=True)
+    jp, jm, jv = (np.asarray(restore(o).astype(jnp.float32)) for o in outs)
+    assert outs[0].dtype == jdt and outs[1].dtype == jnp.float32
+    pp, mm, vv = p.clone(), m.clone(), v.clone()
+    fo.adam_step_reference(g, pp, mm, vv, None, **ADAM)
+    assert pp.dtype == pdt and mm.dtype == F32
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(jp), 1e-30)))
+                  - {BF16: 7, F16: 10}[pdt])
+    assert np.all(np.abs(pp.float().numpy() - jp) <= ulp)
+    gf = g.float().numpy()
+    for got, want, terms in (
+            (mm, jm, (0.9 * m.numpy(), 0.1 * gf)),
+            (vv, jv, (0.999 * v.numpy(), 0.001 * gf * gf))):
+        big = np.maximum(*(np.abs(t) for t in terms))
+        assert np.all(np.abs(got.numpy() - want) <= 2 * 2.0 ** -23 * big)
+    del jax

@@ -194,3 +194,78 @@ def test_no_graph_without_grad():
     with torch.no_grad():
         assert layer_norm(xg, g, b).grad_fn is None
     assert layer_norm(x, g, b).grad_fn is None
+
+
+# --- the modules: FusedLayerNorm without the affine, MixedFusedLayerNorm --
+
+def _jax_module_run(module, x, dy):
+    """The flax module's output and its input and parameter gradients
+    under the weighting ``dy``."""
+    import jax
+
+    variables = module.init(jax.random.PRNGKey(0), x)
+
+    def loss(params, x):
+        return jnp.sum(module.apply({"params": params}, x).astype(
+            jnp.float32) * dy)
+
+    y = module.apply(variables, x)
+    gp, gx = jax.grad(loss, argnums=(0, 1))(variables.get("params", {}), x)
+    return y, gx, gp
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_module_without_affine_matches_jax(dtype):
+    from apex_tpu.normalization import FusedLayerNorm as JaxFLN
+    from apex_tpu_torch.normalization import FusedLayerNorm
+
+    x, _, _ = _inputs(3 * 5, 256, seed=4)
+    x = x.reshape(3, 5, 256)
+    dy = np.random.RandomState(5).randn(*x.shape).astype(np.float32)
+    xj = jnp.asarray(x).astype(dtype)
+    yj, gxj, gpj = _jax_module_run(JaxFLN(256, elementwise_affine=False),
+                                   xj, jnp.asarray(dy))
+    assert gpj == {}
+    mod = FusedLayerNorm(256, elementwise_affine=False)
+    assert list(mod.parameters()) == [] and mod.weight is None
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
+        getattr(torch, dtype)).requires_grad_()
+    y = mod(xt)
+    (y.float() * torch.from_numpy(dy)).sum().backward()
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert str(y.dtype) == f"torch.{dtype}" and xt.grad.dtype == y.dtype
+    np.testing.assert_allclose(y.float().detach().numpy(),
+                               np.asarray(yj.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(xt.grad.float().numpy(),
+                               np.asarray(gxj.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def test_mixed_module_matches_jax():
+    from apex_tpu.normalization import MixedFusedLayerNorm as JaxMixed
+    from apex_tpu_torch.normalization import (MixedFusedLayerNorm,
+                                              fused_layer_norm)
+
+    x, _, _ = _inputs(24, 128, seed=6)
+    dy = np.random.RandomState(7).randn(*x.shape).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    yj, _, gpj = _jax_module_run(JaxMixed(128), xj, jnp.asarray(dy))
+    mod = MixedFusedLayerNorm(128)
+    assert {p.dtype for p in mod.parameters()} == {torch.float32}
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).bfloat16()
+    y = mod(xt)
+    assert y.dtype == torch.bfloat16
+    (y.float() * torch.from_numpy(dy)).sum().backward()
+    np.testing.assert_allclose(y.float().detach().numpy(),
+                               np.asarray(yj.astype(jnp.float32)),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    # fp32 dgamma/dbeta, summed in fp32 on both sides
+    for name in ("weight", "bias"):
+        got = getattr(mod, name).grad
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(gpj[name]),
+                                   rtol=1e-4, atol=1e-4)
+    # the functional form is the module's math
+    assert torch.equal(fused_layer_norm(xt, mod.weight, mod.bias),
+                       y.detach())

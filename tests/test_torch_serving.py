@@ -196,6 +196,8 @@ def test_import_loads_no_jax_and_no_apex_tpu():
         import apex_tpu_torch.optimizers.fused_mixed_precision_lamb
         import apex_tpu_torch.transformer.tensor_parallel.random
         import apex_tpu_torch.transformer.microbatches
+        import apex_tpu_torch.amp.autocast, apex_tpu_torch.amp.lists
+        import apex_tpu_torch._autocast_ctx
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "optax", "apex_tpu"))

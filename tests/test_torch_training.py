@@ -157,10 +157,15 @@ def test_unported_paths_raise():
     # here until it was ported: tests/test_torch_flash_attention_bwd.py)
     # (global-norm clipping was checked here until it was ported:
     # tests/test_torch_optim_recipe.py)
-    # a policy without master weights (O3: fp16 params stepped directly)
+    # (the policies without master weights were checked here until they
+    # were ported: tests/test_torch_training_nomaster.py)
+    # SGD has no fp16-parameter lane: O3's fp16 parameters stepped
+    # directly by fused_sgd
+    from apex_tpu_torch.optimizers import fused_sgd
+
     net = GPTModel(64, 128, 1, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="master weights"):
-        amp.initialize(net, fused_adam(1e-3), opt_level="O3")
+    with pytest.raises(NotImplementedError, match="master copy"):
+        amp.initialize(net, fused_sgd(0.1, momentum=0.9), opt_level="O3")
 
 
 def test_batchnorm_params_stay_fp32_in_their_own_group():
